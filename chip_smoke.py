@@ -6,24 +6,37 @@
 Phases (any failure exits non-zero before the last line):
   1. device   — a CUDA device must be present; prints nvidia-smi's name
                 and power limit.
-  2. build    — compiles the kernel source (mxnet_tpu_torch/ops/csrc/)
-                with nvcc and prints the time it took.
+  2. build    — compiles every kernel source (mxnet_tpu_torch/ops/csrc/)
+                at once, one nvcc per source, and prints each build's
+                seconds and ptxas register and spill counts.
   3. kernels  — holds each kernel against its plain PyTorch version on the
-                card at the main path's shapes, and times the kernel, the
-                plain version, one library call as a yardstick, and the
-                least time the card could take (bound).
-  4. main path — serves the transformer LM at the full width of the
-                repo's serving benchmark config (vocab 8192, d_model 512,
-                4 heads x 128, 4 layers, d_ff 2048, max_len 1024; random
-                weights from a numpy seed) through `serving.serve(...,
-                paged=True)`: 8 concurrent in-process requests plus one
-                HTTP POST /v1/generate, 64-token prompts, 128 new tokens
-                each. Checks every result, the engine-failure count, the
-                kernel's launch count, and the greedy tokens against the
-                port's own gather path on the card. Then profiles 16
-                steady paged decode steps on a fresh engine and checks
-                its tokens against the same gather path.
-  5. the kernels line, nvidia-smi's line, and the last line
+                card at the main paths' shapes (and, for flash attention,
+                ragged, head_dim 128 and non-causal cases), and times the
+                kernel, the plain version, one library call as a
+                yardstick, and the least time the card could take (bound).
+  4. serving main path — serves the transformer LM at the full width of
+                the repo's serving benchmark config (vocab 8192, d_model
+                512, 4 heads x 128, 4 layers, d_ff 2048, max_len 1024;
+                random weights from a numpy seed) through `serving.serve(
+                ..., paged=True)`: 8 concurrent in-process requests plus
+                one HTTP POST /v1/generate, 64-token prompts, 128 new
+                tokens each. Checks every result, the engine-failure
+                count, the kernel's launch count, and the greedy tokens
+                against the port's own gather path on the card. Then
+                profiles 16 steady paged decode steps on a fresh engine
+                and checks its tokens against the same gather path.
+  5. training main path — trains the transformer LM at the full width of
+                the repo's flash-attention training benchmark
+                (bench.py's non-smoke `bench_transformer_flash`: vocab
+                8192, d_model 512, 8 heads x 64, 6 layers, d_ff 2048,
+                max_len 1024; batch 8 x 1024 tokens from numpy seed 0, SGD
+                at lr 0.1) with MXNET_FLASH_ATTENTION=1 through
+                `make_transformer_train_step`: first the first step's loss
+                and every gradient against the same step with the flag
+                off, then one warm-up and 10 timed steps (finite, falling
+                loss; both flash kernels launched n_layers times a step),
+                then a profiled step.
+  6. the kernels line, nvidia-smi's line, and the last line
      {"ok": true, "device": {...}}.
 
 Parity settings: TF32 is off for matmuls and cuDNN, so float32 products
@@ -31,6 +44,8 @@ run in full float32 (the reference suite forces highest matmul
 precision). Imports nothing of JAX or of the JAX package.
 """
 import json
+import os
+import re
 import subprocess
 import sys
 import threading
@@ -57,6 +72,30 @@ MARGIN = 10 * TOL["float32"]
 BENCH_CFG = dict(vocab=8192, d_model=512, n_heads=4, n_layers=4,
                  d_ff=2048, max_len=1024)
 PROMPT_LEN, GEN, N_REQ = 64, 128, 9
+#: the training benchmark's full-width config (bench.py's non-smoke
+#: bench_transformer_flash) and its batch, steps and learning rate
+TRAIN_CFG = dict(vocab=8192, d_model=512, n_heads=8, n_layers=6,
+                 d_ff=2048, max_len=1024)
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = 8, 10, 0.1
+#: flash kernel vs plain tolerances (atol = rtol), (forward, backward).
+#: float32: the forward sums by 64-key tiles with an online softmax, the
+#: plain version in one dense softmax; the backward sums products over
+#: up to T = 1024 rows in another order. bfloat16: outputs rounded to 8
+#: mantissa bits after float32 arithmetic in both. m and l are float32
+#: in both dtypes and take the float32 forward tolerance.
+FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
+#: flag-on vs flag-off training step (float32, TF32 off): the loss to
+#: this relative error, each gradient to this relative Frobenius error
+#: ||g_flash - g_ref|| / ||g_ref||. The flash kernels and dense attention
+#: sum in other orders (~1e-6 relative). Where that flips the sign of a
+#: ReLU pre-activation within ~1e-6 of zero (some 15 of a layer's 16.7 M
+#: at this width), one token's term moves a whole gradient column: a
+#: relative Frobenius error near sqrt(15 / 16.7e6) ~ 1e-3, and larger
+#: elementwise. The bound leaves a tenfold margin; a kernel fault moves
+#: it to O(0.1). The reference against itself in another summation order
+#: (two half batches) is printed beside it, as the noise floor.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-2
+SOURCES = ("paged_attention.cu", "flash_attention.cu")
 
 
 class SmokeFailure(Exception):
@@ -432,6 +471,343 @@ def phase_main_path(torch, np, dev, card):
     return launches, main
 
 
+def ptxas_summary(log_path):
+    """One entry per kernel of a build log: 'name<type,D,...>: N regs,
+    S bytes spilled' from nvcc's -Xptxas -v lines."""
+    out, name, spill = [], None, "0"
+    with open(log_path) as f:
+        for ln in f:
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                raw = m.group(1)
+                k = re.search(r"\d+([a-z_]+_kernel)I(.*?)EEv", raw)
+                name = raw if k is None else "%s<%s>" % (
+                    k.group(1), k.group(2).replace("13__nv_bfloat16", "bf16")
+                    .replace("E", "").replace("Li", ","))
+                continue
+            m = re.search(r"(\d+) bytes spill stores", ln)
+            if m:
+                spill = m.group(1)
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and name is not None:
+                out.append("%s: %s regs, %s B spill stores"
+                           % (name, m.group(1), spill))
+                name, spill = None, "0"
+    return out
+
+
+def build_kernels(_cuda):
+    """Build every kernel source at once, one nvcc per source, each in a
+    thread of its own; print each build's seconds and ptxas lines."""
+    done = {}
+
+    def one(src):
+        t0 = time.perf_counter()
+        try:
+            _cuda.library(src)
+            done[src] = (time.perf_counter() - t0, None)
+        except Exception as e:  # reported below, per source
+            done[src] = (time.perf_counter() - t0, e)
+
+    threads = [threading.Thread(target=one, args=(src,)) for src in SOURCES]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for src in SOURCES:
+        secs, err = done[src]
+        check(err is None, "build of %s failed: %s" % (src, err))
+        info = ptxas_summary(_cuda.target(src)[1])
+        print("build %s: %.1f s; %d kernels" % (src, secs, len(info)))
+        for line in info:
+            print("  ptxas %s" % line)
+    print("build: all sources in %.1f s" % (time.perf_counter() - t0))
+
+
+def flash_bound(fa, BH, T, D, dtype_name, itemsize, backward):
+    """Least time (ms) of one causal call at [BH, T, D]: each input read
+    once and each output written once over the memory rate, against the
+    flops of the live (query, key) pairs, T (T + 1) / 2 a row, over the
+    peak rate for the input type."""
+    flops, nbytes, _ = fa.flash_call_cost(BH, T, T, D, itemsize, nq=1,
+                                          pairs=T * (T + 1) // 2,
+                                          backward=backward)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_OPS_S[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def flash_inputs(torch, np, dev, BH, T, Tk, D, dtype, seed):
+    rng = np.random.RandomState(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(dev, dtype) for s in ((BH, T, D), (BH, Tk, D), (BH, Tk, D),
+                                      (BH, T, D))]
+
+
+#: flash kernel checks: (label, BH, T, Tk, D, causal); "main" is the
+#: training path's shape (batch 8 x 8 heads, 1024 tokens, head_dim 64)
+FLASH_CASES = [("main", 64, 1024, 1024, 64, True),
+               ("ragged_1000", 8, 1000, 1000, 64, True),
+               ("ragged_37", 8, 37, 37, 64, True),
+               ("head_dim_128", 8, 512, 512, 128, True),
+               ("non_causal_tk", 8, 300, 517, 64, False)]
+
+
+def phase_flash(torch, np, dev, card):
+    """Hold the flash forward (out, m, l) and backward (dq, dk, dv)
+    kernels against their plain versions, in float32 and bfloat16; time
+    both directions at the training path's shape."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    outputs = ("out", "m", "l", "dq", "dk", "dv")
+    errs = {(d, w): 0.0 for d in FLASH_TOL for w in outputs}
+    ncases = 0
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        tol_f, tol_b = FLASH_TOL[dname]
+        f32_tol = FLASH_TOL["float32"][0]
+        for label, BH, T, Tk, D, causal in FLASH_CASES:
+            q, k, v, g = flash_inputs(torch, np, dev, BH, T, Tk, D, dtype,
+                                      seed=ncases)
+            scale = D ** -0.5
+            got = fa.flash_attention_fwd(q, k, v, scale, causal)
+            want = fa.flash_fwd_plain(q, k, v, scale, causal)
+            gotb = fa.flash_attention_bwd(q, k, v, got[0], got[1], got[2], g,
+                                          scale, causal)
+            wantb = fa.flash_bwd_plain(q, k, v, got[0], got[1], got[2], g,
+                                       scale, causal)
+            torch.cuda.synchronize()
+            for what, a, b, tol in (
+                    ("out", got[0], want[0], tol_f),
+                    ("m", got[1], want[1], f32_tol),
+                    ("l", got[2], want[2], f32_tol),
+                    ("dq", gotb[0], wantb[0], tol_b),
+                    ("dk", gotb[1], wantb[1], tol_b),
+                    ("dv", gotb[2], wantb[2], tol_b)):
+                check(bool(torch.isfinite(a).all()),
+                      "flash %s not finite (%s %s)" % (what, dname, label))
+                err = float((a.float() - b.float()).abs().max())
+                errs[dname, what] = max(errs[dname, what], err)
+                try:
+                    torch.testing.assert_close(a.float(), b.float(),
+                                               atol=tol, rtol=tol)
+                except AssertionError as e:
+                    raise SmokeFailure("flash %s kernel != plain (%s %s "
+                                       "BH=%d T=%d Tk=%d D=%d causal=%s): %s"
+                                       % (what, dname, label, BH, T, Tk, D,
+                                          causal, e))
+            ncases += 1
+    for dname in FLASH_TOL:
+        print("flash kernel check %s: %d cases, max |kernel - plain| %s; "
+              "tol (atol = rtol) out %g, m and l %g, grads %g"
+              % (dname, ncases // 2, ", ".join(
+                  "%s %.3g" % (w, errs[dname, w]) for w in outputs),
+                 FLASH_TOL[dname][0], FLASH_TOL["float32"][0],
+                 FLASH_TOL[dname][1]))
+
+    # timing at the training path's shape; no L2 flush: the kernels are
+    # bound by operations, and the step hands them fresh q/k/v
+    _, BH, T, _, D, _ = FLASH_CASES[0]
+    B, H = TRAIN_BATCH, BH // TRAIN_BATCH
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for dname, dtype, itemsize in (("float32", torch.float32, 4),
+                                   ("bfloat16", torch.bfloat16, 2)):
+        q, k, v, g = flash_inputs(torch, np, dev, BH, T, T, D, dtype,
+                                  seed=99)
+        scale = D ** -0.5
+        out, m, l = fa.flash_attention_fwd(q, k, v, scale, True)
+        t_f = time_ms(torch, lambda: fa.flash_attention_fwd(
+            q, k, v, scale, True), n=20)
+        t_fp = time_ms(torch, lambda: fa.flash_fwd_plain(
+            q, k, v, scale, True), n=20)
+        t_b = time_ms(torch, lambda: fa.flash_attention_bwd(
+            q, k, v, out, m, l, g, scale, True), n=20)
+        t_bp = time_ms(torch, lambda: fa.flash_bwd_plain(
+            q, k, v, out, m, l, g, scale, True), n=20)
+        # yardsticks only (the port never calls them): SDPA's causal
+        # forward, and its autograd backward
+        q4, k4, v4 = (t.view(B, H, T, D).detach().clone()
+                      .requires_grad_(True) for t in (q, k, v))
+        g4 = g.view(B, H, T, D)
+        t_fl = time_ms(torch, lambda: sdpa(q4, k4, v4, is_causal=True),
+                       n=20)
+        o4 = sdpa(q4, k4, v4, is_causal=True)
+        t_bl = time_ms(torch, lambda: torch.autograd.grad(
+            o4, (q4, k4, v4), g4, retain_graph=True), n=20)
+        del o4
+        for kind, t_k, t_p, t_l in (("fwd", t_f, t_fp, t_fl),
+                                    ("bwd", t_b, t_bp, t_bl)):
+            b_ms, b_by = flash_bound(fa, BH, T, D, dname, itemsize,
+                                     kind == "bwd")
+            rows.append({"card": card, "kernel": "flash_attention_" + kind,
+                         "dtype": dname, "BH": BH, "T": T, "D": D,
+                         "causal": True, "ms": t_k, "plain_ms": t_p,
+                         "library_ms": t_l, "bound_ms": b_ms,
+                         "bound_by": b_by})
+    # the layout copy the training path pays before the forward: the
+    # (B, S, 3D) projection split into contiguous [B*H, S, Dh] q, k, v
+    qkv = torch.randn(B, T, 3 * H * D, device=dev)
+
+    def layout():
+        for t in torch.split(qkv, H * D, dim=-1):
+            t.reshape(B, T, H, D).transpose(1, 2).reshape(B * H, T, D)
+
+    copy_ms = time_ms(torch, layout, n=20)
+    for r in rows:
+        print("flash timing: " + json.dumps(r))
+    print("flash layout copy: %s" % json.dumps({
+        "card": card, "what": "q, k, v views -> contiguous [BH, T, D], "
+        "float32", "ms": copy_ms}))
+    return errs, rows
+
+
+def profile_train_step(torch, run, params, toks):
+    """Where one training step's time goes: device time by kernel from
+    torch.profiler over one step, beside its host wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, loss = run(params, toks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(bool(torch.isfinite(loss)), "profiled step: loss not finite")
+    dev_us = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            dev_us[e.key] = e.self_device_time_total
+    total = sum(dev_us.values())
+    if total <= 0:
+        print("train profile: not measured (no device time recorded)")
+        return
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    print("train profile: " + json.dumps({
+        "steps": 1, "host_ms_profiled": 1e3 * wall,
+        "device_busy_ms": total / 1e3,
+        "device_busy_share": total / 1e6 / wall,
+        "kernels_us": dict(top)}))
+
+
+def phase_train(torch, np, dev, card):
+    """The training main path: make_transformer_train_step at the full
+    width, flash on; oracle against the flag-off step, then the timed
+    steps with the flash kernels' launches counted, then a profile."""
+    from mxnet_tpu_torch.models import (TransformerConfig,
+                                        make_transformer_train_step)
+    from mxnet_tpu_torch.models.transformer import lm_loss_and_grads
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    cfg = TransformerConfig(dtype=torch.float32, **TRAIN_CFG)
+    toks = np.random.RandomState(0).randint(
+        0, cfg.vocab, (TRAIN_BATCH, cfg.max_len))
+    run, params = make_transformer_train_step(cfg, lr=TRAIN_LR, seed=0,
+                                              device=dev)
+    tokens = torch.as_tensor(toks, dtype=torch.long, device=dev)
+    prior = os.environ.get("MXNET_FLASH_ATTENTION")
+    try:
+        # oracle: the first step's loss and gradients, flag off vs on
+        os.environ["MXNET_FLASH_ATTENTION"] = "0"
+        ref_loss, ref_grads = lm_loss_and_grads(params, tokens, cfg)
+        # noise floor: the same reference step as the mean of two half
+        # batches (each half has the same number of targets)
+        half = TRAIN_BATCH // 2
+        _, ga = lm_loss_and_grads(params, tokens[:half], cfg)
+        _, gb = lm_loss_and_grads(params, tokens[half:], cfg)
+        floor = max(float(((ga[n] + gb[n]) / 2 - gr).norm())
+                    / max(float(gr.norm()), 1e-30)
+                    for n, gr in ref_grads.items())
+        del ga, gb
+        os.environ["MXNET_FLASH_ATTENTION"] = "1"
+        n_f = fa.flash_attention_fwd.launches
+        loss1, grads1 = lm_loss_and_grads(params, tokens, cfg)
+        check(fa.flash_attention_fwd.launches > n_f,
+              "flag on: the flash forward kernel did not launch")
+        loss_err = abs(float(loss1) - float(ref_loss)) / abs(float(ref_loss))
+        check(loss_err <= TRAIN_LOSS_RTOL,
+              "first-step loss flash %r != reference %r (rel err %.3g > %g)"
+              % (float(loss1), float(ref_loss), loss_err, TRAIN_LOSS_RTOL))
+        worst, worst_name, worst_el, worst_el_name = 0.0, None, 0.0, None
+        for name, gr in ref_grads.items():
+            gf = grads1[name]
+            check(bool(torch.isfinite(gf).all()), "grad %s not finite" % name)
+            diff = gf - gr
+            rel = float(diff.norm()) / max(float(gr.norm()), 1e-30)
+            rel_el = float(diff.abs().max()) / max(
+                float(gr.abs().max()), 1e-30)
+            if rel >= worst:
+                worst, worst_name = rel, name
+            if rel_el >= worst_el:
+                worst_el, worst_el_name = rel_el, name
+        check(worst <= TRAIN_GRAD_TOL,
+              "first-step grad %s: flash vs reference relative Frobenius "
+              "error %.3g > %g" % (worst_name, worst, TRAIN_GRAD_TOL))
+        print("train oracle: loss flash %.7f reference %.7f (rel err %.3g, "
+              "tol %g); %d gradients, worst relative Frobenius error %.3g "
+              "(%s, tol %g); largest element error %.3g of the tensor's "
+              "largest element (%s); noise floor, the reference against "
+              "itself over two half batches: worst relative Frobenius "
+              "error %.3g"
+              % (float(loss1), float(ref_loss), loss_err, TRAIN_LOSS_RTOL,
+                 len(ref_grads), worst, worst_name, TRAIN_GRAD_TOL, worst_el,
+                 worst_el_name, floor))
+        del ref_grads, grads1
+
+        # the main path: one warm-up step, then the timed steps
+        fa.flash_attention_fwd.launches = 0
+        fa.flash_attention_bwd.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        params, loss = run(params, toks)
+        losses, times = [float(loss)], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, loss = run(params, toks)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(loss))
+        launches = (fa.flash_attention_fwd.launches,
+                    fa.flash_attention_bwd.launches)
+        peak = torch.cuda.max_memory_allocated(dev)
+        want = cfg.n_layers * (TRAIN_STEPS + 1)
+        check(launches == (want, want),
+              "flash kernels launched %d (forward) and %d (backward) times, "
+              "expected n_layers x steps = %d x %d = %d each"
+              % (launches[0], launches[1], cfg.n_layers, TRAIN_STEPS + 1,
+                 want))
+        check(all(np.isfinite(losses)), "losses not finite: %r" % losses)
+        check(losses[-1] < losses[0], "loss did not fall: %r" % losses)
+        print("train repeat: the warm-up step's loss %.7f, the oracle's "
+              "flag-on loss %.7f" % (losses[0], float(loss1)))
+        try:
+            profile_train_step(torch, run, params, toks)
+        except SmokeFailure:
+            raise
+        except Exception as e:
+            raise SmokeFailure("profiled training step failed: %s: %s"
+                               % (type(e).__name__, e))
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FLASH_ATTENTION", None)
+        else:
+            os.environ["MXNET_FLASH_ATTENTION"] = prior
+    ms = sorted(1e3 * t for t in times)
+    mean_ms = sum(ms) / len(ms)
+    main = {"card": card, "steps_timed": TRAIN_STEPS,
+            "grad_rel_err": worst, "grad_rel_err_noise_floor": floor,
+            "batch": TRAIN_BATCH, "seq": cfg.max_len,
+            "step_ms_mean": mean_ms, "step_ms_p50": float(np.median(ms)),
+            "tokens_per_s": TRAIN_BATCH * cfg.max_len / (mean_ms / 1e3),
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "max_memory_allocated": peak,
+            "flash_fwd_launches": launches[0],
+            "flash_bwd_launches": launches[1]}
+    print("train path: " + json.dumps(main))
+    return launches, main
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -454,16 +830,11 @@ def main():
         print("device: %s (%s), torch %s, CUDA %s"
               % (torch.cuda.get_device_name(0), smi, torch.__version__,
                  torch.version.cuda))
-        src = "paged_attention.cu"
-        t0 = time.perf_counter()
-        _cuda.library(src)
-        secs = time.perf_counter() - t0
-        with open(_cuda.target(src)[1]) as f:
-            info = [ln.strip() for ln in f if "registers" in ln
-                    or "spill" in ln]
-        print("build %s: %.1f s; %s" % (src, secs, " | ".join(info[:6])))
+        build_kernels(_cuda)
         errs, rows = phase_kernels(torch, np, dev, smi)
+        flash_errs, flash_rows = phase_flash(torch, np, dev, smi)
         launches, main_path = phase_main_path(torch, np, dev, smi)
+        train_launches, train_path = phase_train(torch, np, dev, smi)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -482,6 +853,26 @@ def main():
         "bound_by": top["bound_by"],
         "library_ms": top["library_ms"],
     }]
+    for i, (kind, line) in enumerate((("fwd", 32), ("bwd", 138))):
+        r = next(r for r in flash_rows if r["dtype"] == "float32"
+                 and r["kernel"] == "flash_attention_" + kind)
+        kernels.append({
+            "name": r["kernel"],
+            "route": "cuda",
+            "source": "mxnet_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": "mxnet_tpu/ops/pallas_attention.py:%d" % line,
+            "launches": train_launches[i],
+            # out for the forward (m and l are printed above; l grows
+            # with T), the largest of dq, dk, dv for the backward
+            "max_abs_err": (flash_errs["float32", "out"] if kind == "fwd"
+                            else max(flash_errs["float32", w]
+                                     for w in ("dq", "dk", "dv"))),
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ that the CPU tests use and the card checks compare against.
 
 Ported so far: the transformer LM served through the paged KV-cache
 engine (`models.transformer`, `serving`), on the paged-attention kernel
-(`ops.paged_attention`).
+(`ops.paged_attention`), and trained with single-device SGD
+(`models.lm_loss`, `models.make_transformer_train_step`), on the flash
+attention forward and backward kernels (`ops.flash_attention`).
 """
 from .base import MXNetError, resolve_device
 

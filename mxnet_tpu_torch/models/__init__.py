@@ -1,7 +1,10 @@
-"""Models of the port: the functional transformer LM."""
+"""Models of the port: the functional transformer LM and its training
+step."""
 from .transformer import (TransformerConfig, init_transformer_params,
-                          transformer_apply)
+                          lm_loss, transformer_apply)
+from .transformer import make_train_step as make_transformer_train_step
 from .convert import params_from_numpy
 
 __all__ = ["TransformerConfig", "init_transformer_params",
-           "transformer_apply", "params_from_numpy"]
+           "transformer_apply", "lm_loss", "make_transformer_train_step",
+           "params_from_numpy"]

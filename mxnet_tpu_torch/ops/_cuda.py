@@ -5,7 +5,8 @@ library with a plain C interface and loaded with ctypes. The library goes
 to `mxnet_tpu_torch/_build/` (listed in .gitignore), named by a hash of
 the source and the flags, so a changed source rebuilds and an unchanged
 one loads at once. Nothing is built when a module is imported: the first
-`library()` call of a source builds it.
+`library()` call of a source builds it. Each source has its own lock, so
+two sources build at once when two threads ask for them.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v")
 
-_lock = threading.Lock()
+_lock = threading.Lock()      # guards _locks
+_locks = {}                   # source -> lock held while it builds/loads
 _libs = {}
 
 
@@ -68,6 +70,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "mxtt_paged_attention": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, ctypes.c_float, _P], _I),
+    "mxtt_flash_fwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        ctypes.c_float, _I, _P], _I),
+    "mxtt_flash_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _I, _I, _I, _I, ctypes.c_float, _I, _P], _I),
     "mxtt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -83,6 +89,8 @@ def _declare(lib):
 def library(source):
     """The loaded library of one source, built on first use."""
     with _lock:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         lib = _libs.get(source)
         if lib is None:
             path, log = target(source)

@@ -35,7 +35,7 @@ import torch
 
 from ..base import MXNetError, resolve_device
 from .. import telemetry
-from ..models.transformer import _layer_norm
+from ..models.transformer import _layer_norm, _moe_ffn
 from ..ops.paged_attention import (paged_attention, paged_enabled,
                                    paged_limit)
 from ..parallel.ring_attention import attention_reference
@@ -87,9 +87,12 @@ class Sequence:
 # ---------------------------------------------------------------------------
 
 
-def _ffn(params, pre, x):
-    """Position-wise dense FFN: a per-token map, so padded positions
-    cannot perturb real ones."""
+def _ffn(params, pre, x, cfg):
+    """Position-wise FFN on (N, D), dense or dense-dispatch MoE: both are
+    per-token maps, so padded positions cannot perturb real ones."""
+    if cfg.n_experts:
+        return _moe_ffn(x[None], params[pre + "wg"], params[pre + "w1"],
+                        params[pre + "w2"])[0]
     return torch.relu(x @ params[pre + "w1"]) @ params[pre + "w2"]
 
 
@@ -104,12 +107,12 @@ def _qkv(params, pre, x, H, Dh):
             v.reshape(N, H, Dh).contiguous())
 
 
-def _block_out(params, pre, x, att):
+def _block_out(params, pre, x, att, cfg):
     """Attention output projection + residual, then the FFN sublayer."""
     N, D = x.shape
     x = x + att.reshape(N, D) @ params[pre + "wo"]
     h = _layer_norm(x, params[pre + "ln2_g"], params[pre + "ln2_b"])
-    return x + _ffn(params, pre, h)
+    return x + _ffn(params, pre, h, cfg)
 
 
 def _head(params, x):
@@ -137,7 +140,7 @@ def _tf_prefill(params, k_pool, v_pool, tokens, length, table_row, cfg,
         att = attention_reference(q.transpose(0, 1)[None],
                                   kh.transpose(0, 1)[None],
                                   vh.transpose(0, 1)[None], causal=True)
-        x = _block_out(params, pre, x, att[0].transpose(0, 1))
+        x = _block_out(params, pre, x, att[0].transpose(0, 1), cfg)
     return _head(params, x[length - 1])
 
 
@@ -168,7 +171,7 @@ def _tf_decode(params, k_pool, v_pool, tokens, positions, tables, cfg,
         s = s.masked_fill(~live[:, None, :], float("-inf"))
         p = torch.softmax(s, dim=-1)
         att = torch.einsum("bht,bthd->bhd", p, vs.to(p.dtype))
-        x = _block_out(params, pre, x, att.to(x.dtype))
+        x = _block_out(params, pre, x, att.to(x.dtype), cfg)
     return _head(params, x)
 
 
@@ -190,7 +193,7 @@ def _tf_decode_paged(params, k_pool, v_pool, tokens, positions, tables,
         write_kv(k_pool, v_pool, i, slots, kh, vh)
         att = paged_attention(q[:, None], k_pool[i], v_pool[i], tables,
                               positions, block_size)[:, 0]         # (B,H,Dh)
-        x = _block_out(params, pre, x, att)
+        x = _block_out(params, pre, x, att, cfg)
     return _head(params, x)
 
 
@@ -228,7 +231,7 @@ def _tf_prefill_chunk(params, k_pool, v_pool, toks, qs, length, last_idx,
         write_kv(k_pool, v_pool, i, slots, kh, vh)
         att = paged_attention(q[None], k_pool[i], v_pool[i], tables,
                               qs_row, block_size)[0]               # (C,H,Dh)
-        x = _block_out(params, pre, x, att)
+        x = _block_out(params, pre, x, att, cfg)
     return _head(params, x[last_idx])
 
 
@@ -239,6 +242,12 @@ class TransformerLM:
     uses_cache = True
 
     def __init__(self, params, cfg):
+        if cfg.n_experts and cfg.moe_top_k:
+            raise MXNetError(
+                "serving: top-k MoE routing is capacity-dependent across "
+                "the token group, so padded decode batches would change "
+                "real tokens' routing; serve dense-FFN or dense-dispatch "
+                "MoE configs (moe_top_k=0)")
         self.params = params
         self.cfg = cfg
         self.vocab = cfg.vocab

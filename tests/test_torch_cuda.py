@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.ops import flash_attention as fa
 from mxnet_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -134,3 +135,99 @@ def test_engine_paged_matches_gather_on_card(dev):
     for (tg, lg), (tp, lp) in zip(gathered, paged):
         np.testing.assert_allclose(lp, lg, rtol=1e-4, atol=1e-5)
         assert tp == tg
+
+
+# ---------------------------------------------------------------------------
+# flash attention (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+
+#: kernel vs plain: f32 forward and m / l sum in another order (online
+#: softmax by 64-key tiles vs one dense softmax), l up to T; f32
+#: gradients sum products over up to T rows in another order; bf16
+#: outputs are rounded to 8 mantissa bits after f32 arithmetic in both
+_FTOL = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 2e-2)}
+
+
+def _flash_case(dev, BH, T, Tk, D, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    mk = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(dev, dtype)
+    return mk(BH, T, D), mk(BH, Tk, D), mk(BH, Tk, D), mk(BH, T, D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("T,Tk,causal", [(128, 128, True), (100, 100, True),
+                                         (37, 37, True), (1, 1, True),
+                                         (100, 75, False), (64, 200, False)])
+def test_flash_kernels_match_plain(dev, dtype, D, T, Tk, causal):
+    """Forward (out, m, l) and backward (dq, dk, dv) against the plain
+    versions: whole and ragged tiles, causal and not, Tk != T."""
+    q, k, v, g = _flash_case(dev, 3, T, Tk, D, dtype, seed=T + D)
+    scale = D ** -0.5
+    out, m, l = fa.flash_attention_fwd(q, k, v, scale, causal)
+    ro, rm, rl = fa.flash_fwd_plain(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    tol_f, tol_b = _FTOL[dtype]
+    torch.testing.assert_close(out.float(), ro.float(), atol=tol_f,
+                               rtol=tol_f)
+    torch.testing.assert_close(m, rm, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(l, rl, atol=2e-5, rtol=2e-5)
+    grads = fa.flash_attention_bwd(q, k, v, out, m, l, g, scale, causal)
+    want = fa.flash_bwd_plain(q, k, v, out, m, l, g, scale, causal)
+    torch.cuda.synchronize()
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol_b,
+                                   rtol=tol_b)
+
+
+def test_flash_gradients_repeat_bit_for_bit(dev):
+    """No atomics: two backward runs give identical bits."""
+    q, k, v, g = _flash_case(dev, 4, 300, 300, 64, torch.float32, seed=1)
+    out, m, l = fa.flash_attention_fwd(q, k, v, 0.125, True)
+    a = fa.flash_attention_bwd(q, k, v, out, m, l, g, 0.125, True)
+    b = fa.flash_attention_bwd(q, k, v, out, m, l, g, 0.125, True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_autograd_through_views(dev):
+    """The Function over transposed [B, H, T, D] views (as the
+    transformer hands them over) and a non-contiguous gradient."""
+    x = torch.randn(2, 70, 4, 64, device=dev, requires_grad=True)
+    q = x.transpose(1, 2)
+    out = fa.flash_attention(q, q, q, causal=True)
+    g = torch.randn(2, 70, 4, 64, device=dev).transpose(1, 2)
+    out.backward(g)
+    xr = x.detach().clone().requires_grad_(True)
+    qr = xr.transpose(1, 2)
+    s = (qr @ qr.transpose(-1, -2)) / 8.0
+    s = s.masked_fill(torch.ones(70, 70, dtype=torch.bool,
+                                 device=dev).triu(1), float("-inf"))
+    (torch.softmax(s, -1) @ qr).backward(g)
+    torch.testing.assert_close(x.grad, xr.grad, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_counts_launches_only(dev):
+    q, k, v, g = _flash_case(dev, 2, 64, 64, 64, torch.float32)
+    n_f, n_b = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+    out, m, l = fa.flash_attention_fwd(q, k, v, 0.125, True)
+    fa.flash_fwd_plain(q, k, v, 0.125, True)
+    fa.flash_attention_bwd(q, k, v, out, m, l, g, 0.125, True)
+    fa.flash_bwd_plain(q, k, v, out, m, l, g, 0.125, True)
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd.launches) == (n_f + 1, n_b + 1)
+
+
+def test_flash_gate_raises_on_cuda(dev):
+    q, k, v, _ = _flash_case(dev, 2, 16, 16, 64, torch.float32)
+    with pytest.raises(MXNetError, match="dtype"):
+        fa.flash_attention(q.half(), k.half(), v.half(), causal=True)
+    q48, k48, v48, _ = _flash_case(dev, 2, 16, 16, 48, torch.float32)
+    with pytest.raises(MXNetError, match="head_dim 48"):
+        fa.flash_attention(q48, k48, v48, causal=True)
+    qs, kl, vl, _ = _flash_case(dev, 2, 16, 24, 64, torch.float32)
+    with pytest.raises(MXNetError, match="causal"):
+        fa.flash_attention(qs, kl, vl, causal=True)
+    with pytest.raises(MXNetError, match="on cpu"):
+        fa.flash_attention(q, k.cpu(), v, causal=True)

@@ -263,9 +263,10 @@ def test_queue_timeout_and_oversized_prompt(lm):
 
 def test_entry_points_default_to_the_card(lm, monkeypatch):
     """No device given and no CUDA: Engine(), serve(), the KV pool, the
-    initializer and the weight loader raise instead of running on the
-    CPU."""
-    from mxnet_tpu_torch.models import init_transformer_params
+    initializer, the weight loader and the train step raise instead of
+    running on the CPU."""
+    from mxnet_tpu_torch.models import (init_transformer_params,
+                                        make_transformer_train_step)
     jparams, _, params, cfg = lm
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(MXNetError, match="cuda"):
@@ -281,6 +282,8 @@ def test_entry_points_default_to_the_card(lm, monkeypatch):
         serving.serve((params, cfg))
     with pytest.raises(MXNetError, match="cuda"):
         serving.Engine(serving.TransformerLM(params, cfg), device="cuda:0")
+    with pytest.raises(MXNetError, match="cuda"):
+        make_transformer_train_step(cfg)
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|mxnet_tpu)(\.|\s|$)",
@@ -302,7 +305,8 @@ def test_port_import_leaves_jax_out_of_sys_modules():
     """In a fresh interpreter (tests/conftest.py imports mxnet_tpu into
     this one): importing the port pulls in neither jax nor mxnet_tpu."""
     code = ("import sys, mxnet_tpu_torch.serving, mxnet_tpu_torch.models, "
-            "mxnet_tpu_torch.ops._cuda, chip_smoke\n"
+            "mxnet_tpu_torch.ops._cuda, mxnet_tpu_torch.ops.flash_attention, "
+            "chip_smoke\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'mxnet_tpu'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")
