@@ -11,9 +11,12 @@ Phases (any failure exits non-zero before the last line):
                 seconds and ptxas register and spill counts.
   3. kernels  — holds each kernel against its plain PyTorch version on the
                 card at the main paths' shapes (and, for flash attention,
-                ragged, head_dim 128 and non-causal cases), and times the
-                kernel, the plain version, one library call as a
-                yardstick, and the least time the card could take (bound).
+                ragged, head_dim 128 and non-causal cases; for the paged
+                kernel's int8 variant, q float32 and bfloat16 over an int8
+                pool at the decode, prefill-chunk and spec-score shapes),
+                and times the kernel, the plain version, one library call
+                as a yardstick, and the least time the card could take
+                (bound).
   4. serving main path — serves the transformer LM at the full width of
                 the repo's serving benchmark config (vocab 8192, d_model
                 512, 4 heads x 128, 4 layers, d_ff 2048, max_len 1024;
@@ -36,7 +39,30 @@ Phases (any failure exits non-zero before the last line):
                 off, then one warm-up and 10 timed steps (finite, falling
                 loss; both flash kernels launched n_layers times a step),
                 then a profiled step.
-  6. the kernels line, nvidia-smi's line, and the last line
+  6. quantized serving path — `serving.serve(..., kv_quant=True,
+                weight_quant="int8", paged=True, block_size=32)` at phase
+                4's config and traffic (8 in-process requests + 1 HTTP,
+                64-token prompts, 128 new tokens): the int8 KV pool read
+                by the paged kernel's int8 variant, int8 weights. Checks
+                results, failures, int8 launches = n_layers x (decode
+                steps + prefill chunks) and no float launch, greedy
+                tokens against the float paged engine up to each
+                request's first near-tie (top-2 margin under 0.1), and a
+                teacher-forced logit probe of one request against the
+                float engine; then profiles 16 quantized decode steps.
+  7. spec + prefix path — a server with a 2-layer self-draft
+                (`spec_k=3`) and the prefix cache: 8 sequential requests
+                sharing a 272-token prefix (off the 32-token block
+                boundary, so every later request copies-on-write the
+                part-shared block), each with its own 32-token suffix, 64
+                new tokens. Run over the float pool first, its tokens
+                held to the float paged engine's at phase 4's margin,
+                then over the int8 pool with int8 weights, held as in
+                phase 6. Each run checks spec passes, prefix hits, COW
+                copies >= 7, and its kernel variant's launches = n_layers
+                x (plain decode steps + prefill chunks + spec passes).
+                Then profiles 8 speculative steps over the int8 pool.
+  8. the kernels line, nvidia-smi's line, and the last line
      {"ok": true, "device": {...}}.
 
 Parity settings: TF32 is off for matmuls and cuDNN, so float32 products
@@ -96,6 +122,22 @@ FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
 #: (two half batches) is printed beside it, as the noise floor.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-2
 SOURCES = ("paged_attention.cu", "flash_attention.cu")
+#: quantized serving (phases 6 and 7): bench.py's bench_serving_quant
+#: block size (int8 blocks of 32 tokens, bench.py:2563), the greedy-token
+#: near-tie margin (twice the reference's 0.05 logit budget for int8 KV +
+#: int8 weights, tests/test_serving_quant.py:218), and the logit probe's
+#: bound. At this config's full width the JAX reference's own quantized
+#: engine, teacher-forced on its float engine's tokens, is off by up to
+#: 0.0511 (tools/quant_logit_probe.py --impl reference, CPU), above the
+#: tiny config's 0.05 budget; the probe is held to twice that.
+QUANT_BLOCK = 32
+QUANT_MARGIN = 0.1
+REF_QUANT_LOGIT_ERR = 0.0511
+PROBE_BOUND = 2 * REF_QUANT_LOGIT_ERR
+#: phase 7's traffic (bench.py:1439-1442's shared-prompt shape, with the
+#: shared length moved off the block boundary: 272 = 8.5 x 32)
+SHARED_LEN, SUFFIX_LEN, SPEC_GEN, N_SPEC_REQ = 272, 32, 64, 8
+SPEC_K, DRAFT_LAYERS = 3, 2
 
 
 class SmokeFailure(Exception):
@@ -155,18 +197,24 @@ def paged_case(torch, np, dev, B, Tq, w, q_starts, dtype, seed, H=4,
     return q, k, v, tables, q_start
 
 
-def bound(pa, B, Tq, H, Dh, bs, w, q_starts, dtype_name, itemsize):
+def bound(pa, B, Tq, H, Dh, bs, w, q_starts, dtype_name, itemsize,
+          kv_itemsize=None, scale_blocks=0):
     """Least time (ms) of one call on these inputs: each live block read
     once, q read and out written once, over the memory rate, against the
     flops over the peak rate for the input type. Only live blocks count:
-    the kernel never reads a dead one."""
+    the kernel never reads a dead one. An int8 pool passes
+    kv_itemsize=1 and its scales' num_blocks, counted whole as the
+    reference's paged_call_cost counts them (the kernel reads only the
+    live blocks' scales)."""
     flops = nbytes = 0
     for qs in q_starts:
         live = min(w, (qs + Tq - 1) // bs + 1)
         f, b = pa.paged_call_cost(1, Tq, H, Dh, live, bs,
-                                  kv_itemsize=itemsize, q_itemsize=itemsize)
+                                  kv_itemsize=kv_itemsize or itemsize,
+                                  q_itemsize=itemsize)
         flops += f
         nbytes += b
+    nbytes += 2 * scale_blocks * H * 4
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_OPS_S[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -188,7 +236,10 @@ def phase_kernels(torch, np, dev, card):
                 (8, 1, [0, 5, bs + 5, 2 * bs, top // 2 + 3, top - bs - 1,
                         top - 2, top - 1]),
                 # prefill chunk B=1, Tq=32: from 0 and from mid-block
-                (1, 32, [0]), (1, 32, [top - 32 - 11])]
+                (1, 32, [0]), (1, 32, [top - 32 - 11]),
+                # spec score B=8, Tq=k+1=4: ragged, incl. the last rows
+                (8, 4, [0, 3, bs - 2, bs + 7, top // 2, top - bs - 3,
+                        top - 5, top - 4])]
             for B, Tq, qst in cases:
                 q, k, v, tab, qs = paged_case(torch, np, dev, B, Tq, w, qst,
                                               dtype, seed=ncases)
@@ -221,40 +272,135 @@ def phase_kernels(torch, np, dev, card):
         flush_buf.zero_()
 
     rows = []
-    for label, B, Tq, w, qst in (
-            ("decode", 8, 1, 16, [190] * 8),       # last decode step
-            ("decode_mid", 8, 1, 8, [127] * 8),    # mid-generation
-            ("prefill_chunk", 1, 32, 4, [32])):    # 2nd chunk of 64
+    for label, B, Tq, w, qst, tbs in (
+            ("decode", 8, 1, 16, [190] * 8, bs),       # last decode step
+            ("decode_mid", 8, 1, 8, [127] * 8, bs),    # mid-generation
+            ("prefill_chunk", 1, 32, 4, [32], bs),     # 2nd chunk of 64
+            # a k+1 = 4 scoring pass at phase 7's lengths and block
+            ("spec_score", 8, 4, 16, [300, 310, 320, 330, 340, 350, 355,
+                                      360], QUANT_BLOCK)):
         for dname, dtype, itemsize in (("float32", torch.float32, 4),
                                        ("bfloat16", torch.bfloat16, 2)):
             q, k, v, tab, qs = paged_case(torch, np, dev, B, Tq, w, qst,
-                                          dtype, seed=99)
+                                          dtype, seed=99, bs=tbs)
             t_k = time_ms(torch, lambda: pa.paged_attention(
-                q, k, v, tab, qs, bs), flush=flush)
+                q, k, v, tab, qs, tbs), flush=flush)
             t_p = time_ms(torch, lambda: pa.paged_attention_plain(
-                q, k, v, tab, qs, bs), flush=flush)
+                q, k, v, tab, qs, tbs), flush=flush)
             # yardstick only: SDPA over the already-gathered dense K/V
             # with the ragged mask (the port never calls it)
             idx = tab.long()
-            kd = k[idx].reshape(B, w * bs, H, Dh).transpose(1, 2)
-            vd = v[idx].reshape(B, w * bs, H, Dh).transpose(1, 2)
+            kd = k[idx].reshape(B, w * tbs, H, Dh).transpose(1, 2)
+            vd = v[idx].reshape(B, w * tbs, H, Dh).transpose(1, 2)
             qd = q.transpose(1, 2)
-            kp = torch.arange(w * bs, device=dev)
+            kp = torch.arange(w * tbs, device=dev)
             qp = qs.long()[:, None] + torch.arange(Tq, device=dev)
             mask = (kp[None, None, :] <= qp[:, :, None])[:, None]
             sdpa = torch.nn.functional.scaled_dot_product_attention
             t_l = time_ms(torch, lambda: sdpa(qd, kd, vd, attn_mask=mask),
                           flush=flush)
-            b_ms, b_by, nbytes, flops = bound(pa, B, Tq, H, Dh, bs, w, qst,
+            b_ms, b_by, nbytes, flops = bound(pa, B, Tq, H, Dh, tbs, w, qst,
                                               dname, itemsize)
             rows.append({"card": card, "shape": label, "dtype": dname,
                          "B": B, "Tq": Tq,
-                         "w": w, "q_start": qst[0], "ms": t_k,
+                         "w": w, "bs": tbs, "q_start": qst[0], "ms": t_k,
                          "plain_ms": t_p, "library_ms": t_l,
                          "bound_ms": b_ms, "bound_by": b_by,
                          "bound_bytes": nbytes, "bound_flops": flops})
     for r in rows:
         print("kernel timing: " + json.dumps(r))
+    del flush_buf
+    return errs, rows
+
+
+def quantize_pool(torch, pool):
+    """Per-(block, head) symmetric int8 of an (NB, bs, H, Dh) float pool
+    (the reference's tests/test_serving_quant.py:87)."""
+    s = pool.abs().amax(dim=(1, 3)).clamp(min=1e-12) / 127.0
+    q = torch.clamp(torch.round(pool / s[:, None, :, None]), -127, 127)
+    return q.to(torch.int8).contiguous(), s.contiguous()
+
+
+#: int8 cases: (label, B, Tq, w, q_starts) at H=4, Dh=128, bs=32 — the
+#: quantized decode step, the second 64-token prefill chunk, and a
+#: speculative scoring pass (k+1 = 4 rows) of phase 7's lengths
+INT8_CASES = [("decode", 8, 1, 8, [0, 5, 37, 64, 131, 200, 254, 255]),
+              ("prefill_chunk", 1, 64, 4, [64]),
+              ("spec_score", 8, 4, 8, [0, 33, 64, 100, 160, 200, 250, 252])]
+
+
+def phase_kernels_int8(torch, np, dev, card):
+    """The paged kernel's int8 variant against its plain version, q
+    float32 and bfloat16 over int8 pools quantized from seeded float
+    data; then the same shapes timed four ways."""
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    H, Dh, bs = 4, 128, QUANT_BLOCK
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
+
+    def flush():
+        flush_buf.zero_()
+
+    rows = []
+    for n, (label, B, Tq, w, qst) in enumerate(INT8_CASES):
+        for dname, dtype, itemsize in (("float32", torch.float32, 4),
+                                       ("bfloat16", torch.bfloat16, 2)):
+            q, k, v, tab, qs = paged_case(torch, np, dev, B, Tq, w, qst,
+                                          torch.float32, seed=100 + n,
+                                          H=H, Dh=Dh, bs=bs)
+            q = q.to(dtype)
+            kq, ks = quantize_pool(torch, k)
+            vq, vs = quantize_pool(torch, v)
+            del k, v
+            sc = dict(k_scale=ks, v_scale=vs)
+            out = pa.paged_attention(q, kq, vq, tab, qs, bs, **sc)
+            ref = pa.paged_attention_plain(q, kq, vq, tab, qs, bs, **sc)
+            torch.cuda.synchronize()
+            check(out.dtype == dtype and bool(torch.isfinite(out).all()),
+                  "int8 kernel output not finite (%s %s)" % (label, dname))
+            errs[dname] = max(errs[dname],
+                              float((out.float() - ref.float()).abs().max()))
+            try:
+                torch.testing.assert_close(out.float(), ref.float(),
+                                           atol=TOL[dname], rtol=TOL[dname])
+            except AssertionError as e:
+                raise SmokeFailure("int8 kernel != plain (%s, q %s, B=%d "
+                                   "Tq=%d w=%d): %s"
+                                   % (label, dname, B, Tq, w, e))
+            t_k = time_ms(torch, lambda: pa.paged_attention(
+                q, kq, vq, tab, qs, bs, **sc), flush=flush)
+            t_p = time_ms(torch, lambda: pa.paged_attention_plain(
+                q, kq, vq, tab, qs, bs, **sc), flush=flush)
+            # yardstick only: SDPA over K/V gathered and dequantized
+            # beforehand, with the ragged mask (the port never calls it)
+            idx = tab.long()
+            kd = (kq[idx].float() * ks[idx][:, :, None, :, None]).to(dtype)
+            vd = (vq[idx].float() * vs[idx][:, :, None, :, None]).to(dtype)
+            kd = kd.reshape(B, w * bs, H, Dh).transpose(1, 2)
+            vd = vd.reshape(B, w * bs, H, Dh).transpose(1, 2)
+            kp = torch.arange(w * bs, device=dev)
+            qp = qs.long()[:, None] + torch.arange(Tq, device=dev)
+            mask = (kp[None, None, :] <= qp[:, :, None])[:, None]
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qd = q.transpose(1, 2)
+            t_l = time_ms(torch, lambda: sdpa(qd, kd, vd, attn_mask=mask),
+                          flush=flush)
+            b_ms, b_by, nbytes, flops = bound(
+                pa, B, Tq, H, Dh, bs, w, qst, dname, itemsize,
+                kv_itemsize=1, scale_blocks=kq.shape[0])
+            rows.append({"card": card, "shape": label, "q_dtype": dname,
+                         "pool": "int8", "B": B, "Tq": Tq, "w": w,
+                         "bs": bs, "ms": t_k, "plain_ms": t_p,
+                         "library_ms": t_l, "bound_ms": b_ms,
+                         "bound_by": b_by, "bound_bytes": nbytes,
+                         "bound_flops": flops})
+    print("kernel check int8: %d cases (decode, prefill chunk, spec "
+          "score), max |kernel - plain| q float32 %.3g (tol %g), q "
+          "bfloat16 %.3g (tol %g)"
+          % (2 * len(INT8_CASES), errs["float32"], TOL["float32"],
+             errs["bfloat16"], TOL["bfloat16"]))
+    for r in rows:
+        print("kernel timing int8: " + json.dumps(r))
     del flush_buf
     return errs, rows
 
@@ -276,12 +422,15 @@ def bench_params(np, cfg, seed=0):
     return out
 
 
-def gather_oracle(torch, np, serving, params, cfg, prompts, gen, dev):
+def gather_oracle(torch, np, serving, params, cfg, prompts, gen, dev,
+                  paged=False, block_size=16, logits=None):
     """Greedy tokens and per-token top-2 logit margins from the port's
-    gather path (Engine(paged=False)) on the card."""
+    float engine on the card: the gather path (Engine(paged=False)), or
+    the float paged engine. With `logits` (a list) each request's logit
+    rows are appended to it."""
     eng = serving.Engine(serving.TransformerLM(params, cfg), max_batch=8,
-                         block_size=16, paged=False, keep_logits=True,
-                         device=dev)
+                         block_size=block_size, paged=paged,
+                         keep_logits=True, device=dev)
     toks, margins = [], []
     for lo in range(0, len(prompts), 8):
         seqs = [eng.start(list(p), max_new=gen) for p in prompts[lo:lo + 8]]
@@ -289,6 +438,8 @@ def gather_oracle(torch, np, serving, params, cfg, prompts, gen, dev):
             eng.decode_step(seqs)
         for s in seqs:
             toks.append(s.generated)
+            if logits is not None:
+                logits.append(np.stack(s.token_logits))
             m = []
             for row in s.token_logits:
                 top2 = np.partition(row, -2)[-2:]
@@ -299,36 +450,41 @@ def gather_oracle(torch, np, serving, params, cfg, prompts, gen, dev):
     return toks, margins
 
 
-def compare_tokens(what, got, ref, margins):
-    """Greedy tokens `got` (one list per request) against the gather
-    path's `ref`, stopping a request at its first near-tie (top-2 margin
-    under MARGIN). Returns how many tokens were compared."""
+def compare_tokens(what, got, ref, margins, margin=MARGIN, quiet=False):
+    """Greedy tokens `got` (one list per request) against the oracle's
+    `ref`, stopping a request at its first near-tie (top-2 margin under
+    `margin`). Returns how many tokens were compared."""
     compared = 0
     for i, toks in enumerate(got):
         for t, tok in enumerate(toks):
-            if margins[i][t] < MARGIN:
-                print("token check (%s): request %d stops at token %d "
-                      "(top-2 margin %.3g < %.3g)"
-                      % (what, i, t, margins[i][t], MARGIN))
+            if margins[i][t] < margin:
+                if not quiet:
+                    print("token check (%s): request %d stops at token %d "
+                          "(top-2 margin %.3g < %.3g)"
+                          % (what, i, t, margins[i][t], margin))
                 break
             check(tok == ref[i][t],
-                  "%s: request %d token %d: paged %d != gather %d "
-                  "(margin %.3g)" % (what, i, t, tok, ref[i][t],
-                                     margins[i][t]))
+                  "%s: request %d token %d: %d != oracle %d (margin %.3g)"
+                  % (what, i, t, tok, ref[i][t], margins[i][t]))
             compared += 1
     return compared
 
 
-def profile_decode(torch, serving, params, cfg, prompts, dev, steps=16):
+def profile_decode(torch, serving, params, cfg, prompts, dev, steps=16,
+                   label="profile", max_new=None, **engine_kw):
     """Where a steady paged decode step's time goes: device time by
     kernel from torch.profiler over `steps` steps of a batch of 8, beside
-    the host wall time of the same (profiled) steps. Returns the greedy
-    tokens the engine generated, for the caller to check."""
+    the host wall time of the same (profiled) steps, on a paged engine
+    (block 16 unless `engine_kw` says otherwise; its options too).
+    Returns the greedy tokens the engine generated, for the caller to
+    check."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    engine_kw.setdefault("block_size", 16)
     eng = serving.Engine(serving.TransformerLM(params, cfg), max_batch=8,
-                         block_size=16, paged=True, device=dev)
-    seqs = [eng.start(list(p), max_new=steps + 8) for p in prompts]
+                         paged=True, device=dev, **engine_kw)
+    seqs = [eng.start(list(p), max_new=max_new or steps + 8)
+            for p in prompts]
     for _ in range(4):
         eng.decode_step(seqs)
     torch.cuda.synchronize()
@@ -349,10 +505,10 @@ def profile_decode(torch, serving, params, cfg, prompts, dev, steps=16):
             dev_us[e.key] = e.self_device_time_total
     total = sum(dev_us.values())
     if total <= 0:
-        print("profile: not measured (no device time recorded)")
+        print("%s: not measured (no device time recorded)" % label)
         return toks
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
-    print("profile: " + json.dumps({
+    print(label + ": " + json.dumps({
         "decode_steps": steps, "batch": len(seqs),
         "host_ms_per_step_profiled": 1e3 * wall / steps,
         "device_busy_ms_per_step": total / 1e3 / steps,
@@ -361,20 +517,14 @@ def profile_decode(torch, serving, params, cfg, prompts, dev, steps=16):
     return toks
 
 
-def phase_main_path(torch, np, dev, card):
-    from mxnet_tpu_torch import serving
-    from mxnet_tpu_torch.models import TransformerConfig, params_from_numpy
-    from mxnet_tpu_torch.ops import paged_attention as pa
-    cfg = TransformerConfig(dtype=torch.float32, **BENCH_CFG)
-    prompt_len, gen, n_req = PROMPT_LEN, GEN, N_REQ
-    params = params_from_numpy(bench_params(np, cfg), cfg, dev)
-    rng = np.random.RandomState(1)
-    prompts = [[int(t) for t in rng.randint(1, cfg.vocab, prompt_len)]
-               for _ in range(n_req)]
-    kw = dict(max_batch=8, paged=True, block_size=16, token_budget=256)
-
-    # warm-up server (CUDA context, cuBLAS handles), closed before the
-    # measured run
+def serve_traffic(serving, pa, params, cfg, prompts, gen, kw):
+    """Phases 4 and 6's traffic through `serving.serve((params, cfg),
+    **kw)`: a warm-up server (CUDA context, cuBLAS handles) closed first,
+    then 8 in-process requests plus one HTTP POST /v1/generate at once.
+    The kernel counters are set to 0 just before the requests and read
+    just after. Checks every result and the request counters; returns
+    (outs, wall_s, (float launches, int8 launches), snapshot, requests,
+    engine)."""
     warm = serving.serve((params, cfg), **kw)
     try:
         warm.generate(prompts[0], max_new_tokens=4, timeout=300)
@@ -400,6 +550,7 @@ def phase_main_path(torch, np, dev, card):
                 http_out["error"] = "%s: %s" % (type(e).__name__, e)
 
         pa.paged_attention.launches = 0
+        pa.paged_attention.launches_int8 = 0
         t0 = time.perf_counter()
         client = threading.Thread(target=post, daemon=True)
         client.start()
@@ -407,7 +558,8 @@ def phase_main_path(torch, np, dev, card):
         outs = [r.result(timeout=600) for r in reqs]
         client.join(timeout=600)
         wall = time.perf_counter() - t0
-        launches = pa.paged_attention.launches
+        launches = (pa.paged_attention.launches,
+                    pa.paged_attention.launches_int8)
         check(not client.is_alive(), "HTTP request did not finish")
         snap = srv.snapshot()
     finally:
@@ -421,11 +573,28 @@ def phase_main_path(torch, np, dev, card):
     for i, o in enumerate(outs):
         check(len(o) == gen, "request %d returned %d tokens, wanted %d"
               % (i, len(o), gen))
-    req_snap, paths = snap["requests"], snap["paths"]
+    req_snap = snap["requests"]
     check(req_snap["engine_failures"] == 0, "engine failures: %d"
           % req_snap["engine_failures"])
-    check(req_snap["completed"] == n_req and req_snap["failed"] == 0,
+    check(req_snap["completed"] == len(prompts) and req_snap["failed"] == 0,
           "requests: %r" % req_snap)
+    return outs, wall, launches, snap, reqs, srv.engine
+
+
+def phase_main_path(torch, np, dev, card):
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.models import TransformerConfig, params_from_numpy
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    cfg = TransformerConfig(dtype=torch.float32, **BENCH_CFG)
+    prompt_len, gen, n_req = PROMPT_LEN, GEN, N_REQ
+    params = params_from_numpy(bench_params(np, cfg), cfg, dev)
+    rng = np.random.RandomState(1)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab, prompt_len)]
+               for _ in range(n_req)]
+    kw = dict(max_batch=8, paged=True, block_size=16, token_budget=256)
+    outs, wall, (launches, _), snap, reqs, _ = serve_traffic(
+        serving, pa, params, cfg, prompts, gen, kw)
+    paths = snap["paths"]
     want = cfg.n_layers * (paths["paged_decode_steps"]
                            + paths["prefill_chunks"])
     check(launches == want and launches > 0,
@@ -468,6 +637,238 @@ def phase_main_path(torch, np, dev, card):
             "prefill_chunks": paths["prefill_chunks"],
             "kernel_launches": launches}
     print("main path: " + json.dumps(main))
+    return launches, main
+
+
+def quant_logit_probe(np, serving, params, cfg, prompt, gen, dev,
+                      ref_tokens, ref_logits):
+    """Max |logit - float| of one request on a fresh quantized engine
+    (int8 KV + int8 weights), TEACHER-FORCED on the float engine's
+    tokens `ref_tokens`: before each decode step the input token is set
+    to the float engine's, so every logit row is compared at the same
+    context. Returns (max error, rows compared, argmax agreements)."""
+    eng = serving.Engine(serving.TransformerLM(params, cfg), max_batch=8,
+                         block_size=QUANT_BLOCK, paged=True,
+                         keep_logits=True, kv_quant=True,
+                         weight_quant="int8", device=dev)
+    seq = eng.start(list(prompt), gen)
+    i = 0
+    while not seq.done:
+        seq.tokens[-1] = int(ref_tokens[i])
+        i += 1
+        eng.decode_step([seq])
+    rows = np.stack(seq.token_logits)
+    eng.release(seq)
+    eng.close()
+    err = float(np.abs(rows - ref_logits).max())
+    agree = int((rows.argmax(1) == ref_logits.argmax(1)).sum())
+    return err, len(rows), agree
+
+
+def phase_quant(torch, np, dev, card):
+    """Phase 6: the quantized serving path at phase 4's config and
+    traffic; int8 launches counted, tokens and logits against the float
+    paged engine."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.models import TransformerConfig, params_from_numpy
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    cfg = TransformerConfig(dtype=torch.float32, **BENCH_CFG)
+    gen, n_req = GEN, N_REQ
+    params = params_from_numpy(bench_params(np, cfg), cfg, dev)
+    rng = np.random.RandomState(1)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab, PROMPT_LEN)]
+               for _ in range(n_req)]
+    kw = dict(max_batch=8, paged=True, block_size=QUANT_BLOCK,
+              token_budget=256, kv_quant=True, weight_quant="int8")
+    outs, wall, (f32_launches, launches), snap, reqs, eng = serve_traffic(
+        serving, pa, params, cfg, prompts, gen, kw)
+    check(eng.kv_quant and eng.weight_quant == "int8",
+          "quantized server: kv_quant %r, weight_quant %r"
+          % (eng.kv_quant, eng.weight_quant))
+    paths = snap["paths"]
+    want = cfg.n_layers * (paths["paged_decode_steps"]
+                           + paths["prefill_chunks"])
+    check(launches == want and launches > 0,
+          "int8 kernel launched %d times, expected n_layers x (decode "
+          "steps + prefill chunks) = %d x (%d + %d) = %d"
+          % (launches, cfg.n_layers, paths["paged_decode_steps"],
+             paths["prefill_chunks"], want))
+    check(f32_launches == 0 and paths["gather_decode_steps"] == 0,
+          "the quantized server ran %d float paged launches and %d gather "
+          "steps" % (f32_launches, paths["gather_decode_steps"]))
+
+    ref_logits = []
+    ref, margins = gather_oracle(torch, np, serving, params, cfg, prompts,
+                                 gen, dev, paged=True,
+                                 block_size=QUANT_BLOCK, logits=ref_logits)
+    compared = compare_tokens("quantized", outs, ref, margins,
+                              margin=QUANT_MARGIN, quiet=True)
+    print("token check (quantized): %d of %d greedy tokens compared, each "
+          "request up to its first top-2 margin under %g, all equal to the "
+          "float paged engine" % (compared, n_req * gen, QUANT_MARGIN))
+    err, nrows, agree = quant_logit_probe(np, serving, params, cfg,
+                                          prompts[0], gen, dev, ref[0],
+                                          ref_logits[0])
+    print("logit probe (quantized, teacher-forced, %d rows): max |logit - "
+          "float| %.5f (reference budget 0.05; bound %.4f = twice the JAX "
+          "reference's own %.4f at this config); argmax equal on %d of %d "
+          "rows" % (nrows, err, PROBE_BOUND, REF_QUANT_LOGIT_ERR, agree,
+                    nrows))
+    check(err <= PROBE_BOUND, "quantized logit error %.5f > %.4f"
+          % (err, PROBE_BOUND))
+    prof_toks = profile_decode(torch, serving, params, cfg, prompts[:8],
+                               dev, label="profile (quantized)",
+                               block_size=QUANT_BLOCK, kv_quant=True,
+                               weight_quant="int8")
+    n = compare_tokens("quantized, profiled", prof_toks, ref, margins,
+                       margin=QUANT_MARGIN, quiet=True)
+    print("token check (quantized, profiled): %d greedy tokens compared, "
+          "all equal to the float paged engine" % n)
+    ttfts = sorted(r.t_first_token - r.t_submit for r in reqs)
+    lat = snap["latency_ms"]
+    main = {"card": card, "requests": n_req, "tokens": n_req * gen,
+            "wall_s": wall, "tokens_per_s": n_req * gen / wall,
+            "ttft_p50_ms_inproc": 1e3 * float(np.median(ttfts)),
+            "decode_step_mean_ms": lat["decode_step_mean"],
+            "decode_step_p50_ms": lat["decode_step_p50"],
+            "decode_steps": paths["paged_decode_steps"],
+            "prefill_chunks": paths["prefill_chunks"],
+            "int8_kernel_launches": launches,
+            "kv_bytes_per_token": snap["quant"][
+                "serving_kv_quant_bytes_per_token"],
+            "max_logit_err": err, "tokens_compared": compared}
+    print("quant path: " + json.dumps(main))
+    return launches, main
+
+
+def serve_spec_prefix(serving, pa, params, cfg, prompts, quant):
+    """Phase 7's traffic, requests one after another, through a server
+    with a 2-layer self-draft (spec_k=3) and the prefix cache, over the
+    int8 pool with int8 weights (`quant`) or the float pool. The kernel
+    counters are set to 0 just before the requests and read just after.
+    Checks every result, spec passes, prefix hits, COW copies, and that
+    the pool's kernel variant ran n_layers x (plain decode steps +
+    prefill chunks + spec passes) times and the other variant never.
+    Returns (outs, wall_s, launches, snapshot)."""
+    what = "int8" if quant else "float"
+    kw = dict(kv_quant=True, weight_quant="int8") if quant else {}
+    srv = serving.serve(
+        (params, cfg), max_batch=8, paged=True, block_size=QUANT_BLOCK,
+        token_budget=256, draft=serving.self_draft(params, cfg, DRAFT_LAYERS),
+        spec_k=SPEC_K, prefix_cache=True, **kw)
+    try:
+        eng = srv.engine
+        check(eng.spec and eng.prefix_cache is not None
+              and eng.kv_quant == quant,
+              "%s pool: spec %r (fallback %r), prefix cache %r, kv_quant %r"
+              % (what, eng.spec, eng.spec_fallback, eng.prefix_cache,
+                 eng.kv_quant))
+        pa.paged_attention.launches = 0
+        pa.paged_attention.launches_int8 = 0
+        t0 = time.perf_counter()
+        outs = [srv.generate(p, max_new_tokens=SPEC_GEN, timeout=600)
+                for p in prompts]
+        wall = time.perf_counter() - t0
+        launches = (pa.paged_attention.launches_int8,
+                    pa.paged_attention.launches)
+        if not quant:
+            launches = launches[::-1]
+        snap = srv.snapshot()
+    finally:
+        srv.close()
+    for i, o in enumerate(outs):
+        check(len(o) == SPEC_GEN, "%s pool: request %d returned %d tokens, "
+              "wanted %d" % (what, i, len(o), SPEC_GEN))
+    paths, sp, pre = snap["paths"], snap["spec"], snap["cache"]["prefix"]
+    check(snap["requests"]["engine_failures"] == 0, "%s pool: engine "
+          "failures: %d" % (what, snap["requests"]["engine_failures"]))
+    check(sp["passes"] > 0 and pre["hit_tokens"] > 0
+          and pre["cow_copies"] >= N_SPEC_REQ - 1,
+          "%s pool: spec passes %d, prefix hit tokens %d, COW copies %d "
+          "(want > 0, > 0, >= %d)" % (what, sp["passes"], pre["hit_tokens"],
+                                      pre["cow_copies"], N_SPEC_REQ - 1))
+    plain = paths["paged_decode_steps"] - sp["passes"]
+    want = cfg.n_layers * (plain + paths["prefill_chunks"] + sp["passes"])
+    check(launches[0] == want and launches[1] == 0,
+          "%s kernel launched %d times (the other variant %d), expected "
+          "n_layers x (plain decode steps + prefill chunks + spec passes) "
+          "= %d x (%d + %d + %d) = %d"
+          % (what, launches[0], launches[1], cfg.n_layers, plain,
+             paths["prefill_chunks"], sp["passes"], want))
+    return outs, wall, launches[0], snap
+
+
+def phase_spec_prefix(torch, np, dev, card):
+    """Phase 7: speculative decoding and the prefix cache, 8 sequential
+    requests sharing a 272-token prefix: first over the float pool, whose
+    greedy tokens must equal the float paged engine's at phase 4's
+    margin (the scoring pass, verification and COW copies switch speed,
+    never tokens), then over the int8 pool with int8 weights, held to
+    the quantized margin."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.models import TransformerConfig, params_from_numpy
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    cfg = TransformerConfig(dtype=torch.float32, **BENCH_CFG)
+    params = params_from_numpy(bench_params(np, cfg), cfg, dev)
+    rng = np.random.RandomState(2)
+    shared = [int(t) for t in rng.randint(1, cfg.vocab, SHARED_LEN)]
+    prompts = [shared + [int(t) for t in rng.randint(1, cfg.vocab,
+                                                     SUFFIX_LEN)]
+               for _ in range(N_SPEC_REQ)]
+    ref, margins = gather_oracle(torch, np, serving, params, cfg, prompts,
+                                 SPEC_GEN, dev, paged=True,
+                                 block_size=QUANT_BLOCK)
+    f_outs, f_wall, f_launches, f_snap = serve_spec_prefix(
+        serving, pa, params, cfg, prompts, quant=False)
+    f_compared = compare_tokens("spec+prefix, float pool", f_outs, ref,
+                                margins)
+    check(f_compared > 0, "spec+prefix, float pool: no token compared")
+    print("token check (spec+prefix, float pool): %d of %d greedy tokens "
+          "compared, all equal to the float paged engine"
+          % (f_compared, N_SPEC_REQ * SPEC_GEN))
+
+    outs, wall, launches, snap = serve_spec_prefix(
+        serving, pa, params, cfg, prompts, quant=True)
+    compared = compare_tokens("spec+prefix", outs, ref, margins,
+                              margin=QUANT_MARGIN, quiet=True)
+    print("token check (spec+prefix): %d of %d greedy tokens compared, each "
+          "request up to its first top-2 margin under %g, all equal to the "
+          "float paged engine" % (compared, N_SPEC_REQ * SPEC_GEN,
+                                  QUANT_MARGIN))
+    prof_toks = profile_decode(
+        torch, serving, params, cfg, prompts, dev, steps=8,
+        label="profile (spec+prefix)", max_new=SPEC_GEN,
+        block_size=QUANT_BLOCK, kv_quant=True, weight_quant="int8",
+        draft=serving.self_draft(params, cfg, DRAFT_LAYERS), spec_k=SPEC_K,
+        prefix_cache=True)
+    n = compare_tokens("spec+prefix, profiled", prof_toks, ref, margins,
+                       margin=QUANT_MARGIN, quiet=True)
+    print("token check (spec+prefix, profiled): %d greedy tokens compared, "
+          "all equal to the float paged engine" % n)
+    paths, sp, pre = snap["paths"], snap["spec"], snap["cache"]["prefix"]
+    main = {"card": card, "requests": N_SPEC_REQ,
+            "tokens": N_SPEC_REQ * SPEC_GEN, "wall_s": wall,
+            "tokens_per_s": N_SPEC_REQ * SPEC_GEN / wall,
+            "spec_k": sp["k"], "spec_passes": sp["passes"],
+            "acceptance_rate": sp["acceptance_rate"],
+            "accepted_per_pass": sp["accepted_per_pass"],
+            "spec_fallbacks": sp["fallbacks"],
+            "prefix_hit_tokens": pre["hit_tokens"],
+            "prefix_hits": pre["hits"], "cow_copies": pre["cow_copies"],
+            "plain_decode_steps": paths["paged_decode_steps"] - sp["passes"],
+            "prefill_chunks": paths["prefill_chunks"],
+            "int8_kernel_launches": launches,
+            "decode_step_mean_ms": snap["latency_ms"]["decode_step_mean"],
+            "tokens_compared": compared,
+            "float_pool": {
+                "tokens_per_s": N_SPEC_REQ * SPEC_GEN / f_wall,
+                "spec_passes": f_snap["spec"]["passes"],
+                "acceptance_rate": f_snap["spec"]["acceptance_rate"],
+                "kernel_launches": f_launches,
+                "decode_step_mean_ms":
+                    f_snap["latency_ms"]["decode_step_mean"],
+                "tokens_compared": f_compared}}
+    print("spec+prefix path: " + json.dumps(main))
     return launches, main
 
 
@@ -832,9 +1233,12 @@ def main():
                  torch.version.cuda))
         build_kernels(_cuda)
         errs, rows = phase_kernels(torch, np, dev, smi)
+        int8_errs, int8_rows = phase_kernels_int8(torch, np, dev, smi)
         flash_errs, flash_rows = phase_flash(torch, np, dev, smi)
         launches, main_path = phase_main_path(torch, np, dev, smi)
         train_launches, train_path = phase_train(torch, np, dev, smi)
+        int8_launches, quant_path = phase_quant(torch, np, dev, smi)
+        spec_launches, spec_path = phase_spec_prefix(torch, np, dev, smi)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -853,6 +1257,23 @@ def main():
         "bound_by": top["bound_by"],
         "library_ms": top["library_ms"],
     }]
+    top8 = next(r for r in int8_rows if r["shape"] == "decode"
+                and r["q_dtype"] == "float32")
+    kernels.append({
+        "name": "paged_attention_int8",
+        "route": "cuda",
+        "source": "mxnet_tpu_torch/ops/csrc/paged_attention.cu",
+        "replaces": "mxnet_tpu/ops/pallas_paged.py:119",
+        # the quantized path's decode steps and chunks (phase 6) plus
+        # the spec+prefix path's scoring passes and chunks (phase 7)
+        "launches": int8_launches + spec_launches,
+        "max_abs_err": int8_errs["float32"],
+        "ms": top8["ms"],
+        "plain_ms": top8["plain_ms"],
+        "bound_ms": top8["bound_ms"],
+        "bound_by": top8["bound_by"],
+        "library_ms": top8["library_ms"],
+    })
     for i, (kind, line) in enumerate((("fwd", 32), ("bwd", 138))):
         r = next(r for r in flash_rows if r["dtype"] == "float32"
                  and r["kernel"] == "flash_attention_" + kind)

@@ -1,7 +1,10 @@
-"""Operators of the port that carry a hand-written CUDA kernel.
+"""Operators of the port.
 
-`ops.paged_attention` — ragged paged attention (csrc/paged_attention.cu).
+`ops.paged_attention` — ragged paged attention over float and int8 pools
+(hand-written kernel: csrc/paged_attention.cu).
 `ops.flash_attention` — flash attention, forward and backward
-(csrc/flash_attention.cu).
+(hand-written kernels: csrc/flash_attention.cu).
+`ops.quantization` — int8 per-channel weights and the s8 x s8 -> s32
+matmul of quantized serving (no kernel of its own).
 Import the modules themselves; each entry function has its module's name.
 """

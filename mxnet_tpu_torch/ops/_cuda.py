@@ -68,8 +68,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: C entry -> (argtypes, restype). Every pointer and the stream are
 #: c_void_p: a Python int passed bare would be cut to 32 bits.
 _SIGNATURES = {
-    "mxtt_paged_attention": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, ctypes.c_float, _P], _I),
+    "mxtt_paged_attention": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _I, _I, _I, _I, _I, ctypes.c_float, _P], _I),
     "mxtt_flash_fwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         ctypes.c_float, _I, _P], _I),
     "mxtt_flash_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -1,8 +1,9 @@
 // Ragged paged attention for Hopper (sm_90a).
 //
 // Replaces mxnet_tpu/ops/pallas_paged.py::_kernel, the TPU kernel that
-// runs every paged decode step and every chunked-prefill step of the
-// serving engine (one launch per layer).
+// runs every paged decode step, every chunked-prefill step and every
+// speculative scoring pass of the serving engine (one launch per layer),
+// over a float32 / bfloat16 pool or, with `quant=True`, an int8 pool.
 //
 // What it computes: for each batch row b, head h and query row i,
 //   out[b, i, h] = softmax_t(q[b, i, h] . K[t] * scale) @ V
@@ -12,11 +13,20 @@
 // dtype; the output is written in the pool dtype as acc / max(l, 1e-20),
 // with the same -inf guards as the reference's online softmax.
 //
+// The int8 variant (the reference's quant=True branch): the pools hold
+// int8 and two (num_blocks, H) float32 tables hold one scale per (block,
+// head). Each live block is dequantized while it is staged into shared
+// memory, k = float(k_int8) * k_scale[block, h] (and likewise v), before
+// any product, in the reference's order; everything after staging is the
+// float kernel's, statistics in float32, output in q's dtype (float32 or
+// bfloat16). Only the scales of live blocks are read.
+//
 // What bounds it: device-memory bytes (mxnet_tpu_torch/ops/paged_attention.py
 // paged_call_cost). Each key and value element is used by Tq query rows
 // for 2 flops each: Tq / 2 flops per float32 byte, 0.5 at decode (Tq = 1)
 // and 16 at a 32-row prefill chunk, under the card's float32 ridge of
-// about 20 (67 TFLOP/s over 3.35 TB/s).
+// about 20 (67 TFLOP/s over 3.35 TB/s). An int8 pool moves a quarter of
+// the float32 pool's K/V bytes for the same flops.
 //
 // What the design does about it:
 //   * it reads only live blocks: a query row at position p walks table
@@ -43,6 +53,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -53,6 +66,9 @@ constexpr unsigned kFull = 0xffffffffu;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -85,17 +101,22 @@ __host__ __device__ inline size_t smem_floats(int Dh, int bs) {
          (size_t)kWarps * (Dh + 2);
 }
 
-template <typename T, int NC>  // NC = Dh / 32 output columns per lane
+// T: q and out; P: the pools (T, or int8_t with the scale tables);
+// NC = Dh / 32 output columns per lane
+template <typename T, typename P, int NC>
 __global__ void __launch_bounds__(kThreads)
     paged_attention_kernel(const T* __restrict__ q,
-                           const T* __restrict__ k_pool,
-                           const T* __restrict__ v_pool,
+                           const P* __restrict__ k_pool,
+                           const P* __restrict__ v_pool,
+                           const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale,
                            const int* __restrict__ tables,
                            const int* __restrict__ q_start,
                            T* __restrict__ out, int Tq, int H, int w, int bs,
                            float scale) {
   constexpr int Dh = NC * 32;
   constexpr int ld = Dh + 1;
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
   extern __shared__ float smem[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -130,13 +151,26 @@ __global__ void __launch_bounds__(kThreads)
   for (int c = 0; c < NC; ++c) acc[c] = 0.f;
 
   for (int j = warp; j <= last; j += kWarps) {
-    const long long base = (long long)tab[j] * bs * tok + (long long)h * Dh;
+    const int blk = tab[j];
+    const long long base = (long long)blk * bs * tok + (long long)h * Dh;
     __syncwarp();  // the previous slot's reads are done before overwriting
-    for (int e = lane; e < bs * Dh; e += 32) {
-      const int t = e / Dh;
-      const int d = e - t * Dh;
-      k_s[t * ld + d] = to_f32(k_pool[base + t * tok + d]);
-      v_s[t * ld + d] = to_f32(v_pool[base + t * tok + d]);
+    if constexpr (kQuant) {
+      // dequantize while staging: one scale per (block, head)
+      const float ks = k_scale[(long long)blk * H + h];
+      const float vs = v_scale[(long long)blk * H + h];
+      for (int e = lane; e < bs * Dh; e += 32) {
+        const int t = e / Dh;
+        const int d = e - t * Dh;
+        k_s[t * ld + d] = to_f32(k_pool[base + t * tok + d]) * ks;
+        v_s[t * ld + d] = to_f32(v_pool[base + t * tok + d]) * vs;
+      }
+    } else {
+      for (int e = lane; e < bs * Dh; e += 32) {
+        const int t = e / Dh;
+        const int d = e - t * Dh;
+        k_s[t * ld + d] = to_f32(k_pool[base + t * tok + d]);
+        v_s[t * ld + d] = to_f32(v_pool[base + t * tok + d]);
+      }
     }
     __syncwarp();
     // keys of this block, 32 at a time: lane u scores key t0 + u
@@ -195,36 +229,38 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int NC>
+template <typename T, typename P, int NC>
 cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* k_scale, const float* v_scale,
                    const int* tables, const int* q_start, void* out, int B,
                    int Tq, int H, int w, int bs, float scale,
                    cudaStream_t stream) {
   const size_t smem = smem_floats(NC * 32, bs) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T, NC>,
+        paged_attention_kernel<T, P, NC>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid(B * H, Tq);
-  paged_attention_kernel<T, NC><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, q_start, static_cast<T*>(out), Tq, H,
-      w, bs, scale);
+  paged_attention_kernel<T, P, NC><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k),
+      static_cast<const P*>(v), k_scale, v_scale, tables, q_start,
+      static_cast<T*>(out), Tq, H, w, bs, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t dispatch(int Dh, const void* q, const void* k, const void* v,
+                     const float* k_scale, const float* v_scale,
                      const int* tables, const int* q_start, void* out, int B,
                      int Tq, int H, int w, int bs, float scale,
                      cudaStream_t stream) {
   switch (Dh) {
 #define MXTT_CASE(NC)                                                        \
   case NC * 32:                                                              \
-    return launch<T, NC>(q, k, v, tables, q_start, out, B, Tq, H, w, bs,     \
-                         scale, stream);
+    return launch<T, P, NC>(q, k, v, k_scale, v_scale, tables, q_start, out, \
+                            B, Tq, H, w, bs, scale, stream);
     MXTT_CASE(1)
     MXTT_CASE(2)
     MXTT_CASE(3)
@@ -241,23 +277,38 @@ cudaError_t dispatch(int Dh, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. q and out are (B, Tq, H, Dh); the
-// pools (num_blocks, bs, H, Dh); tables (B, w) int32; q_start (B,) int32.
-// All contiguous on the current device. Returns a cudaError_t.
-extern "C" int mxtt_paged_attention(int dtype, const void* q, const void* k,
-                                    const void* v, const void* tables,
-                                    const void* q_start, void* out, int B,
-                                    int Tq, int H, int Dh, int w, int bs,
-                                    float scale, void* stream) {
+// dtype (q and out): 0 = float32, 1 = bfloat16. pool_dtype: the same code
+// as dtype, or 2 = int8, which needs k_scale and v_scale, (num_blocks, H)
+// float32. q and out are (B, Tq, H, Dh); the pools (num_blocks, bs, H,
+// Dh); tables (B, w) int32; q_start (B,) int32. All contiguous on the
+// current device. Returns a cudaError_t.
+extern "C" int mxtt_paged_attention(int dtype, int pool_dtype, const void* q,
+                                    const void* k, const void* v,
+                                    const void* k_scale, const void* v_scale,
+                                    const void* tables, const void* q_start,
+                                    void* out, int B, int Tq, int H, int Dh,
+                                    int w, int bs, float scale,
+                                    void* stream) {
   const int* tab = static_cast<const int*>(tables);
   const int* qs = static_cast<const int*>(q_start);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch<float>(Dh, q, k, v, tab, qs, out, B, Tq, H, w, bs,
-                                scale, st);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(Dh, q, k, v, tab, qs, out, B, Tq, H,
-                                        w, bs, scale, st);
+  if (pool_dtype == 2 && (ks == nullptr || vs == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0 && pool_dtype == 0)
+    return (int)dispatch<float, float>(Dh, q, k, v, ks, vs, tab, qs, out, B,
+                                       Tq, H, w, bs, scale, st);
+  if (dtype == 1 && pool_dtype == 1)
+    return (int)dispatch<__nv_bfloat16, __nv_bfloat16>(
+        Dh, q, k, v, ks, vs, tab, qs, out, B, Tq, H, w, bs, scale, st);
+  if (dtype == 0 && pool_dtype == 2)
+    return (int)dispatch<float, int8_t>(Dh, q, k, v, ks, vs, tab, qs, out, B,
+                                        Tq, H, w, bs, scale, st);
+  if (dtype == 1 && pool_dtype == 2)
+    return (int)dispatch<__nv_bfloat16, int8_t>(Dh, q, k, v, ks, vs, tab, qs,
+                                                out, B, Tq, H, w, bs, scale,
+                                                st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,6 +16,31 @@ through two implementations of the cache read:
   chunk of prompt tokens per call, appended to the pool and attended by
   the same kernel.
 
+Options of the paged path, each read when the Engine is constructed:
+
+- `kv_quant` (MXNET_QUANTIZED_KV=1): an int8 pool with per-(block, head)
+  float32 scales, written by `write_kv_quant` and read by the kernel's
+  int8 variant, which dequantizes as it stages each block.
+- `weight_quant="int8"` (MXNET_QUANTIZED_WEIGHTS=int8): per-channel int8
+  matmul weights (ops/quantization.py); embeddings, norms and the LM head
+  stay float.
+- `draft`/`spec`/`spec_k` (MXNET_SPEC_DECODE, MXNET_SPEC_K,
+  MXNET_SPEC_DRAFT_LAYERS): speculative decoding (spec.py). The target
+  scores k+1 positions per sequence in one pass (`_tf_spec_score`, the
+  kernel at Tq = k+1); greedy verification keeps the tokens identical to
+  the per-token path.
+- `prefix_cache` (MXNET_PREFIX_CACHE=1): shared prompt prefixes hit
+  resident refcounted blocks (prefix_cache.py), copy-on-write on
+  divergence.
+
+A quantized engine switches PRECISION against the float oracle, within
+the reference's logit budgets; spec and the prefix cache switch speed
+only, never tokens. An option the configuration cannot take (kv_quant or
+spec without the paged path, spec without a draft, a draft with another
+vocabulary) records its reason on `kv_quant_fallback`, `spec_fallback` or
+`prefix_cache_fallback` and serves without it; on CUDA an option whose
+shapes the kernel does not take raises at construction.
+
 PyTorch runs eagerly, so the engine has no compiled-step lattice to bound;
 it keeps the reference's power-of-two batch and width buckets all the
 same, so the kernel sees the shapes the reference's kernel saw, and
@@ -28,6 +53,7 @@ means the card; a CPU run is asked for by `device="cpu"`.
 from __future__ import annotations
 
 import math
+import os
 import time
 
 import numpy as np
@@ -38,9 +64,26 @@ from .. import telemetry
 from ..models.transformer import _layer_norm, _moe_ffn
 from ..ops.paged_attention import (paged_attention, paged_enabled,
                                    paged_limit)
+from ..ops.quantization import maybe_quant_matmul as _mm
 from ..parallel.ring_attention import attention_reference
+from . import spec as _spec
 from .kv_cache import (PagedKVCache, flat_slots, prompt_slots, write_kv,
-                       gather_kv)
+                       gather_kv, copy_block, write_kv_quant,
+                       copy_block_quant, zero_block_scales)
+from .prefix_cache import PrefixCache, prefix_cache_enabled
+
+
+def quantized_kv_enabled():
+    """MXNET_QUANTIZED_KV=1 requests the int8 KV pool, read when an
+    Engine is constructed."""
+    return os.environ.get("MXNET_QUANTIZED_KV", "") == "1"
+
+
+def quantized_weights_env():
+    """MXNET_QUANTIZED_WEIGHTS=int8 requests int8 weights, read when an
+    Engine is constructed; unset or empty means float weights."""
+    v = os.environ.get("MXNET_QUANTIZED_WEIGHTS", "").strip()
+    return v or None
 
 
 def pow2_bucket(n, lo=1, hi=None):
@@ -55,12 +98,14 @@ class Sequence:
     """One in-flight generation: prompt + generated tokens, cache blocks,
     bookkeeping the engine and scheduler share. `prefilled` counts prompt
     tokens already written to the cache (chunked prefill advances it one
-    chunk per `prefill_step`); `prefill_s` accumulates prefill wall time
-    across chunks for the metrics roll-up."""
+    chunk per `prefill_step`; a prefix-cache hit starts it past zero);
+    `prefill_s` accumulates prefill wall time across chunks for the
+    metrics roll-up."""
 
     __slots__ = ("tokens", "prompt_len", "block_ids", "table_row",
                  "max_total", "eos_id", "done", "last_logits", "request",
-                 "prefilled", "prefill_s", "token_logits")
+                 "prefilled", "prefill_s", "cache_hit_tokens",
+                 "shared_blocks", "token_logits")
 
     def __init__(self, prompt, max_total, eos_id=None):
         self.tokens = list(prompt)
@@ -74,6 +119,9 @@ class Sequence:
         self.request = None
         self.prefilled = 0
         self.prefill_s = 0.0
+        self.cache_hit_tokens = 0     # prompt tokens served by prefix hits
+        self.shared_blocks = 0        # table entries pointing at shared
+                                      # (refcounted) cache blocks
         self.token_logits = None      # keep_logits engines: one f32 (V,)
                                       # row per emitted token
 
@@ -89,18 +137,19 @@ class Sequence:
 
 def _ffn(params, pre, x, cfg):
     """Position-wise FFN on (N, D), dense or dense-dispatch MoE: both are
-    per-token maps, so padded positions cannot perturb real ones."""
+    per-token maps, so padded positions cannot perturb real ones. Dense
+    weights may be int8 (`_mm`); MoE expert stacks stay float."""
     if cfg.n_experts:
         return _moe_ffn(x[None], params[pre + "wg"], params[pre + "w1"],
                         params[pre + "w2"])[0]
-    return torch.relu(x @ params[pre + "w1"]) @ params[pre + "w2"]
+    return _mm(torch.relu(_mm(x, params[pre + "w1"])), params[pre + "w2"])
 
 
 def _qkv(params, pre, x, H, Dh):
     """LayerNorm + fused QKV projection of (N, D) -> three contiguous
     (N, H, Dh) tensors."""
     h = _layer_norm(x, params[pre + "ln1_g"], params[pre + "ln1_b"])
-    q, k, v = torch.split(h @ params[pre + "wqkv"], H * Dh, dim=-1)
+    q, k, v = torch.split(_mm(h, params[pre + "wqkv"]), H * Dh, dim=-1)
     N = x.shape[0]
     return (q.reshape(N, H, Dh).contiguous(),
             k.reshape(N, H, Dh).contiguous(),
@@ -110,7 +159,7 @@ def _qkv(params, pre, x, H, Dh):
 def _block_out(params, pre, x, att, cfg):
     """Attention output projection + residual, then the FFN sublayer."""
     N, D = x.shape
-    x = x + att.reshape(N, D) @ params[pre + "wo"]
+    x = x + _mm(att.reshape(N, D), params[pre + "wo"])
     h = _layer_norm(x, params[pre + "ln2_g"], params[pre + "ln2_b"])
     return x + _ffn(params, pre, h, cfg)
 
@@ -118,6 +167,21 @@ def _block_out(params, pre, x, att, cfg):
 def _head(params, x):
     h = _layer_norm(x, params["lnf_g"], params["lnf_b"])
     return (h @ params["head"]).float()
+
+
+def _write_attend(k_pool, v_pool, k_scale, v_scale, layer, slots, kh, vh,
+                  q, tables, q_start, block_size):
+    """Write one layer's new K/V rows into the pool (quantizing when the
+    pool is int8, `k_scale` given) and attend q (B, Tq, H, Dh) through
+    the paged kernel against it."""
+    if k_scale is None:
+        write_kv(k_pool, v_pool, layer, slots, kh, vh)
+        return paged_attention(q, k_pool[layer], v_pool[layer], tables,
+                               q_start, block_size)
+    write_kv_quant(k_pool, v_pool, k_scale, v_scale, layer, slots, kh, vh)
+    return paged_attention(q, k_pool[layer], v_pool[layer], tables,
+                           q_start, block_size, k_scale=k_scale[layer],
+                           v_scale=v_scale[layer])
 
 
 def _tf_prefill(params, k_pool, v_pool, tokens, length, table_row, cfg,
@@ -176,12 +240,14 @@ def _tf_decode(params, k_pool, v_pool, tokens, positions, tables, cfg,
 
 
 def _tf_decode_paged(params, k_pool, v_pool, tokens, positions, tables,
-                     cfg, block_size):
+                     cfg, block_size, k_scale=None, v_scale=None):
     """One decode step through the paged-attention kernel: same contract
     as `_tf_decode`, but each layer's cache read is one kernel launch
     walking the block table in place — no dense (B, T, H, Dh) gather is
     materialized. `tables` (B, w) int32 is width-bucketed by the caller to
-    the longest live sequence; `positions` (B,) int32."""
+    the longest live sequence; `positions` (B,) int32. With
+    `k_scale`/`v_scale` the pool is int8: appends quantize and the kernel
+    dequantizes."""
     B = tokens.shape[0]
     H = cfg.n_heads
     Dh = cfg.d_model // H
@@ -190,15 +256,16 @@ def _tf_decode_paged(params, k_pool, v_pool, tokens, positions, tables,
     for i in range(cfg.n_layers):
         pre = "layer%d_" % i
         q, kh, vh = _qkv(params, pre, x, H, Dh)
-        write_kv(k_pool, v_pool, i, slots, kh, vh)
-        att = paged_attention(q[:, None], k_pool[i], v_pool[i], tables,
-                              positions, block_size)[:, 0]         # (B,H,Dh)
+        att = _write_attend(k_pool, v_pool, k_scale, v_scale, i, slots, kh,
+                            vh, q[:, None], tables, positions,
+                            block_size)[:, 0]                      # (B,H,Dh)
         x = _block_out(params, pre, x, att, cfg)
     return _head(params, x)
 
 
 def _tf_prefill_chunk(params, k_pool, v_pool, toks, qs, length, last_idx,
-                      table_row, cfg, block_size):
+                      table_row, cfg, block_size, k_scale=None,
+                      v_scale=None):
     """One fixed-shape prefill chunk for ONE sequence: toks (C,) are the
     prompt tokens at positions qs..qs+C-1 (zero-padded past the true
     prompt `length`), table_row (w,) int32 is the sequence's
@@ -228,11 +295,60 @@ def _tf_prefill_chunk(params, k_pool, v_pool, toks, qs, length, last_idx,
     for i in range(cfg.n_layers):
         pre = "layer%d_" % i
         q, kh, vh = _qkv(params, pre, x, H, Dh)
-        write_kv(k_pool, v_pool, i, slots, kh, vh)
-        att = paged_attention(q[None], k_pool[i], v_pool[i], tables,
-                              qs_row, block_size)[0]               # (C,H,Dh)
+        att = _write_attend(k_pool, v_pool, k_scale, v_scale, i, slots, kh,
+                            vh, q[None], tables, qs_row,
+                            block_size)[0]                         # (C,H,Dh)
         x = _block_out(params, pre, x, att, cfg)
     return _head(params, x[last_idx])
+
+
+def _tf_spec_score(params, k_pool, v_pool, toks, q_starts, counts, tables,
+                   cfg, block_size, k_scale=None, v_scale=None):
+    """Speculative scoring pass, the batched generalization of
+    `_tf_prefill_chunk`: toks (B, C) holds each row's [last history
+    token, draft_1..draft_k] (zero-padded past the row's true `counts`)
+    at positions q_starts[b]..q_starts[b]+C-1; tables (B, w) are the live
+    width-bucketed block tables. ONE paged pass per layer (the kernel at
+    Tq = C) writes the C positions' K/V and returns logits (B, C, V)
+    float32: row j of a sequence is the target's next-token distribution
+    given its history plus the first j draft tokens.
+
+    Positions past `counts` (short proposals, padded batch rows) write to
+    the null block; positions past an eventual rejection land in real
+    table slots and are rewritten by the next pass over the sequence
+    before any mask lets a query read them."""
+    B, C = toks.shape
+    H = cfg.n_heads
+    D = cfg.d_model
+    Dh = D // H
+    w = tables.shape[1]
+    dev = toks.device
+    ar = torch.arange(C, device=dev)
+    pos = q_starts.long()[:, None] + ar[None, :]                   # (B, C)
+    valid = ar[None, :] < counts.long()[:, None]                   # (B, C)
+    x = params["embed"][toks] \
+        + params["pos_embed"][pos.clamp(max=cfg.max_len - 1)]      # (B,C,D)
+    blk = torch.gather(tables.long(), 1,
+                       (pos // block_size).clamp(max=w - 1))
+    slots = torch.where(valid, blk * block_size + pos % block_size,
+                        pos % block_size).reshape(B * C)           # null blk
+    x = x.reshape(B * C, D)
+    for i in range(cfg.n_layers):
+        pre = "layer%d_" % i
+        q, kh, vh = _qkv(params, pre, x, H, Dh)
+        att = _write_attend(k_pool, v_pool, k_scale, v_scale, i, slots, kh,
+                            vh, q.reshape(B, C, H, Dh), tables, q_starts,
+                            block_size)                            # (B,C,H,Dh)
+        x = _block_out(params, pre, x, att.reshape(B * C, H, Dh), cfg)
+    return _head(params, x).reshape(B, C, -1)
+
+
+def _to_device(value, device):
+    """A param or a quantized `{"q", "s"}` weight moved to `device` (no
+    copy when already there)."""
+    if isinstance(value, dict):
+        return {k: v.to(device) for k, v in value.items()}
+    return value.to(device)
 
 
 class TransformerLM:
@@ -253,6 +369,9 @@ class TransformerLM:
         self.vocab = cfg.vocab
         self.max_len = cfg.max_len
         self.block_size = None
+        self.weight_quant = None
+        self.params_f32 = None    # the float weights once quantized: the
+                                  # self-draft's source
 
     def cache_spec(self):
         """(n_layers, n_heads, head_dim, dtype) of the KV pool."""
@@ -260,11 +379,31 @@ class TransformerLM:
                 self.cfg.d_model // self.cfg.n_heads,
                 self.params["embed"].dtype)
 
+    def quantize_weights(self, mode="int8"):
+        """Quantize the matmul weights once at load: per-channel
+        symmetric int8 for wqkv/wo/w1/w2 (each a `{"q", "s"}` dict the
+        step functions' `_mm` consumes); embeddings, positional table,
+        layer norms and the LM head stay float, as do MoE expert stacks.
+        Idempotent; the float weights stay on `params_f32`."""
+        if str(mode) != "int8":
+            raise MXNetError("weight_quant %r is not supported (int8 "
+                             "or None)" % (mode,))
+        if self.weight_quant:
+            return
+        from ..predict import quantize_lm_params
+        self.params_f32 = self.params
+        self.params = quantize_lm_params(self.params, self.cfg.n_layers,
+                                         mode=mode)
+        self.weight_quant = "int8"
+
     def bind(self, block_size, device):
         """Fix the block size and move the params to `device` (no copy
-        when they are already there)."""
+        when they are already there). The float originals of quantized
+        weights stay where they are: only a self-draft reads them, and
+        it moves what it keeps."""
         self.block_size = block_size
-        self.params = {k: v.to(device) for k, v in self.params.items()}
+        self.params = {k: _to_device(v, device)
+                       for k, v in self.params.items()}
 
     def prefill(self, k, v, tokens, length, table_row):
         return _tf_prefill(self.params, k, v, tokens, length, table_row,
@@ -274,15 +413,23 @@ class TransformerLM:
         return _tf_decode(self.params, k, v, tokens, positions, tables,
                           self.cfg, self.block_size)
 
-    def decode_paged(self, k, v, tokens, positions, tables):
+    def decode_paged(self, k, v, tokens, positions, tables, k_scale=None,
+                     v_scale=None):
         return _tf_decode_paged(self.params, k, v, tokens, positions,
-                                tables, self.cfg, self.block_size)
+                                tables, self.cfg, self.block_size,
+                                k_scale, v_scale)
 
     def prefill_chunk(self, k, v, tokens, q_start, length, last_idx,
-                      table_row):
+                      table_row, k_scale=None, v_scale=None):
         return _tf_prefill_chunk(self.params, k, v, tokens, q_start,
                                  length, last_idx, table_row, self.cfg,
-                                 self.block_size)
+                                 self.block_size, k_scale, v_scale)
+
+    def spec_score(self, k, v, tokens, q_starts, counts, tables,
+                   k_scale=None, v_scale=None):
+        return _tf_spec_score(self.params, k, v, tokens, q_starts, counts,
+                              tables, self.cfg, self.block_size, k_scale,
+                              v_scale)
 
 
 # ---------------------------------------------------------------------------
@@ -295,14 +442,20 @@ class Engine:
     Thread-compatible, not thread-safe: all compute entry points (`start`,
     `prefill_step`, `decode_step`) must be called from one serving thread.
 
-    `paged` (None: MXNET_PAGED_ATTENTION) picks the kernel path. On CUDA
-    a paged engine whose shapes the kernel does not take raises here, at
-    construction, naming the limit; it never switches to the gather path
-    behind the caller's back."""
+    `paged` (None: MXNET_PAGED_ATTENTION) picks the kernel path;
+    `kv_quant`, `weight_quant`, `draft`/`spec`/`spec_k` and
+    `prefix_cache` are the options of the module docstring, each None
+    for its environment default. On CUDA a paged engine whose shapes the
+    kernel does not take (decode, the prefill chunk, the k+1 scoring
+    width, over the float or int8 pool) raises here, at construction,
+    naming the limit; it never switches to another path behind the
+    caller's back."""
 
     def __init__(self, model, max_batch=8, max_len=None, block_size=16,
                  num_blocks=None, keep_logits=False, paged=None,
-                 prefill_chunk=None, device=None):
+                 prefill_chunk=None, device=None, prefix_cache=None,
+                 draft=None, spec=None, spec_k=None, kv_quant=None,
+                 weight_quant=None):
         self.device = resolve_device(device)
         self.model = model
         self.max_batch = max_batch
@@ -318,21 +471,91 @@ class Engine:
         if self.paged:
             self.prefill_chunk = min(self.max_len,
                                      int(prefill_chunk or 2 * block_size))
-            if self.device.type == "cuda":
-                for tq in (1, self.prefill_chunk):
-                    limit = paged_limit(dh, block_size, tq, dt)
-                    if limit is not None:
-                        raise MXNetError(
-                            "paged=True on %s: the paged-attention kernel "
-                            "does not take this config: %s"
-                            % (self.device, limit))
+
+        # quantized serving: precision against the float oracle
+        kvq_req = (quantized_kv_enabled() if kv_quant is None
+                   else bool(kv_quant))
+        wq_req = (quantized_weights_env() if weight_quant is None
+                  else (weight_quant or None))
+        self.kv_quant_requested = kvq_req
+        self.kv_quant = False
+        self.kv_quant_fallback = None
+        self.weight_quant = None
+        if wq_req is not None:
+            model.quantize_weights(str(wq_req))
+            self.weight_quant = str(wq_req)
+        if kvq_req:
+            if self.paged:
+                self.kv_quant = True
+            else:
+                self.kv_quant_fallback = (
+                    "int8 KV needs the paged path (MXNET_PAGED_ATTENTION=1 "
+                    "/ Engine(paged=True)); the gather oracle reads the "
+                    "float pool")
+
+        # speculative decoding: speed, never tokens
+        self.spec_requested = (bool(spec) if spec is not None
+                               else (_spec.spec_decode_enabled()
+                                     or draft is not None))
+        self.spec_k = int(spec_k) if spec_k is not None else _spec.spec_k()
+        if self.spec_k < 1:
+            raise MXNetError("spec_k must be >= 1, got %d" % self.spec_k)
+        self.spec = False
+        self.spec_fallback = None
+        self.draft = None
+        self.last_spec = None            # the latest pass's accounting
+        self.spec_passes = 0
+        self.spec_proposed_tokens = 0
+        self.spec_accepted_tokens = 0
+        self.spec_fallbacks = 0
+        d = None
+        if self.spec_requested:
+            d = _spec.build_draft(draft, model)
+            self.spec_fallback = _spec.spec_fallback_reason(model, d,
+                                                            self.paged)
+            self.spec = self.spec_fallback is None
+
+        if self.paged and self.device.type == "cuda":
+            pool_dt = torch.int8 if self.kv_quant else dt
+            widths = [("paged=True", 1), ("paged=True", self.prefill_chunk)]
+            if self.spec:
+                widths.append(("spec_k=%d" % self.spec_k, self.spec_k + 1))
+            for what, tq in widths:
+                limit = paged_limit(dh, block_size, tq, dt, pool_dt)
+                if limit is not None:
+                    raise MXNetError(
+                        "%s%s on %s: the paged-attention kernel does not "
+                        "take this config: %s"
+                        % (what, " kv_quant=True" if self.kv_quant else "",
+                           self.device, limit))
         model.bind(block_size, self.device)
+        if self.spec:
+            self.draft = d.to(self.device)
         self.cache = PagedKVCache(nl, nh, dh, block_size=block_size,
                                   num_blocks=num_blocks, dtype=dt,
-                                  device=self.device)
+                                  device=self.device,
+                                  kv_dtype="int8" if self.kv_quant else None)
+
+        # prefix cache: which blocks a table points at, never logits
+        self.prefix_cache = None
+        self.prefix_cache_fallback = None
+        want_prefix = (prefix_cache_enabled() if prefix_cache is None
+                       else bool(prefix_cache))
+        if want_prefix:
+            if self.paged:
+                self.prefix_cache = PrefixCache(self.cache.pool, block_size)
+            else:
+                self.prefix_cache_fallback = (
+                    "prefix reuse needs the chunked-prefill paged path "
+                    "(MXNET_PAGED_ATTENTION=1 / Engine(paged=True)); the "
+                    "gather oracle prefills whole prompts")
 
     def _tensor(self, arr):
         return torch.as_tensor(arr, device=self.device)
+
+    def _scales(self):
+        """(k_scale, v_scale) of an int8 pool, (None, None) otherwise."""
+        return self.cache.k_scale, self.cache.v_scale
 
     # -- admission accounting ------------------------------------------------
 
@@ -341,16 +564,31 @@ class Engine:
         return self.cache.blocks_for(total)
 
     def can_admit(self, prompt_len, max_new):
-        """Would this request's block reservation fit right now? Raises
-        MXNetError for a prompt that can never be served."""
+        """Would this request's block reservation fit right now? Cached
+        blocks no reader holds count as available: `try_alloc` reclaims
+        them on demand. Raises MXNetError for a prompt that can never be
+        served."""
         if prompt_len > self.max_len:
             raise MXNetError("prompt length %d exceeds max_len %d"
                              % (prompt_len, self.max_len))
-        return self.blocks_needed(prompt_len, max_new) \
-            <= self.cache.pool.available
+        avail = self.cache.pool.available
+        if self.prefix_cache is not None:
+            avail += self.prefix_cache.reclaimable_blocks()
+        return self.blocks_needed(prompt_len, max_new) <= avail
 
     def cache_utilization(self):
         return self.cache.utilization()
+
+    def kv_bytes_per_token(self):
+        """Bytes of KV-cache one token occupies (K and V, every layer):
+        the int8 payload plus the float32 scales amortized over a block's
+        tokens on a quantized pool."""
+        nl, nh, dh, dt = self.model.cache_spec()
+        if self.cache.quantized:
+            scale_bytes = math.ceil(2 * nl * nh * 4
+                                    / float(self.cache.block_size))
+            return 2 * nl * nh * dh + scale_bytes
+        return 2 * nl * nh * dh * torch.empty((), dtype=dt).element_size()
 
     # -- prefill -------------------------------------------------------------
 
@@ -364,12 +602,67 @@ class Engine:
         seq = Sequence(prompt, min(self.max_len, L + max_new), eos_id)
         if self.keep_logits:
             seq.token_logits = []
-        ids = self.cache.pool.try_alloc(self.blocks_needed(L, max_new))
+        n = self.blocks_needed(L, max_new)
+        if self.prefix_cache is None:
+            ids = self.cache.pool.try_alloc(n)
+            if ids is not None and self.kv_quant:
+                self._zero_scales(ids)
+        else:
+            ids = self._begin_cached(seq, prompt, n)
         if ids is None:
             return None
         seq.block_ids = ids
         seq.table_row = self.cache.table_row(ids, self._nblk)
         return seq
+
+    def _zero_scales(self, ids):
+        """Reset the int8 pool's scales of freshly allocated (possibly
+        reclaimed) blocks: the per-block scale is a monotonic max, so a
+        previous occupant's scale would make the new tokens' step too
+        coarse."""
+        if ids:
+            zero_block_scales(self.cache.k_scale, self.cache.v_scale,
+                              self._tensor(np.asarray(ids, np.int64)))
+
+    def _begin_cached(self, seq, prompt, n):
+        """Prefix-cache admission: point the leading table entries at
+        resident shared blocks (refs taken by the lookup), allocate the
+        rest fresh, and COW-copy a partially matched tail block — this
+        request WILL write into it, and a reader must never mutate a
+        shared block. Skipped prefix tokens start `seq.prefilled` past
+        zero, so whole prefill chunks never run. Returns the table's id
+        list, or None on transient exhaustion (all refs dropped)."""
+        pool = self.cache.pool
+        with telemetry.span("prefix.lookup", category="serving",
+                            prompt_len=len(prompt)):
+            full, tail = self.prefix_cache.lookup(prompt)
+        fresh = pool.try_alloc(n - len(full))
+        if fresh is None:
+            held = full + ([tail[0]] if tail else [])
+            if held:
+                pool.free(held)
+            return None
+        if self.kv_quant:
+            # fresh blocks first: a COW copy below then installs the
+            # shared block's scales over fresh[0]
+            self._zero_scales(fresh)
+        hit = len(full) * self.cache.block_size
+        if tail is not None:
+            src, m = tail
+            if self.kv_quant:
+                copy_block_quant(self.cache.k, self.cache.v,
+                                 self.cache.k_scale, self.cache.v_scale,
+                                 src, fresh[0])
+            else:
+                copy_block(self.cache.k, self.cache.v, src, fresh[0])
+            pool.free([src])          # the private copy replaces the
+                                      # shared block in the table
+            self.prefix_cache.cow_copies += 1
+            hit += m
+        seq.prefilled = hit
+        seq.cache_hit_tokens = hit
+        seq.shared_blocks = len(full)
+        return full + fresh
 
     def prefill_tokens_per_step(self, prompt_len):
         """Tokens one `prefill_step` call will process — the scheduler's
@@ -401,10 +694,16 @@ class Engine:
                 logits = self.model.prefill_chunk(
                     self.cache.k, self.cache.v, self._tensor(toks), qs, L,
                     min(L - 1 - qs, C - 1),
-                    self._tensor(seq.table_row[:w]))
+                    self._tensor(seq.table_row[:w]), *self._scales())
                 seq.prefilled = min(L, qs + C)
                 if seq.prefilled < L:
                     return False
+                if self.prefix_cache is not None:
+                    # the full prompt blocks are immutable from here on:
+                    # register them now so a same-prefix burst hits while
+                    # this request still decodes; the partial tail stays
+                    # private until release
+                    self.prefix_cache.insert(prompt, seq.block_ids, L)
             else:
                 s_pad = pow2_bucket(L, lo=min(8, self.max_len),
                                     hi=self.max_len)
@@ -437,13 +736,16 @@ class Engine:
     # -- decode --------------------------------------------------------------
 
     def decode_tokens_per_step(self):
-        """Tokens one decode iteration scores per running sequence."""
-        return 1
+        """Tokens one decode iteration SCORES per running sequence — the
+        scheduler's budget cost: k+1 for a speculating engine, else 1."""
+        return self.spec_k + 1 if self.spec else 1
 
     def decode_step(self, seqs):
-        """Advance every sequence in `seqs` by one token (one batched
-        step over the power-of-two padded batch). Returns the sequences
-        it advanced."""
+        """Advance every sequence in `seqs` (one batched step over the
+        power-of-two padded batch). A plain engine emits one token per
+        sequence; a speculating one 1..k+1, token-identical to the plain
+        path. A draft fault (non-finite draft logits) degrades THIS batch
+        to the plain step. Returns the sequences it advanced."""
         seqs = [s for s in seqs if not s.done]
         if not seqs:
             return []
@@ -451,6 +753,10 @@ class Engine:
             raise MXNetError("decode batch %d exceeds max_batch %d"
                              % (len(seqs), self.max_batch))
         bb = pow2_bucket(len(seqs), lo=1, hi=self.max_batch)
+        if self.spec:
+            out = self._spec_decode_step(seqs, bb)
+            if out is not None:
+                return out
         t0_us = time.perf_counter_ns() // 1000
         with telemetry.span("serving.decode", category="serving",
                             batch=len(seqs)):
@@ -468,11 +774,13 @@ class Engine:
                 toks[i] = s.tokens[-1]
                 pos[i] = len(s.tokens) - 1
                 tabs[i] = s.table_row[:w]
-            step = self.model.decode_paged if self.paged \
-                else self.model.decode
             self._sigs.add(("decode", (bb, w) if self.paged else bb))
-            logits = step(self.cache.k, self.cache.v, self._tensor(toks),
-                          self._tensor(pos), self._tensor(tabs))
+            args = (self.cache.k, self.cache.v, self._tensor(toks),
+                    self._tensor(pos), self._tensor(tabs))
+            if self.paged:
+                logits = self.model.decode_paged(*args, *self._scales())
+            else:
+                logits = self.model.decode(*args)
             nxt = logits.argmax(-1).cpu().numpy()
             logits = logits.cpu().numpy() if self.keep_logits else None
         dur_us = time.perf_counter_ns() // 1000 - t0_us
@@ -489,6 +797,104 @@ class Engine:
                                       position=len(s.tokens) - 1)
         return seqs
 
+    def _draft_propose(self, seqs, bb, k):
+        """k greedy steps of the cache-free draft over the (bucketed)
+        batch of token histories. Returns (draft (B, k) int64, per-sequence
+        proposal counts), or None when the draft emitted non-finite
+        logits. Sequences within one token of max_total get a shorter
+        (possibly empty) proposal: the bonus token takes the last slot."""
+        d = self.draft
+        B = len(seqs)
+        hist = [list(s.tokens) for s in seqs]
+        nbs = [max(0, min(k, s.max_total - len(s.tokens) - 1))
+               for s in seqs]
+        out = np.zeros((B, k), np.int64)
+        for j in range(max(nbs)):
+            s_pad = pow2_bucket(max(len(h) for h in hist),
+                                lo=min(8, d.max_len), hi=d.max_len)
+            toks = np.zeros((bb, s_pad), np.int64)
+            lens = np.ones((bb,), np.int64)
+            for i, h in enumerate(hist):
+                toks[i, :len(h)] = h
+                lens[i] = len(h)
+            self._sigs.add(("draft", (bb, s_pad)))
+            logits = d.logits_at(self._tensor(toks), self._tensor(lens))[:B]
+            if not bool(torch.isfinite(logits).all()):
+                return None
+            nxt = logits.argmax(-1).cpu().numpy()
+            for i in range(B):
+                if j < nbs[i]:
+                    out[i, j] = nxt[i]
+                    hist[i].append(int(nxt[i]))
+        return out, nbs
+
+    def _spec_decode_step(self, seqs, bb):
+        """One speculative iteration: the draft proposes, the target
+        scores all k+1 positions in ONE paged pass against the live block
+        tables, greedy verification accepts a prefix (plus the target's
+        own token at the first disagreement, plus a bonus on a full
+        sweep). Emitted tokens are exactly the plain greedy path's.
+        Returns the advanced seqs, or None to degrade this batch to the
+        plain step (draft fault)."""
+        k = self.spec_k
+        C = k + 1
+        t0_us = time.perf_counter_ns() // 1000
+        with telemetry.span("serving.spec", category="serving",
+                            batch=len(seqs), k=k):
+            drafted = self._draft_propose(seqs, bb, k)
+            if drafted is None:
+                self.spec_fallbacks += 1
+                self.last_spec = {"fallback": True, "batch": len(seqs)}
+                return None
+            draft, nbs = drafted
+            B = len(seqs)
+            w = pow2_bucket(
+                max(self.cache.blocks_for(len(s.tokens) + k)
+                    for s in seqs), lo=1, hi=self._nblk)
+            toks = np.zeros((bb, C), np.int64)
+            qs = np.zeros((bb,), np.int32)
+            counts = np.zeros((bb,), np.int32)
+            tabs = np.zeros((bb, w), np.int32)
+            for i, s in enumerate(seqs):
+                toks[i, 0] = s.tokens[-1]
+                toks[i, 1:1 + nbs[i]] = draft[i, :nbs[i]]
+                qs[i] = len(s.tokens) - 1
+                counts[i] = 1 + nbs[i]
+                tabs[i] = s.table_row[:w]
+            self._sigs.add(("spec", (bb, w)))
+            logits = self.model.spec_score(
+                self.cache.k, self.cache.v, self._tensor(toks),
+                self._tensor(qs), self._tensor(counts), self._tensor(tabs),
+                *self._scales())                                 # (bb,C,V)
+            am = logits.argmax(-1).cpu().numpy()
+            logits = logits.cpu().numpy() if self.keep_logits else None
+            accepted = proposed = emitted_n = 0
+            dur_us = time.perf_counter_ns() // 1000 - t0_us
+            for i, s in enumerate(seqs):
+                emitted, acc = _spec.greedy_verify(am[i], draft[i], nbs[i])
+                accepted += acc
+                proposed += nbs[i]
+                for j, tok in enumerate(emitted):
+                    if s.done:
+                        break
+                    if logits is not None:
+                        s.last_logits = logits[i, j]
+                        s.token_logits.append(logits[i, j])
+                    self._append(s, int(tok))
+                    emitted_n += 1
+                    if s.request is not None:
+                        telemetry.record_span(
+                            "serving.decode", t0_us, dur_us,
+                            trace=s.request.trace, category="serving",
+                            position=len(s.tokens) - 1)
+        self.spec_passes += 1
+        self.spec_proposed_tokens += proposed
+        self.spec_accepted_tokens += accepted
+        self.last_spec = {"fallback": False, "batch": B,
+                          "proposed": proposed, "accepted": accepted,
+                          "emitted": emitted_n}
+        return seqs
+
     def _append(self, seq, token):
         seq.tokens.append(token)
         if (seq.eos_id is not None and token == seq.eos_id) \
@@ -497,16 +903,32 @@ class Engine:
 
     # -- end of life ---------------------------------------------------------
 
-    def release(self, seq):
-        """Recycle a finished sequence's cache blocks."""
+    def release(self, seq, reusable=True):
+        """Recycle a finished sequence's cache blocks. With the prefix
+        cache on, everything whose KV is now immutable (full blocks over
+        prompt and generated tokens, plus the final partial tail) is
+        registered for reuse first; `reusable=False` skips that, and so
+        does a release in mid-prefill."""
         if seq.block_ids:
+            if reusable and self.prefix_cache is not None and \
+                    seq.prefilled >= seq.prompt_len:
+                # the final token was appended but its KV never written:
+                # only tokens[:-1] are content-addressable
+                self.prefix_cache.insert(seq.tokens, seq.block_ids,
+                                         len(seq.tokens) - 1,
+                                         partial_ok=True)
             self.cache.pool.free(seq.block_ids)
             seq.block_ids = []
 
     def audit_quiescent(self):
-        """Leak audit: with no sequence in flight no pool block may be
-        allocated. Raises MXNetError listing the leaked ids."""
-        self.cache.pool.assert_quiescent()
+        """Leak audit: with no sequence in flight every allocated block
+        must be a prefix-cache resident pinned by the cache's own ref
+        only. Raises MXNetError listing the leaked ids."""
+        resident = []
+        if self.prefix_cache is not None:
+            resident = [e.block_id
+                        for e in self.prefix_cache._by_hash.values()]
+        self.cache.pool.assert_quiescent(resident)
 
     def close(self, audit=True):
         """End-of-life seam: with `audit=True` run the leak audit."""

@@ -12,8 +12,14 @@ padded batch rows and padded table entries, so the step functions need no
 branches for inactive slots. Reads from it are masked by sequence length.
 
 Unlike the reference, whose pools are immutable jax arrays threaded
-through each step, the port writes the pools IN PLACE (`write_kv`): one
-preallocated tensor per plane lives for the engine's life.
+through each step, the port writes the pools IN PLACE (`write_kv`,
+`write_kv_quant`, `copy_block`): one preallocated tensor per plane lives
+for the engine's life.
+
+With `kv_dtype="int8"` the pools hold int8 and grow float32 scale
+sidecars `k_scale`/`v_scale` of shape (n_layers, num_blocks, n_heads):
+one symmetric scale per (layer, block, head), which the paged kernel
+reads beside each block it stages.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError, resolve_device
+from ..ops.quantization import div_int8_range
 
 
 class CacheOverflow(MXNetError):
@@ -43,7 +50,9 @@ class BlockPool:
     per id — a block only returns to the free list at refcount zero. A
     `free` call is validated ATOMICALLY before any mutation: duplicate
     ids within one call and ids that are not live both raise with the
-    pool untouched."""
+    pool untouched. When the free list runs short, `try_alloc` first asks
+    the `reclaimer` hook (the prefix cache) to evict cached blocks no
+    reader holds."""
 
     def __init__(self, num_blocks):
         if num_blocks < 2:
@@ -54,6 +63,7 @@ class BlockPool:
         self._live = set()
         self._refs = {}               # live block id -> refcount >= 1
         self.high_water = 0
+        self.reclaimer = None         # callable(shortfall) -> blocks freed
 
     @property
     def available(self):
@@ -70,11 +80,14 @@ class BlockPool:
     def try_alloc(self, n):
         """Reserve n blocks (each at refcount 1); None when the pool
         can't satisfy it right now (backpressure), CacheOverflow when it
-        never could."""
+        never could. A shortfall first asks the reclaimer to release
+        cached blocks no reader holds."""
         if n > self.num_blocks - 1:
             raise CacheOverflow(
                 "requested %d blocks but the pool only has %d total"
                 % (n, self.num_blocks - 1))
+        if n > len(self._free) and self.reclaimer is not None:
+            self.reclaimer(n - len(self._free))
         if n > len(self._free):
             return None
         ids = [self._free.pop() for _ in range(n)]
@@ -84,15 +97,24 @@ class BlockPool:
         self.high_water = max(self.high_water, len(self._live))
         return ids
 
-    def assert_quiescent(self):
-        """Leak audit: with no sequence in flight no block may be live.
-        Raises MXNetError listing the leaked block ids."""
-        leaked = sorted(self._live)
-        if leaked:
+    def assert_quiescent(self, cache_resident=()):
+        """Leak audit: with no sequence in flight every live block must be
+        a prefix-cache resident (`cache_resident`) pinned by exactly the
+        cache's own ref. Raises MXNetError listing the leaked block ids,
+        and any resident id that is not live."""
+        resident = set(cache_resident)
+        leaked = sorted(b for b in self._live
+                        if b not in resident or self._refs[b] != 1)
+        phantom = sorted(b for b in resident if b not in self._live)
+        if leaked or phantom:
             raise MXNetError(
-                "BlockPool not quiescent: %d leaked block id(s) %r — a "
-                "sequence was released without freeing them"
-                % (len(leaked), leaked[:32]))
+                "BlockPool not quiescent: %d leaked block id(s) %r "
+                "(in_use=%d, cache-resident=%d%s) — a sequence was "
+                "released without freeing them, or a shared block holds a "
+                "ref no reader owns"
+                % (len(leaked), leaked[:32], len(self._live), len(resident),
+                   (", cache entries pointing at dead blocks %r"
+                    % phantom[:8]) if phantom else ""))
 
     def add_ref(self, ids):
         """Pin each live block for one more reader; raises on a block
@@ -134,12 +156,16 @@ class PagedKVCache:
 
     ``k``/``v`` are (n_layers, num_blocks, block_size, n_heads, head_dim)
     tensors of `dtype` (float32 or bfloat16) on `device`, zero-filled at
-    construction and updated in place by `write_kv`. `device=None` puts
-    them on the card (raising without one); the CPU is asked for by
-    `device="cpu"`."""
+    construction and updated in place by `write_kv`. With
+    ``kv_dtype="int8"`` they are int8, updated by `write_kv_quant`, and
+    ``k_scale``/``v_scale`` (n_layers, num_blocks, n_heads) float32 hold
+    the per-(block, head) scales; otherwise the scales are None.
+    `device=None` puts them on the card (raising without one); the CPU is
+    asked for by `device="cpu"`."""
 
     def __init__(self, n_layers, n_heads, head_dim, block_size=16,
-                 num_blocks=64, dtype=torch.float32, device=None):
+                 num_blocks=64, dtype=torch.float32, device=None,
+                 kv_dtype=None):
         device = resolve_device(device)
         self.n_layers = n_layers
         self.n_heads = n_heads
@@ -147,9 +173,25 @@ class PagedKVCache:
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.pool = BlockPool(num_blocks)
+        if kv_dtype is not None and str(kv_dtype) != "int8":
+            raise MXNetError("kv_dtype %r is not supported (int8 or None)"
+                             % (kv_dtype,))
+        self.kv_dtype = "int8" if kv_dtype is not None else None
         shape = (n_layers, num_blocks, block_size, n_heads, head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=device)
-        self.v = torch.zeros(shape, dtype=dtype, device=device)
+        pool_dtype = torch.int8 if self.kv_dtype else dtype
+        self.k = torch.zeros(shape, dtype=pool_dtype, device=device)
+        self.v = torch.zeros(shape, dtype=pool_dtype, device=device)
+        self.k_scale = self.v_scale = None
+        if self.kv_dtype:
+            sshape = (n_layers, num_blocks, n_heads)
+            self.k_scale = torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)
+            self.v_scale = torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)
+
+    @property
+    def quantized(self):
+        return self.kv_dtype is not None
 
     def blocks_for(self, n_tokens):
         """Blocks needed to hold n_tokens KV entries — by construction
@@ -202,6 +244,81 @@ def write_kv(k_pool, v_pool, layer, slots, k_new, v_new):
     blk, off = slots // bs, slots % bs
     k_pool[layer, blk, off] = k_new.to(k_pool.dtype)
     v_pool[layer, blk, off] = v_new.to(v_pool.dtype)
+
+
+def copy_block(k_pool, v_pool, src, dst):
+    """Copy one block's K/V across every layer, IN PLACE — the prefix
+    cache's copy-on-write: a request about to write into a shared block
+    gets a private copy first, so a shared block is never mutated by a
+    reader."""
+    k_pool[:, dst] = k_pool[:, src]
+    v_pool[:, dst] = v_pool[:, src]
+
+
+def write_kv_quant(k_pool, v_pool, k_scale, v_scale, layer, slots, k_new,
+                   v_new):
+    """Quantizing scatter into an int8 pool, IN PLACE: write N new K/V rows
+    into one layer's flat slots and requantize each touched block,
+    symmetric per (block, head). slots (N,) integer; k_new/v_new
+    (N, n_heads, head_dim) float; scales (n_layers, num_blocks, n_heads)
+    float32.
+
+    Per touched block the scale is MONOTONIC — s_new = max(s_old,
+    amax(new rows) / 127) — so rows written earlier under a smaller scale
+    are dequantized with s_old and requantized with s_new (an unchanged
+    scale requantizes exactly to the same bytes). The whole block is
+    rewritten. Writes aimed at the null block land there, as in the float
+    path; nothing reads it.
+
+    The reference gathers the distinct touched blocks with
+    `jnp.unique(size=...)`. `torch.unique` on a CUDA tensor waits for the
+    device (its output size depends on the data), so here each of the N
+    rows stages its own block and maps to the FIRST row that touches the
+    same block (`ci`): the new rows are written into that row's copy, and
+    every row writes back the requantized copy of its first row, so rows
+    that share a block write identical bytes. Same arithmetic, fixed
+    shapes, no host round trip."""
+    bs = k_pool.shape[2]
+    slots = slots.long()
+    tb, off = slots // bs, slots % bs                         # (N,)
+    ci = (tb[:, None] == tb[None, :]).int().argmax(dim=1)     # first match
+
+    def upd(pool, scale, new):
+        new = new.float()
+        a = new.abs().amax(dim=-1)                            # (N, H)
+        plane = scale[layer]                                  # (NB, H) view
+        s_old = plane[tb]                                     # (N, H)
+        plane.scatter_reduce_(0, tb[:, None].expand_as(a),
+                              div_int8_range(a), reduce="amax")
+        s_new = plane[tb]
+        s_safe = torch.where(s_new > 0, s_new, torch.ones_like(s_new))
+        blk = pool[layer][tb].float() * s_old[:, None, :, None]
+        blk[ci, off] = new                                    # (N,bs,H,Dh)
+        q = torch.clamp(torch.round(blk[ci] / s_safe[:, None, :, None]),
+                        -127, 127)
+        pool[layer, tb] = q.to(torch.int8)
+
+    upd(k_pool, k_scale, k_new)
+    upd(v_pool, v_scale, v_new)
+
+
+def copy_block_quant(k_pool, v_pool, k_scale, v_scale, src, dst):
+    """`copy_block` for an int8 pool: the scales move with the data, so a
+    private copy is bit-identical to the shared original."""
+    copy_block(k_pool, v_pool, src, dst)
+    k_scale[:, dst] = k_scale[:, src]
+    v_scale[:, dst] = v_scale[:, src]
+
+
+def zero_block_scales(k_scale, v_scale, ids):
+    """Reset the scales of freshly ALLOCATED blocks, IN PLACE (ids: a
+    list or integer tensor). A reused block otherwise inherits its
+    previous occupant's scale, and the monotonic max of `write_kv_quant`
+    would quantize the new tokens at that stale, possibly much larger,
+    scale. Shared prefix-cache blocks keep their scales: their data is
+    reused."""
+    k_scale[:, ids] = 0.0
+    v_scale[:, ids] = 0.0
 
 
 def gather_kv(k_pool, v_pool, layer, block_table, block_size):

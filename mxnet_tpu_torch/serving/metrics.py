@@ -1,8 +1,12 @@
 """Serving metrics (port of `mxnet_tpu/serving/metrics.py`, reduced to
 what `LMServer.snapshot()` reports): request outcomes, time to first
-token, decode-step time, tokens per second and engine failures, plus the
+token, decode-step time, tokens per second and engine failures, the
 path counters (paged/gather decode steps, prefill chunks) that show which
-implementation served the traffic.
+implementation served the traffic, and the options' counters under the
+reference's names: speculative passes, proposed and accepted tokens and
+fallbacks (`snapshot()["spec"]`), the prefix cache's lookups, hits, hit
+tokens, COW copies, evictions and residents (`["cache"]["prefix"]`), and
+the quantization gauges (`["quant"]`).
 
 The counters live on a private `telemetry.MetricsRegistry` per server;
 latencies are fixed-bucket histograms, so p50/p95/p99 need no per-sample
@@ -18,6 +22,11 @@ from .. import telemetry
 
 def _ms(v):
     return None if v is None else 1e3 * v
+
+
+#: tokens emitted per sequence per speculative pass: 1 (only the
+#: target's own token) up to k+1
+_SPEC_BUCKETS = (1.0, 1.5, 2.0, 2.5, 3.0, 4.0, 5.0, 6.0, 8.0, 12.0, 16.0)
 
 
 class ServingMetrics:
@@ -52,6 +61,23 @@ class ServingMetrics:
                          help="time from submit to the first token")
         self._h_step = h("serving_decode_step_seconds",
                          help="wall time of one batched decode step")
+        self._spec_passes = c("serving_spec_passes_total",
+                              help="speculative scoring passes (one "
+                                   "draft+score+verify round per decode "
+                                   "iteration)")
+        self._spec_proposed = c("serving_spec_proposed_tokens_total",
+                                help="draft tokens proposed to the target")
+        self._spec_accepted = c("serving_spec_accepted_tokens_total",
+                                help="draft tokens the target accepted "
+                                     "(excludes the per-pass bonus or "
+                                     "correction token)")
+        self._spec_fallbacks = c("serving_spec_fallback_total",
+                                 help="speculative passes degraded to the "
+                                      "plain decode step (draft fault)")
+        self._h_spec_accepted = h("serving_spec_accepted_per_pass",
+                                  buckets=_SPEC_BUCKETS,
+                                  help="tokens emitted per sequence per "
+                                       "speculative pass (accepted + 1)")
 
     @property
     def engine_failures(self):
@@ -89,12 +115,27 @@ class ServingMetrics:
         req.t_first_token = time.perf_counter()
         self._h_ttft.observe(req.t_first_token - req.t_submit)
 
-    def decode_step(self, active, step_s, paged):
-        """One decode iteration emitted one token for each of `active`
-        sequences in `step_s` seconds."""
+    def decode_step(self, active, step_s, paged, tokens=None):
+        """One decode iteration advanced `active` sequences in `step_s`
+        seconds and emitted `tokens` (default: one per sequence; a
+        speculative step emits a burst)."""
         (self._steps_paged if paged else self._steps_gather).inc()
         self._h_step.observe(step_s)
-        self._tokens.inc(active)
+        self._tokens.inc(active if tokens is None else tokens)
+
+    def spec_pass(self, batch=0, proposed=0, accepted=0, emitted=0,
+                  fallback=False):
+        """One speculative round (the engine's `last_spec`): a completed
+        draft+score+verify pass over `batch` sequences, or a degraded one
+        (`fallback=True`: the batch ran the plain step)."""
+        if fallback:
+            self._spec_fallbacks.inc()
+            return
+        self._spec_passes.inc()
+        self._spec_proposed.inc(proposed)
+        self._spec_accepted.inc(accepted)
+        if batch:
+            self._h_spec_accepted.observe(emitted / float(batch))
 
     def request_finished(self, req):
         (self._completed if req.error is None else self._failed).inc()
@@ -146,7 +187,13 @@ class ServingMetrics:
                 "max_len": engine.max_len,
                 "paged_attention": bool(engine.paged),
                 "prefill_chunk": engine.prefill_chunk,
+                "prefix_cache": engine.prefix_cache is not None,
+                "spec_decode": bool(engine.spec),
             }
+            for name in ("kv_quant_fallback", "spec_fallback",
+                         "prefix_cache_fallback"):
+                if getattr(engine, name):
+                    snap["engine"][name] = getattr(engine, name)
             snap["cache"] = {
                 "block_utilization": engine.cache_utilization(),
                 "blocks_in_use": pool.in_use,
@@ -154,6 +201,44 @@ class ServingMetrics:
                 "blocks_high_water": pool.high_water,
                 "blocks_total": engine.cache.num_blocks - 1,
             }
+            if engine.spec or engine.spec_passes:
+                h = self._h_spec_accepted
+                snap["spec"] = {
+                    "k": engine.spec_k,
+                    "passes": engine.spec_passes,
+                    "proposed_tokens": engine.spec_proposed_tokens,
+                    "accepted_tokens": engine.spec_accepted_tokens,
+                    "fallbacks": engine.spec_fallbacks,
+                    "acceptance_rate": (
+                        engine.spec_accepted_tokens
+                        / engine.spec_proposed_tokens
+                        if engine.spec_proposed_tokens else None),
+                    "accepted_per_pass": h.sum / h.count if h.count
+                    else None,
+                }
+            pc = engine.prefix_cache
+            if pc is not None:
+                snap["cache"]["prefix"] = {
+                    "lookups": pc.lookups,
+                    "hits": pc.hits,
+                    "misses": pc.misses,
+                    "hit_rate": pc.hit_rate,
+                    "hit_tokens": pc.hit_tokens_total,
+                    "evictions": pc.evictions,
+                    "cow_copies": pc.cow_copies,
+                    "inserts": pc.inserts,
+                    "resident_tokens": pc.resident_tokens,
+                    "resident_blocks": len(pc),
+                }
+            if engine.kv_quant or engine.weight_quant:
+                # the reference's quantization gauges, named as there
+                snap["quant"] = {
+                    "serving_kv_quant_enabled": int(engine.kv_quant),
+                    "serving_weight_quant_enabled":
+                        int(bool(engine.weight_quant)),
+                    "serving_kv_quant_bytes_per_token":
+                        engine.kv_bytes_per_token(),
+                }
         if scheduler is not None:
             snap["scheduler"] = {
                 "token_budget": scheduler.token_budget,

@@ -12,10 +12,11 @@ holds `max_queue` requests, and a queued request older than
 stale. Admission is head-of-line: if the oldest request's block
 reservation doesn't fit the pool, nothing behind it jumps ahead.
 
-Token budget: on the paged path one loop iteration processes one decode
-token per running sequence plus one fixed-shape prefill chunk per
-sequence still prefilling. `token_budget` caps that sum at admission
-time, bounding per-iteration latency.
+Token budget: on the paged path one loop iteration scores
+`engine.decode_tokens_per_step()` tokens per running sequence (1, or k+1
+on a speculating engine) plus one fixed-shape prefill chunk per sequence
+still prefilling. `token_budget` caps that sum at admission time,
+bounding per-iteration latency.
 Admission always makes progress: the budget never blocks the only
 candidate when nothing is running or prefilling.
 
@@ -129,9 +130,10 @@ class Scheduler:
             bool(self.pending())
 
     def spent_tokens(self, engine):
-        """Tokens the NEXT loop iteration is already committed to: one
-        decode token per running sequence plus one prefill chunk per
-        sequence still prefilling."""
+        """Tokens the NEXT loop iteration is already committed to: the
+        scored decode tokens of every running sequence (k+1 each when
+        speculating) plus one prefill chunk per sequence still
+        prefilling."""
         return engine.decode_tokens_per_step() * len(self.running) + sum(
             engine.prefill_tokens_per_step(s.prompt_len)
             for s in self.prefilling)

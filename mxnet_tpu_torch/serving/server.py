@@ -155,12 +155,16 @@ class LMServer(_HTTPFrontend):
     def __init__(self, model, max_batch=8, max_len=None, block_size=16,
                  num_blocks=None, max_queue=64, queue_timeout=None,
                  keep_logits=False, idle_wait=0.005, paged=None,
-                 prefill_chunk=None, token_budget=None, device=None):
+                 prefill_chunk=None, token_budget=None, device=None,
+                 prefix_cache=None, draft=None, spec=None, spec_k=None,
+                 kv_quant=None, weight_quant=None):
         self.engine = Engine(_resolve_model(model), max_batch=max_batch,
                              max_len=max_len, block_size=block_size,
                              num_blocks=num_blocks, keep_logits=keep_logits,
                              paged=paged, prefill_chunk=prefill_chunk,
-                             device=device)
+                             device=device, prefix_cache=prefix_cache,
+                             draft=draft, spec=spec, spec_k=spec_k,
+                             kv_quant=kv_quant, weight_quant=weight_quant)
         self.scheduler = Scheduler(max_batch=max_batch, max_queue=max_queue,
                                    queue_timeout=queue_timeout,
                                    token_budget=token_budget)
@@ -306,6 +310,9 @@ class LMServer(_HTTPFrontend):
                 self._admit_dense(admitted)
             if sched.running:
                 t0 = time.perf_counter()
+                # a speculative step emits a burst per sequence: count
+                # the tokens as post-length minus pre-length
+                pre = {id(s): len(s.tokens) for s in sched.running}
                 try:
                     advanced = eng.decode_step(sched.running)
                 except Exception as e:  # engine fault: fail the batch,
@@ -315,7 +322,12 @@ class LMServer(_HTTPFrontend):
                     continue
                 if advanced:
                     met.decode_step(len(advanced), time.perf_counter() - t0,
-                                    paged=eng.paged)
+                                    paged=eng.paged,
+                                    tokens=sum(len(s.tokens) - pre[id(s)]
+                                               for s in advanced))
+                    if eng.last_spec is not None:
+                        met.spec_pass(**eng.last_spec)
+                        eng.last_spec = None
                 for seq in sched.evict(eng):
                     if seq.request is not None:
                         met.request_finished(seq.request)
@@ -423,6 +435,7 @@ class LMServer(_HTTPFrontend):
 
 def serve(model, **kwargs):
     """Build and start an `LMServer` over `model` (a (params, cfg) pair or
-    a TransformerLM). Keyword args pass through to LMServer; `device`
-    defaults to the card."""
+    a TransformerLM). Keyword args pass through to LMServer and its
+    Engine (paged, kv_quant, weight_quant, draft, spec, spec_k,
+    prefix_cache, ...); `device` defaults to the card."""
     return LMServer(model, **kwargs)

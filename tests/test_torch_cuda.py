@@ -231,3 +231,191 @@ def test_flash_gate_raises_on_cuda(dev):
         fa.flash_attention(qs, kl, vl, causal=True)
     with pytest.raises(MXNetError, match="on cpu"):
         fa.flash_attention(q, k.cpu(), v, causal=True)
+
+
+# ---------------------------------------------------------------------------
+# the paged kernel's int8 variant, int8 weights and quantized serving
+# ---------------------------------------------------------------------------
+
+
+def _int8_case(dev, B, Tq, H, Dh, bs, w, q_start, dtype, seed=0):
+    """Float pools quantized per (block, head), as the reference's
+    tests/test_serving_quant.py:87 does; q in `dtype`."""
+    q, k, v, tab, qs = _case(dev, B, Tq, H, Dh, bs, w, q_start,
+                             torch.float32, seed)
+
+    def quant(pool):
+        s = pool.abs().amax(dim=(1, 3)).clamp(min=1e-12) / 127.0
+        qp = torch.clamp(torch.round(pool / s[:, None, :, None]), -127, 127)
+        return qp.to(torch.int8).contiguous(), s.contiguous()
+
+    kq, ks = quant(k)
+    vq, vs = quant(v)
+    return q.to(dtype), kq, vq, ks, vs, tab, qs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("bs", [16, 32])
+@pytest.mark.parametrize("tq", [1, 4, 64])
+def test_int8_kernel_matches_plain(dev, dtype, Dh, bs, tq):
+    """q float32 or bfloat16 over an int8 pool: ragged rows (position 0,
+    mid-block, last slot, past the table); the tolerances of the float
+    kernel, since both dequantize to the same float32 values."""
+    H, B, w = 3, 4, 4
+    q_start = [0, bs + bs // 2, w * bs - tq, w * bs + 7]
+    q, kq, vq, ks, vs, tab, qs = _int8_case(dev, B, tq, H, Dh, bs, w,
+                                            q_start, dtype)
+    out = pa.paged_attention(q, kq, vq, tab, qs, bs, k_scale=ks, v_scale=vs)
+    ref = pa.paged_attention_plain(q, kq, vq, tab, qs, bs, k_scale=ks,
+                                   v_scale=vs)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=_TOL[dtype],
+                               rtol=_TOL[dtype])
+
+
+def test_int8_kernel_counts_launches_apart(dev):
+    q, kq, vq, ks, vs, tab, qs = _int8_case(dev, 2, 1, 2, 64, 8, 2, [3, 9],
+                                            torch.float32)
+    n = (pa.paged_attention.launches, pa.paged_attention.launches_int8)
+    pa.paged_attention(q, kq, vq, tab, qs, 8, k_scale=ks, v_scale=vs)
+    pa.paged_attention_plain(q, kq, vq, tab, qs, 8, k_scale=ks, v_scale=vs)
+    assert (pa.paged_attention.launches,
+            pa.paged_attention.launches_int8) == (n[0], n[1] + 1)
+
+
+def test_int8_gate_raises_on_cuda(dev):
+    q, kq, vq, ks, vs, tab, qs = _int8_case(dev, 2, 1, 2, 48, 8, 2, [3, 9],
+                                            torch.float32)
+    with pytest.raises(MXNetError, match="head_dim 48"):
+        pa.paged_attention(q, kq, vq, tab, qs, 8, k_scale=ks, v_scale=vs)
+    q, kq, vq, ks, vs, tab, qs = _int8_case(dev, 2, 1, 2, 64, 8, 2, [3, 9],
+                                            torch.float32)
+    with pytest.raises(MXNetError, match="needs k_scale"):
+        pa.paged_attention(q, kq, vq, tab, qs, 8)
+    with pytest.raises(MXNetError, match="is on cpu"):
+        pa.paged_attention(q, kq, vq, tab, qs, 8, k_scale=ks.cpu(),
+                           v_scale=vs)
+    with pytest.raises(MXNetError, match="dtype"):
+        pa.paged_attention(q.half(), kq, vq, tab, qs, 8, k_scale=ks,
+                           v_scale=vs)
+
+
+def test_engine_kv_quant_unsupported_shape_raises(dev):
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.models import (TransformerConfig,
+                                        init_transformer_params)
+    cfg = TransformerConfig(vocab=32, d_model=96, n_heads=2, n_layers=1,
+                            d_ff=64, max_len=32)        # head_dim 48
+    params = init_transformer_params(cfg, torch.Generator().manual_seed(0),
+                                     device=dev)
+    with pytest.raises(MXNetError, match="kv_quant=True.*head_dim 48"):
+        serving.Engine(serving.TransformerLM(params, cfg), paged=True,
+                       kv_quant=True, block_size=8, device=dev)
+
+
+def test_int8_matmul_on_card_equals_cpu(dev):
+    """torch._int_mm with padded rows is exact: the card's
+    dynamic_quant_matmul equals the CPU's int32 product bit for bit, at
+    decode (1..8 rows), spec (32) and chunk (64) row counts."""
+    from mxnet_tpu_torch.ops import quantization as quant
+    rng = np.random.RandomState(0)
+    w = torch.from_numpy(rng.randn(256, 384).astype(np.float32))
+    wq, ws = quant.quantize_channelwise(w, axis=1)
+    for n in (1, 3, 8, 32, 64):
+        x = torch.from_numpy(rng.randn(n, 256).astype(np.float32))
+        want = quant.dynamic_quant_matmul(x, wq, ws)
+        got = quant.dynamic_quant_matmul(x.to(dev), wq.to(dev), ws.to(dev))
+        assert torch.equal(got.cpu(), want), n
+    with pytest.raises(MXNetError, match="multiples of 8"):
+        quant.dynamic_quant_matmul(torch.zeros(2, 12, device=dev),
+                                   torch.zeros(12, 8, dtype=torch.int8,
+                                               device=dev),
+                                   torch.ones(8, device=dev))
+
+
+def test_write_kv_quant_on_card_equals_cpu(dev):
+    """The quantizing scatter gives the CPU's bytes and scales on the
+    card: a prefill chunk, then decode appends that raise one block's
+    scale (requantizing its earlier rows), one row aimed at the null
+    block."""
+    from mxnet_tpu_torch.serving.kv_cache import write_kv_quant
+    rng = np.random.RandomState(1)
+    L, NB, bs, H, Dh = 2, 6, 8, 2, 64
+    pools = {}
+    for where in ("cpu", dev):
+        pools[where] = [torch.zeros((L, NB, bs, H, Dh), dtype=torch.int8,
+                                    device=where) for _ in range(2)] + \
+            [torch.zeros((L, NB, H), device=where) for _ in range(2)]
+    writes = [(np.arange(8, 21), 1.0), (np.array([21, 22]), 4.0),
+              (np.array([23, 3]), 0.5)]
+    for slots, mag in writes:
+        kn = (mag * rng.randn(len(slots), H, Dh)).astype(np.float32)
+        vn = (mag * rng.randn(len(slots), H, Dh)).astype(np.float32)
+        for where, (kp, vp, ks, vs) in pools.items():
+            write_kv_quant(kp, vp, ks, vs, 1,
+                           torch.as_tensor(slots, device=where),
+                           torch.as_tensor(kn, device=where),
+                           torch.as_tensor(vn, device=where))
+    for a, b in zip(pools["cpu"], pools[dev]):
+        assert torch.equal(a, b.cpu())
+
+
+def test_engine_quant_and_spec_on_card(dev):
+    """The quantized engine on the card (int8 KV, the kernel's int8
+    variant, int8 weights) keeps the float engine's tokens within the
+    reference's 0.05 logit budget; speculation and the prefix cache over
+    it keep the quantized engine's tokens."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.models import (TransformerConfig,
+                                        init_transformer_params)
+    cfg = TransformerConfig(vocab=64, d_model=128, n_heads=2, n_layers=2,
+                            d_ff=128, max_len=96)
+    params = init_transformer_params(cfg, torch.Generator().manual_seed(0),
+                                     device=dev)
+    prompt = [(7 + 3 * t) % 64 for t in range(37)]
+
+    def run(**kw):
+        eng = serving.Engine(serving.TransformerLM(dict(params), cfg),
+                             max_batch=2, block_size=16, keep_logits=True,
+                             paged=True, device=dev, **kw)
+        outs = []
+        for p in (prompt, prompt[:30] + [1, 2]):
+            seq = eng.start(list(p), max_new=12)
+            while not seq.done:
+                eng.decode_step([seq])
+            outs.append((list(seq.tokens), np.stack(seq.token_logits)))
+            eng.release(seq)
+        return eng, outs
+
+    def agree(got, ref, margin=0.1):
+        """Tokens of `got` equal `ref`'s up to ref's first near-tie (top-2
+        logit margin under `margin`, twice the 0.05 budget); returns how
+        many were compared."""
+        n = 0
+        for (tg, _), (tr, lr) in zip(got, ref):
+            start = len(tr) - len(lr)
+            for j, row in enumerate(lr):
+                top2 = np.sort(row)[-2:]
+                if top2[1] - top2[0] < margin:
+                    break
+                assert tg[start + j] == tr[start + j], j
+                n += 1
+        return n
+
+    n8 = pa.paged_attention.launches_int8
+    _, f32 = run()
+    eng, q8 = run(kv_quant=True, weight_quant="int8")
+    assert pa.paged_attention.launches_int8 > n8
+    agree(q8, f32)
+    for (tf, lf), (tq, lq) in zip(f32, q8):
+        if tq == tf:                  # logits comparable row for row
+            assert float(np.abs(lq - lf).max()) < 0.05
+    eng, sp = run(kv_quant=True, weight_quant="int8", spec_k=3,
+                  draft=serving.self_draft(params, cfg, 1),
+                  prefix_cache=True)
+    assert eng.spec_passes > 0 and eng.prefix_cache.cow_copies >= 1
+    # rejected drafts' rows may raise a block's monotonic scale: tokens
+    # agree with the quantized engine's up to its first near-tie
+    agree(sp, q8)

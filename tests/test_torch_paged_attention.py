@@ -61,6 +61,65 @@ def test_paged_attention_matches_jax(dtype, width, tq):
                                np.asarray(want, np.float32), **_TOL[dtype])
 
 
+def _quantize_pool(pool):
+    """Per-(block, head) symmetric int8 of an (NB, bs, H, Dh) float pool,
+    as tests/test_serving_quant.py:87 quantizes it."""
+    a = np.max(np.abs(pool), axis=(1, 3))
+    s = (np.maximum(a, 1e-12) / 127.0).astype(np.float32)      # (NB, H)
+    q = np.clip(np.rint(pool / s[:, None, :, None]), -127, 127)
+    return q.astype(np.int8), s
+
+
+#: int8 pool: the same function after dequantization, so the float
+#: tolerances above hold (the plain version dequantizes in float32 in the
+#: reference's order, k * scale before the product)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("width", [2, 4])
+@pytest.mark.parametrize("tq", [1, 4])
+def test_paged_attention_int8_matches_jax(dtype, width, tq):
+    q, k, v, tables, q_start = _inputs(width, tq)
+    kq, ks = _quantize_pool(k)
+    vq, vs = _quantize_pool(v)
+    tdt, jdt = _DT[dtype]
+    want = ref.paged_attention(
+        jnp.asarray(q).astype(jdt), jnp.asarray(kq), jnp.asarray(vq),
+        jnp.asarray(tables), jnp.asarray(q_start), 4, interpret=True,
+        k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+    n0 = (pa.paged_attention.launches, pa.paged_attention.launches_int8)
+    got = pa.paged_attention(
+        torch.from_numpy(q).to(tdt), torch.from_numpy(kq),
+        torch.from_numpy(vq), torch.from_numpy(tables),
+        torch.from_numpy(q_start), 4, k_scale=torch.from_numpy(ks),
+        v_scale=torch.from_numpy(vs))
+    assert (pa.paged_attention.launches,
+            pa.paged_attention.launches_int8) == n0   # CPU: no launch
+    assert got.dtype == tdt and got.shape == q.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **_TOL[dtype])
+
+
+def test_int8_wrapper_validates_scales():
+    q, k, v, tables, q_start = _torch(*_inputs(2, 1), torch.float32)
+    kq, ks = (torch.from_numpy(a) for a in _quantize_pool(k.numpy()))
+    vq, vs = (torch.from_numpy(a) for a in _quantize_pool(v.numpy()))
+    with pytest.raises(MXNetError, match="needs k_scale"):
+        pa.paged_attention(q, kq, vq, tables, q_start, 4)
+    with pytest.raises(MXNetError, match="not int8"):
+        pa.paged_attention(q, k, v, tables, q_start, 4, k_scale=ks,
+                           v_scale=vs)
+    with pytest.raises(MXNetError, match="both"):
+        pa.paged_attention(q, kq, vq, tables, q_start, 4, k_scale=ks)
+    with pytest.raises(MXNetError, match="num_blocks, H"):
+        pa.paged_attention(q, kq, vq, tables, q_start, 4, k_scale=ks[:3],
+                           v_scale=vs)
+    with pytest.raises(MXNetError, match="float32"):
+        pa.paged_attention(q, kq, vq, tables, q_start, 4,
+                           k_scale=ks.double(), v_scale=vs)
+    with pytest.raises(MXNetError, match="contiguous"):
+        pa.paged_attention(q, kq, vq, tables, q_start, 4,
+                           k_scale=ks.t().contiguous().t(), v_scale=vs)
+
+
 @pytest.mark.parametrize("args,kw", [
     ((8, 1, 4, 128, 16, 16), {}),
     ((1, 32, 4, 128, 4, 16), dict(kv_itemsize=2, q_itemsize=2)),
@@ -86,6 +145,19 @@ def test_paged_supported_gate(head_dim, bs, tq, dtype, ok):
     assert pa.paged_supported(head_dim, bs, tq, dtype) is ok
     limit = pa.paged_limit(head_dim, bs, tq, dtype)
     assert (limit is None) is ok
+    # an int8 pool stages the same float32 rows: the same limits
+    assert pa.paged_supported(head_dim, bs, tq, dtype, torch.int8) is ok
+
+
+@pytest.mark.parametrize("dtype,pool,ok", [
+    (torch.float32, torch.float32, True),
+    (torch.bfloat16, torch.int8, True),
+    (torch.float32, torch.bfloat16, False),   # a float pool in q's dtype
+    (torch.float32, torch.float16, False),
+])
+def test_paged_limit_pool_dtype(dtype, pool, ok):
+    limit = pa.paged_limit(128, 32, 4, dtype, pool)
+    assert (limit is None) is ok, limit
 
 
 def test_wrapper_validates_inputs():
