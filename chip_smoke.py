@@ -62,7 +62,28 @@ Phases (any failure exits non-zero before the last line):
                 copies >= 7, and its kernel variant's launches = n_layers
                 x (plain decode steps + prefill chunks + spec passes).
                 Then profiles 8 speculative steps over the int8 pool.
-  8. the kernels line, nvidia-smi's line, and the last line
+  8. fused BatchNorm kernels — K3a-d (stats, apply, backward reduce,
+                backward dx) against their plain versions, float32 and
+                bfloat16, at each of the 13 BatchNorm shapes and epilogue
+                variants of a batch-256 ResNet-50 v1 step, the variant
+                the network does not use, and two ragged shapes (C=3 with
+                an odd S; S=1) in all four variants; then each kernel
+                timed beside its plain version, its bound and the library
+                yardsticks (torch.var_mean; cuDNN batch norm forward and
+                backward for the kernel pairs) at the step's shapes in
+                bfloat16, summed over the step's 53 calls.
+  9. ResNet-50 training path — the framework core (NDArray, autograd,
+                Gluon, TrainStep) trains the model zoo's resnet50_v1 at
+                bench.py's non-smoke bench_resnet50 config (1000 classes,
+                batch 256, 224x224 NCHW, Xavier weights, RandomState(0)
+                inputs, SGD lr 0.05 momentum 0.9 wd 1e-4) with
+                MXNET_FUSED_BN_EPILOGUE=1: the first step's loss and
+                gradients in float32 against the flag off, beside the
+                flag-off step's own floor; one warm-up and 10 timed
+                bfloat16 steps (finite, falling loss, K3a-d launched 53
+                times a step each); the same steps with the flag off for
+                comparison (no launch); a profiled step.
+  10. the kernels line, nvidia-smi's line, and the last line
      {"ok": true, "device": {...}}.
 
 Parity settings: TF32 is off for matmuls and cuDNN, so float32 products
@@ -121,7 +142,7 @@ FLASH_TOL = {"float32": (2e-5, 1e-4), "bfloat16": (2e-2, 2e-2)}
 #: it to O(0.1). The reference against itself in another summation order
 #: (two half batches) is printed beside it, as the noise floor.
 TRAIN_LOSS_RTOL, TRAIN_GRAD_TOL = 1e-5, 1e-2
-SOURCES = ("paged_attention.cu", "flash_attention.cu")
+SOURCES = ("paged_attention.cu", "flash_attention.cu", "fused_bn.cu")
 #: quantized serving (phases 6 and 7): bench.py's bench_serving_quant
 #: block size (int8 blocks of 32 tokens, bench.py:2563), the greedy-token
 #: near-tie margin (twice the reference's 0.05 logit budget for int8 KV +
@@ -138,6 +159,54 @@ PROBE_BOUND = 2 * REF_QUANT_LOGIT_ERR
 #: shared length moved off the block boundary: 272 = 8.5 x 32)
 SHARED_LEN, SUFFIX_LEN, SPEC_GEN, N_SPEC_REQ = 272, 32, 64, 8
 SPEC_K, DRAFT_LAYERS = 3, 2
+#: phases 8-9: ResNet-50 v1 training at bench.py's non-smoke
+#: bench_resnet50 config (batch 256, 224x224 NCHW, 1000 classes, SGD lr
+#: 0.05 momentum 0.9 wd 1e-4, inputs uniform(-1, 1) and labels from
+#: RandomState(0)), timed in bfloat16 mixed precision as the bench runs it
+R50_BATCH, R50_IMAGE, R50_CLASSES, R50_STEPS = 256, 224, 1000, 10
+R50_OPT = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4}
+#: the 53 BatchNorms of one ResNet-50 v1 step at batch 256: (C, H, W, relu,
+#: residual, count). The stem's BN (its relu is a layer of its own); in
+#: each stage the mid-body BN+ReLU pairs, the tail BN+residual+ReLU and
+#: the downsample BN (bottleneck stride on the first 1x1 conv)
+R50_BNS = [(64, 112, 112, False, False, 1),
+           (64, 56, 56, True, False, 6), (256, 56, 56, True, True, 3),
+           (256, 56, 56, False, False, 1),
+           (128, 28, 28, True, False, 8), (512, 28, 28, True, True, 4),
+           (512, 28, 28, False, False, 1),
+           (256, 14, 14, True, False, 12), (1024, 14, 14, True, True, 6),
+           (1024, 14, 14, False, False, 1),
+           (512, 7, 7, True, False, 6), (2048, 7, 7, True, True, 3),
+           (2048, 7, 7, False, False, 1)]
+#: K3a-d kernel-vs-plain checks beyond the main path's: the variant the
+#: network does not use (no relu, with residual), and two ragged shapes
+#: (C=3 with an odd S, and S=1) in all four variants: (N, C, H, W, relu,
+#: residual)
+BN_EXTRA = [(256, 256, 56, 56, False, True)] + [
+    (n, c, h, w, relu, res) for (n, c, h, w) in ((7, 3, 5, 7),
+                                                 (256, 2048, 1, 1))
+    for relu in (False, True) for res in (False, True)]
+#: K3 kernel vs plain (tests/test_pallas.py:92-98, :185-186): outputs
+#: atol = rtol, float32 1e-5 (float32 arithmetic in another order, one
+#: FMA where the plain version rounds twice) and bfloat16 3e-2 (one
+#: rounding to 8 mantissa bits of float32 values that may differ in the
+#: last bit); the statistics 1e-5 in both (float32 accumulation of the
+#: same values); the channel sums of K3c rtol 1e-4 with atol 1e-4 x
+#: sqrt(N S), the size of a sum of N S unit terms
+BN_TOL = {"float32": 1e-5, "bfloat16": 3e-2}
+BN_STATS_TOL, BN_SUM_RTOL = 1e-5, 1e-4
+#: first-step check (float32, TF32 off): the loss to this relative error;
+#: each gradient's relative Frobenius error to max(2 x floor, 1e-4). At
+#: Xavier init ResNet-50's gradients move by ~2% (relative Frobenius)
+#: under a rounding-level change of the step: a ReLU whose input sits
+#: within an ulp of 0 flips its mask, and the BatchNorm backward's
+#: near-cancelling channel sums carry the change along. The floor is the
+#: worst of two such changes of the flag-off step: a second run of it
+#: (cuDNN's run-to-run differences) and a run with the input moved by one
+#: ulp. A conv bias that feeds a BatchNorm has a gradient of exactly 0 in
+#: exact arithmetic (held to an absolute bound instead, relative to the
+#: step's largest gradient element).
+R50_LOSS_RTOL, R50_GRAD_MIN_TOL, R50_ZERO_GRAD = 1e-5, 1e-4, 1e-3
 
 
 class SmokeFailure(Exception):
@@ -1064,35 +1133,6 @@ def phase_flash(torch, np, dev, card):
     return errs, rows
 
 
-def profile_train_step(torch, run, params, toks):
-    """Where one training step's time goes: device time by kernel from
-    torch.profiler over one step, beside its host wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        params, loss = run(params, toks)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    check(bool(torch.isfinite(loss)), "profiled step: loss not finite")
-    dev_us = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            dev_us[e.key] = e.self_device_time_total
-    total = sum(dev_us.values())
-    if total <= 0:
-        print("train profile: not measured (no device time recorded)")
-        return
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
-    print("train profile: " + json.dumps({
-        "steps": 1, "host_ms_profiled": 1e3 * wall,
-        "device_busy_ms": total / 1e3,
-        "device_busy_share": total / 1e6 / wall,
-        "kernels_us": dict(top)}))
-
-
 def phase_train(torch, np, dev, card):
     """The training main path: make_transformer_train_step at the full
     width, flash on; oracle against the flag-off step, then the timed
@@ -1183,7 +1223,7 @@ def phase_train(torch, np, dev, card):
         print("train repeat: the warm-up step's loss %.7f, the oracle's "
               "flag-on loss %.7f" % (losses[0], float(loss1)))
         try:
-            profile_train_step(torch, run, params, toks)
+            profile_step(torch, "train", lambda: run(params, toks)[1])
         except SmokeFailure:
             raise
         except Exception as e:
@@ -1207,6 +1247,438 @@ def phase_train(torch, np, dev, card):
             "flash_bwd_launches": launches[1]}
     print("train path: " + json.dumps(main))
     return launches, main
+
+
+def bn_inputs(torch, dev, N, C, S, dtype, seed):
+    """x (with per-channel offsets), dy, a residual, gamma and beta for
+    one fused BatchNorm call on an [N, C, S] view, drawn on the device
+    from a seeded generator."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = (2 * randn(N, C, S) + randn(1, C, 1)).to(dtype)
+    dy, res = randn(N, C, S).to(dtype), randn(N, C, S).to(dtype)
+    gamma = torch.rand(C, generator=g, device=dev) + 0.5
+    return x, dy, res, gamma, randn(C)
+
+
+def bn_chain(torch, fb, x, dy, res, gamma, beta, relu, eps=1e-5):
+    """The four kernels as the fused BatchNorm runs them, with the
+    per-channel coefficients computed between them as the autograd
+    Function computes them. Returns every kernel's inputs and outputs."""
+    N, C, S = x.shape
+    mean, var = fb.bn_stats(x)
+    inv = torch.rsqrt(var + eps)
+    scale = gamma * inv
+    offset = beta - mean * scale
+    y = fb.bn_apply(x, scale, offset, res, relu)
+    dz, sdz, sdx = fb.bn_bwd_reduce(dy, y, x, mean, inv, relu)
+    c1, c2, c3 = fb.bn_coefficients(gamma, mean, var, sdz, sdx, None, None,
+                                    eps, N * S)
+    dx = fb.bn_bwd_dx(dz, x, c1, c2, c3)
+    return dict(mean=mean, var=var, inv=inv, scale=scale, offset=offset,
+                y=y, dz=dz, sdz=sdz, sdx=sdx, c=(c1, c2, c3), dx=dx)
+
+
+def bn_check(torch, fb, x, dy, res, gamma, beta, relu, dname, errs, label):
+    """Hold each kernel against its plain version on the same inputs (the
+    kernel chain's own intermediates); record the largest errors."""
+    N, C, S = x.shape
+    k = bn_chain(torch, fb, x, dy, res, gamma, beta, relu)
+    pm, pv = fb.bn_stats_plain(x)
+    py = fb.bn_apply_plain(x, k["scale"], k["offset"], res, relu)
+    pdz, psdz, psdx = fb.bn_bwd_reduce_plain(dy, k["y"], x, k["mean"],
+                                             k["inv"], relu)
+    pdx = fb.bn_bwd_dx_plain(k["dz"], x, *k["c"])
+    torch.cuda.synchronize()
+    tol = BN_TOL[dname]
+    sum_atol = BN_SUM_RTOL * (N * S) ** 0.5
+    for kern, what, a, b, atol, rtol in (
+            ("stats", "mean", k["mean"], pm, BN_STATS_TOL, BN_STATS_TOL),
+            ("stats", "var", k["var"], pv, BN_STATS_TOL, BN_STATS_TOL),
+            ("apply", "y", k["y"], py, tol, tol),
+            ("bwd_reduce", "dz", k["dz"], pdz, 0.0, 0.0),
+            ("bwd_reduce", "sum dz", k["sdz"], psdz, sum_atol, BN_SUM_RTOL),
+            ("bwd_reduce", "sum dz xhat", k["sdx"], psdx, sum_atol,
+             BN_SUM_RTOL),
+            ("bwd_dx", "dx", k["dx"], pdx, tol, tol)):
+        check(bool(torch.isfinite(a).all()),
+              "fused_bn %s %s not finite (%s %s)" % (kern, what, dname, label))
+        err = float((a.float() - b.float()).abs().max())
+        errs[kern, dname] = max(errs.get((kern, dname), 0.0), err)
+        try:
+            torch.testing.assert_close(a.float(), b.float(), atol=atol,
+                                       rtol=rtol)
+        except AssertionError as e:
+            raise SmokeFailure("fused_bn %s %s: kernel != plain (%s %s): %s"
+                               % (kern, what, dname, label, e))
+
+
+def bn_bound(fb, kind, N, C, S, itemsize, relu, res):
+    """Least time (ms) of one call: the reference's declared bytes over
+    the memory rate against its flops over the float32 peak (the kernels
+    compute in float32 whatever the activation type)."""
+    flops, nbytes = fb.fused_bn_call_cost(kind, N, C, S, itemsize, relu=relu,
+                                          residual=res)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_OPS_S["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def bn_time(torch, fb, dev, C, H, W, relu, res, dtype, flush, n=10):
+    """Times (ms) at one of the main path's BatchNorm shapes: each kernel,
+    its plain version, and the library yardsticks the port never calls:
+    torch.var_mean for K3a, and cuDNN's batch norm (+ add + relu) forward
+    against K3a + K3b, its autograd backward against K3c + K3d."""
+    F = torch.nn.functional
+    N, S = R50_BATCH, H * W
+    x, dy, r, gamma, beta = bn_inputs(torch, dev, N, C, S, dtype, seed=C + S)
+    r = r if res else None
+    k = bn_chain(torch, fb, x, dy, r, gamma, beta, relu)
+    c = k["c"]
+    t = {
+        "stats": (time_ms(torch, lambda: fb.bn_stats(x), n, flush),
+                  time_ms(torch, lambda: fb.bn_stats_plain(x), n, flush),
+                  time_ms(torch, lambda: torch.var_mean(
+                      x, dim=(0, 2), correction=0), n, flush)),
+        "apply": (time_ms(torch, lambda: fb.bn_apply(
+            x, k["scale"], k["offset"], r, relu), n, flush),
+                  time_ms(torch, lambda: fb.bn_apply_plain(
+                      x, k["scale"], k["offset"], r, relu), n, flush), None),
+        "bwd_reduce": (time_ms(torch, lambda: fb.bn_bwd_reduce(
+            dy, k["y"], x, k["mean"], k["inv"], relu), n, flush),
+                       time_ms(torch, lambda: fb.bn_bwd_reduce_plain(
+                           dy, k["y"], x, k["mean"], k["inv"], relu), n,
+                           flush), None),
+        "bwd_dx": (time_ms(torch, lambda: fb.bn_bwd_dx(
+            k["dz"], x, *c), n, flush),
+                   time_ms(torch, lambda: fb.bn_bwd_dx_plain(
+                       k["dz"], x, *c), n, flush), None)}
+    x4 = x.view(N, C, H, W).detach().requires_grad_(True)
+    w4 = gamma.to(dtype).requires_grad_(True)
+    b4 = beta.to(dtype).requires_grad_(True)
+    r4 = None if r is None else r.view(N, C, H, W)
+
+    def bn_fwd():
+        out = F.batch_norm(x4, None, None, w4, b4, training=True, eps=1e-5)
+        if r4 is not None:
+            out = out + r4
+        return F.relu(out) if relu else out
+
+    pair_fwd = time_ms(torch, bn_fwd, n, flush)
+    out = bn_fwd()
+    dy4 = dy.view(N, C, H, W)
+    pair_bwd = time_ms(torch, lambda: torch.autograd.grad(
+        out, (x4, w4, b4), dy4, retain_graph=True), n, flush)
+    return t, pair_fwd, pair_bwd
+
+
+def phase_kernels_bn(torch, np, dev, card):
+    """K3a-d against their plain versions at every BatchNorm shape of a
+    batch-256 ResNet-50 step and the extra cases, in float32 and
+    bfloat16; then times at the main path's shapes in bfloat16 (the timed
+    run's type), summed over one step's 53 BatchNorms, and the stem's
+    shape in float32."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    errs, ncases = {}, 0
+    cases = [(R50_BATCH, C, H, W, relu, res)
+             for C, H, W, relu, res, _ in R50_BNS] + BN_EXTRA
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        for N, C, H, W, relu, res in cases:
+            x, dy, r, gamma, beta = bn_inputs(torch, dev, N, C, H * W,
+                                              dtype, seed=ncases)
+            bn_check(torch, fb, x, dy, r if res else None, gamma, beta, relu,
+                     dname, errs, "N=%d C=%d H=%d W=%d relu=%s residual=%s"
+                     % (N, C, H, W, relu, res))
+            del x, dy, r
+            ncases += 1
+    for dname in ("float32", "bfloat16"):
+        print("fused_bn kernel check %s: %d cases, max |kernel - plain| %s; "
+              "tol (atol = rtol) stats %g, y and dx %g, dz exact, channel "
+              "sums rtol %g atol %g x sqrt(N S)"
+              % (dname, len(cases), ", ".join(
+                  "%s %.3g" % (kern, errs[kern, dname]) for kern in
+                  ("stats", "apply", "bwd_reduce", "bwd_dx")),
+                 BN_STATS_TOL, BN_TOL[dname], BN_SUM_RTOL, BN_SUM_RTOL))
+
+    # timings, the L2 flushed between calls: the step finds each
+    # activation cold, as it was written a whole layer earlier
+    scratch = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    kinds = ("stats", "apply", "bwd_reduce", "bwd_dx")
+    total = {kind: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                    "bytes_bound_ms": 0.0} for kind in kinds}
+    total["stats"]["library_ms"] = 0.0
+    pairs = {"fwd_kernels_ms": 0.0, "fwd_library_ms": 0.0,
+             "bwd_kernels_ms": 0.0, "bwd_library_ms": 0.0}
+    rows = []
+    for dname, dtype, itemsize, configs in (
+            ("bfloat16", torch.bfloat16, 2, R50_BNS),
+            ("float32", torch.float32, 4, R50_BNS[:1])):
+        for C, H, W, relu, res, count in configs:
+            t, pair_fwd, pair_bwd = bn_time(torch, fb, dev, C, H, W, relu,
+                                            res, dtype, flush)
+            row = {"card": card, "dtype": dname, "N": R50_BATCH, "C": C,
+                   "H": H, "W": W, "relu": relu, "residual": res,
+                   "per_step": count, "library_pair_fwd_ms": pair_fwd,
+                   "library_pair_bwd_ms": pair_bwd}
+            for kind in kinds:
+                b_ms, b_by = bn_bound(fb, kind, R50_BATCH, C, H * W,
+                                      itemsize, relu, res)
+                ms, plain_ms, lib_ms = t[kind]
+                row[kind] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bound_ms": b_ms,
+                             "bound_by": b_by}
+                if dname == "bfloat16":
+                    total[kind]["ms"] += count * ms
+                    total[kind]["plain_ms"] += count * plain_ms
+                    total[kind]["bound_ms"] += count * b_ms
+                    if b_by == "bytes":
+                        total[kind]["bytes_bound_ms"] += count * b_ms
+                    if lib_ms is not None:
+                        total[kind]["library_ms"] += count * lib_ms
+            if dname == "bfloat16":
+                pairs["fwd_kernels_ms"] += count * (t["stats"][0]
+                                                    + t["apply"][0])
+                pairs["bwd_kernels_ms"] += count * (t["bwd_reduce"][0]
+                                                    + t["bwd_dx"][0])
+                pairs["fwd_library_ms"] += count * pair_fwd
+                pairs["bwd_library_ms"] += count * pair_bwd
+            rows.append(row)
+            print("fused_bn timing: " + json.dumps(row))
+    del scratch
+    print("fused_bn step totals (bfloat16, one batch-256 ResNet-50 step's "
+          "53 calls of each kernel): " + json.dumps(
+              {"card": card, "kernels": total, "pairs_vs_cudnn": pairs}))
+    return errs, total
+
+
+def profile_step(torch, what, fn):
+    """Where one step's time goes: device time by kernel from
+    torch.profiler over one call of `fn`, beside its host wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    check(bool(torch.isfinite(loss)), "%s profile: loss not finite" % what)
+    dev_us = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            dev_us[e.key] = e.self_device_time_total
+    total = sum(dev_us.values())
+    if total <= 0:
+        print("%s profile: not measured (no device time recorded)" % what)
+        return
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
+    print("%s profile: %s" % (what, json.dumps({
+        "steps": 1, "host_ms_profiled": 1e3 * wall,
+        "device_busy_ms": total / 1e3,
+        "device_busy_share": total / 1e6 / wall,
+        "kernels_us": dict(top)})))
+
+
+def rel_frobenius(a, b):
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def resnet_first_step_check(torch, fb, step, x, y):
+    """The first step's loss and gradients in float32 (TF32 off), flag on
+    against flag off, beside the flag-off step's own floor: a second run
+    of it, and a run with the input moved by one ulp."""
+    os.environ["MXNET_FUSED_BN_EPILOGUE"] = "0"
+    n0 = fb.launch_counts()
+    loss_off, g_off = step.loss_and_grads(x, y)
+    _, g_again = step.loss_and_grads(x, y)
+    x_ulp = torch.nextafter(x, torch.full_like(x, float("inf")))
+    _, g_ulp = step.loss_and_grads(x_ulp, y)
+    check(fb.launch_counts() == n0, "flag off: a fused kernel launched")
+    os.environ["MXNET_FUSED_BN_EPILOGUE"] = "1"
+    loss_on, g_on = step.loss_and_grads(x, y)
+    check(all(b > a for a, b in zip(n0, fb.launch_counts())),
+          "flag on: a fused kernel did not launch")
+    loss_err = abs(float(loss_on) - float(loss_off)) / abs(float(loss_off))
+    check(loss_err <= R50_LOSS_RTOL,
+          "first-step loss flag on %r != flag off %r (rel err %.3g > %g)"
+          % (float(loss_on), float(loss_off), loss_err, R50_LOSS_RTOL))
+    top = max(float(g.abs().max()) for g in g_off.values())
+    zero = [n for n in g_off if "conv2d" in n and n.endswith("_bias")]
+    worst, floor, worst_zero = (0.0, ""), (0.0, ""), 0.0
+    for n, g in g_off.items():
+        check(bool(torch.isfinite(g_on[n]).all()), "grad %s not finite" % n)
+        if n in zero:
+            worst_zero = max(worst_zero, float(g_on[n].abs().max()) / top,
+                             float(g.abs().max()) / top)
+            continue
+        worst = max(worst, (rel_frobenius(g_on[n], g), n))
+        floor = max(floor, (rel_frobenius(g_again[n], g), n),
+                    (rel_frobenius(g_ulp[n], g), n))
+    tol = max(2 * floor[0], R50_GRAD_MIN_TOL)
+    check(worst[0] <= tol,
+          "first-step grad %s: flag on vs off relative Frobenius error "
+          "%.3g > max(2 x floor %.3g, %g)" % (worst[1], worst[0], floor[0],
+                                              R50_GRAD_MIN_TOL))
+    check(worst_zero <= R50_ZERO_GRAD,
+          "a conv bias feeding a BatchNorm has a gradient of %.3g of the "
+          "largest gradient element (> %g)" % (worst_zero, R50_ZERO_GRAD))
+    again = max(rel_frobenius(g_again[n], g) for n, g in g_off.items()
+                if n not in zero)
+    ulp = max(rel_frobenius(g_ulp[n], g) for n, g in g_off.items()
+              if n not in zero)
+    print("resnet50 oracle: loss flag on %.7f off %.7f (rel err %.3g, tol "
+          "%g); %d gradients, worst relative Frobenius error %.3g (%s), tol "
+          "max(2 x floor, %g) = %.3g; floor %.3g (%s): flag off against a "
+          "second run %.3g, against the input moved one ulp %.3g; the %d "
+          "conv biases feeding a BatchNorm at most %.3g of the largest "
+          "gradient element"
+          % (float(loss_on), float(loss_off), loss_err, R50_LOSS_RTOL,
+             len(g_off), worst[0], worst[1], R50_GRAD_MIN_TOL, tol, floor[0],
+             floor[1], again, ulp, len(zero), worst_zero))
+    return {"grad_rel_err": worst[0], "grad_floor": floor[0],
+            "grad_floor_second_run": again, "grad_floor_one_ulp": ulp,
+            "loss_rel_err": loss_err}
+
+
+def resnet_timed_run(torch, np, step, x, y, dev):
+    """One warm-up step and R50_STEPS timed ones: (losses, step seconds,
+    peak bytes)."""
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [float(step(x, y))], []
+    for _ in range(R50_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    check(all(np.isfinite(losses)), "losses not finite: %r" % losses)
+    return losses, times, torch.cuda.max_memory_allocated(dev)
+
+
+def phase_resnet(torch, np, dev, card):
+    """The framework core's main path: model-zoo ResNet-50 v1 trained
+    through TrainStep with MXNET_FUSED_BN_EPILOGUE=1 at bench.py's
+    config. The first step in float32 against the flag off; then one
+    warm-up and R50_STEPS timed bfloat16 steps, each K3 kernel launched
+    53 times a step; the same steps with the flag off, for comparison;
+    a profiled step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    from mxnet_tpu_torch.parallel import TrainStep
+    prior = os.environ.get("MXNET_FUSED_BN_EPILOGUE")
+    try:
+        net = vision.resnet50_v1(classes=R50_CLASSES)
+        net.initialize(mx.init.Xavier())
+        net(mx.nd.zeros((1, 3, R50_IMAGE, R50_IMAGE)))   # on the card
+        params = net.collect_params()
+        check(all(p.data()._data.device == dev for p in params.values()),
+              "the net's parameters are not on %s" % dev)
+        saved = {n: p.data()._data.detach().clone()
+                 for n, p in params.items()}
+        rng = np.random.RandomState(0)
+        x = torch.from_numpy(rng.uniform(
+            -1, 1, (R50_BATCH, 3, R50_IMAGE, R50_IMAGE)).astype(
+                np.float32)).to(dev)
+        y = torch.from_numpy(rng.randint(0, R50_CLASSES, (R50_BATCH,))
+                             .astype(np.int32)).to(dev)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        oracle = resnet_first_step_check(
+            torch, fb, TrainStep(net, loss_fn, "sgd", dict(R50_OPT)), x, y)
+
+        # the main path: bf16 mixed precision, the flag on
+        os.environ["MXNET_FUSED_BN_EPILOGUE"] = "1"
+        step = TrainStep(net, loss_fn, "sgd", dict(R50_OPT),
+                         dtype="bfloat16")
+        fb.reset_launch_counts()
+        losses, times, peak = resnet_timed_run(torch, np, step, x, y, dev)
+        launches = fb.launch_counts()
+        want = 53 * (R50_STEPS + 1)
+        check(launches == (want,) * 4,
+              "K3a-d launched %r times over %d steps, expected 53 x %d = %d "
+              "each" % (launches, R50_STEPS + 1, R50_STEPS + 1, want))
+        check(losses[-1] < losses[0], "loss did not fall: %r" % losses)
+
+        # the same steps from the same weights with the flag off
+        for n, p in params.items():
+            p.set_data(saved[n])
+        os.environ["MXNET_FUSED_BN_EPILOGUE"] = "0"
+        step_off = TrainStep(net, loss_fn, "sgd", dict(R50_OPT),
+                             dtype="bfloat16")
+        fb.reset_launch_counts()
+        losses_off, times_off, peak_off = resnet_timed_run(
+            torch, np, step_off, x, y, dev)
+        check(fb.launch_counts() == (0,) * 4,
+              "flag off: fused kernels launched %r" % (fb.launch_counts(),))
+        os.environ["MXNET_FUSED_BN_EPILOGUE"] = "1"
+        try:
+            profile_step(torch, "resnet50 train", lambda: step(x, y))
+        except SmokeFailure:
+            raise
+        except Exception as e:
+            raise SmokeFailure("profiled ResNet-50 step failed: %s: %s"
+                               % (type(e).__name__, e))
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_BN_EPILOGUE", None)
+        else:
+            os.environ["MXNET_FUSED_BN_EPILOGUE"] = prior
+
+    def summary(ts, ls, pk):
+        ms = sorted(1e3 * t for t in ts)
+        mean_ms = sum(ms) / len(ms)
+        return {"step_ms_mean": mean_ms, "step_ms_p50": float(np.median(ms)),
+                "img_per_s": R50_BATCH / (mean_ms / 1e3),
+                "loss_first": ls[0], "loss_last": ls[-1],
+                "max_memory_allocated": pk}
+
+    main = {"card": card, "model": "resnet50_v1", "batch": R50_BATCH,
+            "image": R50_IMAGE, "dtype": "bfloat16", "steps_timed": R50_STEPS,
+            "fused_bn_epilogue": summary(times, losses, peak),
+            "flag_off": summary(times_off, losses_off, peak_off),
+            "first_step_float32": oracle,
+            "k3_launches": dict(zip(("stats", "apply", "bwd_reduce",
+                                     "bwd_dx"), launches))}
+    print("resnet50 train path: " + json.dumps(main))
+    return launches, main
+
+
+def bn_kernel_rows(errs, totals, launches):
+    """K3a-d's entries of the kernels line: the per-step sums over one
+    bf16 batch-256 ResNet-50 step's 53 calls (phase 8's timings at the
+    main path's shapes), the launches of phase 9's timed run, and the
+    largest float32 kernel-vs-plain error."""
+    rows = []
+    for i, (kind, line) in enumerate((("stats", 134), ("apply", 183),
+                                      ("bwd_reduce", 233), ("bwd_dx", 320))):
+        tot = totals[kind]
+        rows.append({
+            "name": "fused_bn_" + kind,
+            "route": "cuda",
+            "source": "mxnet_tpu_torch/ops/csrc/fused_bn.cu",
+            "replaces": "mxnet_tpu/ops/pallas_fused.py:%d" % line,
+            "launches": launches[i],
+            "max_abs_err": errs[kind, "float32"],
+            "ms": tot["ms"],
+            "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            # what bounds most of the step's calls of this kernel
+            "bound_by": ("bytes" if 2 * tot["bytes_bound_ms"]
+                         >= tot["bound_ms"] else "operations"),
+            "library_ms": tot.get("library_ms"),
+        })
+    return rows
 
 
 def main():
@@ -1239,6 +1711,8 @@ def main():
         train_launches, train_path = phase_train(torch, np, dev, smi)
         int8_launches, quant_path = phase_quant(torch, np, dev, smi)
         spec_launches, spec_path = phase_spec_prefix(torch, np, dev, smi)
+        bn_errs, bn_totals = phase_kernels_bn(torch, np, dev, smi)
+        r50_launches, r50_path = phase_resnet(torch, np, dev, smi)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -1294,6 +1768,7 @@ def main():
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
+    kernels += bn_kernel_rows(bn_errs, bn_totals, r50_launches)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -64,16 +64,22 @@ def _build(source, path, log):
     os.replace(tmp, path)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
+    ctypes.c_float
 #: C entry -> (argtypes, restype). Every pointer and the stream are
 #: c_void_p: a Python int passed bare would be cut to 32 bits.
 _SIGNATURES = {
+    "mxtt_bn_stats": ([_I, _P, _L, _L, _L, _I, _F, _P, _P, _P, _P], _I),
+    "mxtt_bn_apply": ([_I, _P, _P, _P, _P, _P, _L, _L, _L, _I, _P], _I),
+    "mxtt_bn_bwd_reduce": ([_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _P,
+                           _P, _P, _P], _I),
+    "mxtt_bn_bwd_dx": ([_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P], _I),
     "mxtt_paged_attention": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                              _I, _I, _I, _I, _I, ctypes.c_float, _P], _I),
-    "mxtt_flash_fwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        ctypes.c_float, _I, _P], _I),
+                              _I, _I, _I, _I, _I, _F, _P], _I),
+    "mxtt_flash_fwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                        _P], _I),
     "mxtt_flash_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, ctypes.c_float, _I, _P], _I),
+                        _I, _I, _I, _I, _F, _I, _P], _I),
     "mxtt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -419,3 +419,222 @@ def test_engine_quant_and_spec_on_card(dev):
     # rejected drafts' rows may raise a block's monotonic scale: tokens
     # agree with the quantized engine's up to its first near-tie
     agree(sp, q8)
+
+
+# ---------------------------------------------------------------------------
+# fused BatchNorm / ReLU / residual (csrc/fused_bn.cu)
+# ---------------------------------------------------------------------------
+
+#: kernel vs plain: outputs float32 1e-5 (float32 arithmetic in another
+#: order, an FMA where the plain version rounds twice), bfloat16 3e-2 (one
+#: rounding to 8 mantissa bits); the statistics 1e-5 in both (float32
+#: accumulation of the same values); the channel sums rtol 1e-4 with atol
+#: 1e-4 x sqrt(N S), the size of a sum of N S unit terms; dz exact
+_BTOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+
+
+def _bn_case(dev, N, C, S, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (2 * torch.randn(N, C, S, generator=g, device=dev)
+         + torch.randn(1, C, 1, generator=g, device=dev)).to(dtype)
+    dy = torch.randn(N, C, S, generator=g, device=dev).to(dtype)
+    r = torch.randn(N, C, S, generator=g, device=dev).to(dtype)
+    gamma = torch.rand(C, generator=g, device=dev) + 0.5
+    return x, dy, r, gamma, torch.randn(C, generator=g, device=dev)
+
+
+def _bn_check_all(x, dy, r, gamma, beta, relu):
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    N, C, S = x.shape
+    tol = _BTOL[x.dtype]
+    mean, var = fb.bn_stats(x)
+    pm, pv = fb.bn_stats_plain(x)
+    inv = torch.rsqrt(var + 1e-5)
+    scale, offset = gamma * inv, beta - mean * gamma * inv
+    y = fb.bn_apply(x, scale, offset, r, relu)
+    py = fb.bn_apply_plain(x, scale, offset, r, relu)
+    dz, sdz, sdx = fb.bn_bwd_reduce(dy, y, x, mean, inv, relu)
+    pdz, psdz, psdx = fb.bn_bwd_reduce_plain(dy, y, x, mean, inv, relu)
+    c = fb.bn_coefficients(gamma, mean, var, sdz, sdx, None, None, 1e-5,
+                           N * S)
+    dx = fb.bn_bwd_dx(dz, x, *c)
+    pdx = fb.bn_bwd_dx_plain(dz, x, *c)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(mean, pm, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(var, pv, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(y.float(), py.float(), atol=tol, rtol=tol)
+    assert torch.equal(dz, pdz)
+    sum_atol = 1e-4 * (N * S) ** 0.5
+    torch.testing.assert_close(sdz, psdz, atol=sum_atol, rtol=1e-4)
+    torch.testing.assert_close(sdx, psdx, atol=sum_atol, rtol=1e-4)
+    torch.testing.assert_close(dx.float(), pdx.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("N,C,S", [(8, 64, 3136), (16, 256, 49),
+                                   (7, 3, 35), (64, 512, 1), (3, 5, 4),
+                                   (2, 130, 196)])
+def test_fused_bn_kernels_match_plain(dev, dtype, relu, res, N, C, S):
+    """K3a-d against their plain versions in all four epilogue variants:
+    vector loads (S a multiple of the 16-byte vector), single elements
+    (odd S, S=1, 49), C=3 and C not a power of two."""
+    x, dy, r, gamma, beta = _bn_case(dev, N, C, S, dtype, seed=N + C + S)
+    _bn_check_all(x, dy, r if res else None, gamma, beta, relu)
+
+
+def test_fused_bn_kernels_take_unaligned_tensors(dev):
+    """A tensor starting one element past a 16-byte boundary goes the
+    single-element way, with the same results."""
+    x, dy, r, gamma, beta = _bn_case(dev, 4, 8, 64, torch.float32)
+    n = x.numel()
+
+    def shift(t):
+        buf = torch.empty(n + 1, device=dev, dtype=t.dtype)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    xs, dys, rs = shift(x), shift(dy), shift(r)
+    assert xs.data_ptr() % 16 != 0
+    _bn_check_all(xs, dys, rs, gamma, beta, True)
+
+
+def test_fused_bn_repeats_bit_for_bit(dev):
+    """No atomics: the partial sums combine in a fixed order."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    x, dy, r, gamma, beta = _bn_case(dev, 32, 64, 784, torch.float32)
+    a, b = fb.bn_stats(x), fb.bn_stats(x)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    mean, var = a
+    inv = torch.rsqrt(var + 1e-5)
+    a = fb.bn_bwd_reduce(dy, r, x, mean, inv, True)
+    b = fb.bn_bwd_reduce(dy, r, x, mean, inv, True)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_fused_bn_counts_launches_only(dev):
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    x, dy, r, gamma, beta = _bn_case(dev, 2, 8, 36, torch.float32)
+    n0 = fb.launch_counts()
+    mean, var = fb.bn_stats(x)
+    fb.bn_stats_plain(x)
+    inv = torch.rsqrt(var + 1e-5)
+    y = fb.bn_apply(x, gamma * inv, beta, r, True)
+    fb.bn_apply_plain(x, gamma * inv, beta, r, True)
+    dz, _, _ = fb.bn_bwd_reduce(dy, y, x, mean, inv, True)
+    fb.bn_bwd_dx(dz, x, gamma, gamma, beta)
+    assert fb.launch_counts() == tuple(c + 1 for c in n0)
+    y, _, _ = fb.fused_bn_act(x.view(2, 8, 6, 6).requires_grad_(True),
+                              gamma, beta, act="relu")
+    y.sum().backward()
+    assert fb.launch_counts() == tuple(c + 2 for c in n0)
+
+
+def test_fused_bn_gate_raises_on_cuda(dev):
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    x, dy, r, gamma, beta = _bn_case(dev, 2, 8, 36, torch.float32)
+    with pytest.raises(MXNetError, match="float32 or bfloat16"):
+        fb.bn_stats(x.half())
+    with pytest.raises(MXNetError, match="must be \\[8\\] on"):
+        fb.bn_apply(x, gamma.cpu(), beta, None, False)
+    with pytest.raises(MXNetError, match="contiguous"):
+        fb.bn_bwd_reduce(dy.transpose(0, 2).contiguous().transpose(0, 2),
+                         x, x, gamma, gamma, True)
+    with pytest.raises(MXNetError, match="residual is"):
+        fb.bn_apply(x, gamma, beta, r.double(), True)
+    with pytest.raises(MXNetError, match="\\[N, C, S\\]"):
+        fb.bn_stats(x.view(2, 8, 6, 6))
+
+
+def test_fused_bn_autograd_matches_the_composite_on_card(dev):
+    """fused_bn_act's Function (all four kernels) against the op's
+    composite path under torch.autograd, float32, TF32 off."""
+    import os
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.ops import nn as ops_nn
+    x, dy, r, gamma, beta = _bn_case(dev, 4, 16, 100, torch.float32, seed=3)
+    x4, r4, dy4 = (t.view(4, 16, 10, 10) for t in (x, r, dy))
+    outs = {}
+    prior = os.environ.get("MXNET_FUSED_BN_EPILOGUE")
+    try:
+        for flag in ("1", "0"):
+            os.environ["MXNET_FUSED_BN_EPILOGUE"] = flag
+            ins = [t.detach().clone().requires_grad_(True)
+                   for t in (x4, gamma, beta, r4)]
+            with autograd.train_mode():
+                out, mean, var = ops_nn.BatchNormAddRelu(
+                    ins[0], ins[1], ins[2], torch.zeros_like(gamma),
+                    torch.ones_like(gamma), addend=ins[3], eps=1e-5,
+                    fix_gamma=False)
+            loss = (out * dy4).sum() + (mean.sin() + var.cos()).sum()
+            outs[flag] = (out,) + torch.autograd.grad(loss, ins)
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_BN_EPILOGUE", None)
+        else:
+            os.environ["MXNET_FUSED_BN_EPILOGUE"] = prior
+    for a, b in zip(outs["1"], outs["0"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_resnet18_trainstep_on_card_matches_the_cpu(dev):
+    """A ResNet-18 TrainStep with the fused kernels: the first step's loss
+    and gradients on the card against the plain versions on the CPU at
+    the same weights (float32, TF32 off; 1e-5 of the loss, 1e-4 relative
+    Frobenius a gradient, where the two differ by ~1e-5), then three bf16
+    steps with each kernel launched 20 times a step (ResNet-18 v1 has 20
+    BatchNorms). The flag-off step is not the oracle here: on the card
+    cuDNN picks other, less exact algorithms for the composite path's
+    gradients (7e-3 from a float64 step, where the fused path and the
+    composite with cuDNN off are 1.6e-3 from it;
+    tools/resnet_grad_probe.py --impl port)."""
+    import os
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    from mxnet_tpu_torch.parallel import TrainStep
+    prior = os.environ.get("MXNET_FUSED_BN_EPILOGUE")
+    os.environ["MXNET_FUSED_BN_EPILOGUE"] = "1"
+    rng = np.random.RandomState(0)
+    x = rng.uniform(-1, 1, (16, 3, 64, 64)).astype(np.float32)
+    y = rng.randint(0, 10, (16,))
+    res, nets = {}, {}
+    try:
+        for where in ("cpu", "gpu"):
+            ctx = mx.cpu() if where == "cpu" else mx.Context("gpu",
+                                                             dev.index or 0)
+            with ctx, mx.name.NameManager():
+                net = vision.resnet18_v1(classes=10)
+                net.initialize(mx.init.Xavier())
+                net(mx.nd.zeros((1, 3, 64, 64)))
+            if where == "gpu":
+                from mxnet_tpu_torch.models import gluon_params_from_numpy
+                gluon_params_from_numpy(net, {
+                    n: p.data().asnumpy() for n, p in
+                    nets["cpu"].collect_params().items()})
+            nets[where] = net
+            step = TrainStep(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                             "sgd", {"learning_rate": 0.01, "momentum": 0.9})
+            dv = ctx.torch_device()
+            res[where] = step.loss_and_grads(torch.from_numpy(x).to(dv),
+                                             torch.from_numpy(y).to(dv))
+        assert float(res["gpu"][0]) == pytest.approx(float(res["cpu"][0]),
+                                                     rel=1e-5)
+        rel = [float((res["gpu"][1][n].cpu() - g).norm() / g.norm())
+               for n, g in res["cpu"][1].items()
+               if not ("conv2d" in n and n.endswith("_bias"))]
+        assert max(rel) < 1e-4
+        bf16 = TrainStep(nets["gpu"], mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                         "sgd", {"learning_rate": 0.01, "momentum": 0.9},
+                         dtype="bfloat16")
+        n0 = fb.launch_counts()
+        xg, yg = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        losses = [float(bf16(xg, yg)) for _ in range(3)]
+        assert fb.launch_counts() == tuple(c + 60 for c in n0)
+        assert np.isfinite(losses).all() and losses[-1] < losses[0]
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_BN_EPILOGUE", None)
+        else:
+            os.environ["MXNET_FUSED_BN_EPILOGUE"] = prior
