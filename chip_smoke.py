@@ -10,13 +10,18 @@ Phases (any failure exits non-zero before the last line):
                 at once, one nvcc per source, and prints each build's
                 seconds and ptxas register and spill counts.
   3. kernels  — holds each kernel against its plain PyTorch version on the
-                card at the main paths' shapes (and, for flash attention,
-                ragged, head_dim 128 and non-causal cases; for the paged
-                kernel's int8 variant, q float32 and bfloat16 over an int8
-                pool at the decode, prefill-chunk and spec-score shapes),
-                and times the kernel, the plain version, one library call
-                as a yardstick, and the least time the card could take
-                (bound).
+                card at the main paths' shapes (and, for the paged kernel,
+                the edges of its cluster split and query tile over every
+                pool type, PAGED_EDGE_CASES; for its int8 variant, q
+                float32 and bfloat16 over an int8 pool at the decode,
+                prefill-chunk and spec-score shapes; for flash attention,
+                ragged, head_dim 128 and non-causal cases), checks that
+                the paged kernel and the flash backward repeat bit for
+                bit, and times the kernel, the plain version, one library
+                call as a yardstick (naming the kernels SDPA's backward
+                runs), and the least time the card could take (bound;
+                for the flash backward also over the split-TF32 rate its
+                products run at).
   4. serving main path — serves the transformer LM at the full width of
                 the repo's serving benchmark config (vocab 8192, d_model
                 512, 4 heads x 128, 4 layers, d_ff 2048, max_len 1024;
@@ -281,10 +286,22 @@ def nvidia_smi():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, n=50, flush=None):
+#: device cycles the card sleeps before each timed call (~0.5 ms at the
+#: H100's 1.98 GHz), longer than the host takes to enqueue the call
+SLEEP_CYCLES = 1_000_000
+
+
+def time_ms(torch, fn, n=50, flush=None, sleep=True):
     """Mean device time of one call in ms: CUDA events around each call,
     with `flush` (an L2 eviction) run between calls outside the timed
-    span, as the real caller finds the pool cold."""
+    span, as the real caller finds the pool cold. Before each call the
+    card sleeps (torch.cuda._sleep) while the host enqueues the call, so
+    the span is the call's device time, not the host's enqueue: a call of
+    a few microseconds behind a flush would otherwise wait tens of
+    microseconds for the host between the first event and its kernel.
+    `sleep=False` gives the span without the sleep, which then holds the
+    host's enqueue of a call that is shorter than it (the attention rows
+    report both)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -292,6 +309,8 @@ def time_ms(torch, fn, n=50, flush=None):
     for _ in range(n):
         if flush is not None:
             flush()
+        if sleep:
+            torch.cuda._sleep(SLEEP_CYCLES)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -344,9 +363,55 @@ def bound(pa, B, Tq, H, Dh, bs, w, q_starts, dtype_name, itemsize,
                                  else "operations"), nbytes, flops
 
 
+#: K1's timed shapes over float pools, H=4, Dh=128: (label, B, Tq, w,
+#: q_starts, block_size) — the last and a middle decode step of phase 4,
+#: its second 32-row prefill chunk, and a k+1 = 4 scoring pass at phase
+#: 7's lengths and block
+PAGED_TIMED = [("decode", 8, 1, 16, [190] * 8, 16),
+               ("decode_mid", 8, 1, 8, [127] * 8, 16),
+               ("prefill_chunk", 1, 32, 4, [32], 16),
+               ("spec_score", 8, 4, 16, [300, 310, 320, 330, 340, 350, 355,
+                                         360], QUANT_BLOCK)]
+#: K1 cases at the edges of its cluster split and query tile: (label, B,
+#: Tq, w, q_starts) at H=4, Dh=128, bs=16, every pool type (the cluster
+#: is min(8, w) blocks; a block's share of the live slots can be empty)
+PAGED_EDGE_CASES = [
+    ("one_live_slot", 4, 1, 16, [0, 3, 9, 15]),
+    ("live_eq_cluster", 2, 1, 16, [127, 120]),        # 8 live slots
+    ("live_cluster_minus_1", 2, 1, 16, [111, 100]),   # 7
+    ("live_cluster_plus_1", 2, 1, 16, [128, 140]),    # 9
+    ("w64_1024_tokens", 2, 1, 64, [1023, 777]),
+    ("chunk64_mid_block", 1, 64, 8, [39]),
+    ("ragged_live_counts", 4, 1, 64, [5, 1000, 40, 700]),   # 1, 63, 3, 44
+    ("spec_ragged_live", 4, 4, 64, [0, 1016, 60, 500])]
+
+
+def paged_check(torch, out, ref, dname, what):
+    """Hold one K1 output to its plain version within TOL; return the
+    largest error."""
+    check(bool(torch.isfinite(out).all()),
+          "kernel output not finite (%s)" % what)
+    try:
+        torch.testing.assert_close(out.float(), ref.float(),
+                                   atol=TOL[dname], rtol=TOL[dname])
+    except AssertionError as e:
+        raise SmokeFailure("kernel != plain (%s): %s" % (what, e))
+    return float((out.float() - ref.float()).abs().max())
+
+
+def paged_repeat(torch, pa, args, kw, what):
+    """Two calls of K1 on the same inputs must give the same bits (the
+    cluster merges its partials in a fixed order, no atomics)."""
+    a = pa.paged_attention(*args, **kw)
+    b = pa.paged_attention(*args, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "K1 does not repeat bit for bit (%s)" % what)
+
+
 def phase_kernels(torch, np, dev, card):
-    """Hold the CUDA kernel against the plain version; time both at the
-    main path's shapes."""
+    """Hold the CUDA kernel against the plain version (the main path's
+    shapes and PAGED_EDGE_CASES) and check that it repeats bit for bit;
+    time both at the main path's shapes."""
     from mxnet_tpu_torch.ops import paged_attention as pa
     H, Dh, bs = 4, 128, 16
     errs = {"float32": 0.0, "bfloat16": 0.0}
@@ -369,24 +434,38 @@ def phase_kernels(torch, np, dev, card):
                 out = pa.paged_attention(q, k, v, tab, qs, bs)
                 ref = pa.paged_attention_plain(q, k, v, tab, qs, bs)
                 torch.cuda.synchronize()
-                check(bool(torch.isfinite(out).all()),
-                      "kernel output not finite (%s B=%d Tq=%d w=%d)"
-                      % (dname, B, Tq, w))
-                err = float((out.float() - ref.float()).abs().max())
-                errs[dname] = max(errs[dname], err)
-                try:
-                    torch.testing.assert_close(out.float(), ref.float(),
-                                               atol=TOL[dname],
-                                               rtol=TOL[dname])
-                except AssertionError as e:
-                    raise SmokeFailure(
-                        "kernel != plain (%s B=%d Tq=%d w=%d q_start=%s): "
-                        "%s" % (dname, B, Tq, w, qst, e))
+                errs[dname] = max(errs[dname], paged_check(
+                    torch, out, ref, dname, "%s B=%d Tq=%d w=%d q_start=%s"
+                    % (dname, B, Tq, w, qst)))
                 ncases += 1
-    print("kernel check: %d cases, max |kernel - plain| float32 %.3g "
-          "(tol %g), bfloat16 %.3g (tol %g)"
-          % (ncases, errs["float32"], TOL["float32"], errs["bfloat16"],
-             TOL["bfloat16"]))
+        for label, B, Tq, w, qst in PAGED_EDGE_CASES:
+            q, k, v, tab, qs = paged_case(torch, np, dev, B, Tq, w, qst,
+                                          dtype, seed=ncases)
+            out = pa.paged_attention(q, k, v, tab, qs, bs)
+            ref = pa.paged_attention_plain(q, k, v, tab, qs, bs)
+            torch.cuda.synchronize()
+            errs[dname] = max(errs[dname], paged_check(
+                torch, out, ref, dname, "%s %s" % (dname, label)))
+            paged_repeat(torch, pa, (q, k, v, tab, qs, bs), {},
+                         "%s %s" % (dname, label))
+            ncases += 1
+    # the gate's shared-memory size is the one the kernel launches with
+    from mxnet_tpu_torch.ops import _cuda
+    lib = _cuda.library("paged_attention.cu")
+    for d in range(16, 257, 16):
+        for tbs in (1, 3, 16, 32, 48):
+            for tq in (1, 4, 5, 16, 17, 64, 65):
+                for isz in (4, 2, 1):
+                    check(pa._smem_bytes(d, tbs, tq, isz)
+                          == lib.mxtt_paged_smem_bytes(tq, d, tbs, isz),
+                          "paged_limit's shared memory differs from the "
+                          "kernel's at head_dim %d, block %d, %d rows, "
+                          "itemsize %d" % (d, tbs, tq, isz))
+    print("kernel check: %d cases (%d at the cluster and tile edges, each "
+          "repeated bit for bit), max |kernel - plain| float32 %.3g (tol "
+          "%g), bfloat16 %.3g (tol %g)"
+          % (ncases, 2 * len(PAGED_EDGE_CASES), errs["float32"],
+             TOL["float32"], errs["bfloat16"], TOL["bfloat16"]))
 
     # timing at the shapes the main path gives the kernel
     flush_buf = torch.empty(96 << 20, dtype=torch.uint8, device=dev)
@@ -395,13 +474,7 @@ def phase_kernels(torch, np, dev, card):
         flush_buf.zero_()
 
     rows = []
-    for label, B, Tq, w, qst, tbs in (
-            ("decode", 8, 1, 16, [190] * 8, bs),       # last decode step
-            ("decode_mid", 8, 1, 8, [127] * 8, bs),    # mid-generation
-            ("prefill_chunk", 1, 32, 4, [32], bs),     # 2nd chunk of 64
-            # a k+1 = 4 scoring pass at phase 7's lengths and block
-            ("spec_score", 8, 4, 16, [300, 310, 320, 330, 340, 350, 355,
-                                      360], QUANT_BLOCK)):
+    for label, B, Tq, w, qst, tbs in PAGED_TIMED:
         for dname, dtype, itemsize in (("float32", torch.float32, 4),
                                        ("bfloat16", torch.bfloat16, 2)):
             q, k, v, tab, qs = paged_case(torch, np, dev, B, Tq, w, qst,
@@ -422,12 +495,19 @@ def phase_kernels(torch, np, dev, card):
             sdpa = torch.nn.functional.scaled_dot_product_attention
             t_l = time_ms(torch, lambda: sdpa(qd, kd, vd, attn_mask=mask),
                           flush=flush)
+            # the same two calls timed without the sleep (the span of PRs
+            # 1-5, which holds the host's enqueue)
+            t_k0 = time_ms(torch, lambda: pa.paged_attention(
+                q, k, v, tab, qs, tbs), flush=flush, sleep=False)
+            t_l0 = time_ms(torch, lambda: sdpa(qd, kd, vd, attn_mask=mask),
+                           flush=flush, sleep=False)
             b_ms, b_by, nbytes, flops = bound(pa, B, Tq, H, Dh, tbs, w, qst,
                                               dname, itemsize)
             rows.append({"card": card, "shape": label, "dtype": dname,
                          "B": B, "Tq": Tq,
                          "w": w, "bs": tbs, "q_start": qst[0], "ms": t_k,
                          "plain_ms": t_p, "library_ms": t_l,
+                         "ms_no_sleep": t_k0, "library_ms_no_sleep": t_l0,
                          "bound_ms": b_ms, "bound_by": b_by,
                          "bound_bytes": nbytes, "bound_flops": flops})
     for r in rows:
@@ -464,6 +544,26 @@ def phase_kernels_int8(torch, np, dev, card):
     def flush():
         flush_buf.zero_()
 
+    nedge = 0
+    for n, (label, B, Tq, w, qst) in enumerate(PAGED_EDGE_CASES):
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            q, k, v, tab, qs = paged_case(torch, np, dev, B, Tq, w, qst,
+                                          torch.float32, seed=200 + n)
+            q = q.to(dtype)
+            kq, ks = quantize_pool(torch, k)
+            vq, vs = quantize_pool(torch, v)
+            sc = dict(k_scale=ks, v_scale=vs)
+            out = pa.paged_attention(q, kq, vq, tab, qs, 16, **sc)
+            ref = pa.paged_attention_plain(q, kq, vq, tab, qs, 16, **sc)
+            torch.cuda.synchronize()
+            check(out.dtype == dtype, "int8 kernel output dtype %s"
+                  % out.dtype)
+            errs[dname] = max(errs[dname], paged_check(
+                torch, out, ref, dname, "int8 %s q %s" % (label, dname)))
+            paged_repeat(torch, pa, (q, kq, vq, tab, qs, 16), sc,
+                         "int8 %s q %s" % (label, dname))
+            nedge += 1
     rows = []
     for n, (label, B, Tq, w, qst) in enumerate(INT8_CASES):
         for dname, dtype, itemsize in (("float32", torch.float32, 4),
@@ -479,17 +579,11 @@ def phase_kernels_int8(torch, np, dev, card):
             out = pa.paged_attention(q, kq, vq, tab, qs, bs, **sc)
             ref = pa.paged_attention_plain(q, kq, vq, tab, qs, bs, **sc)
             torch.cuda.synchronize()
-            check(out.dtype == dtype and bool(torch.isfinite(out).all()),
-                  "int8 kernel output not finite (%s %s)" % (label, dname))
-            errs[dname] = max(errs[dname],
-                              float((out.float() - ref.float()).abs().max()))
-            try:
-                torch.testing.assert_close(out.float(), ref.float(),
-                                           atol=TOL[dname], rtol=TOL[dname])
-            except AssertionError as e:
-                raise SmokeFailure("int8 kernel != plain (%s, q %s, B=%d "
-                                   "Tq=%d w=%d): %s"
-                                   % (label, dname, B, Tq, w, e))
+            check(out.dtype == dtype, "int8 kernel output dtype %s"
+                  % out.dtype)
+            errs[dname] = max(errs[dname], paged_check(
+                torch, out, ref, dname, "int8 %s, q %s, B=%d Tq=%d w=%d"
+                % (label, dname, B, Tq, w)))
             t_k = time_ms(torch, lambda: pa.paged_attention(
                 q, kq, vq, tab, qs, bs, **sc), flush=flush)
             t_p = time_ms(torch, lambda: pa.paged_attention_plain(
@@ -508,20 +602,26 @@ def phase_kernels_int8(torch, np, dev, card):
             qd = q.transpose(1, 2)
             t_l = time_ms(torch, lambda: sdpa(qd, kd, vd, attn_mask=mask),
                           flush=flush)
+            t_k0 = time_ms(torch, lambda: pa.paged_attention(
+                q, kq, vq, tab, qs, bs, **sc), flush=flush, sleep=False)
+            t_l0 = time_ms(torch, lambda: sdpa(qd, kd, vd, attn_mask=mask),
+                           flush=flush, sleep=False)
             b_ms, b_by, nbytes, flops = bound(
                 pa, B, Tq, H, Dh, bs, w, qst, dname, itemsize,
                 kv_itemsize=1, scale_blocks=kq.shape[0])
             rows.append({"card": card, "shape": label, "q_dtype": dname,
                          "pool": "int8", "B": B, "Tq": Tq, "w": w,
                          "bs": bs, "ms": t_k, "plain_ms": t_p,
-                         "library_ms": t_l, "bound_ms": b_ms,
+                         "library_ms": t_l, "ms_no_sleep": t_k0,
+                         "library_ms_no_sleep": t_l0, "bound_ms": b_ms,
                          "bound_by": b_by, "bound_bytes": nbytes,
                          "bound_flops": flops})
     print("kernel check int8: %d cases (decode, prefill chunk, spec "
-          "score), max |kernel - plain| q float32 %.3g (tol %g), q "
+          "score, and %d at the cluster and tile edges, each repeated bit "
+          "for bit), max |kernel - plain| q float32 %.3g (tol %g), q "
           "bfloat16 %.3g (tol %g)"
-          % (2 * len(INT8_CASES), errs["float32"], TOL["float32"],
-             errs["bfloat16"], TOL["bfloat16"]))
+          % (2 * len(INT8_CASES) + nedge, nedge, errs["float32"],
+             TOL["float32"], errs["bfloat16"], TOL["bfloat16"]))
     for r in rows:
         print("kernel timing int8: " + json.dumps(r))
     del flush_buf
@@ -1076,7 +1176,24 @@ FLASH_CASES = [("main", 64, 1024, 1024, 64, True),
                ("ragged_1000", 8, 1000, 1000, 64, True),
                ("ragged_37", 8, 37, 37, 64, True),
                ("head_dim_128", 8, 512, 512, 128, True),
+               ("ragged_d128", 4, 777, 777, 128, True),
                ("non_causal_tk", 8, 300, 517, 64, False)]
+#: the TF32 tensor cores' dense peak (H100 SXM data sheet), over three:
+#: the backward's products run as three TF32 products each (3xTF32)
+TF32X3_OPS_S = 495e12 / 3
+
+
+def sdpa_backward_kernels(torch, sdpa, q4, k4, v4, g4):
+    """The names of the device kernels SDPA's backward runs on these
+    inputs (torch.profiler), so the yardstick's backend is on record."""
+    from torch.profiler import ProfilerActivity, profile
+    o4 = sdpa(q4, k4, v4, is_causal=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.autograd.grad(o4, (q4, k4, v4), g4)
+        torch.cuda.synchronize()
+    return sorted({ev.key[:80] for ev in prof.key_averages()
+                   if ev.device_time_total > 0})
 
 
 def phase_flash(torch, np, dev, card):
@@ -1101,7 +1218,12 @@ def phase_flash(torch, np, dev, card):
                                           scale, causal)
             wantb = fa.flash_bwd_plain(q, k, v, got[0], got[1], got[2], g,
                                        scale, causal)
+            again = fa.flash_attention_bwd(q, k, v, got[0], got[1], got[2],
+                                           g, scale, causal)
             torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(gotb, again)),
+                  "flash backward does not repeat bit for bit (%s %s)"
+                  % (dname, label))
             for what, a, b, tol in (
                     ("out", got[0], want[0], tol_f),
                     ("m", got[1], want[1], f32_tol),
@@ -1123,7 +1245,8 @@ def phase_flash(torch, np, dev, card):
                                           causal, e))
             ncases += 1
     for dname in FLASH_TOL:
-        print("flash kernel check %s: %d cases, max |kernel - plain| %s; "
+        print("flash kernel check %s: %d cases (the backward repeated bit "
+              "for bit), max |kernel - plain| %s; "
               "tol (atol = rtol) out %g, m and l %g, grads %g"
               % (dname, ncases // 2, ", ".join(
                   "%s %.3g" % (w, errs[dname, w]) for w in outputs),
@@ -1161,15 +1284,35 @@ def phase_flash(torch, np, dev, card):
         t_bl = time_ms(torch, lambda: torch.autograd.grad(
             o4, (q4, k4, v4), g4, retain_graph=True), n=20)
         del o4
+        backends = sdpa_backward_kernels(torch, sdpa, q4, k4, v4, g4)
         for kind, t_k, t_p, t_l in (("fwd", t_f, t_fp, t_fl),
                                     ("bwd", t_b, t_bp, t_bl)):
             b_ms, b_by = flash_bound(fa, BH, T, D, dname, itemsize,
                                      kind == "bwd")
-            rows.append({"card": card, "kernel": "flash_attention_" + kind,
-                         "dtype": dname, "BH": BH, "T": T, "D": D,
-                         "causal": True, "ms": t_k, "plain_ms": t_p,
-                         "library_ms": t_l, "bound_ms": b_ms,
-                         "bound_by": b_by})
+            row = {"card": card, "kernel": "flash_attention_" + kind,
+                   "dtype": dname, "BH": BH, "T": T, "D": D,
+                   "causal": True, "ms": t_k, "plain_ms": t_p,
+                   "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by}
+            if kind == "bwd":
+                # both calls again without the sleep (the span of PRs 1-5)
+                row["ms_no_sleep"] = time_ms(
+                    torch, lambda: fa.flash_attention_bwd(
+                        q, k, v, out, m, l, g, scale, True), n=20,
+                    sleep=False)
+                o4 = sdpa(q4, k4, v4, is_causal=True)
+                row["library_ms_no_sleep"] = time_ms(
+                    torch, lambda: torch.autograd.grad(
+                        o4, (q4, k4, v4), g4, retain_graph=True), n=20,
+                    sleep=False)
+                del o4
+                # the same flops over the split-TF32 rate the kernel's
+                # products run at, and the library's kernels by name
+                flops = fa.flash_call_cost(BH, T, T, D, itemsize,
+                                           pairs=T * (T + 1) // 2,
+                                           backward=True)[0]
+                row["bound_tf32x3_ms"] = flops / TF32X3_OPS_S * 1e3
+                row["library_kernels"] = backends
+            rows.append(row)
     # the layout copy the training path pays before the forward: the
     # (B, S, 3D) projection split into contiguous [B*H, S, Dh] q, k, v
     qkv = torch.randn(B, T, 3 * H * D, device=dev)

@@ -11,3 +11,4 @@ from . import rnn
 from . import loss
 from . import model_zoo
 from . import utils
+from .utils import split_and_load, split_data

@@ -76,6 +76,7 @@ _SIGNATURES = {
     "mxtt_bn_bwd_dx": ([_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P], _I),
     "mxtt_paged_attention": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                               _I, _I, _I, _I, _I, _F, _P], _I),
+    "mxtt_paged_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
     "mxtt_flash_fwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                         _P], _I),
     "mxtt_flash_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

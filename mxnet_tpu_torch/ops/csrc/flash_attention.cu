@@ -24,29 +24,29 @@
 // (67 TFLOP/s over 3.35 TB/s). The backward does 2.5 times the
 // forward's flops on twice its bytes.
 //
-// What the design does about it: it keeps every operand of the inner
-// products in shared memory and registers and does 4 x 8 multiply-adds
-// per thread for every 12 shared-memory loads of 16 bytes; scores and
-// probabilities never reach device memory; causal runs skip the tiles
-// above the diagonal. It runs on the CUDA cores: wgmma, TMA and a
-// cp.async pipeline are later work.
+// Forward (unchanged since it was ported): every operand of the inner
+// products stays in shared memory and registers, 4 x 8 multiply-adds per
+// thread for every 12 shared-memory loads of 16 bytes, on the CUDA
+// cores. A tile is 16 x 8 threads (128, four warps); thread (ty, tx) owns
+// tile rows ty + 16 i and columns tx + 8 j, so the eight lanes of a row
+// sit in one warp (row max and sum by three shuffles). Operands are
+// staged as float32 rows padded to D + 4 floats. One block per (bh,
+// 64-row q tile), looping over 64-key tiles up to the diagonal, the
+// online softmax in registers; blocks are issued longest first.
 //
-// Layout. A tile is 16 x 8 threads (128, four warps). Thread (ty, tx)
-// owns tile rows ty + 16 i (i < RI) and tile columns tx + 8 j (j < 8),
-// so the eight lanes that share a row sit in one warp (row max and sum
-// by three shuffles) and each warp owns its rows outright: a row of
-// probabilities written to shared memory is read back only by its own
-// warp, behind __syncwarp. Operands are staged as float32 rows padded
-// to D + 4 floats, so that the eight rows read by one 16-byte load land
-// in eight different bank groups. For the products with V (or dO, Q, K)
-// lane tx owns output columns 4 tx + 32 c .. + 3.
-//   forward: one block per (bh, 64-row q tile), looping over 64-key
-//            tiles up to the diagonal; the online softmax (running max,
-//            denominator, accumulator) lives in registers. Blocks are
-//            issued longest first (the last q tile has the most keys).
-//   dq:      one block per (bh, 64-row q tile), looping over key tiles.
-//   dk, dv:  one block per (bh, key tile of 64, or 32 at D = 128),
-//            looping over the 64-row q tiles at or below the diagonal.
+// Backward: the products run on the tensor cores (mma.sync, TF32 split
+// three ways for float32 accuracy, below), in two kernels that together
+// compute seven products where a kernel with a dq reduction would compute
+// five, because that needs atomics or a dq partial per key tile (134 MB
+// at the training shape). Each stages the next tile with 16-byte
+// cp.async copies while the current one is multiplied.
+//   dq:      one block per (bh, 64-row q tile), last tile first; each warp
+//            owns 16 query rows: s = q k^T and dp = dO v^T per 64-key
+//            tile, ds in registers, dq += ds k.
+//   dk, dv:  one block per (bh, 64-key tile), first tile first; each warp
+//            owns 16 keys: s^T = k q^T and dp^T = v dO^T per query tile
+//            (64 rows, 32 at D = 128) at or below the diagonal, p^T and
+//            ds^T in registers, dv += p^T dO and dk += ds^T q.
 //   delta:   one warp per row, before the other two.
 // No atomics: each output element is written by one thread, in one
 // order, so gradients repeat bit for bit from run to run. The ragged
@@ -60,6 +60,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -86,6 +89,13 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
                                        float c, float d) {
   reinterpret_cast<__nv_bfloat162*>(p)[0] = __floats2bfloat162_rn(a, b);
   reinterpret_cast<__nv_bfloat162*>(p)[1] = __floats2bfloat162_rn(c, d);
+}
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 __device__ __forceinline__ float row_max(float v) {  // over the 8 lanes
@@ -223,15 +233,6 @@ template <int D>
 constexpr size_t fwd_smem_floats() {
   return (size_t)(kBQ + 2 * kBC) * (D + kPad) + (size_t)kBQ * kLP;
 }
-template <int D>
-constexpr size_t dq_smem_floats() {
-  return (size_t)(2 * kBQ + 2 * kBC) * (D + kPad) + (size_t)kBQ * kLP;
-}
-template <int D, int RI>
-constexpr size_t dkv_smem_floats() {
-  return (size_t)(2 * kTY * RI + 2 * kBC) * (D + kPad) +
-         (size_t)kTY * RI * kLP + 3 * kBC;
-}
 
 // ---------------------------------------------------------------------------
 // forward
@@ -348,6 +349,199 @@ __global__ void __launch_bounds__(256)
   if (lane == 0) delta[r] = acc;
 }
 
+// The dq and dk/dv kernels run their five kinds of products on the
+// tensor cores: mma.sync m16n8k8 over TF32 operands with float32
+// accumulators, each product split into three (3xTF32): x = hi + lo and
+// a b = hi_a hi_b + hi_a lo_b + lo_a hi_b, which keeps the error at
+// float32's level (the lo lo term is below it). bfloat16 inputs are
+// exact in TF32, so their lo parts are 0 and their lo terms are skipped;
+// p and ds stay float32 and keep theirs (m16n8k16 bf16 products would
+// round them to 8 bits, or take two products each to split them).
+// A warp owns 16 rows of its block's tile. Fragments are read from shared
+// memory rows of D + 16 / sizeof(T) elements (a 16-byte pad), so that the
+// eight lanes that read one fragment column, or the four pairs that read
+// one permuted fragment row, hit distinct banks. The probabilities and
+// dS never leave registers: the k index of the second product is
+// permuted (logical k = t and t + 4 at physical columns 2 t and 2 t + 1),
+// under which an accumulator fragment of one product is the A fragment of
+// the next, and the B fragment is read with the same permutation.
+
+// x = hi + lo: hi is x rounded to TF32 (to nearest, ties away, on the bit
+// pattern), lo = x - hi exactly, passed whole: the tensor core reads the
+// top 19 bits of a TF32 operand. Integer arithmetic, because
+// cvt.rna.tf32.f32 issues at a fraction of the ALU rate: with it the
+// splits, not the products, set both kernels' time on an H100
+// (tools/attention_ab.py against a tree that splits with it).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  const uint32_t b = __float_as_uint(x);
+  hi = (b + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b in 3xTF32, the small terms first. An operand read from
+// bfloat16 data is exact in TF32 (its lo part is 0), so its lo term is
+// skipped: a bfloat16 q k^T takes one product, not three.
+template <bool kExactA, bool kExactB>
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  if constexpr (!kExactA) mma_tf32(c, a.lo, b.hi);
+  if constexpr (!kExactB) mma_tf32(c, a.hi, b.lo);
+  mma_tf32(c, a.hi, b.hi);
+}
+
+// A fragment of the 16 x 8 block at (r0, k0) of a row-major tile
+template <int LD, typename T>
+__device__ __forceinline__ FragA frag_a(const T* X, int r0, int k0, int g,
+                                        int t) {
+  FragA f;
+  const T* p = X + (r0 + g) * LD + k0 + t;
+  split(to_f32(*p), f.hi[0], f.lo[0]);
+  split(to_f32(p[8 * LD]), f.hi[1], f.lo[1]);
+  split(to_f32(p[4]), f.hi[2], f.lo[2]);
+  split(to_f32(p[8 * LD + 4]), f.hi[3], f.lo[3]);
+  return f;
+}
+
+// B fragment (k0 .. k0 + 7) x (n0 .. n0 + 7) of a tile stored n-major,
+// X[n][k] (B = X^T: the keys of Q K^T, the queries of K Q^T)
+template <int LD, typename T>
+__device__ __forceinline__ FragB frag_b_n(const T* X, int n0, int k0, int g,
+                                          int t) {
+  FragB f;
+  const T* p = X + (n0 + g) * LD + k0 + t;
+  split(to_f32(*p), f.hi[0], f.lo[0]);
+  split(to_f32(p[4]), f.hi[1], f.lo[1]);
+  return f;
+}
+
+// B fragment of a tile stored k-major, X[k][n], rows read in the
+// permuted order (physical rows k0 + 2 t and k0 + 2 t + 1)
+template <int LD, typename T>
+__device__ __forceinline__ FragB frag_b_k(const T* X, int k0, int n0, int g,
+                                          int t) {
+  FragB f;
+  const T* p = X + (k0 + 2 * t) * LD + n0 + g;
+  split(to_f32(*p), f.hi[0], f.lo[0]);
+  split(to_f32(p[LD]), f.hi[1], f.lo[1]);
+  return f;
+}
+
+// an accumulator fragment (16 x 8) as the A fragment of the next product,
+// under the permuted k order
+__device__ __forceinline__ FragA frag_a_from_c(const float (&c)[4]) {
+  FragA f;
+  split(c[0], f.hi[0], f.lo[0]);
+  split(c[2], f.hi[1], f.lo[1]);
+  split(c[1], f.hi[2], f.lo[2]);
+  split(c[3], f.hi[3], f.lo[3]);
+  return f;
+}
+
+// acc[c] += sum_n A_n B_(n, c) over the 8-column tiles c of a product
+// whose A fragments are the accumulator fragments a[n] (16 x 8 each) and
+// whose B is a tile stored k-major. Each call sums into fresh registers,
+// eight column tiles at a time, and adds them to acc once: the tensor
+// core truncates each addition into its accumulator, so a chain of a few
+// hundred products into one accumulator (dq over the key tiles, dk and
+// dv over the query tiles) would drift by ~1e-4 relative.
+template <int NA, int NC, int LD, bool kExactB, typename T>
+__device__ __forceinline__ void accumulate_tile(float (&acc)[NC][4],
+                                                const float (&a)[NA][4],
+                                                const T* B, int g, int t) {
+#pragma unroll
+  for (int c0 = 0; c0 < NC; c0 += 8) {
+    float tile[8][4];
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      tile[c][0] = tile[c][1] = tile[c][2] = tile[c][3] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NA; ++n) {
+      const FragA f = frag_a_from_c(a[n]);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (c0 + c < NC)
+          mma3<false, kExactB>(tile[c], f,
+                               frag_b_k<LD>(B, 8 * n, 8 * (c0 + c), g, t));
+    }
+#pragma unroll
+    for (int c = 0; c < 8; ++c)
+      if (c0 + c < NC)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c0 + c][e] += tile[c][e];
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Stage rows [r0, r0 + nrows) of a contiguous [*, D] tensor (at its row
+// 0) with 16-byte cp.async copies into rows of LD elements; rows at or
+// past `nvalid` are filled with zeros.
+template <typename T, int D, int LD>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src, int r0,
+                                           int nrows, int nvalid) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int CH = D / kVec;
+  for (int e = threadIdx.x; e < nrows * CH; e += kThreads) {
+    const int r = e / CH;
+    const int c = (e - r * CH) * kVec;
+    const bool ok = r0 + r < nvalid;
+    cp_async16(dst + r * LD + c, src + (size_t)(ok ? r0 + r : 0) * D + c,
+               ok ? 16 : 0);
+  }
+}
+
+template <typename T, int D>
+__host__ __device__ constexpr int bwd_ld() {
+  return D + 16 / (int)sizeof(T);
+}
+// dq: Q and dO tiles (64 rows), two stages of K and V tiles (64 keys)
+template <typename T, int D>
+constexpr size_t dq_smem_bytes() {
+  return (size_t)(2 * kBQ + 4 * kBC) * bwd_ld<T, D>() * sizeof(T);
+}
+// dk/dv: K and V tiles (64 keys), two stages of Q and dO tiles (BR rows)
+// and of the rows' m, l and delta
+template <typename T, int D, int BR>
+constexpr size_t dkv_smem_bytes() {
+  return (size_t)(2 * kBC + 4 * BR) * bwd_ld<T, D>() * sizeof(T) +
+         (size_t)2 * 3 * BR * sizeof(float);
+}
+
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -356,72 +550,111 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ l,
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int Tq, int Tk, float scale, int causal) {
-  constexpr int RI = kBQ / kTY;
-  constexpr int NC = D / 32;
-  constexpr int LD = D + kPad;
+  constexpr int LD = bwd_ld<T, D>();
+  constexpr bool kX = std::is_same<T, __nv_bfloat16>::value;  // exact
+  constexpr int NK = kBC / 8;  // key columns of a tile, in fragments
+  constexpr int ND = D / 8;
   extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Gs = Qs + kBQ * LD;
-  float* Ks = Gs + kBQ * LD;
-  float* Vs = Ks + kBC * LD;
-  float* Ss = Vs + kBC * LD;
+  T* Qs = reinterpret_cast<T*>(smem4);
+  T* Gs = Qs + kBQ * LD;
+  T* Ks = Gs + kBQ * LD;  // [2][kBC][LD], then Vs [2][kBC][LD]
+  T* Vs = Ks + 2 * kBC * LD;
 
-  const int tx = threadIdx.x % kTX;
-  const int ty = threadIdx.x / kTX;
-  const int q0 = ((int)gridDim.x - 1 - (int)blockIdx.x) * kBQ;
-  const size_t bh = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bh = blockIdx.x;
+  // the last query tile has the most keys: it is issued first
+  const int q0 = ((int)gridDim.y - 1 - (int)blockIdx.y) * kBQ;
   const T* kb = k + bh * Tk * D;
   const T* vb = v + bh * Tk * D;
-  load_tile<T, D>(Qs, q + (bh * Tq + q0) * D, kBQ, Tq - q0);
-  load_tile<T, D>(Gs, g + (bh * Tq + q0) * D, kBQ, Tq - q0);
+  stage_rows<T, D, LD>(Qs, q + bh * Tq * D, q0, kBQ, Tq);
+  stage_rows<T, D, LD>(Gs, g + bh * Tq * D, q0, kBQ, Tq);
 
-  // this thread's rows: max (0 where -inf), clamped denominator, delta;
-  // rows past the end get values that keep their (unwritten) math finite
-  float m_safe[RI], ll[RI], dd[RI], acc[RI][NC][4];
+  // this thread's two rows: max (0 where -inf), clamped denominator,
+  // delta; rows past the end take values that keep their math finite
+  float m_safe[2], inv_l[2], dd[2];
 #pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = q0 + ty + kTY * i;
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + 16 * warp + gq + 8 * h;
     const float mr = r < Tq ? m[bh * Tq + r] : 0.f;
-    m_safe[i] = isfinite(mr) ? mr : 0.f;
-    ll[i] = r < Tq ? fmaxf(l[bh * Tq + r], 1e-20f) : 1.f;
-    dd[i] = r < Tq ? delta[bh * Tq + r] : 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      acc[i][c][0] = acc[i][c][1] = acc[i][c][2] = acc[i][c][3] = 0.f;
+    m_safe[h] = isfinite(mr) ? mr : 0.f;
+    inv_l[h] = r < Tq ? 1.f / fmaxf(l[bh * Tq + r], 1e-20f) : 1.f;
+    dd[h] = r < Tq ? delta[bh * Tq + r] : 0.f;
   }
 
   const int kend = causal ? min(Tk, q0 + kBQ) : Tk;
-  for (int k0 = 0; k0 < kend; k0 += kBC) {
-    __syncthreads();
-    load_tile<T, D>(Ks, kb + (size_t)k0 * D, kBC, Tk - k0);
-    load_tile<T, D>(Vs, vb + (size_t)k0 * D, kBC, Tk - k0);
-    __syncthreads();
+  const int ntiles = (kend + kBC - 1) / kBC;
+  stage_rows<T, D, LD>(Ks, kb, 0, kBC, Tk);
+  stage_rows<T, D, LD>(Vs, vb, 0, kBC, Tk);
+  cp_async_commit();
 
-    float s[RI][kCJ], dp[RI][kCJ];
-    row_dots<D, RI>(s, Qs, Ks, tx, ty);
-    row_dots<D, RI>(dp, Gs, Vs, tx, ty);
+  float acc[ND][4];
 #pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int qi = q0 + ty + kTY * i;
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kBC;
+    const int buf = it & 1;
+    if (it + 1 < ntiles) {  // the next K/V tile loads during this one
+      stage_rows<T, D, LD>(Ks + (buf ^ 1) * kBC * LD, kb, k0 + kBC, kBC, Tk);
+      stage_rows<T, D, LD>(Vs + (buf ^ 1) * kBC * LD, vb, k0 + kBC, kBC, Tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Kt = Ks + buf * kBC * LD;
+    const T* Vt = Vs + buf * kBC * LD;
+
+    float s[NK][4], dp[NK][4];
 #pragma unroll
-      for (int j = 0; j < kCJ; ++j) {
-        const int kj = k0 + tx + kTX * j;
-        const bool live = kj < Tk && (!causal || kj <= qi);
-        const float p = live ? expf(s[i][j] * scale - m_safe[i]) / ll[i] : 0.f;
-        Ss[(ty + kTY * i) * kLP + tx + kTX * j] = p * (dp[i][j] - dd[i]) * scale;
+    for (int n = 0; n < NK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 8) {
+      const FragA aq = frag_a<LD>(Qs, 16 * warp, kk, gq, tq);
+      const FragA ag = frag_a<LD>(Gs, 16 * warp, kk, gq, tq);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        mma3<kX, kX>(s[n], aq, frag_b_n<LD>(Kt, 8 * n, kk, gq, tq));
+        mma3<kX, kX>(dp[n], ag, frag_b_n<LD>(Vt, 8 * n, kk, gq, tq));
       }
     }
-    __syncwarp();
-    accumulate_av<D, RI>(acc, Ss, Ks, tx, ty);
-    __syncwarp();
-  }
-  float one[RI];
+    // ds = p (dp - delta) scale, p recomputed from m and l; a fragment
+    // wholly inside the live region skips the mask
 #pragma unroll
-  for (int i = 0; i < RI; ++i) one[i] = 1.f;
-  store_rows<T, D, RI>(dq + bh * Tq * D, acc, one, q0, Tq, tx, ty);
+    for (int n = 0; n < NK; ++n) {
+      const int klast = k0 + 8 * n + 7;
+      const bool inside = klast < Tk && (!causal || klast <= q0 + 16 * warp);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        const int qi = q0 + 16 * warp + gq + 8 * h;
+        const int kj = k0 + 8 * n + 2 * tq + (e & 1);
+        const bool live = inside || (kj < Tk && (!causal || kj <= qi));
+        const float p = live ? expf(s[n][e] * scale - m_safe[h]) * inv_l[h] : 0.f;
+        dp[n][e] = p * (dp[n][e] - dd[h]) * scale;
+      }
+    }
+    accumulate_tile<NK, ND, LD, kX>(acc, dp, Kt, gq, tq);  // dq += ds k
+    __syncthreads();  // the tile is read before its stage is refilled
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = q0 + 16 * warp + gq + 8 * h;
+    if (r >= Tq) continue;
+    T* row = dq + (bh * Tq + r) * D;
+#pragma unroll
+    for (int c = 0; c < ND; ++c) store2(row + 8 * c + 2 * tq, acc[c][2 * h], acc[c][2 * h + 1]);
+  }
 }
 
-template <typename T, int D, int RI>
+template <typename T, int D, int BR>
 __global__ void __launch_bounds__(kThreads)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ g,
@@ -430,83 +663,137 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ delta,
                          T* __restrict__ dk, T* __restrict__ dv, int Tq,
                          int Tk, float scale, int causal) {
-  constexpr int BR = kTY * RI;  // keys of this block
-  constexpr int NC = D / 32;
-  constexpr int LD = D + kPad;
+  constexpr int LD = bwd_ld<T, D>();
+  constexpr bool kX = std::is_same<T, __nv_bfloat16>::value;  // exact
+  constexpr int NQ = BR / 8;  // query columns of a tile, in fragments
+  constexpr int ND = D / 8;
   extern __shared__ float4 smem4[];
-  float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + BR * LD;
-  float* Qs = Vs + BR * LD;
-  float* Gs = Qs + kBC * LD;
-  float* Ps = Gs + kBC * LD;
-  float* Ms = Ps + BR * kLP;
-  float* Ls = Ms + kBC;
-  float* Ds = Ls + kBC;
+  T* Ks = reinterpret_cast<T*>(smem4);
+  T* Vs = Ks + kBC * LD;
+  T* Qs = Vs + kBC * LD;   // [2][BR][LD]
+  T* Gs = Qs + 2 * BR * LD;  // [2][BR][LD]
+  float* Ms = reinterpret_cast<float*>(Gs + 2 * BR * LD);  // [2][BR]
+  float* Ls = Ms + 2 * BR;
+  float* Ds = Ls + 2 * BR;
 
-  const int tx = threadIdx.x % kTX;
-  const int ty = threadIdx.x / kTX;
-  const int k0 = blockIdx.x * BR;
-  const size_t bh = blockIdx.y;
-  load_tile<T, D>(Ks, k + (bh * Tk + k0) * D, BR, Tk - k0);
-  load_tile<T, D>(Vs, v + (bh * Tk + k0) * D, BR, Tk - k0);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBC;  // the first key tiles have the most rows
+  const T* qb = q + bh * Tq * D;
+  const T* gb = g + bh * Tq * D;
+  stage_rows<T, D, LD>(Ks, k + bh * Tk * D, k0, kBC, Tk);
+  stage_rows<T, D, LD>(Vs, v + bh * Tk * D, k0, kBC, Tk);
 
-  float dk_acc[RI][NC][4], dv_acc[RI][NC][4];
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) dk_acc[i][c][e] = dv_acc[i][c][e] = 0.f;
-
-  // causal: query tiles wholly before this block's first key are dead
-  const int qstart = causal ? (k0 / kBC) * kBC : 0;
-  for (int q0 = qstart; q0 < Tq; q0 += kBC) {
-    __syncthreads();
-    load_tile<T, D>(Qs, q + (bh * Tq + q0) * D, kBC, Tq - q0);
-    load_tile<T, D>(Gs, g + (bh * Tq + q0) * D, kBC, Tq - q0);
-    for (int e = threadIdx.x; e < kBC; e += kThreads) {
+  // a query tile, its dO tile and its rows' m, l, delta into stage `st`
+  auto issue = [&](int q0, int st) {
+    stage_rows<T, D, LD>(Qs + st * BR * LD, qb, q0, BR, Tq);
+    stage_rows<T, D, LD>(Gs + st * BR * LD, gb, q0, BR, Tq);
+    for (int e = threadIdx.x; e < BR; e += kThreads) {
       const int r = q0 + e;
-      const float mr = r < Tq ? m[bh * Tq + r] : 0.f;
-      Ms[e] = isfinite(mr) ? mr : 0.f;
-      Ls[e] = r < Tq ? fmaxf(l[bh * Tq + r], 1e-20f) : 1.f;
-      Ds[e] = r < Tq ? delta[bh * Tq + r] : 0.f;
-    }
-    __syncthreads();
-
-    // rows are keys, columns are queries
-    float p[RI][kCJ], dp[RI][kCJ];
-    row_dots<D, RI>(p, Ks, Qs, tx, ty);
-    row_dots<D, RI>(dp, Vs, Gs, tx, ty);
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int kj = k0 + ty + kTY * i;
-#pragma unroll
-      for (int j = 0; j < kCJ; ++j) {
-        const int c = tx + kTX * j;
-        const int qj = q0 + c;
-        const bool live = qj < Tq && kj < Tk && (!causal || kj <= qj);
-        p[i][j] = live ? expf(p[i][j] * scale - Ms[c]) / Ls[c] : 0.f;
-        dp[i][j] = p[i][j] * (dp[i][j] - Ds[c]) * scale;  // ds
-        Ps[(ty + kTY * i) * kLP + c] = p[i][j];
+      if (r < Tq) {
+        cp_async4(Ms + st * BR + e, m + bh * Tq + r);
+        cp_async4(Ls + st * BR + e, l + bh * Tq + r);
+        cp_async4(Ds + st * BR + e, delta + bh * Tq + r);
+      } else {  // rows past the end: values that keep their math finite
+        Ms[st * BR + e] = 0.f;
+        Ls[st * BR + e] = 1.f;
+        Ds[st * BR + e] = 0.f;
       }
     }
-    __syncwarp();
-    accumulate_av<D, RI>(dv_acc, Ps, Gs, tx, ty);  // dv += p^T dO
-    __syncwarp();
+  };
+
+  // causal: query tiles wholly before this block's first key are dead
+  const int qstart = causal ? (k0 / BR) * BR : 0;
+  const int ntiles = qstart < Tq ? (Tq - qstart + BR - 1) / BR : 0;
+  if (ntiles > 0) issue(qstart, 0);
+  cp_async_commit();
+
+  float dk_acc[ND][4], dv_acc[ND][4];
 #pragma unroll
-    for (int i = 0; i < RI; ++i)
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-      for (int j = 0; j < kCJ; ++j)
-        Ps[(ty + kTY * i) * kLP + tx + kTX * j] = dp[i][j];
-    __syncwarp();
-    accumulate_av<D, RI>(dk_acc, Ps, Qs, tx, ty);  // dk += ds^T q
-    __syncwarp();
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int q0 = qstart + it * BR;
+    const int buf = it & 1;
+    if (it + 1 < ntiles) {  // the next query tile loads during this one
+      issue(q0 + BR, buf ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* Qt = Qs + buf * BR * LD;
+    const T* Gt = Gs + buf * BR * LD;
+    const float* Mt = Ms + buf * BR;
+    const float* Lt = Ls + buf * BR;
+    const float* Dt = Ds + buf * BR;
+
+    // rows are keys, columns are queries: s^T = K Q^T, dp^T = V dO^T
+    float s[NQ][4], dp[NQ][4];
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 8) {
+      const FragA ak = frag_a<LD>(Ks, 16 * warp, kk, gq, tq);
+      const FragA av = frag_a<LD>(Vs, 16 * warp, kk, gq, tq);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        mma3<kX, kX>(s[n], ak, frag_b_n<LD>(Qt, 8 * n, kk, gq, tq));
+        mma3<kX, kX>(dp[n], av, frag_b_n<LD>(Gt, 8 * n, kk, gq, tq));
+      }
+    }
+    // p and ds; each thread's two query columns of a fragment share their
+    // m, 1 / l and delta, and a fragment wholly inside the live region
+    // skips the mask
+    const int klast = k0 + 16 * warp + 15;
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const int c = 8 * n + 2 * tq;
+      const float2 mr = *reinterpret_cast<const float2*>(Mt + c);
+      const float2 lr = *reinterpret_cast<const float2*>(Lt + c);
+      const float2 dr = *reinterpret_cast<const float2*>(Dt + c);
+      const float ms[2] = {isfinite(mr.x) ? mr.x : 0.f,
+                           isfinite(mr.y) ? mr.y : 0.f};
+      const float il[2] = {1.f / fmaxf(lr.x, 1e-20f), 1.f / fmaxf(lr.y, 1e-20f)};
+      const float dd[2] = {dr.x, dr.y};
+      const bool inside = q0 + 8 * n + 7 < Tq && klast < Tk &&
+                          (!causal || klast <= q0 + 8 * n);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = e & 1;
+        const int kj = k0 + 16 * warp + gq + 8 * (e >> 1);
+        const int qj = q0 + c + j;
+        const bool live = inside || (qj < Tq && kj < Tk && (!causal || kj <= qj));
+        const float p = live ? expf(s[n][e] * scale - ms[j]) * il[j] : 0.f;
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - dd[j]) * scale;  // ds
+      }
+    }
+    accumulate_tile<NQ, ND, LD, kX>(dv_acc, s, Gt, gq, tq);   // += p^T dO
+    accumulate_tile<NQ, ND, LD, kX>(dk_acc, dp, Qt, gq, tq);  // += ds^T q
+    __syncthreads();  // the tile is read before its stage is refilled
   }
-  float one[RI];
+  cp_async_wait<0>();  // no copy outlives the block
 #pragma unroll
-  for (int i = 0; i < RI; ++i) one[i] = 1.f;
-  store_rows<T, D, RI>(dk + bh * Tk * D, dk_acc, one, k0, Tk, tx, ty);
-  store_rows<T, D, RI>(dv + bh * Tk * D, dv_acc, one, k0, Tk, tx, ty);
+  for (int h = 0; h < 2; ++h) {
+    const int r = k0 + 16 * warp + gq + 8 * h;
+    if (r >= Tk) continue;
+    T* rk = dk + (bh * Tk + r) * D;
+    T* rv = dv + (bh * Tk + r) * D;
+#pragma unroll
+    for (int c = 0; c < ND; ++c) {
+      store2(rk + 8 * c + 2 * tq, dk_acc[c][2 * h], dk_acc[c][2 * h + 1]);
+      store2(rv + 8 * c + 2 * tq, dv_acc[c][2 * h], dv_acc[c][2 * h + 1]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -540,7 +827,7 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
                 const float* m, const float* l, const void* g, float* delta,
                 void* dq, void* dk, void* dv, int BH, int Tq, int Tk,
                 float scale, int causal, cudaStream_t st) {
-  constexpr int RI = D >= 128 ? 2 : 4;  // dk/dv accumulators fit registers
+  constexpr int BR = D >= 128 ? 32 : 64;  // dk/dv accumulators fit registers
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -551,21 +838,20 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  const size_t smem_q = dq_smem_floats<D>() * sizeof(float);
+  const size_t smem_q = dq_smem_bytes<T, D>();
   e = allow_smem(flash_bwd_dq_kernel<T, D>, smem_q);
   if (e != cudaSuccess) return e;
-  flash_bwd_dq_kernel<T, D><<<dim3((Tq + kBQ - 1) / kBQ, BH), kThreads,
+  flash_bwd_dq_kernel<T, D><<<dim3(BH, (Tq + kBQ - 1) / kBQ), kThreads,
                               smem_q, st>>>(qt, kt, vt, gt, m, l, delta,
                                             static_cast<T*>(dq), Tq, Tk,
                                             scale, causal);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
 
-  const size_t smem_kv = dkv_smem_floats<D, RI>() * sizeof(float);
-  e = allow_smem(flash_bwd_dkv_kernel<T, D, RI>, smem_kv);
+  const size_t smem_kv = dkv_smem_bytes<T, D, BR>();
+  e = allow_smem(flash_bwd_dkv_kernel<T, D, BR>, smem_kv);
   if (e != cudaSuccess) return e;
-  constexpr int BR = kTY * RI;
-  flash_bwd_dkv_kernel<T, D, RI><<<dim3((Tk + BR - 1) / BR, BH), kThreads,
+  flash_bwd_dkv_kernel<T, D, BR><<<dim3(BH, (Tk + kBC - 1) / kBC), kThreads,
                                    smem_kv, st>>>(
       qt, kt, vt, gt, m, l, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       Tq, Tk, scale, causal);

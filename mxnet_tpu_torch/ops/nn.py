@@ -41,9 +41,15 @@ from .registry import register
 # activations
 # ---------------------------------------------------------------------------
 
+def _promote(data):
+    """Integer and bool data as float32, the dtype jax's float functions
+    (softplus, softmax, log_softmax) return for them."""
+    return data if data.is_floating_point() else data.float()
+
+
 _ACTIVATIONS = {
     "relu": torch.relu, "sigmoid": torch.sigmoid, "tanh": torch.tanh,
-    "softrelu": F.softplus, "softsign": F.softsign,
+    "softrelu": lambda x: F.softplus(_promote(x)), "softsign": F.softsign,
 }
 
 for _name in ("relu", "sigmoid", "softrelu", "softsign"):
@@ -68,6 +74,7 @@ def Activation(data, act_type="relu"):
 
 @register("softmax")
 def softmax(data, axis=-1, temperature=None, length=None):
+    data = _promote(data)
     x = data / temperature if temperature else data
     if length is None:
         return torch.softmax(x, dim=axis)
@@ -83,6 +90,7 @@ def softmax(data, axis=-1, temperature=None, length=None):
 
 @register("log_softmax")
 def log_softmax(data, axis=-1, temperature=None):
+    data = _promote(data)
     x = data / temperature if temperature else data
     return torch.log_softmax(x, dim=axis)
 

@@ -14,9 +14,9 @@ against on the card.
 
 The pool is float32 or bfloat16 in q's dtype, or int8 with per-(block,
 head) float32 scales `k_scale`/`v_scale` (the reference's `quant=True`):
-the kernel dequantizes each live block as it stages it. Launches over an
-int8 pool count in `paged_attention.launches_int8`, the others in
-`paged_attention.launches`.
+the kernel stages each live block as int8 and dequantizes it in
+registers where it is used. Launches over an int8 pool count in
+`paged_attention.launches_int8`, the others in `paged_attention.launches`.
 """
 from __future__ import annotations
 
@@ -27,8 +27,6 @@ import torch
 
 from ..base import MXNetError
 
-#: warps per thread block; csrc/paged_attention.cu kWarps must match
-_WARPS = 4
 #: dynamic shared memory one thread block may use on Hopper (227 KB)
 _SMEM_LIMIT = 232448
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,41 +54,67 @@ def paged_call_cost(B, Tq, H, Dh, w, block_size, kv_itemsize=4,
     return flops, bytes_
 
 
-def _smem_bytes(head_dim, block_size):
-    """Dynamic shared memory of one thread block (csrc smem_floats)."""
-    return 4 * (head_dim + _WARPS * 2 * block_size * (head_dim + 1)
-                + _WARPS * (head_dim + 2))
+def _row_tile(tq, head_dim):
+    """Query rows one cluster serves (csrc row_tile): 4 for decode and
+    spec score, 16, or 64 (32 above head_dim 128)."""
+    if tq <= 4:
+        return 4
+    if tq <= 16:
+        return 16
+    return 32 if head_dim > 128 else 64
 
 
-def paged_limit(head_dim, block_size, tq, dtype, pool_dtype=None):
-    """None when the CUDA kernel takes this shape, q dtype and pool dtype
-    (default: q's), else the limit it breaks, named. The pool is q's
-    dtype or int8; the int8 pool stages the same float32 rows in shared
-    memory, so its shape limits are the float pool's."""
+def _smem_bytes(head_dim, block_size, tq, pool_itemsize):
+    """Dynamic shared memory of one thread block (csrc smem_bytes): the
+    float32 query tile, its rows' m and l and 32 probabilities a row, and
+    two stages of K and V blocks in the pool's dtype, rows padded by 16
+    bytes."""
+    tile = _row_tile(tq, head_dim)
+    return (tile * head_dim * 4 + tile * 2 * 4 + tile * 32 * 4
+            + 4 * block_size * (head_dim * pool_itemsize + 16))
+
+
+def paged_limit(head_dim, block_size, tq, dtype, pool_dtype=None,
+                tensors=(), bh=1):
+    """None when the CUDA kernel takes this shape (`bh` = batch rows x
+    heads), q dtype and pool dtype (default: q's), and every (name,
+    tensor) of `tensors` starts 16-byte aligned; else the limit it
+    breaks, named. The pool is q's dtype or int8 and is staged in its own
+    dtype, so an int8 pool's blocks take a quarter of a float32 pool's
+    shared memory."""
     if dtype not in _DTYPE_CODE:
         return "dtype %s: the kernel takes float32 or bfloat16" % (dtype,)
     if pool_dtype is not None and pool_dtype not in (dtype, torch.int8):
         return ("pool dtype %s: the kernel takes a pool in q's dtype (%s) "
                 "or int8" % (pool_dtype, dtype))
-    if head_dim % 32 or not 32 <= head_dim <= 256:
-        return ("head_dim %d: must be a multiple of 32 in [32, 256] (each "
-                "lane keeps head_dim/32 <= 8 accumulator columns)"
-                % head_dim)
+    if head_dim % 16 or not 16 <= head_dim <= 256:
+        return ("head_dim %d: must be a multiple of 16 in [16, 256] (rows "
+                "are staged in 16-byte pieces; a lane keeps at most 8 "
+                "accumulator columns)" % head_dim)
     if block_size < 1:
         return "block_size %d: must be >= 1" % block_size
     if not 1 <= tq <= 65535:
-        return "%d query rows: the grid's y dimension takes 1..65535" % tq
-    smem = _smem_bytes(head_dim, block_size)
+        return "%d query rows: the kernel takes 1..65535" % tq
+    if not 1 <= bh <= 65535:
+        return ("%d batch rows x heads: the grid's y dimension takes "
+                "1..65535" % bh)
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            return ("%s starts at an address that is not 16-byte aligned "
+                    "(the kernel stages it in 16-byte pieces)" % name)
+    pool = (dtype if pool_dtype is None else pool_dtype).itemsize
+    smem = _smem_bytes(head_dim, block_size, tq, pool)
     if smem > _SMEM_LIMIT:
-        return ("block_size %d x head_dim %d needs %d bytes of shared "
-                "memory per thread block; Hopper gives at most %d"
-                % (block_size, head_dim, smem, _SMEM_LIMIT))
+        return ("block_size %d x head_dim %d at %d query rows needs %d "
+                "bytes of shared memory per thread block; Hopper gives at "
+                "most %d" % (block_size, head_dim, tq, smem, _SMEM_LIMIT))
     return None
 
 
 def paged_supported(head_dim, block_size, tq, dtype, pool_dtype=None):
     """Hopper gate (replaces the reference's Mosaic `paged_eligible`):
-    True when the CUDA kernel takes this shape and these dtypes."""
+    True when the CUDA kernel takes this shape and these dtypes (the
+    pointers' alignment is checked at the call)."""
     return paged_limit(head_dim, block_size, tq, dtype, pool_dtype) is None
 
 
@@ -210,7 +234,9 @@ def paged_attention(q, k_pool, v_pool, tables, q_start, block_size,
     if q.device.type != "cuda":
         raise MXNetError("paged_attention: no kernel for device %s"
                          % (q.device,))
-    limit = paged_limit(Dh, block_size, Tq, q.dtype, k_pool.dtype)
+    limit = paged_limit(Dh, block_size, Tq, q.dtype, k_pool.dtype,
+                        (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)),
+                        B * H)
     if limit is not None:
         raise MXNetError("paged_attention: " + limit)
     quant = k_scale is not None

@@ -67,23 +67,25 @@ for _names, _fn in [
 # scalar variants (the scalar stays a static parameter)
 # ---------------------------------------------------------------------------
 
-for _name, _fn in [
-    ("_plus_scalar", lambda d, s: d + s),
-    ("_minus_scalar", lambda d, s: d - s),
-    ("_rminus_scalar", lambda d, s: s - d),
-    ("_mul_scalar", lambda d, s: d * s),
-    ("_div_scalar", lambda d, s: d / s),
-    ("_rdiv_scalar", lambda d, s: s / d),
-    ("_power_scalar", torch.pow),
-    ("_rpower_scalar", lambda d, s: torch.pow(s, d)),
-    ("_maximum_scalar", torch.maximum),
-    ("_minimum_scalar", torch.minimum),
+# (name, function, the reference's default scalar: 1.0 for the
+# multiplicative family, 0.0 for the rest)
+for _name, _fn, _default in [
+    ("_plus_scalar", lambda d, s: d + s, 0.0),
+    ("_minus_scalar", lambda d, s: d - s, 0.0),
+    ("_rminus_scalar", lambda d, s: s - d, 0.0),
+    ("_mul_scalar", lambda d, s: d * s, 1.0),
+    ("_div_scalar", lambda d, s: d / s, 1.0),
+    ("_rdiv_scalar", lambda d, s: s / d, 1.0),
+    ("_power_scalar", torch.pow, 1.0),
+    ("_rpower_scalar", lambda d, s: torch.pow(s, d), 1.0),
+    ("_maximum_scalar", torch.maximum, 0.0),
+    ("_minimum_scalar", torch.minimum, 0.0),
 ]:
-    def _mks(fn):
-        def scalar_op(data, scalar=0.0):
+    def _mks(fn, default):
+        def scalar_op(data, scalar=default):
             return fn(data, _scalar(scalar, data))
         return scalar_op
-    register(_name)(_mks(_fn))
+    register(_name)(_mks(_fn, _default))
 
 for _name, _fn in [
     ("_equal_scalar", torch.eq), ("_not_equal_scalar", torch.ne),
@@ -160,9 +162,26 @@ def _make_reduce(fn):
     return reduce_op
 
 
+def _sum_dtype(data):
+    """jnp.sum's result dtype: an int32 sum stays int32 (bool and the
+    narrower signed integers widen to it) instead of torch's int64."""
+    if data.is_floating_point() or data.is_complex():
+        return None
+    return data.dtype if data.dtype in (torch.int32, torch.int64) \
+        else torch.int32
+
+
+def _mean_input(data):
+    """jnp.mean's promotion: integer and bool data average in float32."""
+    return data if data.is_floating_point() or data.is_complex() \
+        else data.float()
+
+
 for _name, _fn in [
-    ("sum", lambda d, ax, k: torch.sum(d, dim=ax, keepdim=k)),
-    ("mean", lambda d, ax, k: torch.mean(d, dim=ax, keepdim=k)),
+    ("sum", lambda d, ax, k: torch.sum(d, dim=ax, keepdim=k,
+                                       dtype=_sum_dtype(d))),
+    ("mean", lambda d, ax, k: torch.mean(_mean_input(d), dim=ax,
+                                         keepdim=k)),
     ("max", lambda d, ax, k: torch.amax(d, dim=ax, keepdim=k)),
     ("min", lambda d, ax, k: torch.amin(d, dim=ax, keepdim=k)),
 ]:

@@ -49,11 +49,12 @@ _TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Dh,bs", [(32, 4), (64, 8), (128, 16),
-                                   (256, 16), (128, 48)])
+                                   (256, 16), (128, 48), (64, 2), (48, 3)])
 @pytest.mark.parametrize("tq", [1, 5])
 def test_kernel_matches_plain(dev, dtype, Dh, bs, tq):
     """Ragged rows (position 0, mid-block, last slot, past the table),
-    head widths 32..256 and a block wider than one warp (48 keys)."""
+    head widths 32..256, a block wider than one warp (48 keys) and blocks
+    of 2 and 3 keys."""
     H, B, w = 3, 4, 3
     q_start = [0, bs + bs // 2, w * bs - tq, w * bs + 7]
     q, k, v, tab, qs = _case(dev, B, tq, H, Dh, bs, w, q_start, dtype)
@@ -81,21 +82,21 @@ def test_cuda_wrapper_raises_instead_of_falling_back(dev):
                            8)
     with pytest.raises(MXNetError, match="is on cpu"):
         pa.paged_attention(q, k.cpu(), v, tab, qs, 8)
-    q48, k48, v48, tab48, qs48 = _case(dev, 2, 1, 2, 48, 8, 2, [3, 9],
+    q40, k40, v40, tab40, qs40 = _case(dev, 2, 1, 2, 40, 8, 2, [3, 9],
                                        torch.float32)
-    with pytest.raises(MXNetError, match="head_dim 48"):
-        pa.paged_attention(q48, k48, v48, tab48, qs48, 8)
+    with pytest.raises(MXNetError, match="head_dim 40"):
+        pa.paged_attention(q40, k40, v40, tab40, qs40, 8)
 
 
 def test_engine_paged_unsupported_shape_raises(dev):
     from mxnet_tpu_torch import serving
     from mxnet_tpu_torch.models import (TransformerConfig,
                                         init_transformer_params)
-    cfg = TransformerConfig(vocab=32, d_model=96, n_heads=2, n_layers=1,
-                            d_ff=64, max_len=32)        # head_dim 48
+    cfg = TransformerConfig(vocab=32, d_model=80, n_heads=2, n_layers=1,
+                            d_ff=64, max_len=32)        # head_dim 40
     params = init_transformer_params(cfg, torch.Generator().manual_seed(0),
                                      device=dev)
-    with pytest.raises(MXNetError, match="head_dim 48"):
+    with pytest.raises(MXNetError, match="head_dim 40"):
         serving.Engine(serving.TransformerLM(params, cfg), paged=True,
                        block_size=8, device=dev)
 
@@ -233,6 +234,102 @@ def test_flash_gate_raises_on_cuda(dev):
         fa.flash_attention(q, k.cpu(), v, causal=True)
 
 
+def _pool_case(dev, pool, B, Tq, w, q_start, bs=16, H=4, Dh=128, seed=0):
+    """(args, kwargs, q dtype) of one paged_attention call over a float32,
+    bfloat16 or int8 pool ("int8_f32"/"int8_bf16": q's dtype after the
+    underscore)."""
+    if pool.startswith("int8"):
+        dt = torch.float32 if pool == "int8_f32" else torch.bfloat16
+        q, kq, vq, ks, vs, tab, qs = _int8_case(dev, B, Tq, H, Dh, bs, w,
+                                                q_start, dt, seed)
+        return (q, kq, vq, tab, qs, bs), dict(k_scale=ks, v_scale=vs), dt
+    dt = torch.float32 if pool == "float32" else torch.bfloat16
+    q, k, v, tab, qs = _case(dev, B, Tq, H, Dh, bs, w, q_start, dt, seed)
+    return (q, k, v, tab, qs, bs), {}, dt
+
+
+_POOLS = ["float32", "bfloat16", "int8_f32", "int8_bf16"]
+
+
+def _edge_cases():
+    import chip_smoke
+    return chip_smoke.PAGED_EDGE_CASES
+
+
+@pytest.mark.parametrize("pool", _POOLS)
+@pytest.mark.parametrize("case", range(8))
+def test_paged_edges_match_plain(dev, pool, case):
+    """K1's cluster split and query tile at their edges (one live slot,
+    live slots around the cluster size, 1024 tokens, a 64-row chunk from
+    mid-block, rows whose live counts differ by more than the cluster),
+    every pool type, and two calls repeat bit for bit."""
+    label, B, Tq, w, q_start = _edge_cases()[case]
+    args, kw, dt = _pool_case(dev, pool, B, Tq, w, q_start, seed=case)
+    out = pa.paged_attention(*args, **kw)
+    again = pa.paged_attention(*args, **kw)
+    ref = pa.paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=_TOL[dt],
+                               rtol=_TOL[dt])
+    assert torch.equal(out, again), label
+
+
+@pytest.mark.parametrize("pool", _POOLS)
+@pytest.mark.parametrize("Dh,tq", [(16, 1), (48, 4), (80, 20), (208, 40)])
+def test_paged_head_dims_of_16(dev, pool, Dh, tq):
+    """Any head_dim that is a multiple of 16 up to 256: partial 128-column
+    groups per lane, and the 32-row tile above 128."""
+    args, kw, dt = _pool_case(dev, pool, 3, tq, 5, [0, 37, 80 - tq],
+                              bs=16, H=2, Dh=Dh, seed=Dh)
+    out = pa.paged_attention(*args, **kw)
+    ref = pa.paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), atol=_TOL[dt],
+                               rtol=_TOL[dt])
+
+
+@pytest.mark.parametrize("itemsize", [4, 2, 1])
+def test_paged_gate_smem_matches_the_kernel(dev, itemsize):
+    """The gate's row tile and shared-memory size (_row_tile, _smem_bytes)
+    are the ones the kernel launches with (mxtt_paged_smem_bytes)."""
+    from mxnet_tpu_torch.ops import _cuda
+    lib = _cuda.library("paged_attention.cu")
+    for Dh in range(16, 257, 16):
+        for bs in (1, 3, 16, 32, 48):
+            for tq in (1, 4, 5, 16, 17, 32, 64, 65, 500):
+                assert pa._smem_bytes(Dh, bs, tq, itemsize) == \
+                    lib.mxtt_paged_smem_bytes(tq, Dh, bs, itemsize), \
+                    (Dh, bs, tq)
+
+
+def test_paged_misaligned_pool_raises(dev):
+    """A pool that does not start on 16 bytes is refused, not staged."""
+    (q, k, v, tab, qs, bs), _, _ = _pool_case(dev, "float32", 2, 1, 2,
+                                              [3, 9], bs=8, H=2, Dh=64)
+    flat = torch.zeros(k.numel() + 1, device=dev)
+    k_off = flat[1:].view(k.shape)
+    with pytest.raises(MXNetError, match="16-byte aligned"):
+        pa.paged_attention(q, k_off, v, tab, qs, bs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_backward_repeats_bit_for_bit(dev, dtype, D):
+    """The tensor-core backward at D 64 and 128 (its two query-tile
+    heights), against the plain version and itself."""
+    q, k, v, g = _flash_case(dev, 4, 333, 333, D, dtype, seed=D)
+    scale = D ** -0.5
+    out, m, l = fa.flash_attention_fwd(q, k, v, scale, True)
+    a = fa.flash_attention_bwd(q, k, v, out, m, l, g, scale, True)
+    b = fa.flash_attention_bwd(q, k, v, out, m, l, g, scale, True)
+    want = fa.flash_bwd_plain(q, k, v, out, m, l, g, scale, True)
+    torch.cuda.synchronize()
+    tol = _FTOL[dtype][1]
+    for x, y, w in zip(a, b, want):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x.float(), w.float(), atol=tol, rtol=tol)
+
+
 # ---------------------------------------------------------------------------
 # the paged kernel's int8 variant, int8 weights and quantized serving
 # ---------------------------------------------------------------------------
@@ -286,9 +383,9 @@ def test_int8_kernel_counts_launches_apart(dev):
 
 
 def test_int8_gate_raises_on_cuda(dev):
-    q, kq, vq, ks, vs, tab, qs = _int8_case(dev, 2, 1, 2, 48, 8, 2, [3, 9],
+    q, kq, vq, ks, vs, tab, qs = _int8_case(dev, 2, 1, 2, 40, 8, 2, [3, 9],
                                             torch.float32)
-    with pytest.raises(MXNetError, match="head_dim 48"):
+    with pytest.raises(MXNetError, match="head_dim 40"):
         pa.paged_attention(q, kq, vq, tab, qs, 8, k_scale=ks, v_scale=vs)
     q, kq, vq, ks, vs, tab, qs = _int8_case(dev, 2, 1, 2, 64, 8, 2, [3, 9],
                                             torch.float32)
@@ -306,11 +403,11 @@ def test_engine_kv_quant_unsupported_shape_raises(dev):
     from mxnet_tpu_torch import serving
     from mxnet_tpu_torch.models import (TransformerConfig,
                                         init_transformer_params)
-    cfg = TransformerConfig(vocab=32, d_model=96, n_heads=2, n_layers=1,
-                            d_ff=64, max_len=32)        # head_dim 48
+    cfg = TransformerConfig(vocab=32, d_model=80, n_heads=2, n_layers=1,
+                            d_ff=64, max_len=32)        # head_dim 40
     params = init_transformer_params(cfg, torch.Generator().manual_seed(0),
                                      device=dev)
-    with pytest.raises(MXNetError, match="kv_quant=True.*head_dim 48"):
+    with pytest.raises(MXNetError, match="kv_quant=True.*head_dim 40"):
         serving.Engine(serving.TransformerLM(params, cfg), paged=True,
                        kv_quant=True, block_size=8, device=dev)
 
