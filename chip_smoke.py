@@ -16,12 +16,14 @@ Phases (any failure exits non-zero before the last line):
                 float32 and bfloat16 over an int8 pool at the decode,
                 prefill-chunk and spec-score shapes; for flash attention,
                 ragged, head_dim 128 and non-causal cases), checks that
-                the paged kernel and the flash backward repeat bit for
+                the paged kernel and both flash directions repeat bit for
                 bit, and times the kernel, the plain version, one library
-                call as a yardstick (naming the kernels SDPA's backward
-                runs), and the least time the card could take (bound;
-                for the flash backward also over the split-TF32 rate its
-                products run at).
+                call as a yardstick (naming the kernels SDPA's forward
+                and backward run), and the least time the card could take
+                (bound; for flash attention also over the split-TF32 rate
+                its float32 products run at). The attention rows are
+                timed with and without the card asleep while the host
+                enqueues the call.
   4. serving main path — serves the transformer LM at the full width of
                 the repo's serving benchmark config (vocab 8192, d_model
                 512, 4 heads x 128, 4 layers, d_ff 2048, max_len 1024;
@@ -1183,23 +1185,23 @@ FLASH_CASES = [("main", 64, 1024, 1024, 64, True),
 TF32X3_OPS_S = 495e12 / 3
 
 
-def sdpa_backward_kernels(torch, sdpa, q4, k4, v4, g4):
-    """The names of the device kernels SDPA's backward runs on these
-    inputs (torch.profiler), so the yardstick's backend is on record."""
+def library_kernels(torch, fn):
+    """The names of the device kernels one call of `fn` runs
+    (torch.profiler), so a yardstick's backend is on record."""
     from torch.profiler import ProfilerActivity, profile
-    o4 = sdpa(q4, k4, v4, is_causal=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.autograd.grad(o4, (q4, k4, v4), g4)
+        fn()
         torch.cuda.synchronize()
     return sorted({ev.key[:80] for ev in prof.key_averages()
                    if ev.device_time_total > 0})
 
 
-def phase_flash(torch, np, dev, card):
-    """Hold the flash forward (out, m, l) and backward (dq, dk, dv)
-    kernels against their plain versions, in float32 and bfloat16; time
-    both directions at the training path's shape."""
+def flash_checks(torch, np, dev, cases):
+    """Hold the flash forward (out, m, l) and backward (dq, dk, dv) against
+    their plain versions over `cases` in float32 and bfloat16, and check
+    that each direction repeats bit for bit; returns the largest errors,
+    by (dtype, output)."""
     from mxnet_tpu_torch.ops import flash_attention as fa
     outputs = ("out", "m", "l", "dq", "dk", "dv")
     errs = {(d, w): 0.0 for d in FLASH_TOL for w in outputs}
@@ -1208,11 +1210,12 @@ def phase_flash(torch, np, dev, card):
                          ("bfloat16", torch.bfloat16)):
         tol_f, tol_b = FLASH_TOL[dname]
         f32_tol = FLASH_TOL["float32"][0]
-        for label, BH, T, Tk, D, causal in FLASH_CASES:
+        for label, BH, T, Tk, D, causal in cases:
             q, k, v, g = flash_inputs(torch, np, dev, BH, T, Tk, D, dtype,
                                       seed=ncases)
             scale = D ** -0.5
             got = fa.flash_attention_fwd(q, k, v, scale, causal)
+            againf = fa.flash_attention_fwd(q, k, v, scale, causal)
             want = fa.flash_fwd_plain(q, k, v, scale, causal)
             gotb = fa.flash_attention_bwd(q, k, v, got[0], got[1], got[2], g,
                                           scale, causal)
@@ -1220,10 +1223,13 @@ def phase_flash(torch, np, dev, card):
                                        scale, causal)
             again = fa.flash_attention_bwd(q, k, v, got[0], got[1], got[2],
                                            g, scale, causal)
-            torch.cuda.synchronize()
-            check(all(torch.equal(a, b) for a, b in zip(gotb, again)),
-                  "flash backward does not repeat bit for bit (%s %s)"
-                  % (dname, label))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            for kind, a, b in (("forward", got, againf),
+                               ("backward", gotb, again)):
+                check(all(torch.equal(x, y) for x, y in zip(a, b)),
+                      "flash %s does not repeat bit for bit (%s %s)"
+                      % (kind, dname, label))
             for what, a, b, tol in (
                     ("out", got[0], want[0], tol_f),
                     ("m", got[1], want[1], f32_tol),
@@ -1245,13 +1251,32 @@ def phase_flash(torch, np, dev, card):
                                           causal, e))
             ncases += 1
     for dname in FLASH_TOL:
-        print("flash kernel check %s: %d cases (the backward repeated bit "
-              "for bit), max |kernel - plain| %s; "
+        print("flash kernel check %s: %d cases (forward and backward each "
+              "repeated bit for bit), max |kernel - plain| %s; "
               "tol (atol = rtol) out %g, m and l %g, grads %g"
-              % (dname, ncases // 2, ", ".join(
+              % (dname, len(cases), ", ".join(
                   "%s %.3g" % (w, errs[dname, w]) for w in outputs),
                  FLASH_TOL[dname][0], FLASH_TOL["float32"][0],
                  FLASH_TOL[dname][1]))
+    return errs
+
+
+def phase_flash(torch, np, dev, card):
+    """Hold the flash forward (out, m, l) and backward (dq, dk, dv)
+    kernels against their plain versions, in float32 and bfloat16; time
+    both directions at the training path's shape."""
+    from mxnet_tpu_torch.ops import _cuda
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    errs = flash_checks(torch, np, dev, FLASH_CASES)
+    # the shared memory the gate counts is the one the forward launches
+    # with
+    lib = _cuda.library("flash_attention.cu")
+    for dtype, code in fa._DTYPE_CODE.items():
+        for D in fa._HEAD_DIMS:
+            check(fa.flash_fwd_smem_bytes(D, dtype)
+                  == lib.mxtt_flash_fwd_smem_bytes(code, D),
+                  "flash_fwd_smem_bytes differs from the kernel's at "
+                  "head_dim %d, %s" % (D, dtype))
 
     # timing at the training path's shape; no L2 flush: the kernels are
     # bound by operations, and the step hands them fresh q/k/v
@@ -1284,7 +1309,6 @@ def phase_flash(torch, np, dev, card):
         t_bl = time_ms(torch, lambda: torch.autograd.grad(
             o4, (q4, k4, v4), g4, retain_graph=True), n=20)
         del o4
-        backends = sdpa_backward_kernels(torch, sdpa, q4, k4, v4, g4)
         for kind, t_k, t_p, t_l in (("fwd", t_f, t_fp, t_fl),
                                     ("bwd", t_b, t_bp, t_bl)):
             b_ms, b_by = flash_bound(fa, BH, T, D, dname, itemsize,
@@ -1293,8 +1317,18 @@ def phase_flash(torch, np, dev, card):
                    "dtype": dname, "BH": BH, "T": T, "D": D,
                    "causal": True, "ms": t_k, "plain_ms": t_p,
                    "library_ms": t_l, "bound_ms": b_ms, "bound_by": b_by}
-            if kind == "bwd":
-                # both calls again without the sleep (the span of PRs 1-5)
+            # both calls again without the sleep (a span that holds the
+            # host's enqueue), and the library's kernels by name
+            if kind == "fwd":
+                row["ms_no_sleep"] = time_ms(
+                    torch, lambda: fa.flash_attention_fwd(
+                        q, k, v, scale, True), n=20, sleep=False)
+                row["library_ms_no_sleep"] = time_ms(
+                    torch, lambda: sdpa(q4, k4, v4, is_causal=True), n=20,
+                    sleep=False)
+                row["library_kernels"] = library_kernels(
+                    torch, lambda: sdpa(q4, k4, v4, is_causal=True))
+            else:
                 row["ms_no_sleep"] = time_ms(
                     torch, lambda: fa.flash_attention_bwd(
                         q, k, v, out, m, l, g, scale, True), n=20,
@@ -1304,14 +1338,17 @@ def phase_flash(torch, np, dev, card):
                     torch, lambda: torch.autograd.grad(
                         o4, (q4, k4, v4), g4, retain_graph=True), n=20,
                     sleep=False)
+                row["library_kernels"] = library_kernels(
+                    torch, lambda: torch.autograd.grad(
+                        o4, (q4, k4, v4), g4, retain_graph=True))
                 del o4
-                # the same flops over the split-TF32 rate the kernel's
-                # products run at, and the library's kernels by name
+            if dname == "float32" or kind == "bwd":
+                # the same flops over the split-TF32 rate the products
+                # run at (the backward's in both dtypes)
                 flops = fa.flash_call_cost(BH, T, T, D, itemsize,
                                            pairs=T * (T + 1) // 2,
-                                           backward=True)[0]
+                                           backward=kind == "bwd")[0]
                 row["bound_tf32x3_ms"] = flops / TF32X3_OPS_S * 1e3
-                row["library_kernels"] = backends
             rows.append(row)
     # the layout copy the training path pays before the forward: the
     # (B, S, 3D) projection split into contiguous [B*H, S, Dh] q, k, v
@@ -1489,7 +1526,8 @@ def bn_check(torch, fb, x, dy, res, gamma, beta, relu, dname, errs, label):
     pdz, psdz, psdx = fb.bn_bwd_reduce_plain(dy, k["y"], x, k["mean"],
                                              k["inv"], relu)
     pdx = fb.bn_bwd_dx_plain(k["dz"], x, *k["c"])
-    torch.cuda.synchronize()
+    if x.device.type == "cuda":
+        torch.cuda.synchronize()
     tol = BN_TOL[dname]
     sum_atol = BN_SUM_RTOL * (N * S) ** 0.5
     for kern, what, a, b, atol, rtol in (
@@ -1505,6 +1543,8 @@ def bn_check(torch, fb, x, dy, res, gamma, beta, relu, dname, errs, label):
               "fused_bn %s %s not finite (%s %s)" % (kern, what, dname, label))
         err = float((a.float() - b.float()).abs().max())
         errs[kern, dname] = max(errs.get((kern, dname), 0.0), err)
+        if kern == "bwd_dx":  # K3d's error at each shape, for its rows
+            errs[kern, dname, N, C, S] = err
         try:
             torch.testing.assert_close(a.float(), b.float(), atol=atol,
                                        rtol=rtol)
@@ -1651,10 +1691,30 @@ def phase_kernels_bn(torch, np, dev, card):
             rows.append(row)
             print("fused_bn timing: " + json.dumps(row))
     del scratch
+    for r in bn_dx_rows(rows, errs):
+        print("fused_bn bwd_dx per shape: " + json.dumps(r))
     print("fused_bn step totals (bfloat16, one batch-256 ResNet-50 step's "
           "53 calls of each kernel): " + json.dumps(
               {"card": card, "kernels": total, "pairs_vs_cudnn": pairs}))
     return errs, total
+
+
+def bn_dx_rows(rows, errs):
+    """K3d's per-shape rows from phase 8's timing rows: every BatchNorm
+    shape of the step in bfloat16 (S = 196 and 49 among them, rows that
+    are not a whole number of 8-element vectors) and the stem's in
+    float32, each with its time, bound, their ratio and the largest
+    |kernel - plain| at that shape in phase 8's check."""
+    out = []
+    for r in rows:
+        S, t = r["H"] * r["W"], r["bwd_dx"]
+        out.append({"card": r["card"], "dtype": r["dtype"], "N": r["N"],
+                    "C": r["C"], "S": S, "per_step": r["per_step"],
+                    "ms": t["ms"], "bound_ms": t["bound_ms"],
+                    "over_bound": t["ms"] / t["bound_ms"],
+                    "max_abs_err": errs.get(("bwd_dx", r["dtype"], r["N"],
+                                             r["C"], S))})
+    return out
 
 
 def profile_step(torch, what, fn):

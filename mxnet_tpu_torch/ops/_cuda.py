@@ -79,6 +79,7 @@ _SIGNATURES = {
     "mxtt_paged_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),
     "mxtt_flash_fwd": ([_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
                         _P], _I),
+    "mxtt_flash_fwd_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "mxtt_flash_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _F, _I, _P], _I),
     "mxtt_rnn_fwd": ([_I, _I] + [_P] * 8 + [_I] * 5 + [_P], _I),

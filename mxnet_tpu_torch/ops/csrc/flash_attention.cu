@@ -20,19 +20,44 @@
 //
 // What bounds it on this card: operations. At the training path's shape
 // (BH = 64, T = 1024, D = 64, causal) the forward does about 128 flops
-// per float32 byte it must move, against a float32 ridge of about 20
-// (67 TFLOP/s over 3.35 TB/s). The backward does 2.5 times the
+// per float32 byte it must move (about 254 per bfloat16 byte), against a
+// ridge of about 20 for float32 on the CUDA cores (67 TFLOP/s over 3.35
+// TB/s), about 50 for 3xTF32 on the tensor cores (495 / 3 TFLOP/s) and
+// about 295 for bfloat16 (989 TFLOP/s). The backward does 2.5 times the
 // forward's flops on twice its bytes.
 //
-// Forward (unchanged since it was ported): every operand of the inner
-// products stays in shared memory and registers, 4 x 8 multiply-adds per
-// thread for every 12 shared-memory loads of 16 bytes, on the CUDA
-// cores. A tile is 16 x 8 threads (128, four warps); thread (ty, tx) owns
-// tile rows ty + 16 i and columns tx + 8 j, so the eight lanes of a row
-// sit in one warp (row max and sum by three shuffles). Operands are
-// staged as float32 rows padded to D + 4 floats. One block per (bh,
-// 64-row q tile), looping over 64-key tiles up to the diagonal, the
-// online softmax in registers; blocks are issued longest first.
+// What the design does about it: both directions run their products on
+// the tensor cores (mma.sync; float32 as TF32 split three ways, below),
+// stage their tiles in the input dtype with 16-byte cp.async copies,
+// double-buffered so that the next tile loads while the current one is
+// multiplied, and keep the probabilities in registers.
+//
+// Forward: one block per (bh, 64-row q tile), four warps, each owning 16
+// query rows; blocks are issued longest first. Q is staged once (in
+// bfloat16 its fragments then stay in registers); tiles of 64 keys
+// stream up to the diagonal, and a warp skips a tile that holds no live
+// key for its rows. Per tile a warp computes s = q k^T, masks it (only
+// on the diagonal tile and the ragged tail), runs the online softmax in
+// registers (row maxima and sums by trees, across a fragment's quad by
+// two shuffles; each thread keeps its share of the row sum, added across
+// the quad once at the end; exp(x - m) as 2^((x - m) log2 e) on the
+// special-function unit), rescales its running output and adds p v,
+// summed in fresh registers. Products are issued so that consecutive
+// ones go to different accumulators. out, m and l are written by one
+// thread each. On the card, expf's longer instruction sequence and
+// blocks of eight warps (128 query rows) were both slower.
+//   float32:  s = q k^T and p v in 3xTF32 m16n8k8, p as the A fragment of
+//             the second product through the permuted k index (below).
+//   bfloat16: m16n8k16 bfloat16 products, twice the work of a TF32
+//             m16n8k8 per instruction, with ldmatrix fragments (.trans
+//             for v): s = q k^T is one product, exact in float32 but for
+//             the additions; p is split into two bfloat16 parts (hi = p
+//             rounded, lo = the rest rounded), two products, so that p
+//             keeps ~16 bits as the reference's float32 p v does. The
+//             shared 3xTF32 path (one product for s, two for p v) took
+//             0.183 ms at the training shape against cuDNN's 0.039
+//             (tools/attention_ab.py, chip_smoke.py; H100 80GB HBM3,
+//             700 W).
 //
 // Backward: the products run on the tensor cores (mma.sync, TF32 split
 // three ways for float32 accuracy, below), in two kernels that together
@@ -67,30 +92,14 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kTX = 8;        // lanes across a tile row
-constexpr int kTY = 16;       // thread rows
-constexpr int kBC = 64;       // tile columns: 8 lanes x 8
-constexpr int kCJ = kBC / kTX;
-constexpr int kBQ = 64;       // query rows of a forward / dq tile (RI = 4)
-constexpr int kPad = 4;       // floats of padding per staged D-row
-constexpr int kLP = kBC + 8;  // row stride of the probability tile
+constexpr int kBC = 64;  // keys of a tile
+constexpr int kBQ = 64;  // query rows of a forward / dq tile
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  reinterpret_cast<__nv_bfloat162*>(p)[0] = __floats2bfloat162_rn(a, b);
-  reinterpret_cast<__nv_bfloat162*>(p)[1] = __floats2bfloat162_rn(c, d);
-}
-
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
@@ -98,265 +107,19 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-__device__ __forceinline__ float row_max(float v) {  // over the 8 lanes
-  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
-  v = fmaxf(v, __shfl_xor_sync(kFull, v, 2));
-  return fmaxf(v, __shfl_xor_sync(kFull, v, 4));
-}
-
-__device__ __forceinline__ float row_sum(float v) {
-  v += __shfl_xor_sync(kFull, v, 1);
-  v += __shfl_xor_sync(kFull, v, 2);
-  return v + __shfl_xor_sync(kFull, v, 4);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ float lane4(float4 v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
-}
-
-// Stage rows [0, nrows) of a contiguous [*, D] tensor (src at its first
-// row) into shared memory as float32 rows of stride D + kPad; rows at or
-// past `valid` are zeros and are not read.
-template <typename T, int D>
-__device__ void load_tile(float* dst, const T* src, int nrows, int valid) {
-  constexpr int LD = D + kPad;
-  constexpr int kVec = 16 / sizeof(T);  // elements in one 16-byte load
-  constexpr int V = D / kVec;
-  for (int e = threadIdx.x; e < nrows * V; e += kThreads) {
-    const int r = e / V;
-    const int c = (e - r * V) * kVec;
-    float* out = dst + r * LD + c;
-    if (r >= valid) {
-      for (int u = 0; u < kVec; u += 4)
-        store4(out + u, 0.f, 0.f, 0.f, 0.f);
-      continue;
-    }
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)r * D + c);
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<uint4*>(out) = raw;
-    } else {
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-      const float2 a = __bfloat1622float2(h[0]);
-      const float2 b = __bfloat1622float2(h[1]);
-      const float2 x = __bfloat1622float2(h[2]);
-      const float2 y = __bfloat1622float2(h[3]);
-      store4(out, a.x, a.y, b.x, b.y);
-      store4(out + 4, x.x, x.y, y.x, y.y);
-    }
-  }
-}
-
-// acc[i][c] += sum_k A[ty + 16 i][k] * B[k][4 tx + 32 c .. + 3] over the
-// kBC columns of A (stride kLP, rows of this warp) and rows of B (stride
-// D + kPad).
-template <int D, int RI>
-__device__ __forceinline__ void accumulate_av(float (&acc)[RI][D / 32][4],
-                                              const float* A, const float* B,
-                                              int tx, int ty) {
-  constexpr int LD = D + kPad;
-  constexpr int NC = D / 32;
-  for (int k = 0; k < kBC; k += 4) {
-    float4 a[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + kTY * i) * kLP + k);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float4 b =
-            *reinterpret_cast<const float4*>(B + (k + u) * LD + 4 * tx + 32 * c);
-#pragma unroll
-        for (int i = 0; i < RI; ++i) {
-          const float w = lane4(a[i], u);
-          acc[i][c][0] = fmaf(w, b.x, acc[i][c][0]);
-          acc[i][c][1] = fmaf(w, b.y, acc[i][c][1]);
-          acc[i][c][2] = fmaf(w, b.z, acc[i][c][2]);
-          acc[i][c][3] = fmaf(w, b.w, acc[i][c][3]);
-        }
-      }
-    }
-  }
-}
-
-// s[i][j] = A[ty + 16 i] . B[tx + 8 j] over D (both stride D + kPad).
-template <int D, int RI>
-__device__ __forceinline__ void row_dots(float (&s)[RI][kCJ], const float* A,
-                                         const float* B, int tx, int ty) {
-  constexpr int LD = D + kPad;
-#pragma unroll
-  for (int i = 0; i < RI; ++i)
-#pragma unroll
-    for (int j = 0; j < kCJ; ++j) s[i][j] = 0.f;
-  for (int d = 0; d < D; d += 4) {
-    float4 a[RI];
-#pragma unroll
-    for (int i = 0; i < RI; ++i)
-      a[i] = *reinterpret_cast<const float4*>(A + (ty + kTY * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < kCJ; ++j) {
-      const float4 b =
-          *reinterpret_cast<const float4*>(B + (tx + kTX * j) * LD + d);
-#pragma unroll
-      for (int i = 0; i < RI; ++i) s[i][j] = dot4(a[i], b, s[i][j]);
-    }
-  }
-}
-
-// Write rows ty + 16 i of acc (scaled by mul[i]) to out rows r0 + ... that
-// are < nvalid; out is a contiguous [*, D] tensor at row 0.
-template <typename T, int D, int RI>
-__device__ __forceinline__ void store_rows(T* out, const float (&acc)[RI][D / 32][4],
-                                           const float (&mul)[RI], int r0,
-                                           int nvalid, int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = r0 + ty + kTY * i;
-    if (r >= nvalid) continue;
-    T* row = out + (size_t)r * D;
-#pragma unroll
-    for (int c = 0; c < D / 32; ++c)
-      store4(row + 4 * tx + 32 * c, acc[i][c][0] * mul[i],
-             acc[i][c][1] * mul[i], acc[i][c][2] * mul[i],
-             acc[i][c][3] * mul[i]);
-  }
-}
-
-template <int D>
-constexpr size_t fwd_smem_floats() {
-  return (size_t)(kBQ + 2 * kBC) * (D + kPad) + (size_t)kBQ * kLP;
-}
-
 // ---------------------------------------------------------------------------
-// forward
+// tensor-core products, shared by the forward and the backward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ out,
-                     float* __restrict__ m_out, float* __restrict__ l_out,
-                     int Tq, int Tk, float scale, int causal) {
-  constexpr int RI = kBQ / kTY;
-  constexpr int NC = D / 32;
-  constexpr int LD = D + kPad;
-  extern __shared__ float4 smem4[];
-  float* Qs = reinterpret_cast<float*>(smem4);
-  float* Ks = Qs + kBQ * LD;
-  float* Vs = Ks + kBC * LD;
-  float* Ps = Vs + kBC * LD;
-
-  const int tx = threadIdx.x % kTX;
-  const int ty = threadIdx.x / kTX;
-  const int q0 = ((int)gridDim.x - 1 - (int)blockIdx.x) * kBQ;
-  const size_t bh = blockIdx.y;
-  const T* kb = k + bh * Tk * D;
-  const T* vb = v + bh * Tk * D;
-  load_tile<T, D>(Qs, q + (bh * Tq + q0) * D, kBQ, Tq - q0);
-
-  float m[RI], l[RI], o[RI][NC][4];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c)
-      o[i][c][0] = o[i][c][1] = o[i][c][2] = o[i][c][3] = 0.f;
-  }
-
-  // causal: key tiles past this tile's last query row are dead
-  const int kend = causal ? min(Tk, q0 + kBQ) : Tk;
-  for (int k0 = 0; k0 < kend; k0 += kBC) {
-    __syncthreads();  // the previous tile's K/V reads are done
-    load_tile<T, D>(Ks, kb + (size_t)k0 * D, kBC, Tk - k0);
-    load_tile<T, D>(Vs, vb + (size_t)k0 * D, kBC, Tk - k0);
-    __syncthreads();
-
-    float s[RI][kCJ];
-    row_dots<D, RI>(s, Qs, Ks, tx, ty);
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int qi = q0 + ty + kTY * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kCJ; ++j) {
-        const int kj = k0 + tx + kTX * j;
-        const bool live = kj < Tk && (!causal || kj <= qi);
-        s[i][j] = live ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float m_safe = isfinite(m_new) ? m_new : 0.f;
-      const float alpha = isfinite(m[i]) ? expf(m[i] - m_safe) : 0.f;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kCJ; ++j) {
-        const float p = isfinite(s[i][j]) ? expf(s[i][j] - m_safe) : 0.f;
-        sum += p;
-        Ps[(ty + kTY * i) * kLP + tx + kTX * j] = p;
-      }
-      l[i] = alpha * l[i] + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[i][c][e] *= alpha;
-    }
-    __syncwarp();  // this warp's probability rows are written
-    accumulate_av<D, RI>(o, Ps, Vs, tx, ty);
-    __syncwarp();
-  }
-
-  float inv[RI];
-#pragma unroll
-  for (int i = 0; i < RI; ++i) inv[i] = 1.f / fmaxf(l[i], 1e-20f);
-  store_rows<T, D, RI>(out + bh * Tq * D, o, inv, q0, Tq, tx, ty);
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < RI; ++i) {
-      const int r = q0 + ty + kTY * i;
-      if (r < Tq) {
-        m_out[bh * Tq + r] = m[i];
-        l_out[bh * Tq + r] = l[i];
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward
-// ---------------------------------------------------------------------------
-
-template <typename T, int D>
-__global__ void __launch_bounds__(256)
-    flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ g,
-                           float* __restrict__ delta, long long rows) {
-  const long long r = (long long)blockIdx.x * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= rows) return;  // whole warps only: no shuffle below is split
-  float acc = 0.f;
-  for (int d = lane; d < D; d += 32)
-    acc = fmaf(to_f32(g[r * D + d]), to_f32(o[r * D + d]), acc);
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(kFull, acc, off);
-  if (lane == 0) delta[r] = acc;
-}
-
-// The dq and dk/dv kernels run their five kinds of products on the
-// tensor cores: mma.sync m16n8k8 over TF32 operands with float32
+// The forward's two products and the backward's five run on the tensor
+// cores: mma.sync m16n8k8 over TF32 operands with float32
 // accumulators, each product split into three (3xTF32): x = hi + lo and
 // a b = hi_a hi_b + hi_a lo_b + lo_a hi_b, which keeps the error at
-// float32's level (the lo lo term is below it). bfloat16 inputs are
-// exact in TF32, so their lo parts are 0 and their lo terms are skipped;
-// p and ds stay float32 and keep theirs (m16n8k16 bf16 products would
-// round them to 8 bits, or take two products each to split them).
+// float32's level (the lo lo term is below it). In the backward,
+// bfloat16 inputs are exact in TF32, so their lo parts are 0 and their lo
+// terms are skipped; p and ds stay float32 and keep theirs (m16n8k16 bf16
+// products would round them to 8 bits, or take two products each to
+// split them, as the forward's bfloat16 path does with p).
 // A warp owns 16 rows of its block's tile. Fragments are read from shared
 // memory rows of D + 16 / sizeof(T) elements (a 16-byte pad), so that the
 // eight lanes that read one fragment column, or the four pairs that read
@@ -525,21 +288,386 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, int r0,
   }
 }
 
+// elements of a staged row: D and a 16-byte pad
 template <typename T, int D>
-__host__ __device__ constexpr int bwd_ld() {
+__host__ __device__ constexpr int tile_ld() {
   return D + 16 / (int)sizeof(T);
+}
+// forward: the Q tile (64 rows), two stages of K and V tiles (64 keys)
+template <typename T, int D>
+constexpr size_t fwd_smem_bytes() {
+  return (size_t)(kBQ + 4 * kBC) * tile_ld<T, D>() * sizeof(T);
 }
 // dq: Q and dO tiles (64 rows), two stages of K and V tiles (64 keys)
 template <typename T, int D>
 constexpr size_t dq_smem_bytes() {
-  return (size_t)(2 * kBQ + 4 * kBC) * bwd_ld<T, D>() * sizeof(T);
+  return (size_t)(2 * kBQ + 4 * kBC) * tile_ld<T, D>() * sizeof(T);
 }
 // dk/dv: K and V tiles (64 keys), two stages of Q and dO tiles (BR rows)
 // and of the rows' m, l and delta
 template <typename T, int D, int BR>
 constexpr size_t dkv_smem_bytes() {
-  return (size_t)(2 * kBC + 4 * BR) * bwd_ld<T, D>() * sizeof(T) +
+  return (size_t)(2 * kBC + 4 * BR) * tile_ld<T, D>() * sizeof(T) +
          (size_t)2 * 3 * BR * sizeof(float);
+}
+
+// The forward's bfloat16 path: mma.sync m16n8k16 over bfloat16 operands
+// with float32 accumulators, fragments loaded by ldmatrix (.trans for v,
+// whose rows are keys). Its A fragment of p is the accumulator fragments
+// of s in their natural order: keys 16 j .. 16 j + 15 are n-tiles 2 j and
+// 2 j + 1 of s.
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8 x 8 bfloat16 matrices; lane i gives the address of row i % 8 of
+// matrix i / 8 (16-byte aligned)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+// (x, y) = hi + lo in bfloat16 pairs: hi rounded to nearest, lo = the
+// rest rounded, ~16 bits of x and y between them
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 f = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - f.x, y - f.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// s += q k^T over D for a warp's 16 rows (Q rows r0 ..) and a tile's 64
+// keys: one bfloat16 product per 16 x 8 x 16 step, exact but for the
+// additions into the accumulator
+template <int D, int LD>
+__device__ __forceinline__ void scores_bf16(float (&s)[kBC / 8][4],
+                                            const uint32_t (&qa)[D / 16][4],
+                                            const __nv_bfloat16* Kt,
+                                            int lane) {
+  const int half = lane / 16;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    const uint32_t (&a)[4] = qa[kk / 16];
+#pragma unroll
+    for (int n = 0; n < kBC / 8; n += 2) {
+      uint32_t b[4];  // keys of n-tiles n and n + 1, d kk .. kk + 15
+      ldsm_x4(b, Kt + (8 * n + lane % 8 + 8 * half) * LD + kk +
+                     8 * ((lane / 8) % 2));
+      mma_bf16(s[n], a, b[0], b[1]);
+      mma_bf16(s[n + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// acc[c] += p v over a tile's 64 keys: p (the float32 accumulator
+// fragments of s) split into two bfloat16 parts, as the reference's p v
+// is a float32 product, each part one bfloat16 product, the small part
+// first. Sums into fresh registers, eight column tiles at a time, and
+// adds them to acc once, as accumulate_tile does.
+template <int NC, int LD>
+__device__ __forceinline__ void add_pv_bf16(float (&acc)[NC][4],
+                                            const float (&p)[kBC / 8][4],
+                                            const __nv_bfloat16* Vt,
+                                            int lane) {
+  constexpr int NB = NC < 8 ? NC : 8;  // column tiles summed at a time
+  uint32_t ph[kBC / 16][4], pl[kBC / 16][4];
+#pragma unroll
+  for (int j = 0; j < kBC / 16; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float* f = p[2 * j + q / 2] + 2 * (q % 2);
+      split_bf16(f[0], f[1], ph[j][q], pl[j][q]);
+    }
+  const int half = lane / 16;
+#pragma unroll
+  for (int c0 = 0; c0 < NC; c0 += NB) {
+    float tile[NB][4];
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      tile[c][0] = tile[c][1] = tile[c][2] = tile[c][3] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBC / 16; ++j) {
+      uint32_t b[NB / 2][4];  // keys 16 j .., column tiles c0 + 2 i, + 1
+#pragma unroll
+      for (int i = 0; i < NB / 2; ++i)
+        ldsm_x4_t(b[i], Vt + (16 * j + lane % 16) * LD + 8 * (c0 + 2 * i) +
+                            8 * half);
+      // independent accumulators back to back: the lo parts, then the hi
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+        mma_bf16(tile[c], pl[j], b[c / 2][2 * (c % 2)],
+                 b[c / 2][2 * (c % 2) + 1]);
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+        mma_bf16(tile[c], ph[j], b[c / 2][2 * (c % 2)],
+                 b[c / 2][2 * (c % 2) + 1]);
+    }
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c0 + c][e] += tile[c][e];
+  }
+}
+
+// acc[c] += p v as accumulate_tile computes it (the same products in the
+// same order into each accumulator), issued so that consecutive products
+// go to different accumulators: the forward's float32 p v. It holds
+// eight B fragments at once, registers the backward's kernels do not
+// have at D = 128, which keep accumulate_tile.
+template <int NA, int NC, int LD>
+__device__ __forceinline__ void accumulate_tile_fwd(float (&acc)[NC][4],
+                                                    const float (&a)[NA][4],
+                                                    const float* B, int g,
+                                                    int t) {
+  constexpr int NB = NC < 8 ? NC : 8;
+#pragma unroll
+  for (int c0 = 0; c0 < NC; c0 += NB) {
+    float tile[NB][4];
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+      tile[c][0] = tile[c][1] = tile[c][2] = tile[c][3] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NA; ++n) {
+      const FragA f = frag_a_from_c(a[n]);
+      FragB fb[NB];
+#pragma unroll
+      for (int c = 0; c < NB; ++c)
+        fb[c] = frag_b_k<LD>(B, 8 * n, 8 * (c0 + c), g, t);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) mma_tf32(tile[c], f.lo, fb[c].hi);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) mma_tf32(tile[c], f.hi, fb[c].lo);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) mma_tf32(tile[c], f.hi, fb[c].hi);
+    }
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c0 + c][e] += tile[c][e];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+
+// 2^x on the special-function unit (ex2.approx.ftz, ~2 ulp); 2^-inf = 0
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, T* __restrict__ out,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     int Tq, int Tk, float scale, int causal) {
+  constexpr int LD = tile_ld<T, D>();
+  constexpr bool kBf16 = std::is_same<T, __nv_bfloat16>::value;
+  constexpr int NK = kBC / 8;  // key columns of a tile, in fragments
+  constexpr int ND = D / 8;
+  constexpr float kLog2e = 1.4426950408889634f;
+  extern __shared__ float4 smem4[];
+  T* Qs = reinterpret_cast<T*>(smem4);
+  T* Ks = Qs + kBQ * LD;  // [2][kBC][LD], then Vs [2][kBC][LD]
+  T* Vs = Ks + 2 * kBC * LD;
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+  const size_t bh = blockIdx.y;
+  // the last query tile has the most keys: it is issued first
+  const int q0 = ((int)gridDim.x - 1 - (int)blockIdx.x) * kBQ;
+  const int r0 = q0 + 16 * warp;  // this warp's first row
+  const T* kb = k + bh * Tk * D;
+  const T* vb = v + bh * Tk * D;
+  // causal: key tiles past this tile's last query row are dead
+  const int kend = causal ? min(Tk, q0 + kBQ) : Tk;
+  const int ntiles = (kend + kBC - 1) / kBC;
+  stage_rows<T, D, LD>(Qs, q + bh * Tq * D, q0, kBQ, Tq);
+  stage_rows<T, D, LD>(Ks, kb, 0, kBC, Tk);
+  stage_rows<T, D, LD>(Vs, vb, 0, kBC, Tk);
+  cp_async_commit();
+  const float scale2 = scale * kLog2e;  // exp(x - m) = 2^((x - m) log2 e)
+
+  // this thread's two rows (gq and gq + 8 of the warp's 16): the running
+  // max, its share of the running sum, and its columns of the output
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[ND][4];
+#pragma unroll
+  for (int c = 0; c < ND; ++c) o[c][0] = o[c][1] = o[c][2] = o[c][3] = 0.f;
+  uint32_t qa[kBf16 ? D / 16 : 1][4];  // bfloat16: this warp's Q fragments
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * kBC;
+    const int buf = it & 1;
+    if (it + 1 < ntiles) {  // the next K/V tile loads during this one
+      stage_rows<T, D, LD>(Ks + (buf ^ 1) * kBC * LD, kb, k0 + kBC, kBC, Tk);
+      stage_rows<T, D, LD>(Vs + (buf ^ 1) * kBC * LD, vb, k0 + kBC, kBC, Tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if constexpr (kBf16) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < D; kk += 16)
+          ldsm_x4(qa[kk / 16], Qs + (16 * warp + lane % 16) * LD + kk +
+                                   8 * (lane / 16));
+      }
+    }
+    // a warp whose rows are all past the end, or (causal) all before the
+    // tile's first key, has nothing to add from it
+    if (r0 < Tq && (!causal || k0 <= r0 + 15)) {
+      const T* Kt = Ks + buf * kBC * LD;
+      const T* Vt = Vs + buf * kBC * LD;
+      float s[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+        s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      if constexpr (kBf16) {
+        scores_bf16<D, LD>(s, qa, Kt, lane);
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < D; kk += 8) {  // mma3's products and order,
+          const FragA aq = frag_a<LD>(Qs, 16 * warp, kk, gq, tq);
+          FragB bk[NK];  // consecutive ones into different accumulators
+#pragma unroll
+          for (int n = 0; n < NK; ++n)
+            bk[n] = frag_b_n<LD>(Kt, 8 * n, kk, gq, tq);
+#pragma unroll
+          for (int n = 0; n < NK; ++n) mma_tf32(s[n], aq.lo, bk[n].hi);
+#pragma unroll
+          for (int n = 0; n < NK; ++n) mma_tf32(s[n], aq.hi, bk[n].lo);
+#pragma unroll
+          for (int n = 0; n < NK; ++n) mma_tf32(s[n], aq.hi, bk[n].hi);
+        }
+      }
+      // mask only where a key of the tile is dead for a row of this warp
+      // (the diagonal tile, the ragged tail); the row max of the scaled
+      // scores is the scaled max, as scaling by scale >= 0 is monotone
+      const bool inside = k0 + kBC <= Tk && (!causal || k0 + kBC - 1 <= r0);
+      if (!inside) {
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kj = k0 + 8 * n + 2 * tq + (e & 1);
+            const int qi = r0 + gq + 8 * (e >> 1);
+            if (kj >= Tk || (causal && kj > qi)) s[n][e] = -INFINITY;
+          }
+      }
+      float mx[2];  // by a tree: short dependency chains
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float t[NK];
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+          t[n] = fmaxf(s[n][2 * h], s[n][2 * h + 1]);
+#pragma unroll
+        for (int w = NK / 2; w > 0; w /= 2)
+#pragma unroll
+          for (int n = 0; n < w; ++n) t[n] = fmaxf(t[n], t[n + w]);
+        mx[h] = t[0];
+      }
+      float msl[2], alpha[2];  // m_safe log2 e; the old sums' rescale
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float t = fmaxf(mx[h], __shfl_xor_sync(kFull, mx[h], 1));
+        t = fmaxf(t, __shfl_xor_sync(kFull, t, 2));
+        const float m_new = fmaxf(m[h], t * scale);
+        const float m_safe = isfinite(m_new) ? m_new : 0.f;
+        msl[h] = m_safe * kLog2e;
+        alpha[h] = exp2_approx((m[h] - m_safe) * kLog2e);  // 0 if m = -inf
+        m[h] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < NK; ++n)  // a masked score gives 2^-inf = 0
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[n][e] = exp2_approx(fmaf(s[n][e], scale2, -msl[e >> 1]));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // this thread's share, by a tree
+        float t[NK];
+#pragma unroll
+        for (int n = 0; n < NK; ++n) t[n] = s[n][2 * h] + s[n][2 * h + 1];
+#pragma unroll
+        for (int w = NK / 2; w > 0; w /= 2)
+#pragma unroll
+          for (int n = 0; n < w; ++n) t[n] += t[n + w];
+        l[h] = alpha[h] * l[h] + t[0];
+      }
+#pragma unroll
+      for (int c = 0; c < ND; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[c][e] *= alpha[e >> 1];
+      if constexpr (kBf16)  // o += p v
+        add_pv_bf16<ND, LD>(o, s, Vt, lane);
+      else
+        accumulate_tile_fwd<NK, ND, LD>(o, s, Vt, gq, tq);
+    }
+    __syncthreads();  // the tile is read before its stage is refilled
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(kFull, l[h], 1);
+    l[h] += __shfl_xor_sync(kFull, l[h], 2);
+    const int r = r0 + gq + 8 * h;
+    if (r >= Tq) continue;
+    const float inv = 1.f / fmaxf(l[h], 1e-20f);
+    T* row = out + (bh * Tq + r) * D;
+#pragma unroll
+    for (int c = 0; c < ND; ++c)
+      store2(row + 8 * c + 2 * tq, o[c][2 * h] * inv, o[c][2 * h + 1] * inv);
+    if (tq == 0) {
+      m_out[bh * Tq + r] = m[h];
+      l_out[bh * Tq + r] = l[h];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ g,
+                           float* __restrict__ delta, long long rows) {
+  const long long r = (long long)blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;  // whole warps only: no shuffle below is split
+  float acc = 0.f;
+  for (int d = lane; d < D; d += 32)
+    acc = fmaf(to_f32(g[r * D + d]), to_f32(o[r * D + d]), acc);
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(kFull, acc, off);
+  if (lane == 0) delta[r] = acc;
 }
 
 template <typename T, int D>
@@ -550,7 +678,7 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ l,
                         const float* __restrict__ delta, T* __restrict__ dq,
                         int Tq, int Tk, float scale, int causal) {
-  constexpr int LD = bwd_ld<T, D>();
+  constexpr int LD = tile_ld<T, D>();
   constexpr bool kX = std::is_same<T, __nv_bfloat16>::value;  // exact
   constexpr int NK = kBC / 8;  // key columns of a tile, in fragments
   constexpr int ND = D / 8;
@@ -663,7 +791,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ delta,
                          T* __restrict__ dk, T* __restrict__ dv, int Tq,
                          int Tk, float scale, int causal) {
-  constexpr int LD = bwd_ld<T, D>();
+  constexpr int LD = tile_ld<T, D>();
   constexpr bool kX = std::is_same<T, __nv_bfloat16>::value;  // exact
   constexpr int NQ = BR / 8;  // query columns of a tile, in fragments
   constexpr int ND = D / 8;
@@ -811,7 +939,7 @@ template <typename T, int D>
 cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
                 float* m, float* l, int BH, int Tq, int Tk, float scale,
                 int causal, cudaStream_t st) {
-  const size_t smem = fwd_smem_floats<D>() * sizeof(float);
+  const size_t smem = fwd_smem_bytes<T, D>();
   cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, smem);
   if (e != cudaSuccess) return e;
   dim3 grid((Tq + kBQ - 1) / kBQ, BH);
@@ -873,7 +1001,8 @@ cudaError_t bwd(const void* q, const void* k, const void* v, const void* o,
 
 // dtype: 0 = float32, 1 = bfloat16. q is [BH, T, D]; k, v [BH, Tk, D];
 // out [BH, T, D]; m, l [BH, T] float32. All contiguous on the current
-// device; D in {32, 64, 128}; causal needs Tk == T. Returns a cudaError_t.
+// device; D in {32, 64, 128}; causal needs Tk == T; scale >= 0 (the
+// caller negates q for a negative scale). Returns a cudaError_t.
 extern "C" int mxtt_flash_fwd(int dtype, const void* q, const void* k,
                               const void* v, void* out, void* m, void* l,
                               int BH, int T, int Tk, int D, float scale,
@@ -908,6 +1037,21 @@ extern "C" int mxtt_flash_bwd(int dtype, const void* q, const void* k,
 }
 
 #undef MXTT_DISPATCH
+
+// The forward's dynamic shared memory in bytes (flash_fwd_smem_bytes in
+// ops/flash_attention.py is held to it on the card); -1 for a dtype or D
+// the kernels do not take.
+extern "C" long long mxtt_flash_fwd_smem_bytes(int dtype, int D) {
+  switch (dtype * 1000 + D) {
+    case 32: return (long long)fwd_smem_bytes<float, 32>();
+    case 64: return (long long)fwd_smem_bytes<float, 64>();
+    case 128: return (long long)fwd_smem_bytes<float, 128>();
+    case 1032: return (long long)fwd_smem_bytes<__nv_bfloat16, 32>();
+    case 1064: return (long long)fwd_smem_bytes<__nv_bfloat16, 64>();
+    case 1128: return (long long)fwd_smem_bytes<__nv_bfloat16, 128>();
+    default: return -1;
+  }
+}
 
 extern "C" const char* mxtt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -43,10 +43,27 @@
 //     passes. A chunk walks its elements in S-long runs' order; with
 //     S % V == 0 (V = 16 bytes / sizeof(T)) each thread takes whole
 //     vectors, else single elements.
-//   * K3b and K3d: one flat grid-stride pass over the N * C * S elements,
-//     V consecutive elements a thread, c = (i / S) % C computed once a
+//   * K3b: one flat grid-stride pass over the N * C * S elements, V
+//     consecutive elements a thread, c = (i / S) % C computed once a
 //     vector (in 32 bits where the tensor has fewer than 2^31 elements)
 //     and stepped across row ends inside it.
+//   * K3d: a flat pass of its own, with few instructions a byte. On the
+//     K3b-shaped pass it ran at 2.5x its bytes bound in bfloat16 and 1.7x
+//     in float32 (more elements a byte, more time over the bound): it
+//     issued three coefficient loads an element, per-element guards for a
+//     runtime vector width, and 64-bit index arithmetic. Here the vector
+//     width W is a compile-time constant (16 bytes' worth, or 1 where a
+//     pointer is not 16-byte aligned; an n % W tail is a separate scalar
+//     step), vectors are cut from the flat tensor (so alignment depends on
+//     the base pointers alone, and S = 49 or 196 in bfloat16 keeps whole
+//     vectors), and (c, s) is computed once a vector, in 32 bits by a
+//     multiply and shift where n < 2^31. For S >= W a vector spans at most
+//     two channels: c's coefficients are loaded once, c + 1's only when
+//     the vector crosses a row end (S < W keeps a general per-element
+//     walk, right for S = 1). Each thread has four independent vectors in
+//     flight an iteration, over a grid of as many blocks as the SMs hold
+//     at once. The expression and its order are those of the K3b-shaped
+//     pass: dx = dz * c1 + x * c2 + c3 in float32, rounded once.
 //
 // The kernels launch on the caller's stream, allocate nothing (the
 // wrapper allocates outputs and the workspace) and do not synchronise;
@@ -334,6 +351,171 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3d: dx = c1[c] dz + c2[c] x + c3[c]
+// ---------------------------------------------------------------------------
+
+// n / d for 0 <= n < 2^31 and a divisor d >= 1 fixed for the launch: a
+// multiply and a shift, mul = ceil(2^(31 + L) / d) with L = ceil(log2 d)
+// (mul = 0 stands for d = 1). Exact over that range: the rounding of mul
+// adds less than n / 2^(31 + L) < 1 / d to n / d.
+struct FastDiv {
+  uint32_t mul, shr;
+};
+
+FastDiv fast_div(uint32_t d) {
+  FastDiv f{0u, 0u};
+  if (d > 1) {
+    uint32_t L = 0;
+    while ((1ull << L) < d) ++L;
+    f.mul = static_cast<uint32_t>(((1ull << (31 + L)) + d - 1) / d);
+    f.shr = L - 1;  // __umulhi has shifted by 32 already
+  }
+  return f;
+}
+
+__device__ __forceinline__ uint32_t divide(uint32_t n, uint32_t /*d*/,
+                                           FastDiv f) {
+  return f.mul == 0u ? n : __umulhi(n, f.mul) >> f.shr;
+}
+__device__ __forceinline__ int64_t divide(int64_t n, int64_t d, FastDiv) {
+  return n / d;
+}
+
+// W consecutive elements as float32: one 16-byte load (W = V) or one
+// element (W = 1)
+template <typename T, int W>
+__device__ __forceinline__ void load_w(const T* p, float (&v)[W]) {
+  if constexpr (W == 1) {
+    v[0] = to_f(*p);
+  } else {
+    static_assert(W == Vec<T>::V, "a vector is 16 bytes");
+    load_vec(p, v);
+  }
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void store_w(T* p, const float (&v)[W]) {
+  if constexpr (W == 1) {
+    *p = from_f<T>(v[0]);
+  } else if constexpr (sizeof(T) == 2) {  // bfloat16: rounded in pairs
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < W / 2; ++k)
+      h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  } else {
+    store_vec(p, v);
+  }
+}
+
+// dx over the W elements from flat index i0 of [N, C, S]
+template <typename I, int W>
+__device__ __forceinline__ void dx_unit(float (&o)[W], const float (&d)[W],
+                                        const float (&xv)[W], I i0, I S,
+                                        I C, FastDiv dS, FastDiv dC,
+                                        const float* __restrict__ c1,
+                                        const float* __restrict__ c2,
+                                        const float* __restrict__ c3) {
+  const I row = divide(i0, S, dS);
+  const I s = i0 - row * S;
+  const I c = row - divide(row, C, dC) * C;
+  if (W == 1 || S >= W) {  // at most one row end inside the unit
+    const float a1 = __ldg(c1 + c), a2 = __ldg(c2 + c), a3 = __ldg(c3 + c);
+    float b1 = a1, b2 = a2, b3 = a3;
+    const I left = S - s;  // elements of the unit in row `row`
+    if (W > 1 && left < W) {
+      const I cn = c + 1 == C ? 0 : c + 1;
+      b1 = __ldg(c1 + cn);
+      b2 = __ldg(c2 + cn);
+      b3 = __ldg(c3 + cn);
+    }
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      const bool first = e < left;
+      o[e] = d[e] * (first ? a1 : b1) + xv[e] * (first ? a2 : b2) +
+             (first ? a3 : b3);
+    }
+  } else {  // S < W: the unit may cross several row ends
+    I ss = s, cc = c;
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      o[e] = d[e] * __ldg(c1 + cc) + xv[e] * __ldg(c2 + cc) + __ldg(c3 + cc);
+      if (++ss == S) {
+        ss = 0;
+        if (++cc == C) cc = 0;
+      }
+    }
+  }
+}
+
+// U units of W elements in flight per thread and trip; then the n % W
+// elements after the last whole unit, one a thread
+template <typename T, typename I, int W, int U>
+__global__ void __launch_bounds__(kThreads)
+    bn_dx_kernel(const T* __restrict__ dz, const T* __restrict__ x,
+                 const float* __restrict__ c1, const float* __restrict__ c2,
+                 const float* __restrict__ c3, T* __restrict__ dx, I n, I S,
+                 I C, FastDiv dS, FastDiv dC) {
+  const I units = n / W;
+  const I stride = static_cast<I>(gridDim.x) * blockDim.x;
+  const I g = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x;
+  for (I u0 = g; u0 < units; u0 += U * stride) {
+    float d[U][W], xv[U][W];
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const I u = u0 + j * stride;
+      if (u < units) {
+        load_w<T, W>(dz + u * W, d[j]);
+        load_w<T, W>(x + u * W, xv[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < U; ++j) {
+      const I u = u0 + j * stride;
+      if (u < units) {
+        float o[W];
+        dx_unit<I, W>(o, d[j], xv[j], u * W, S, C, dS, dC, c1, c2, c3);
+        store_w<T, W>(dx + u * W, o);
+      }
+    }
+  }
+  if (W > 1 && g < n - units * W) {
+    const I i = units * W + g;
+    float d1[1] = {to_f(dz[i])}, x1[1] = {to_f(x[i])}, o1[1];
+    dx_unit<I, 1>(o1, d1, x1, i, S, C, dS, dC, c1, c2, c3);
+    dx[i] = from_f<T>(o1[0]);
+  }
+}
+
+template <typename T, typename I, int W>
+cudaError_t bn_dx(const T* dz, const T* x, const float* c1, const float* c2,
+                  const float* c3, T* dx, int64_t n, int64_t C, int64_t S,
+                  cudaStream_t st) {
+  constexpr int U = 4;
+  const auto kernel = bn_dx_kernel<T, I, W, U>;
+  // as many blocks as the SMs hold at once (each thread then walks its
+  // share of the tensor), fewer for a small tensor
+  static const int resident = [&] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                  0);
+    return sms * per_sm > 0 ? sms * per_sm : 132;
+  }();
+  const int64_t units = n / W;
+  const int64_t need = (units + kThreads * U - 1) / (kThreads * U);
+  const int blocks = static_cast<int>(
+      need < 1 ? 1 : (need < resident ? need : resident));
+  kernel<<<blocks, kThreads, 0, st>>>(
+      dz, x, c1, c2, c3, dx, static_cast<I>(n), static_cast<I>(S),
+      static_cast<I>(C), fast_div(static_cast<uint32_t>(S)),
+      fast_div(static_cast<uint32_t>(C)));
+  return cudaGetLastError();
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -346,6 +528,27 @@ int affine_blocks(int64_t units) {
   const int64_t most = 132 * 32;
   const int64_t need = (units + kThreads - 1) / kThreads;
   return static_cast<int>(need < most ? (need > 0 ? need : 1) : most);
+}
+
+// K3d's launch: 16-byte vectors where dz, x and dx are 16-byte aligned,
+// else single elements; 32-bit indices below 2^31 elements.
+template <typename T>
+cudaError_t bn_dx_entry(const void* dz, const void* x, const void* c1,
+                        const void* c2, const void* c3, void* dx, int64_t n,
+                        int64_t C, int64_t S, cudaStream_t st) {
+  constexpr int V = Vec<T>::V;
+  const T* d = static_cast<const T*>(dz);
+  const T* xv = static_cast<const T*>(x);
+  const float* a = static_cast<const float*>(c1);
+  const float* b = static_cast<const float*>(c2);
+  const float* c = static_cast<const float*>(c3);
+  T* out = static_cast<T*>(dx);
+  const bool vec = aligned16(dz) && aligned16(x) && aligned16(dx);
+  if (n <= INT32_MAX)
+    return vec ? bn_dx<T, uint32_t, V>(d, xv, a, b, c, out, n, C, S, st)
+               : bn_dx<T, uint32_t, 1>(d, xv, a, b, c, out, n, C, S, st);
+  return vec ? bn_dx<T, int64_t, V>(d, xv, a, b, c, out, n, C, S, st)
+             : bn_dx<T, int64_t, 1>(d, xv, a, b, c, out, n, C, S, st);
 }
 
 }  // namespace
@@ -430,18 +633,9 @@ extern "C" int mxtt_bn_bwd_dx(int dtype, const void* dz, const void* x,
                               void* dx, int64_t N, int64_t C, int64_t S,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int V = 16 / elem_size(dtype);
-  const int64_t n = N * C * S;
-  const int vec = aligned16(dz) && aligned16(x) && aligned16(dx);
-  const int blocks = affine_blocks(vec ? (n + V - 1) / V : n);
   MXTT_DISPATCH(dtype, T,
-                bn_affine_kernel<T, true><<<blocks, kThreads, 0, st>>>(
-                    static_cast<const T*>(x), static_cast<const T*>(dz),
-                    static_cast<const float*>(c1),
-                    static_cast<const float*>(c2),
-                    static_cast<const float*>(c3), static_cast<T*>(dx), n, C,
-                    S, 0, vec));
-  return static_cast<int>(cudaGetLastError());
+                return static_cast<int>(bn_dx_entry<T>(
+                    dz, x, c1, c2, c3, dx, N * C * S, C, S, st)));
 }
 
 #undef MXTT_DISPATCH

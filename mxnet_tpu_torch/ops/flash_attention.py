@@ -25,6 +25,19 @@ from ..base import MXNetError
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+#: the forward kernel's tile: query rows of a block, keys of a K/V tile
+#: (csrc/flash_attention.cu kBQ, kBC)
+_BQ, _BC = 64, 64
+
+
+def flash_fwd_smem_bytes(head_dim, dtype):
+    """Dynamic shared memory (bytes) of one forward block: the Q tile and
+    two stages of K and V tiles, staged in the input dtype in rows of
+    head_dim elements and a 16-byte pad; under an H100 block's 227 KB for
+    every head_dim and dtype the gate takes (the kernel's own size is
+    `mxtt_flash_fwd_smem_bytes`, held to this on the card)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (_BQ + 4 * _BC) * (head_dim + 16 // itemsize) * itemsize
 
 
 def flash_limit(head_dim, tq, tk, causal, dtype, bh=1):
@@ -33,8 +46,7 @@ def flash_limit(head_dim, tq, tk, causal, dtype, bh=1):
     if dtype not in _DTYPE_CODE:
         return "dtype %s: the kernels take float32 or bfloat16" % (dtype,)
     if head_dim not in _HEAD_DIMS:
-        return ("head_dim %d: the kernels take head_dim in %s (a lane owns "
-                "head_dim/8 output columns in float4 groups)"
+        return ("head_dim %d: the kernels are built for head_dim in %s"
                 % (head_dim, _HEAD_DIMS))
     if tq < 1 or tk < 1:
         return "empty sequence (Tq=%d, Tk=%d)" % (tq, tk)
@@ -168,6 +180,8 @@ def flash_attention_fwd(q, k, v, scale, causal):
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale, causal)
     _cuda, lib = _launch_args(q, k, causal, "flash_attention forward")
+    if scale < 0:  # the kernel scales the row max of q k^T, so scale >= 0:
+        q, scale = -q, -scale  # (-q) k^T |scale| is q k^T scale, exactly
     q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
     BH, T, D = q.shape
     out = torch.empty_like(q)

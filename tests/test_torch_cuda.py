@@ -330,6 +330,62 @@ def test_flash_backward_repeats_bit_for_bit(dev, dtype, D):
         torch.testing.assert_close(x.float(), w.float(), atol=tol, rtol=tol)
 
 
+#: the forward's checks: (D, T, Tk, causal) — one row, ragged tails and
+#: whole tiles at every head_dim, a ragged 777 at 128, non-causal Tk != T
+_FWD_CASES = [(D, T, T, True) for D in (32, 64, 128)
+              for T in (1, 37, 1000)] + [(128, 777, 777, True)] + [
+    (D, 300, 517, False) for D in (32, 64, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,T,Tk,causal", _FWD_CASES)
+def test_flash_forward_matches_plain_and_repeats(dev, dtype, D, T, Tk,
+                                                 causal):
+    """The tensor-core forward (out, m, l) against the plain version, and
+    against itself bit for bit."""
+    q, k, v, _ = _flash_case(dev, 3, T, Tk, D, dtype, seed=T + D + Tk)
+    scale = D ** -0.5
+    got = fa.flash_attention_fwd(q, k, v, scale, causal)
+    again = fa.flash_attention_fwd(q, k, v, scale, causal)
+    want = fa.flash_fwd_plain(q, k, v, scale, causal)
+    torch.cuda.synchronize()
+    tol = _FTOL[dtype][0]
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol,
+                               rtol=tol)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_takes_a_negative_scale(dev, dtype):
+    """The kernel scales the row max of q k^T, which needs scale >= 0; the
+    wrapper hands it -q and -scale for a negative one."""
+    q, k, v, _ = _flash_case(dev, 2, 100, 100, 64, dtype, seed=5)
+    got = fa.flash_attention_fwd(q, k, v, -0.125, True)
+    want = fa.flash_fwd_plain(q, k, v, -0.125, True)
+    torch.cuda.synchronize()
+    tol = _FTOL[dtype][0]
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol,
+                               rtol=tol)
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
+def test_flash_fwd_smem_matches_the_kernel(dev):
+    """The gate's shared-memory size is the one the forward launches with,
+    and every head_dim and dtype fits a block's 227 KB."""
+    from mxnet_tpu_torch.ops import _cuda
+    lib = _cuda.library("flash_attention.cu")
+    for dtype, code in fa._DTYPE_CODE.items():
+        for D in fa._HEAD_DIMS:
+            got = lib.mxtt_flash_fwd_smem_bytes(code, D)
+            assert got == fa.flash_fwd_smem_bytes(D, dtype), (D, dtype)
+            assert got <= 232448
+    assert lib.mxtt_flash_fwd_smem_bytes(0, 48) == -1
+
+
 # ---------------------------------------------------------------------------
 # the paged kernel's int8 variant, int8 weights and quantized serving
 # ---------------------------------------------------------------------------
@@ -595,6 +651,73 @@ def test_fused_bn_kernels_take_unaligned_tensors(dev):
     xs, dys, rs = shift(x), shift(dy), shift(r)
     assert xs.data_ptr() % 16 != 0
     _bn_check_all(xs, dys, rs, gamma, beta, True)
+
+
+def _bn_dx_check(dz, x, c):
+    """K3d against its plain version, and against itself bit for bit."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    got = fb.bn_bwd_dx(dz, x, *c)
+    again = fb.bn_bwd_dx(dz, x, *c)
+    want = fb.bn_bwd_dx_plain(dz, x, *c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    tol = _BTOL[x.dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _bn_dx_inputs(dev, N, C, S, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dz = torch.randn(N, C, S, generator=g, device=dev).to(dtype)
+    x = (2 * torch.randn(N, C, S, generator=g, device=dev)).to(dtype)
+    c = [torch.randn(C, generator=g, device=dev) for _ in range(3)]
+    return dz, x, c
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,C,S", [(3, 7, 1), (3, 7, 3), (5, 7, 7),
+                                   (4, 9, 49), (3, 5, 196), (2, 3, 8),
+                                   (1, 3, 7), (2, 65, 12544)])
+def test_bn_dx_rows_crossing_vectors(dev, dtype, N, C, S):
+    """K3d with odd C, so that vectors cross row ends into the next
+    channel (and wrap from the last channel to the first): S below the
+    vector width (1, 3, 7), above it and not a multiple (49, 196), a
+    multiple (8, 12544), and n % V != 0 (the scalar tail)."""
+    _bn_dx_check(*_bn_dx_inputs(dev, N, C, S, dtype, seed=N * C + S))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_dx_misaligned_pointer_takes_the_scalar_path(dev, dtype):
+    """dz and x one element past a 16-byte boundary: single elements."""
+    dz, x, c = _bn_dx_inputs(dev, 4, 7, 49, dtype, seed=3)
+
+    def shift(t):
+        buf = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    dzs, xs = shift(dz), shift(x)
+    assert dzs.data_ptr() % 16 != 0 and xs.data_ptr() % 16 != 0
+    _bn_dx_check(dzs, xs, c)
+    _bn_dx_check(dzs, x, c)
+
+
+@pytest.mark.parametrize("S", [7, 49])
+def test_bn_dx_64_bit_indices(dev, S):
+    """n >= 2^31 elements (bfloat16, 4.3 GB a tensor) takes 64-bit
+    indices; checked at both ends and across the 2^31 boundary."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    C = 3
+    N = (1 << 31) // (C * S) + 2
+    dz = torch.randn(N, C, S, device=dev, dtype=torch.bfloat16)
+    x = torch.randn(N, C, S, device=dev, dtype=torch.bfloat16)
+    c = [torch.randn(C, device=dev) for _ in range(3)]
+    dx = fb.bn_bwd_dx(dz, x, *c)
+    edge = (1 << 31) // (C * S)
+    for sl in (slice(0, 4), slice(edge - 2, edge + 2), slice(N - 4, N)):
+        want = fb.bn_bwd_dx_plain(dz[sl], x[sl], *c)
+        torch.testing.assert_close(dx[sl].float(), want.float(), atol=3e-2,
+                                   rtol=3e-2)
+    del dz, x, dx
 
 
 def test_fused_bn_repeats_bit_for_bit(dev):

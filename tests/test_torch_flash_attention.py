@@ -181,3 +181,54 @@ def test_call_cost_is_the_reference_declaration():
                                            backward=True)
     assert bflops == 10 * BH * live * D
     assert bbytes == BH * D * 4 * 8 * T + 2 * BH * T * 4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_fwd_smem_fits_every_gated_shape(dtype, D):
+    """The forward's shared memory (a 64-row Q tile and two stages of
+    64-key K and V tiles in the input dtype, rows padded by 16 bytes) fits
+    a block's 227 KB for every head_dim and dtype the gate takes."""
+    item = 4 if dtype == torch.float32 else 2
+    want = (64 + 4 * 64) * (D + 16 // item) * item
+    assert fa.flash_fwd_smem_bytes(D, dtype) == want <= 232448
+    assert fa.flash_limit(D, 1024, 1024, True, dtype) is None
+
+
+#: chip_smoke.py's flash cases cut to the CPU: ragged, causal, Tk != T
+_SMOKE_CASES = [("ragged", 2, 37, 37, 32, True),
+                ("non_causal_tk", 2, 20, 29, 32, False)]
+
+
+def test_chip_smoke_flash_checks_pass_on_the_plain_versions():
+    """chip_smoke.py's kernel checks, run here on CPU tensors (the plain
+    versions standing in for the kernels): both directions repeat, and
+    every output agrees with itself."""
+    import chip_smoke as cs
+    errs = cs.flash_checks(torch, np, torch.device("cpu"), _SMOKE_CASES)
+    assert set(errs) == {(d, w) for d in ("float32", "bfloat16")
+                         for w in ("out", "m", "l", "dq", "dk", "dv")}
+    assert max(errs.values()) == 0.0
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_chip_smoke_flash_checks_catch_a_result_that_does_not_repeat(
+        monkeypatch, direction):
+    """A kernel whose second call differs in one element fails the
+    smoke's bit-for-bit check, in the forward as in the backward."""
+    import chip_smoke as cs
+    name = "flash_attention_" + direction
+    real = getattr(fa, name)
+    calls = []
+
+    def flaky(*args):
+        out = real(*args)
+        calls.append(1)
+        if len(calls) % 2 == 0:
+            out = tuple(o.clone() for o in out)
+            out[0].view(-1)[0] += 1e-3
+        return out
+    monkeypatch.setattr(fa, name, flaky)
+    with pytest.raises(cs.SmokeFailure, match="%s does not repeat" % (
+            "forward" if direction == "fwd" else "backward")):
+        cs.flash_checks(torch, np, torch.device("cpu"), _SMOKE_CASES)

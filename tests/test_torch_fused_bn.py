@@ -379,3 +379,51 @@ def test_call_cost_is_the_references_declared_cost():
         (6 * n, 8 * n + 16 * C)
     assert fb.fused_bn_call_cost("bwd_dx", N, C, S, 2) == \
         (4 * n, 6 * n + 12 * C)
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape3", [(2, 5, 49), (3, 3, 196), (2, 7, 3)])
+def test_bwd_dx_plain_matches_pallas_across_row_ends(dname, shape3):
+    """K3d where rows are not whole 16-byte vectors (S = 49 and 196, the
+    14x14 and 7x7 BatchNorms of ResNet-50, and S = 3 below the vector
+    width), odd C: the shapes whose vectors the kernel splits between two
+    channels."""
+    x, r, dy, g, b = _inputs(shape3, dname, 11)
+    jx, tx = _pair(x, dname)
+    jdz, tdz = _pair(dy, dname)
+    c1, c2, c3 = g, b * 0.1, (g - b) * 0.01
+    jdx = pf._bwd_dx(jdz, jx, *(jnp.asarray(c)[:, None]
+                                for c in (c1, c2, c3)), True)
+    tdx = fb.bn_bwd_dx(tdz, tx, *(torch.from_numpy(c) for c in (c1, c2, c3)))
+    np.testing.assert_allclose(_np(tdx), _np(jdx), **_OUT_TOL[dname])
+
+
+def test_chip_smoke_bn_dx_rows_hold_the_unaligned_bf16_shapes():
+    """chip_smoke.py's phase 8 prints one K3d row per timed shape with the
+    kernel's error at that shape: the rows cover the bfloat16 S = 196 and
+    S = 49 BatchNorms (rows that are not whole 8-element vectors) and the
+    stem in float32, and bn_check records each shape's dx error (run here
+    on CPU tensors, the plain versions standing in for the kernels)."""
+    import chip_smoke as cs
+    errs = {}
+    for C, S in ((3, 196), (5, 49)):
+        N = 2
+        x = torch.randn(N, C, S).to(torch.bfloat16)
+        dy = torch.randn(N, C, S).to(torch.bfloat16)
+        cs.bn_check(torch, fb, x, dy, None, torch.rand(C) + 0.5,
+                    torch.randn(C), True, "bfloat16", errs, "cpu")
+        assert errs["bwd_dx", "bfloat16", N, C, S] == 0.0
+    shapes = [("bfloat16", C, H, W, n) for C, H, W, _, _, n in cs.R50_BNS]
+    shapes.append(("float32",) + cs.R50_BNS[0][:3] + (1,))
+    rows = [{"card": "-", "dtype": d, "N": cs.R50_BATCH, "C": C, "H": H,
+             "W": W, "per_step": n,
+             "bwd_dx": {"ms": 2.0, "bound_ms": 1.0}}
+            for d, C, H, W, n in shapes]
+    errs.update({("bwd_dx", d, cs.R50_BATCH, C, H * W): 1e-3
+                 for d, C, H, W, _ in shapes})
+    out = cs.bn_dx_rows(rows, errs)
+    got = {(r["dtype"], r["S"]) for r in out}
+    assert {("bfloat16", 196), ("bfloat16", 49), ("float32", 12544)} <= got
+    assert len(out) == 14 and all(r["over_bound"] == 2.0 for r in out)
+    assert all(r["max_abs_err"] == 1e-3 for r in out)
+    assert sum(r["per_step"] for r in out if r["dtype"] == "bfloat16") == 53

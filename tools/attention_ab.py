@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """The attention kernels of two source trees side by side on one card:
 K1 (ops/csrc/paged_attention.cu) at chip_smoke.py's timed shapes over
-float32, bfloat16 and int8 pools, and K2's backward (ops/csrc/
+float32, bfloat16 and int8 pools, and K2's forward and backward (ops/csrc/
 flash_attention.cu) at the transformer training shape, each built from
-both trees, held against this tree's plain versions and timed by
-chip_smoke.time_ms in turns (base, this, this, base), with and without
-the card's sleep before each call.
+both trees, held against this tree's plain versions and against each
+other (max |this - base|), and timed by chip_smoke.time_ms in turns
+(base, this, this, base), with and without the card's sleep before each
+call. With --train, chip_smoke.py's phase 5 (the transformer training
+step, flash on) then runs from each tree in a process of its own, in the
+same turns, and its step times print beside each other.
 
-    python tools/attention_ab.py BASE_DIR   # NVIDIA GPU, from the repo root
+    python tools/attention_ab.py BASE_DIR [--train]  # NVIDIA GPU, repo root
 
 BASE_DIR is another checkout, e.g. a parent commit unpacked with
 `git archive <commit> | tar -x -C <dir>` into a directory .gitignore
-lists. Its sources must keep the C entries mxtt_paged_attention and
-mxtt_flash_bwd with this tree's signatures. Each row prints as a JSON
-line; the last line holds them all. Imports nothing of JAX.
+lists. Its sources must keep the C entries mxtt_paged_attention,
+mxtt_flash_fwd and mxtt_flash_bwd with this tree's signatures. Each row
+prints as a JSON line; the last line holds them all. Imports nothing of
+JAX.
 """
 import ctypes
 import json
@@ -57,6 +61,25 @@ def paged(torch, pa, lib, q, k, v, tab, qs, bs, ks=None, vs=None):
     return out
 
 
+def flash_fwd(torch, fa, lib, q, k, v, scale):
+    BH, T, D = q.shape
+    out = torch.empty_like(q)
+    m = torch.empty((BH, T, 1), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    err = lib.mxtt_flash_fwd(
+        fa._DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), m.data_ptr(), l.data_ptr(), BH, T, k.shape[1], D,
+        scale, 1, torch.cuda.current_stream().cuda_stream)
+    assert err == 0, err
+    return out, m, l
+
+
+def max_diff(a, b):
+    """The largest |a - b| over paired tensors."""
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(a, b))
+
+
 def flash_bwd(torch, fa, lib, q, k, v, o, m, l, g, scale):
     BH, T, D = q.shape
     delta = torch.empty((BH, T), dtype=torch.float32, device=q.device)
@@ -88,7 +111,9 @@ def in_turns(torch, fns, flush):
 def main():
     import numpy as np
     import torch
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
+    args = sys.argv[1:]
+    if not args or args[1:] not in ([], ["--train"]) \
+            or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
     from mxnet_tpu_torch.ops import _cuda
@@ -146,19 +171,63 @@ def main():
     for dt in (torch.float32, torch.bfloat16):
         q, k, v, g = cs.flash_inputs(torch, np, dev, BH, T, T, D, dt, 99)
         scale = D ** -0.5
+        want = fa.flash_fwd_plain(q, k, v, scale, True)
+        got = [flash_fwd(torch, fa, lib, q, k, v, scale) for lib in fl]
+        ms = in_turns(torch, [lambda lib=lib: flash_fwd(
+            torch, fa, lib, q, k, v, scale) for lib in fl], None)
+        report({"kernel": "flash_attention_fwd", "dtype": str(dt)[6:],
+                "BH": BH, "T": T, "D": D, "causal": True, **ms,
+                "base_max_abs_err": max_diff(got[0], want),
+                "max_abs_err": max_diff(got[1], want),
+                "max_abs_this_vs_base": max_diff(got[1], got[0])})
         o, m, l = fa.flash_attention_fwd(q, k, v, scale, True)
         want = fa.flash_bwd_plain(q, k, v, o, m, l, g, scale, True)
-        errs = [max(float((a.float() - b.float()).abs().max())
-                    for a, b in zip(flash_bwd(torch, fa, lib, q, k, v, o,
-                                              m, l, g, scale), want))
-                for lib in fl]
+        got = [flash_bwd(torch, fa, lib, q, k, v, o, m, l, g, scale)
+               for lib in fl]
         ms = in_turns(torch, [lambda lib=lib: flash_bwd(
             torch, fa, lib, q, k, v, o, m, l, g, scale) for lib in fl], None)
         report({"kernel": "flash_attention_bwd", "dtype": str(dt)[6:],
                 "BH": BH, "T": T, "D": D, "causal": True, **ms,
-                "base_max_abs_err": errs[0], "max_abs_err": errs[1]})
+                "base_max_abs_err": max_diff(got[0], want),
+                "max_abs_err": max_diff(got[1], want),
+                "max_abs_this_vs_base": max_diff(got[1], got[0])})
+    del flush_buf
+    if args[1:]:
+        report(train_in_turns(args[0]))
     print(json.dumps({"rows": rows}))
     return 0
+
+
+#: one run of chip_smoke.py's phase 5 from the tree it is started in
+_TRAIN = """
+import json, torch, numpy as np, chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+_, main = cs.phase_train(torch, np, dev, cs.nvidia_smi())
+print("AB_TRAIN " + json.dumps(main))
+"""
+
+
+def train_in_turns(base_dir):
+    """Phase 5 from the base tree and from this one, each in a process of
+    its own, in turns (base, this, this, base): each run's step times."""
+    runs = {"base": [], "this": []}
+    for name, root in (("base", base_dir), ("this", ROOT), ("this", ROOT),
+                       ("base", base_dir)):
+        r = subprocess.run([sys.executable, "-c", _TRAIN], cwd=root,
+                           capture_output=True, text=True)
+        line = [ln for ln in r.stdout.splitlines()
+                if ln.startswith("AB_TRAIN ")]
+        if r.returncode or not line:
+            raise SystemExit("phase 5 from %s failed:\n%s%s"
+                             % (root, r.stdout[-4000:], r.stderr[-4000:]))
+        main = json.loads(line[0][len("AB_TRAIN "):])
+        runs[name].append({k: main[k] for k in (
+            "step_ms_mean", "step_ms_p50", "flash_fwd_launches",
+            "flash_bwd_launches", "grad_rel_err", "loss_last")})
+    return {"what": "phase 5 training step, in turns base, this, this, "
+            "base", **runs}
 
 
 if __name__ == "__main__":
