@@ -1542,9 +1542,8 @@ def bn_check(torch, fb, x, dy, res, gamma, beta, relu, dname, errs, label):
         check(bool(torch.isfinite(a).all()),
               "fused_bn %s %s not finite (%s %s)" % (kern, what, dname, label))
         err = float((a.float() - b.float()).abs().max())
-        errs[kern, dname] = max(errs.get((kern, dname), 0.0), err)
-        if kern == "bwd_dx":  # K3d's error at each shape, for its rows
-            errs[kern, dname, N, C, S] = err
+        for key in ((kern, dname), (kern, dname, N, C, S)):  # the shape's
+            errs[key] = max(errs.get(key, 0.0), err)         # for its rows
         try:
             torch.testing.assert_close(a.float(), b.float(), atol=atol,
                                        rtol=rtol)
@@ -1691,28 +1690,37 @@ def phase_kernels_bn(torch, np, dev, card):
             rows.append(row)
             print("fused_bn timing: " + json.dumps(row))
     del scratch
-    for r in bn_dx_rows(rows, errs):
-        print("fused_bn bwd_dx per shape: " + json.dumps(r))
+    for kind in SHAPE_ROW_KINDS:
+        for r in bn_shape_rows(rows, errs, kind):
+            print("fused_bn %s per shape: %s" % (kind, json.dumps(r)))
     print("fused_bn step totals (bfloat16, one batch-256 ResNet-50 step's "
           "53 calls of each kernel): " + json.dumps(
               {"card": card, "kernels": total, "pairs_vs_cudnn": pairs}))
     return errs, total
 
 
-def bn_dx_rows(rows, errs):
-    """K3d's per-shape rows from phase 8's timing rows: every BatchNorm
-    shape of the step in bfloat16 (S = 196 and 49 among them, rows that
-    are not a whole number of 8-element vectors) and the stem's in
-    float32, each with its time, bound, their ratio and the largest
+#: the kernels phase 8 prints a row a shape for: K3a (with torch.var_mean
+#: beside it), K3b and K3d
+SHAPE_ROW_KINDS = ("stats", "apply", "bwd_dx")
+
+
+def bn_shape_rows(rows, errs, kind):
+    """One kernel's per-shape rows from phase 8's timing rows: every
+    BatchNorm shape of the step in bfloat16 (S = 196 and 49 among them,
+    rows that are not a whole number of 8-element vectors) and the stem's
+    in float32, each with its time, bound, their ratio, the library
+    call's time where there is one (K3a: torch.var_mean) and the largest
     |kernel - plain| at that shape in phase 8's check."""
     out = []
     for r in rows:
-        S, t = r["H"] * r["W"], r["bwd_dx"]
-        out.append({"card": r["card"], "dtype": r["dtype"], "N": r["N"],
-                    "C": r["C"], "S": S, "per_step": r["per_step"],
-                    "ms": t["ms"], "bound_ms": t["bound_ms"],
+        S, t = r["H"] * r["W"], r[kind]
+        out.append({"card": r["card"], "kernel": "fused_bn_" + kind,
+                    "dtype": r["dtype"], "N": r["N"], "C": r["C"], "S": S,
+                    "per_step": r["per_step"], "ms": t["ms"],
+                    "bound_ms": t["bound_ms"],
                     "over_bound": t["ms"] / t["bound_ms"],
-                    "max_abs_err": errs.get(("bwd_dx", r["dtype"], r["N"],
+                    "library_ms": t.get("library_ms"),
+                    "max_abs_err": errs.get((kind, r["dtype"], r["N"],
                                              r["C"], S))})
     return out
 

@@ -34,6 +34,7 @@ layout and dtype conditions.
 """
 from __future__ import annotations
 
+import math
 import os
 
 import torch
@@ -41,15 +42,24 @@ import torch
 from ..base import MXNetError
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: threads per block of the reduction kernels (csrc/fused_bn.cu kThreads)
-#: and the elements a thread takes per loop trip there, at the least
+#: threads per block of the reduction kernels (csrc/fused_bn.cu kThreads,
+#: kStatsThreads) and the elements a K3c thread takes per loop trip there,
+#: at the least
 _THREADS = 256
 _UNROLL = 4
-#: the H100's streaming multiprocessors, and the reduction blocks a pass
+#: the H100's streaming multiprocessors, and K3c's reduction blocks a pass
 #: aims for per SM: 8 blocks of 256 threads fill an SM, so 32 give four
 #: waves and the last wave's tail is a small share of the pass
 _SMS = 132
 _BLOCKS_PER_SM = 32
+#: K3a's blocks a pass aims for per SM: one wave of 2 (an SM holds 4,
+#: csrc/fused_bn.cu bn_stats_kernel's launch bounds). On an H100 2 an SM
+#: beat 4 at every ResNet-50 shape where the cluster could shrink (e.g.
+#: 0.0158 against 0.0192 ms at C 512, S 49 in bfloat16), and 1 an SM lost
+#: (tools/bn_stats_sweep.py)
+_STATS_BLOCKS_PER_SM = 2
+#: most blocks of a K3a cluster (a channel group): the portable cluster size
+_STATS_MAX_CLUSTER = 8
 
 
 def fuse_enabled():
@@ -192,11 +202,30 @@ def _per_channel(what, x3, **vectors):
 
 
 def _parts(N, C, S):
-    """Blocks per channel of the reduction kernels: C * P fills the card's
-    SMs with several waves, while each thread keeps a few loop trips."""
+    """Blocks per channel of K3c: C * P fills the card's SMs with several
+    waves, while each thread keeps a few loop trips."""
     target = _SMS * _BLOCKS_PER_SM
     most = -(-(N * S) // (_THREADS * _UNROLL))
     return max(1, min(-(-target // C), most))
+
+
+def _stats_cluster(N, C, S, itemsize):
+    """K3a's blocks a channel group (its cluster size P: 1, 2, 4 or 8):
+    the most that keep the grid of C / G groups x P blocks within
+    _STATS_BLOCKS_PER_SM an SM, and no more than N (each block then sums
+    N / P rows). G is the kernel's channel group: V / gcd(S, V) channels
+    with V = 16 bytes' worth of elements, so that a group's span is whole
+    16-byte vectors; 1 where C is not a multiple of it or its span is
+    wider than a block (the kernel then takes single elements)."""
+    V = 16 // itemsize
+    G = V // math.gcd(S, V)
+    if C % G or (G > 1 and G * S // V > _THREADS):
+        G = 1
+    groups, P = C // G, 1
+    while (2 * P <= min(_STATS_MAX_CLUSTER, N)
+           and groups * 2 * P <= _SMS * _STATS_BLOCKS_PER_SM):
+        P *= 2
+    return P
 
 
 def _stream(dev):
@@ -213,15 +242,13 @@ def bn_stats(x3):
     _cuda, lib = _library(x3, what)
     _same(what, x3, x=x3)
     N, C, S = x3.shape
-    P = _parts(N, C, S)
+    P = _stats_cluster(N, C, S, x3.element_size())
     f32 = dict(dtype=torch.float32, device=x3.device)
-    part = torch.empty((2, C, P), **f32)
     mean, var = torch.empty(C, **f32), torch.empty(C, **f32)
     with torch.cuda.device(x3.device):
         err = lib.mxtt_bn_stats(
             _DTYPE_CODE[x3.dtype], x3.data_ptr(), N, C, S, P, 1.0 / (N * S),
-            part.data_ptr(), mean.data_ptr(), var.data_ptr(),
-            _stream(x3.device))
+            None, mean.data_ptr(), var.data_ptr(), _stream(x3.device))
     _cuda.check(lib, err, "fused_bn stats kernel launch")
     bn_stats.launches += 1
     return mean, var

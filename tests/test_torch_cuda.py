@@ -720,6 +720,101 @@ def test_bn_dx_64_bit_indices(dev, S):
     del dz, x, dx
 
 
+def _bn_fwd_check(x, r, relu, seed=0):
+    """K3a and K3b against their plain versions; K3a against itself bit
+    for bit."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    C = x.shape[1]
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    scale = torch.rand(C, generator=g, device=x.device) + 0.5
+    offset = torch.randn(C, generator=g, device=x.device)
+    mean, var = fb.bn_stats(x)
+    again = fb.bn_stats(x)
+    pm, pv = fb.bn_stats_plain(x)
+    y = fb.bn_apply(x, scale, offset, r, relu)
+    py = fb.bn_apply_plain(x, scale, offset, r, relu)
+    torch.cuda.synchronize()
+    assert torch.equal(mean, again[0]) and torch.equal(var, again[1])
+    torch.testing.assert_close(mean, pm, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(var, pv, atol=1e-5, rtol=1e-5)
+    tol = _BTOL[x.dtype]
+    torch.testing.assert_close(y.float(), py.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu,res", [(False, False), (True, True)])
+@pytest.mark.parametrize("N,C,S", [(6, 24, 49), (5, 12, 49), (3, 10, 196),
+                                   (3, 5, 196), (4, 3, 1), (4, 3, 3),
+                                   (5, 16, 1), (3, 8, 3), (2, 3, 7),
+                                   (1, 8, 49), (2, 8, 301)])
+def test_bn_fwd_channel_groups_and_row_ends(dev, dtype, relu, res, N, C, S):
+    """K3a and K3b where a 16-byte vector crosses row ends: S = 49 and
+    196 with C a multiple of K3a's channel group (8 and 2 channels a span
+    in bfloat16) and not (the single-element path), S below the vector
+    width (1, 3, 7), an odd C = 3, N = 1 (a cluster of one block), and an
+    S whose channel group is wider than a block (301 in bfloat16: 8
+    channels a span of 301 vectors; the single-element path)."""
+    x, _, r, _, _ = _bn_case(dev, N, C, S, dtype, seed=N * C + S)
+    _bn_fwd_check(x, r if res else None, relu, seed=S)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_fwd_misaligned_pointer_takes_the_scalar_path(dev, dtype):
+    """x (and the residual) one element past a 16-byte boundary: K3a and
+    K3b take single elements, with the same results."""
+    x, _, r, _, _ = _bn_case(dev, 4, 16, 49, dtype, seed=5)
+
+    def shift(t):
+        buf = torch.empty(t.numel() + 1, device=dev, dtype=t.dtype)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+    xs, rs = shift(x), shift(r)
+    assert xs.data_ptr() % 16 != 0 and rs.data_ptr() % 16 != 0
+    _bn_fwd_check(xs, rs, True)
+    _bn_fwd_check(x, rs, True)
+    _bn_fwd_check(xs, None, False)
+
+
+@pytest.mark.parametrize("C,S", [(3, 7), (8, 49)])
+def test_bn_fwd_64_bit_indices(dev, C, S):
+    """n >= 2^31 elements (bfloat16, 4.3 GB a tensor): K3b checked at
+    both ends and across the 2^31 boundary, K3a against its plain
+    version (C = 3 takes single elements, C = 8 16-byte vectors)."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    N = (1 << 31) // (C * S) + 2
+    x = torch.randn(N, C, S, device=dev, dtype=torch.bfloat16)
+    r = torch.randn(N, C, S, device=dev, dtype=torch.bfloat16)
+    scale = torch.rand(C, device=dev) + 0.5
+    offset = torch.randn(C, device=dev)
+    y = fb.bn_apply(x, scale, offset, r, True)
+    edge = (1 << 31) // (C * S)
+    for sl in (slice(0, 4), slice(edge - 2, edge + 2), slice(N - 4, N)):
+        want = fb.bn_apply_plain(x[sl], scale, offset, r[sl], True)
+        torch.testing.assert_close(y[sl].float(), want.float(), atol=3e-2,
+                                   rtol=3e-2)
+    del r, y
+    mean, var = fb.bn_stats(x)
+    pm, pv = fb.bn_stats_plain(x)
+    torch.testing.assert_close(mean, pm, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(var, pv, atol=1e-5, rtol=1e-5)
+    del x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,S", [(512, 49), (2048, 49), (256, 196)])
+def test_bn_stats_repeats_bit_for_bit_at_small_s(dev, dtype, C, S):
+    """K3a at ResNet-50's 7x7 and 14x14 BatchNorms (batch 256), where
+    clusters of blocks combine their channel groups' sums: three calls
+    give the same bits."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    x = _bn_case(dev, 256, C, S, dtype, seed=C)[0]
+    runs = [fb.bn_stats(x) for _ in range(3)]
+    torch.cuda.synchronize()
+    for mean, var in runs[1:]:
+        assert torch.equal(mean, runs[0][0]) and torch.equal(var, runs[0][1])
+
+
 def test_fused_bn_repeats_bit_for_bit(dev):
     """No atomics: the partial sums combine in a fixed order."""
     from mxnet_tpu_torch.ops import fused_bn as fb

@@ -398,13 +398,71 @@ def test_bwd_dx_plain_matches_pallas_across_row_ends(dname, shape3):
     np.testing.assert_allclose(_np(tdx), _np(jdx), **_OUT_TOL[dname])
 
 
-def test_chip_smoke_bn_dx_rows_hold_the_unaligned_bf16_shapes():
-    """chip_smoke.py's phase 8 prints one K3d row per timed shape with the
-    kernel's error at that shape: the rows cover the bfloat16 S = 196 and
-    S = 49 BatchNorms (rows that are not whole 8-element vectors) and the
-    stem in float32, and bn_check records each shape's dx error (run here
-    on CPU tensors, the plain versions standing in for the kernels)."""
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape3", [(2, 5, 49), (3, 3, 196), (2, 7, 3)])
+def test_stats_plain_matches_pallas_across_row_ends(dname, shape3):
+    """K3a where rows are not whole 16-byte vectors (S = 49 and 196) and
+    S = 3 below the vector width, with C not a multiple of the kernel's
+    channel group (8 channels a span at S = 49 in bfloat16)."""
+    x, *_ = _inputs(shape3, dname, 12)
+    jx, tx = _pair(x, dname)
+    jm, jv = pf._bn_stats(jx, True)
+    tm, tv = fb.bn_stats(tx)
+    np.testing.assert_allclose(_np(tm), _np(jm), **_SUM_TOL)
+    np.testing.assert_allclose(_np(tv), _np(jv), **_SUM_TOL)
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("relu,res", [(False, False), (True, True),
+                                      (True, False), (False, True)])
+@pytest.mark.parametrize("shape3", [(2, 5, 49), (3, 3, 196), (2, 7, 3)])
+def test_apply_plain_matches_pallas_across_row_ends(dname, relu, res,
+                                                    shape3):
+    """K3b at the shapes whose 16-byte vectors the kernel splits between
+    two channels (S = 49, 196) or several (S = 3), odd C."""
+    x, r, _, g, b = _inputs(shape3, dname, 13)
+    jx, tx = _pair(x, dname)
+    jr, tr = _pair(r, dname) if res else (None, None)
+    scale, offset = g * 0.7, b - 0.3
+    jy = pf._bn_apply(jx, jnp.asarray(scale)[:, None],
+                      jnp.asarray(offset)[:, None], jr, relu, True)
+    ty = fb.bn_apply(tx, torch.from_numpy(scale), torch.from_numpy(offset),
+                     tr, relu)
+    np.testing.assert_allclose(_np(ty), _np(jy), **_OUT_TOL[dname])
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_stats_cluster_fills_one_wave_at_the_resnet_shapes(itemsize):
+    """K3a's grid (C / G channel groups x P blocks, P the cluster size):
+    P is 1, 2, 4 or 8 and at most N, and at every BatchNorm shape of a
+    batch-256 ResNet-50 step the grid gives each SM about two blocks, or
+    one a channel group where there are more groups than that."""
     import chip_smoke as cs
+    for C, H, W, *_ in cs.R50_BNS:
+        S = H * W
+        P = fb._stats_cluster(cs.R50_BATCH, C, S, itemsize)
+        V = 16 // itemsize
+        G = V // np.gcd(S, V)
+        assert C % G == 0 and (G == 1 or G * S // V <= fb._THREADS)
+        assert P in (1, 2, 4, 8)
+        blocks = C // G * P
+        assert blocks >= 256
+        assert blocks <= fb._SMS * fb._STATS_BLOCKS_PER_SM or P == 1
+    assert fb._stats_cluster(1, 3, 5, 2) == 1
+    assert fb._stats_cluster(3, 16, 49, 2) == 2
+    assert fb._stats_cluster(256, 3, 49, 2) == 8
+
+
+@pytest.mark.parametrize("kind", ["bwd_dx", "stats", "apply"])
+def test_chip_smoke_bn_dx_rows_hold_the_unaligned_bf16_shapes(kind):
+    """chip_smoke.py's phase 8 prints one row per timed shape for K3a, K3b
+    and K3d, with the kernel's error at that shape: the rows cover the
+    bfloat16 S = 196 and S = 49 BatchNorms (rows that are not whole
+    8-element vectors) and the stem in float32, K3a's with torch.var_mean
+    beside it, and bn_check records each shape's error (run here on CPU
+    tensors, the plain versions standing in for the kernels)."""
+    import chip_smoke as cs
+    assert kind in cs.SHAPE_ROW_KINDS
     errs = {}
     for C, S in ((3, 196), (5, 49)):
         N = 2
@@ -412,18 +470,21 @@ def test_chip_smoke_bn_dx_rows_hold_the_unaligned_bf16_shapes():
         dy = torch.randn(N, C, S).to(torch.bfloat16)
         cs.bn_check(torch, fb, x, dy, None, torch.rand(C) + 0.5,
                     torch.randn(C), True, "bfloat16", errs, "cpu")
-        assert errs["bwd_dx", "bfloat16", N, C, S] == 0.0
+        assert errs[kind, "bfloat16", N, C, S] == 0.0
     shapes = [("bfloat16", C, H, W, n) for C, H, W, _, _, n in cs.R50_BNS]
     shapes.append(("float32",) + cs.R50_BNS[0][:3] + (1,))
+    lib = 0.5 if kind == "stats" else None
     rows = [{"card": "-", "dtype": d, "N": cs.R50_BATCH, "C": C, "H": H,
              "W": W, "per_step": n,
-             "bwd_dx": {"ms": 2.0, "bound_ms": 1.0}}
+             kind: {"ms": 2.0, "bound_ms": 1.0, "library_ms": lib}}
             for d, C, H, W, n in shapes]
-    errs.update({("bwd_dx", d, cs.R50_BATCH, C, H * W): 1e-3
+    errs.update({(kind, d, cs.R50_BATCH, C, H * W): 1e-3
                  for d, C, H, W, _ in shapes})
-    out = cs.bn_dx_rows(rows, errs)
+    out = cs.bn_shape_rows(rows, errs, kind)
     got = {(r["dtype"], r["S"]) for r in out}
     assert {("bfloat16", 196), ("bfloat16", 49), ("float32", 12544)} <= got
     assert len(out) == 14 and all(r["over_bound"] == 2.0 for r in out)
     assert all(r["max_abs_err"] == 1e-3 for r in out)
+    assert all(r["kernel"] == "fused_bn_" + kind for r in out)
+    assert all(r["library_ms"] == lib for r in out)
     assert sum(r["per_step"] for r in out if r["dtype"] == "bfloat16") == 53

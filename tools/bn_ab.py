@@ -1,96 +1,243 @@
 #!/usr/bin/env python3
-"""K3d (the fused BatchNorm's dx kernel, ops/csrc/fused_bn.cu) of two
-source trees side by side on one card: each built from both trees,
-called through its C entry mxtt_bn_bwd_dx at the 13 BatchNorm shapes of
-a batch-256 ResNet-50 step in bfloat16 (chip_smoke.R50_BNS) and the
-stem's shape in float32, held against this tree's plain version and
-against each other (max |this - base|), and timed by chip_smoke.time_ms
-in turns (base, this, this, base) with the L2 flushed between calls, as
-chip_smoke.bn_time times it. Then the per-step sums over the step's 53
-calls.
+"""The fused BatchNorm's kernels (ops/csrc/fused_bn.cu) of two source
+trees side by side on one card: each built from both trees and called
+through its C entries at the 13 BatchNorm shapes of a batch-256 ResNet-50
+step in bfloat16 (chip_smoke.R50_BNS) and the stem's shape in float32:
 
-    python tools/bn_ab.py BASE_DIR   # NVIDIA GPU, from the repo root
+- K3a (mxtt_bn_stats): mean and var, each tree's largest |kernel - plain|
+  against this tree's plain version;
+- K3b (mxtt_bn_apply): y, with bits_equal_to_base;
+- K3c (mxtt_bn_bwd_reduce): dz and the channel sums, bits_equal_to_base;
+- K3d (mxtt_bn_bwd_dx): dx, with bits_equal_to_base and max |this - base|.
+
+Every call is timed by chip_smoke.time_ms in turns (base, this, this,
+base) with the L2 flushed between calls, as chip_smoke.bn_time times it,
+beside its bound (chip_smoke.bn_bound). Then the per-step sums over the
+step's 53 calls of each kernel. With --train, chip_smoke.py's phase 9
+(ResNet-50 through TrainStep, batch 256) then runs from each tree in a
+process of its own, in turns (base, this, this, base): each run's step
+times, launches and the profiled step's device time (~1 min a run; the
+base tree builds its own kernels).
+
+    python tools/bn_ab.py BASE_DIR [--train]  # NVIDIA GPU, repo root
 
 BASE_DIR is another checkout (e.g. `git archive <commit> | tar -x -C
-<dir>` into a directory .gitignore lists) whose fused_bn.cu keeps the C
-entry mxtt_bn_bwd_dx with this tree's signature. Each row prints as a
-JSON line; the last line holds them all. Imports nothing of JAX.
+<dir>` into a directory .gitignore lists) whose fused_bn.cu keeps the four
+C entries with this tree's signatures. K3a's P argument differs between
+designs: a tree whose ops/fused_bn.py has `_stats_cluster` takes a cluster
+size and no workspace, an earlier one chunks a channel over a [2, C, P]
+workspace, sized by that tree's rule (`base_stats_parts`). Each row
+prints as a JSON line; the last line holds them all. Imports nothing of
+JAX.
 """
 import json
 import os
+import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 import attention_ab as ab  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
+KINDS = ("stats", "apply", "bwd_reduce", "bwd_dx")
 
-def bn_dx(torch, fb, lib, dz, x, c):
-    N, C, S = x.shape
-    dx = torch.empty_like(x)
-    err = lib.mxtt_bn_bwd_dx(
-        fb._DTYPE_CODE[x.dtype], dz.data_ptr(), x.data_ptr(),
-        c[0].data_ptr(), c[1].data_ptr(), c[2].data_ptr(), dx.data_ptr(), N,
-        C, S, torch.cuda.current_stream().cuda_stream)
-    assert err == 0, err
-    return dx
+
+def base_stats_parts(N, C, S):
+    """K3a's chunks per channel before the cluster design (its
+    ops/fused_bn.py `_parts`): 132 x 32 blocks, at least 4 elements a
+    thread."""
+    return max(1, min(-(-132 * 32 // C), -(-(N * S) // (256 * 4))))
+
+
+class Tree:
+    """One tree's library, and how its K3a sizes its grid."""
+
+    def __init__(self, lib, cluster):
+        self.lib, self.cluster = lib, cluster
+
+    def stats(self, torch, fb, x):
+        N, C, S = x.shape
+        f32 = dict(dtype=torch.float32, device=x.device)
+        mean, var = torch.empty(C, **f32), torch.empty(C, **f32)
+        if self.cluster:
+            P, part = fb._stats_cluster(N, C, S, x.element_size()), None
+        else:
+            P = base_stats_parts(N, C, S)
+            part = torch.empty((2, C, P), **f32)
+        err = self.lib.mxtt_bn_stats(
+            fb._DTYPE_CODE[x.dtype], x.data_ptr(), N, C, S, P, 1.0 / (N * S),
+            None if part is None else part.data_ptr(), mean.data_ptr(),
+            var.data_ptr(), _stream(torch))
+        assert err == 0, err
+        return mean, var
+
+    def apply(self, torch, fb, x, scale, offset, r, relu):
+        N, C, S = x.shape
+        y = torch.empty_like(x)
+        err = self.lib.mxtt_bn_apply(
+            fb._DTYPE_CODE[x.dtype], x.data_ptr(), scale.data_ptr(),
+            offset.data_ptr(), None if r is None else r.data_ptr(),
+            y.data_ptr(), N, C, S, int(relu), _stream(torch))
+        assert err == 0, err
+        return y
+
+    def bwd_reduce(self, torch, fb, dy, y, x, mean, inv, relu):
+        N, C, S = x.shape
+        P = fb._parts(N, C, S)
+        f32 = dict(dtype=torch.float32, device=x.device)
+        part = torch.empty((2, C, P), **f32)
+        sdz, sdx = torch.empty(C, **f32), torch.empty(C, **f32)
+        dz = torch.empty_like(dy) if relu else dy
+        err = self.lib.mxtt_bn_bwd_reduce(
+            fb._DTYPE_CODE[x.dtype], dy.data_ptr(),
+            y.data_ptr() if relu else None, x.data_ptr(), mean.data_ptr(),
+            inv.data_ptr(), dz.data_ptr() if relu else None, N, C, S, P,
+            part.data_ptr(), sdz.data_ptr(), sdx.data_ptr(), _stream(torch))
+        assert err == 0, err
+        return dz, sdz, sdx
+
+    def bwd_dx(self, torch, fb, dz, x, c):
+        N, C, S = x.shape
+        dx = torch.empty_like(x)
+        err = self.lib.mxtt_bn_bwd_dx(
+            fb._DTYPE_CODE[x.dtype], dz.data_ptr(), x.data_ptr(),
+            c[0].data_ptr(), c[1].data_ptr(), c[2].data_ptr(), dx.data_ptr(),
+            N, C, S, _stream(torch))
+        assert err == 0, err
+        return dx
+
+
+def _stream(torch):
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _max_err(got, want):
+    return max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want))
 
 
 def main():
     import torch
-    if len(sys.argv) != 2 or not torch.cuda.is_available():
+    args = sys.argv[1:]
+    if not args or args[1:] not in ([], ["--train"]) \
+            or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
     from mxnet_tpu_torch.ops import _cuda
     from mxnet_tpu_torch.ops import fused_bn as fb
-    src = os.path.join(sys.argv[1], "mxnet_tpu_torch", "ops", "csrc",
-                       "fused_bn.cu")
-    libs = (ab.build(_cuda, src, "base-fused_bn"),
-            _cuda.library("fused_bn.cu"))
+    ops = os.path.join(args[0], "mxnet_tpu_torch", "ops")
+    with open(os.path.join(ops, "fused_bn.py")) as f:
+        base_cluster = "def _stats_cluster(" in f.read()
+    trees = (Tree(ab.build(_cuda, os.path.join(ops, "csrc", "fused_bn.cu"),
+                           "base-fused_bn"), base_cluster),
+             Tree(_cuda.library("fused_bn.cu"), True))
     dev = torch.device("cuda", 0)
     card = cs.nvidia_smi()
     scratch = torch.empty(64 << 20, dtype=torch.float32, device=dev)
-    rows, total = [], {"base_ms": 0.0, "ms": 0.0, "bound_ms": 0.0}
+    rows = []
+    total = {kind: {"base_ms": 0.0, "ms": 0.0, "bound_ms": 0.0}
+             for kind in KINDS}
     cases = [("bfloat16", torch.bfloat16, 2, b) for b in cs.R50_BNS] + \
         [("float32", torch.float32, 4, cs.R50_BNS[0])]
     for dname, dtype, itemsize, (C, H, W, relu, res, count) in cases:
         N, S = cs.R50_BATCH, H * W
         x, dy, r, gamma, beta = cs.bn_inputs(torch, dev, N, C, S, dtype,
                                              seed=C + S)
-        k = cs.bn_chain(torch, fb, x, dy, r if res else None, gamma, beta,
-                        relu)
-        dz, c = k["dz"], k["c"]
-        want = fb.bn_bwd_dx_plain(dz, x, *c)
-        got = [bn_dx(torch, fb, lib, dz, x, c) for lib in libs]
-        t = {0: [], 1: []}
-        for i in (0, 1, 1, 0):
-            t[i].append(cs.time_ms(torch, lambda lib=libs[i]: bn_dx(
-                torch, fb, lib, dz, x, c), n=10, flush=scratch.zero_))
-        bound, _ = cs.bn_bound(fb, "bwd_dx", N, C, S, itemsize, relu, res)
-        row = {"card": card, "kernel": "fused_bn_bwd_dx", "dtype": dname,
-               "N": N, "C": C, "H": H, "W": W, "per_step": count,
-               "base_ms": sum(t[0]) / 2, "ms": sum(t[1]) / 2,
-               "bound_ms": bound,
-               "base_max_abs_err": float((got[0].float() - want.float())
-                                         .abs().max()),
-               "max_abs_err": float((got[1].float() - want.float())
-                                    .abs().max()),
-               "max_abs_this_vs_base": float((got[1].float()
-                                              - got[0].float()).abs().max()),
-               "bits_equal_to_base": bool(torch.equal(got[0], got[1]))}
-        if dname == "bfloat16":
-            for key in total:
-                total[key] += count * row[key]
+        r = r if res else None
+        k = cs.bn_chain(torch, fb, x, dy, r, gamma, beta, relu)
+        calls = {
+            "stats": lambda t: t.stats(torch, fb, x),
+            "apply": lambda t: (t.apply(torch, fb, x, k["scale"],
+                                        k["offset"], r, relu),),
+            "bwd_reduce": lambda t: t.bwd_reduce(
+                torch, fb, dy, k["y"], x, k["mean"], k["inv"], relu),
+            "bwd_dx": lambda t: (t.bwd_dx(torch, fb, k["dz"], x, k["c"]),)}
+        plain = {
+            "stats": fb.bn_stats_plain(x),
+            "apply": (fb.bn_apply_plain(x, k["scale"], k["offset"], r,
+                                        relu),),
+            "bwd_reduce": fb.bn_bwd_reduce_plain(dy, k["y"], x, k["mean"],
+                                                 k["inv"], relu),
+            "bwd_dx": (fb.bn_bwd_dx_plain(k["dz"], x, *k["c"]),)}
+        row = {"card": card, "dtype": dname, "N": N, "C": C, "H": H, "W": W,
+               "relu": relu, "residual": res, "per_step": count}
+        for kind in KINDS:
+            fn = calls[kind]
+            got = [fn(t) for t in trees]
+            t = {0: [], 1: []}
+            for i in (0, 1, 1, 0):
+                t[i].append(cs.time_ms(torch, lambda tr=trees[i]: fn(tr),
+                                       n=10, flush=scratch.zero_))
+            bound, _ = cs.bn_bound(fb, kind, N, C, S, itemsize, relu, res)
+            one = {"base_ms": sum(t[0]) / 2, "ms": sum(t[1]) / 2,
+                   "bound_ms": bound,
+                   "base_max_abs_err": _max_err(got[0], plain[kind]),
+                   "max_abs_err": _max_err(got[1], plain[kind]),
+                   "max_abs_this_vs_base": _max_err(got[1], got[0]),
+                   "bits_equal_to_base": all(
+                       torch.equal(a, b) for a, b in zip(got[0], got[1]))}
+            row[kind] = one
+            if dname == "bfloat16":
+                for key in total[kind]:
+                    total[kind][key] += count * one[key]
+            del got
         rows.append(row)
         print(json.dumps(row))
-        del x, dy, r, k, dz, got, want
-    summary = {"card": card, "kernel": "fused_bn_bwd_dx",
-               "what": "bfloat16, one batch-256 ResNet-50 step's 53 calls",
-               **total}
+        del x, dy, r, k, calls, plain
+    summary = {"card": card,
+               "what": "bfloat16, one batch-256 ResNet-50 step's 53 calls "
+                       "of each kernel", **total}
     print(json.dumps(summary))
-    print(json.dumps({"rows": rows + [summary]}))
+    rows.append(summary)
+    if args[1:]:
+        train = train_in_turns(args[0])
+        print(json.dumps(train))
+        rows.append(train)
+    print(json.dumps({"rows": rows}))
     return 0
+
+
+#: one run of chip_smoke.py's phase 9 from the tree it is started in
+_TRAIN = """
+import json, torch, numpy as np, chip_smoke as cs
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+_, main = cs.phase_resnet(torch, np, dev, cs.nvidia_smi())
+print("AB_TRAIN " + json.dumps(main))
+"""
+_PROFILE = "resnet50 train profile: "
+
+
+def train_in_turns(base_dir):
+    """Phase 9 from the base tree and from this one, each in a process of
+    its own, in turns (base, this, this, base): each run's bf16 step times
+    (flag on and off), K3 launches and the profiled step's device time."""
+    runs = {"base": [], "this": []}
+    for name, root in (("base", base_dir), ("this", ROOT), ("this", ROOT),
+                       ("base", base_dir)):
+        r = subprocess.run([sys.executable, "-c", _TRAIN], cwd=root,
+                           capture_output=True, text=True)
+        out = r.stdout.splitlines()
+        line = [ln for ln in out if ln.startswith("AB_TRAIN ")]
+        prof = [ln for ln in out if ln.startswith(_PROFILE)]
+        if r.returncode or not line:
+            raise SystemExit("phase 9 from %s failed:\n%s%s"
+                             % (root, r.stdout[-4000:], r.stderr[-4000:]))
+        main = json.loads(line[0][len("AB_TRAIN "):])
+        busy = json.loads(prof[0][len(_PROFILE):]) if prof else {}
+        runs[name].append({
+            "step_ms_mean": main["fused_bn_epilogue"]["step_ms_mean"],
+            "step_ms_p50": main["fused_bn_epilogue"]["step_ms_p50"],
+            "flag_off_step_ms_mean": main["flag_off"]["step_ms_mean"],
+            "k3_launches": main["k3_launches"],
+            "device_busy_ms": busy.get("device_busy_ms"),
+            "host_ms_profiled": busy.get("host_ms_profiled")})
+    return {"what": "phase 9 ResNet-50 bf16 step, in turns base, this, "
+            "this, base", **runs}
 
 
 if __name__ == "__main__":
