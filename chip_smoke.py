@@ -91,19 +91,22 @@ Phases (any failure exits non-zero before the last line):
                 times a step each); the same steps with the flag off for
                 comparison (no launch); a profiled step.
   10. fused RNN kernels — K4a (the persistent forward scan) and K4b (the
-                reverse-time backward scan and its dWh product) against
-                their plain versions, float32 and bfloat16, lstm, rnn_relu
-                and rnn_tanh, forward and reverse layers, at the word LM's
-                shape (T 35, N 32, H 200), bench_lstm_sweep's H 256 and
+                reverse-time backward scan with dWh) against their plain
+                versions, float32 and bfloat16, lstm, rnn_relu and
+                rnn_tanh, forward and reverse layers, at the word LM's
+                shape (T 35, N 32, H 200), bench_lstm_sweep's H 256,
                 ragged shapes (T 1, N 1, an odd N, H 203 off the vector
-                width, a tiny layer), each output within
-                ops/fused_rnn.py PLAIN_TOL, and faults planted into the
-                kernels' results must fail those limits; a shape just
-                outside the gate must raise; then both kernels timed at
-                the path's shape beside their plain versions, their
-                bound, the serial chain of 35 steps and cuDNN's LSTM
-                layer (torch.nn.LSTM, its input projection included)
-                forward and backward.
+                width, a tiny layer), N 33 and both sides of the design
+                boundary (the largest H of the cluster design and the next
+                one up, by mode and dtype), each output within
+                ops/fused_rnn.py PLAIN_TOL, both designs launched (counts
+                by design), and faults planted into the kernels' results
+                must fail those limits; a shape just outside the gate must
+                raise; then both kernels timed at the path's shape beside
+                their plain versions, their bound, the cluster design's
+                serial floor (35 cluster barriers with K4a's exchange, no
+                arithmetic) and cuDNN's LSTM layer (torch.nn.LSTM, its
+                input projection included) forward and backward.
   11. word-LM training path — bench.py's non-smoke bench_lstm_lm
                 (RNNModel lstm, vocab 10000, embed 200, hidden 200, 2
                 layers, dropout 0, Xavier weights; bptt 35 x batch 32
@@ -111,7 +114,8 @@ Phases (any failure exits non-zero before the last line):
                 MXNET_FUSED_RNN=1: the first step's loss and gradients in
                 float32 against the flag off, beside a second flag-off run;
                 one warm-up and 10 timed bfloat16 steps (finite, falling
-                loss; K4a and K4b launched 2 a step each); the same steps
+                loss; K4a and K4b launched 2 a step each, all through
+                the cluster design); the same steps
                 with the flag off (no launch); a profiled step; then 20
                 steps of examples/word_lm.py's imperative loop (record,
                 backward, clip_global_norm, gluon.Trainer adam, dropout
@@ -258,6 +262,16 @@ LM_LOOP_STEPS, LM_LOOP_LR, LM_LOOP_DROPOUT = 20, 0.003, 0.5
 #: an H off the 16-byte vector width, a tiny layer
 RNN_SHAPES = [(35, 32, 200), (35, 32, 256), (1, 32, 200), (35, 1, 200),
               (35, 7, 200), (35, 32, 203), (5, 3, 13)]
+#: the design boundary's cases beyond RNN_SHAPES, (T, N, H) with the design
+#: each must take: N 33 (a ragged last cluster), N 300 (several waves of
+#: clusters, a ragged last one), "edge" the largest H of the cluster design
+#: at that (T, N) and "past" the next one up (fused_rnn.cluster_limit, by
+#: mode and dtype), which streams at a ragged N, T 1 and N 300 too, as
+#: does H 1024
+RNN_BOUNDARY = [((35, 33, 200), "cluster"), ((35, 300, 203), "cluster"),
+                ((35, 32, "edge"), "cluster"), ((35, 32, "past"), "stream"),
+                ((35, 7, "past"), "stream"), ((1, 32, "past"), "stream"),
+                ((35, 300, "past"), "stream"), ((35, 5, 1024), "stream")]
 #: K4 kernel vs plain: ops/fused_rnn.py PLAIN_TOL (shared with the card
 #: tests), a relative Frobenius error and a largest error over the largest
 #: |plain| value per output; phase 10 also checks that the limits reject
@@ -2045,16 +2059,26 @@ def cudnn_lstm_ms(torch, dev, a, dtype, n=20):
 
 
 def phase_kernels_rnn(torch, np, dev, card):
-    """K4a and K4b against their plain versions at RNN_SHAPES, float32
-    and bfloat16, three modes, both directions; the gate raising just
-    outside; then the timings at the path's shape."""
+    """K4a and K4b against their plain versions at RNN_SHAPES and at
+    RNN_BOUNDARY's cases, each of those through its design, float32 and
+    bfloat16, three modes, both directions, both designs launched; the
+    gate raising just outside; then the timings at the path's shape with
+    the serial floor."""
     from mxnet_tpu_torch.base import MXNetError
     from mxnet_tpu_torch.ops import fused_rnn as fr
     errs, ncases = {}, 0
+    fr.reset_launch_counts()
     for dname, dtype in (("float32", torch.float32),
                          ("bfloat16", torch.bfloat16)):
-        for T, N, H in RNN_SHAPES:
-            for mode in ("lstm", "rnn_relu", "rnn_tanh"):
+        for mode in ("lstm", "rnn_relu", "rnn_tanh"):
+            for (T, N, H), design in ([(shape, None) for shape in RNN_SHAPES]
+                                      + RNN_BOUNDARY):
+                if isinstance(H, str):
+                    H = fr.cluster_limit(mode, N, dtype) + (H == "past")
+                took = fr.rnn_design(mode, N, H, dtype).name
+                check(design in (None, took), "fused_rnn %s T=%d N=%d H=%d "
+                      "%s takes the %s design, not %s"
+                      % (mode, T, N, H, dname, took, design))
                 for reverse in (False, True):
                     a = fr.check_inputs(mode, T, N, H, dtype, seed=ncases,
                                         device=dev)
@@ -2071,10 +2095,16 @@ def phase_kernels_rnn(torch, np, dev, card):
               "forward %.3g, backward %.3g, worst relative Frobenius %.3g; "
               "limits by output dtype %s (relative Frobenius, largest "
               "error / largest |plain|); planted faults rejected: %s"
-              % (dname, 6 * len(RNN_SHAPES), errs["fwd", dname],
+              % (dname, 6 * (len(RNN_SHAPES) + len(RNN_BOUNDARY)),
+                 errs["fwd", dname],
                  errs["bwd", dname], errs["fro", dname],
                  {str(k): v for k, v in fr.PLAIN_TOL.items()},
                  ", ".join(faults)))
+    by_design = fr.design_launch_counts()
+    print("fused_rnn checks' launches (K4a, K4b) by design: %s"
+          % json.dumps(by_design))
+    check(all(min(c) > 0 for c in by_design.values()),
+          "fused_rnn checks did not launch both designs: %r" % by_design)
     # just outside the gate: H = MAX_HIDDEN + 1 raises on the card
     H = fr.MAX_HIDDEN + 1
     a = fr.check_inputs("rnn_tanh", 2, 2, H, torch.float32, device=dev)
@@ -2111,14 +2141,21 @@ def phase_kernels_rnn(torch, np, dev, card):
             "lstm", a["px"], ys, hprev, cprev, cs, a["wh"], a["dys"],
             a["dhT"], a["dcT"]), 5)
         lib_fwd, lib_bwd = cudnn_lstm_ms(torch, dev, a, dtype)
+        design = fr.rnn_design("lstm", N, H, dtype)
+        check(design.name == "cluster", "the path's shape takes the %s "
+              "design" % design.name)
+        floor = time_ms(torch, fr.serial_floor("lstm", T, N, H, dtype, dev),
+                        20)
         for kind, ms, plain_ms, lib_ms in (("fwd", k_fwd, p_fwd, lib_fwd),
                                            ("bwd", k_bwd, p_bwd, lib_bwd)):
             b_ms, b_by = rnn_bound(fr, kind, T, N, H, dname, dtype)
             row = {"card": card, "kernel": "fused_rnn_" + kind,
-                   "dtype": dname, "T": T, "N": N, "H": H, "ms": ms,
+                   "dtype": dname, "T": T, "N": N, "H": H,
+                   "design": design.name, "P": design.P,
+                   "rows": design.rows, "ms": ms,
                    "step_ms": ms / T, "plain_ms": plain_ms,
                    "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": lib_ms,
+                   "serial_floor_ms": floor, "library_ms": lib_ms,
                    "library": "cuDNN LSTM layer (torch.nn.LSTM), input "
                               "projection included, " + (
                                   "forward" if kind == "fwd" else
@@ -2127,11 +2164,13 @@ def phase_kernels_rnn(torch, np, dev, card):
             print("fused_rnn timing: " + json.dumps(row))
     print("fused_rnn serial chain: %d dependent steps; bf16 K4a %.2f us a "
           "step, K4b %.2f us a step, against a whole-call bytes bound of "
-          "%.2f and %.2f us"
+          "%.2f and %.2f us and the cluster design's serial floor of %.2f "
+          "us a step"
           % (T, 1e3 * rows["fwd", "bfloat16"]["step_ms"],
              1e3 * rows["bwd", "bfloat16"]["step_ms"],
              1e3 * rows["fwd", "bfloat16"]["bound_ms"],
-             1e3 * rows["bwd", "bfloat16"]["bound_ms"]))
+             1e3 * rows["bwd", "bfloat16"]["bound_ms"],
+             1e3 * rows["fwd", "bfloat16"]["serial_floor_ms"] / T))
     return errs, rows
 
 
@@ -2260,6 +2299,7 @@ def word_lm_loop(torch, np, mx, fr, dev):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     launches = fr.launch_counts()
+    by_design = fr.design_launch_counts()
     after = eval_loss()
     check(all(np.isfinite(losses + [before, after])),
           "loop losses not finite: %r, eval %r -> %r" % (losses, before,
@@ -2267,9 +2307,10 @@ def word_lm_loop(torch, np, mx, fr, dev):
     check(after < before, "loop: the eval loss did not fall: %.7f -> %.7f"
           % (before, after))
     want = LM_LAYERS * LM_LOOP_STEPS
-    check(launches == (want, want),
-          "loop: K4a/K4b launched %r times over %d steps, expected %d each"
-          % (launches, LM_LOOP_STEPS, want))
+    check(launches == (want, want) and by_design["cluster"] == launches,
+          "loop: K4a/K4b launched %r times over %d steps (by design %r), "
+          "expected %d each, all through the cluster design"
+          % (launches, LM_LOOP_STEPS, by_design, want))
     return losses, times, launches, (before, after)
 
 
@@ -2304,11 +2345,15 @@ def phase_word_lm(torch, np, dev, card):
         fr.reset_launch_counts()
         losses, times, peak = word_lm_timed_run(torch, np, step, x, y, dev)
         launches = fr.launch_counts()
+        by_design = fr.design_launch_counts()
         want = LM_LAYERS * (LM_STEPS + 1)
         check(launches == (want, want),
               "K4a/K4b launched %r times over %d steps, expected %d x %d = "
               "%d each" % (launches, LM_STEPS + 1, LM_LAYERS, LM_STEPS + 1,
                            want))
+        check(by_design["cluster"] == (want, want),
+              "K4a/K4b launches by design %r: expected all %d through the "
+              "cluster design" % (by_design, want))
         check(losses[-1] < losses[0], "loss did not fall: %r" % losses)
 
         # the same steps from the same weights with the flag off
@@ -2355,6 +2400,7 @@ def phase_word_lm(torch, np, dev, card):
             "flag_off": summary(times_off, losses_off, peak_off),
             "first_step_float32": oracle,
             "k4_launches": {"fwd": launches[0], "bwd": launches[1]},
+            "k4_launches_by_design": by_design,
             "imperative_loop": {
                 "steps": LM_LOOP_STEPS, "optimizer": "adam",
                 "dropout": LM_LOOP_DROPOUT, "dtype": "float32",
@@ -2369,9 +2415,9 @@ def phase_word_lm(torch, np, dev, card):
 
 def rnn_kernel_rows(errs, rows, launches):
     """K4a-b's entries of the kernels line: phase 10's timings at the
-    path's shape in bfloat16 (the timed run's type), the launches of
-    phase 11's timed run, and the largest float32 kernel-vs-plain
-    error."""
+    path's shape in bfloat16 (the timed run's type) with their design and
+    its serial floor, the launches of phase 11's timed run, and the
+    largest float32 kernel-vs-plain error."""
     out = []
     for i, (kind, line) in enumerate((("fwd", 209), ("bwd", 323))):
         r = rows[kind, "bfloat16"]
@@ -2387,6 +2433,8 @@ def rnn_kernel_rows(errs, rows, launches):
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "design": r["design"],
+            "serial_floor_ms": r["serial_floor_ms"],
         })
     return out
 

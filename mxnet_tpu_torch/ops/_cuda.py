@@ -82,8 +82,11 @@ _SIGNATURES = {
     "mxtt_flash_fwd_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "mxtt_flash_bwd": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _F, _I, _P], _I),
-    "mxtt_rnn_fwd": ([_I, _I] + [_P] * 8 + [_I] * 5 + [_P], _I),
-    "mxtt_rnn_bwd": ([_I, _I] + [_P] * 13 + [_I] * 5 + [_P], _I),
+    "mxtt_rnn_fwd": ([_I, _I] + [_P] * 8 + [_I] * 6 + [_P], _I),
+    "mxtt_rnn_bwd": ([_I, _I] + [_P] * 14 + [_I] * 6 + [_P], _I),
+    "mxtt_rnn_floor": ([_I] * 7 + [_P], _I),
+    "mxtt_rnn_smem_bytes": ([_I] * 6, ctypes.c_longlong),
+    "mxtt_rnn_max_clusters": ([_I] * 6, _I),
     "mxtt_error_string": ([_I], ctypes.c_char_p),
 }
 

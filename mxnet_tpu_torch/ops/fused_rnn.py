@@ -15,13 +15,20 @@ hoists it):
   dh_{t-1} = dpre @ wh and for dWh = sum_t dpre_t.T @ h_{t-1} (float32).
 
 On CUDA tensors each launches its hand-written Hopper kernels in
-`csrc/fused_rnn.cu` (counted in `<function>.launches`; K4b's call is the
-scan and the dWh product, counted once), or raises naming the limit;
-there is no fallback. On CPU tensors, and only there, each runs its plain
-PyTorch version (`rnn_fwd_plain`, `rnn_bwd_plain`), which repeats the
-kernels' arithmetic and rounding points step by step; the CPU tests hold
-it to the reference's kernels in interpret mode and `chip_smoke.py` holds
-the kernels to it on the card.
+`csrc/fused_rnn.cu` (counted in `<function>.launches`, and by design in
+`<function>.design_launches`; K4b's call is the scan and, where it takes
+one, the dWh product or sum, counted once), or raises naming the limit;
+there is no fallback. `rnn_design` picks the kernels' design from (mode,
+N, H, dtype) before the launch: the cluster design (wh resident across a
+thread-block cluster, h and the dh partials exchanged through distributed
+shared memory, clusters in as many waves as the batch needs) wherever its
+slices fit a block's shared memory, except in tiny layers, else the
+streaming design (a block owns batch rows and streams wh from L2 each
+step). On CPU tensors, and only
+there, each runs its plain PyTorch version (`rnn_fwd_plain`,
+`rnn_bwd_plain`), which repeats the kernels' arithmetic and rounding
+points step by step; the CPU tests hold it to the reference's kernels in
+interpret mode and `chip_smoke.py` holds the kernels to it on the card.
 
 `fused_scan_layer` wires them into a `torch.autograd.Function` per mode
 family, as the reference's custom VJP does. `MXNET_FUSED_RNN=1` (read at
@@ -35,11 +42,13 @@ module.
 The reference's TPU gate (H % 128, `_MAX_GRID`, `_VMEM_BUDGET`) does not
 carry over. `fused_rnn_limit` states the Hopper kernels' own: lstm,
 rnn_relu or rnn_tanh; float32 or bfloat16, one dtype for px, the states
-and wh; no empty dimension; H up to 1024 (a block keeps its rows' gates
-and states in shared memory); N below 2^31.
+and wh; no empty dimension; H up to 1024 (the streaming design keeps a
+block's rows' gates and states in shared memory); N below 2^31.
 """
 from __future__ import annotations
 
+import collections
+import functools
 import os
 
 import torch
@@ -49,9 +58,10 @@ from ..base import MXNetError
 _GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4}
 _MODE_CODE = {"lstm": 0, "rnn_relu": 1, "rnn_tanh": 2}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: the largest hidden size the kernels take: a block keeps [bn, G*H]
-#: gate pre-activations and its rows' states in shared memory (131 KB at
-#: H 1024, bn 4 in the backward, of the 227 KB a block may use)
+#: the largest hidden size the kernels take: the streaming design's block
+#: keeps [bn, G*H] gate pre-activations and its rows' states in shared
+#: memory (131 KB at H 1024, bn 4 in the backward, of the 227 KB a block
+#: may use)
 MAX_HIDDEN = 1024
 
 
@@ -133,13 +143,151 @@ def bwd_declared_cost(mode, T, N, H, dtype):
 
 
 def batch_tile(N):
-    """Batch rows a thread block owns (1, 2 or 4): enough blocks to keep
-    16 or more SMs busy where N allows (N 32: 16 blocks of 2 rows); a
-    block's step time is set by streaming wh, not by its rows."""
+    """Batch rows a thread block owns in the streaming design (1, 2 or 4):
+    enough blocks to keep 16 or more SMs busy where N allows (N 32: 16
+    blocks of 2 rows); a block's step time is set by streaming wh, not by
+    its rows."""
     for bn in (1, 2):
         if -(-N // bn) <= 16:
             return bn
     return 4
+
+
+#: the shared memory a block may use (227 KB)
+SMEM_LIMIT = 232448
+#: the cluster design's blocks a cluster P and batch rows a cluster R
+#: (tools/rnn_design_sweep.py; PERF.md): of the layouts that fit,
+#: `rnn_design` takes the one with the fewest waves, then the fewest rows,
+#: then the most blocks
+CLUSTER_BLOCKS = (16, 8, 4)
+CLUSTER_ROWS = (8, 16, 32)
+#: layers of at most this many batch rows and gate rows (G*H) stream: the
+#: streaming step is one pass of the block's warps over wh, shorter than
+#: the cluster design's step (tools/rnn_design_sweep.py; PERF.md)
+STREAM_MAX_ROWS, STREAM_MAX_GATE_ROWS = 16, 64
+#: threads a block in both designs (csrc/fused_rnn.cu kThreads), and the
+#: (batch row, unit) pairs a block of the cluster design may own: two a
+#: thread, whose carries and next inputs stay in registers (kElems)
+THREADS = 512
+CLUSTER_ELEMS = 2 * THREADS
+
+RnnDesign = collections.namedtuple(
+    "RnnDesign", "name P rows blocks fwd_smem bwd_smem")
+
+
+def _rup(a, b):
+    return -(-a // b) * b
+
+
+def cluster_units(H, P, dtype):
+    """Hidden units a block of the cluster design owns: ceil(H / P) rounded
+    up to a 16-byte vector of the dtype, so its slice moves as whole
+    vectors (the last blocks own fewer, or none)."""
+    return _rup(-(-H // P), 16 // _itemsize(dtype))
+
+
+def cluster_smem_bytes(mode, H, R, P, dtype, bwd):
+    """Shared memory of one block of the cluster design's K4a (bwd False)
+    or K4b (bwd True), in bytes, as csrc/fused_rnn.cu `layout` sizes it:
+    the block's slice of wh [G U, H] in the activation type (U =
+    `cluster_units`), the rounded h rows in two parities, the products in
+    float32; K4b adds its dWh rows [G U, H] in float32, the rounded dpre,
+    its own dh partial for every k and those of P blocks for its units
+    (two parities). bfloat16 pads rows to the mma tile (16), float32 to 4;
+    strides are one 16-byte vector past a multiple of 32 bytes."""
+    sz = _itemsize(dtype)
+    pad, vec = (4, 4) if sz == 4 else (16, 16 // sz)
+    U = cluster_units(H, P, dtype)
+    GU = _GATES[mode] * U
+    GUp, KP, Rp = _rup(GU, pad), _rup(H, 16), _rup(R, pad)
+    LD, LDG = KP + vec, GUp + vec
+    total = (_rup(GUp * LD * sz, 16) + _rup(2 * Rp * LD * sz, 16)
+             + _rup(Rp * GUp * 4, 16))
+    if not bwd:
+        return total
+    return total + (GU * (KP + 8) * 4 + _rup(Rp * LDG * sz, 16)
+                    + Rp * (KP + 8) * 4 + _rup(2 * P * Rp * U * 4, 16))
+
+
+def stream_smem_bytes(mode, H, bn, bwd):
+    """Shared memory of one block of the streaming design (float32 gates
+    and states of its bn rows; K4b's dh reduction slices)."""
+    GH = _GATES[mode] * H
+    if not bwd:
+        return 4 * bn * (GH + 2 * H)
+    slices = max(1, min(4, THREADS // H))
+    return 4 * bn * (GH + 3 * H + slices * H)
+
+
+def cluster_layouts(mode, N, H, dtype):
+    """The cluster design's layouts that fit this layer: (P, R, K4a's and
+    K4b's shared memory) for P in CLUSTER_BLOCKS and R = min(rows, N),
+    rows in CLUSTER_ROWS, whose blocks fit SMEM_LIMIT and own at most
+    CLUSTER_ELEMS (row, unit) pairs."""
+    out = []
+    for P in CLUSTER_BLOCKS:
+        for R in sorted({min(rows, N) for rows in CLUSTER_ROWS}):
+            if R * cluster_units(H, P, dtype) > CLUSTER_ELEMS:
+                continue
+            f, b = (cluster_smem_bytes(mode, H, R, P, dtype, bwd)
+                    for bwd in (False, True))
+            if max(f, b) <= SMEM_LIMIT:
+                out.append((P, R, f, b))
+    return out
+
+
+#: {(device, mode, H, dtype, P, R): clusters the card runs at once}
+_AT_ONCE = {}
+
+
+def clusters_at_once(mode, H, dtype, P, R):
+    """Clusters of P blocks owning R rows each that the current CUDA
+    device runs at once (cudaOccupancyMaxActiveClusters through
+    csrc/fused_rnn.cu mxtt_rnn_max_clusters, the fewer of K4a's and
+    K4b's); asked once per device and layout."""
+    key = (torch.cuda.current_device(), mode, H, dtype, P, R)
+    n = _AT_ONCE.get(key)
+    if n is None:
+        from . import _cuda
+        lib = _cuda.library("fused_rnn.cu")
+        n = min(lib.mxtt_rnn_max_clusters(_DTYPE_CODE[dtype],
+                                          _MODE_CODE[mode], H, R, P, bwd)
+                for bwd in (0, 1))
+        if n < 0:
+            _cuda.check(lib, -n, "fused_rnn cluster occupancy query")
+        _AT_ONCE[key] = n
+    return n
+
+
+def rnn_design(mode, N, H, dtype, at_once=None):
+    """The kernels' design for one layer-direction, fixed before the
+    launch from (mode, N, H, dtype) and the card: `RnnDesign(name, P,
+    rows, blocks, fwd_smem, bwd_smem)`. A layer of at most STREAM_MAX_ROWS
+    rows and STREAM_MAX_GATE_ROWS gate rows streams; otherwise "cluster"
+    at the layout of `cluster_layouts` with the fewest waves of clusters
+    (`at_once(P, R)` of them at once: by default `clusters_at_once` on the
+    current CUDA device), then the fewest rows a cluster, then the most
+    blocks; `blocks` = clusters x P. A layer no layout fits takes
+    "stream": `rows` = batch_tile(N) rows a block, P = 0. Both kernels of a
+    layer take the same design."""
+    if at_once is None:
+        at_once = functools.partial(clusters_at_once, mode, H, dtype)
+    best = None
+    if N > STREAM_MAX_ROWS or _GATES[mode] * H > STREAM_MAX_GATE_ROWS:
+        for P, R, f, b in cluster_layouts(mode, N, H, dtype):
+            n = at_once(P, R)
+            if n < 1:  # the card cannot hold one such cluster
+                continue
+            clusters = -(-N // R)
+            key = (-(-clusters // n), R, -P)
+            if best is None or key < best[0]:
+                best = (key, RnnDesign("cluster", P, R, clusters * P, f, b))
+    if best is not None:
+        return best[1]
+    bn = batch_tile(N)
+    return RnnDesign("stream", 0, bn, -(-N // bn),
+                     stream_smem_bytes(mode, H, bn, False),
+                     stream_smem_bytes(mode, H, bn, True))
 
 
 # ---------------------------------------------------------------------------
@@ -299,13 +447,16 @@ def rnn_fwd(mode, px, h0, c0, wh, reverse=False):
     cs = torch.empty_like(ys) if lstm else None
     cT = torch.empty_like(hT) if lstm else None
     with torch.cuda.device(px.device):
+        d = rnn_design(mode, N, H, px.dtype)
         err = lib.mxtt_rnn_fwd(
             _DTYPE_CODE[px.dtype], _MODE_CODE[mode], px.data_ptr(),
             h0.data_ptr(), _ptr(c0) if lstm else None, wh.data_ptr(),
             ys.data_ptr(), _ptr(cs), hT.data_ptr(), _ptr(cT), T, N, H,
-            batch_tile(N), int(bool(reverse)), _stream(px.device))
-    _cuda.check(lib, err, "fused_rnn forward kernel launch")
+            d.rows, d.P, int(bool(reverse)), _stream(px.device))
+    _cuda.check(lib, err, "fused_rnn forward kernel launch (%s design)"
+                % d.name)
     rnn_fwd.launches += 1
+    rnn_fwd.design_launches[d.name] += 1
     return ys, cs, hT, cT
 
 
@@ -330,22 +481,61 @@ def rnn_bwd(mode, px, ys, hprev, cprev, cs, wh, dys, dhT, dcT,
     dc0 = torch.empty_like(dh0) if lstm else None
     dwh = torch.empty((GH, H), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        d = rnn_design(mode, N, H, dt)
+        clusters = d.blocks // d.P if d.name == "cluster" else 1
+        # several clusters each write their dWh rows here, then one sum
+        work = (torch.empty((clusters, GH, H), dtype=torch.float32,
+                            device=dev) if clusters > 1 else None)
         err = lib.mxtt_rnn_bwd(
             _DTYPE_CODE[dt], _MODE_CODE[mode], _ptr(px) if lstm else None,
             None if lstm else ys.data_ptr(), hprev.data_ptr(),
             _ptr(cprev) if lstm else None, _ptr(cs) if lstm else None,
             wh.data_ptr(), dys.data_ptr(), dhT.data_ptr(),
             _ptr(dcT) if lstm else None, dpx.data_ptr(), dh0.data_ptr(),
-            _ptr(dc0), dwh.data_ptr(), T, N, H, batch_tile(N),
+            _ptr(dc0), dwh.data_ptr(), _ptr(work), T, N, H, d.rows, d.P,
             int(bool(reverse)), _stream(dev))
-    _cuda.check(lib, err, "fused_rnn backward kernel launch")
+    _cuda.check(lib, err, "fused_rnn backward kernel launch (%s design)"
+                % d.name)
     rnn_bwd.launches += 1
+    rnn_bwd.design_launches[d.name] += 1
     return dpx, dh0, dc0, dwh
 
 
-#: kernel launches so far (plain-version calls on the CPU do not count)
+def cluster_limit(mode, N, dtype):
+    """The largest H that a layout of the cluster design fits at this batch
+    (0 when none does); H + 1 takes the streaming design."""
+    return max((H for H in range(1, MAX_HIDDEN + 1)
+                if cluster_layouts(mode, N, H, dtype)), default=0)
+
+
+def serial_floor(mode, T, N, H, dtype, device="cuda"):
+    """A call that launches the cluster design's serial floor for this
+    layer (csrc/fused_rnn.cu mxtt_rnn_floor: T steps of K4a's exchange and
+    cluster barrier at K4a's launch, no arithmetic), for timing; counted
+    nowhere. Raises where the layer takes the streaming design."""
+    dev = torch.device(device)
+    with torch.cuda.device(dev):
+        d = rnn_design(mode, N, H, dtype)
+    if d.name != "cluster":
+        raise MXNetError("serial_floor: T=%d N=%d H=%d %s takes the %s "
+                         "design" % (T, N, H, dtype, d.name))
+    from . import _cuda
+    lib = _cuda.library("fused_rnn.cu")
+
+    def call():
+        with torch.cuda.device(dev):
+            err = lib.mxtt_rnn_floor(_DTYPE_CODE[dtype], _MODE_CODE[mode], T,
+                                     N, H, d.rows, d.P, _stream(dev))
+        _cuda.check(lib, err, "fused_rnn serial floor launch")
+    return call
+
+
+#: kernel launches so far (plain-version calls on the CPU do not count),
+#: in all and by design
 rnn_fwd.launches = 0
 rnn_bwd.launches = 0
+rnn_fwd.design_launches = {"cluster": 0, "stream": 0}
+rnn_bwd.design_launches = {"cluster": 0, "stream": 0}
 KERNELS = (rnn_fwd, rnn_bwd)
 
 
@@ -354,9 +544,16 @@ def launch_counts():
     return tuple(k.launches for k in KERNELS)
 
 
+def design_launch_counts():
+    """{design: (K4a, K4b) launches so far}."""
+    return {name: tuple(k.design_launches[name] for k in KERNELS)
+            for name in ("cluster", "stream")}
+
+
 def reset_launch_counts():
     for k in KERNELS:
         k.launches = 0
+        k.design_launches = dict.fromkeys(k.design_launches, 0)
 
 
 # ---------------------------------------------------------------------------

@@ -969,16 +969,33 @@ def _rnn_case(dev, mode, T, N, H, dtype, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["lstm", "rnn_relu", "rnn_tanh"])
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("T,N,H", [(35, 32, 200), (35, 32, 256), (1, 1, 7),
-                                   (35, 7, 203)])
-def test_fused_rnn_kernels_match_plain(dev, dtype, mode, reverse, T, N, H):
+@pytest.mark.parametrize("T,N,H,design", [
+    (35, 32, 200, "cluster"), (35, 32, 256, "cluster"),
+    (1, 1, 7, "stream"), (35, 7, 203, "cluster"), (35, 33, 200, "cluster"),
+    (35, 32, 203, "cluster"), (35, 1, 200, "cluster"),
+    (1, 32, 200, "cluster"), (35, 300, 203, "cluster"),
+    (35, 32, "edge", "cluster"), (35, 32, "past", "stream"),
+    (35, 7, "past", "stream"), (1, 32, "past", "stream"),
+    (35, 300, "past", "stream"), (35, 5, 1024, "stream")])
+def test_fused_rnn_kernels_match_plain(dev, dtype, mode, reverse, T, N, H,
+                                       design):
     """K4a, then K4b on K4a's outputs, against the plain versions fed with
     the kernels' own previous outputs, within the limits chip_smoke.py
-    holds them to (ops/fused_rnn.py PLAIN_TOL): the word LM's shape, H
-    256, and ragged ones (T 1, N 1, odd N, H off the vector width)."""
+    holds them to (ops/fused_rnn.py PLAIN_TOL), each case through the
+    design named: the word LM's shape, H 256, ragged ones (T 1, N 1, odd
+    N, H off the vector width and the mma tile, N 33's ragged last
+    cluster, N 300 in several waves of clusters), a tiny layer, and both
+    sides of the design boundary: "edge" the largest H of the cluster
+    design, "past" the next one up, which streams (at a ragged N, T 1 and
+    N 300 too), as does H 1024."""
     from mxnet_tpu_torch.ops import fused_rnn as fr
+    if isinstance(H, str):
+        H = fr.cluster_limit(mode, N, dtype) + (H == "past")
+    assert fr.rnn_design(mode, N, H, dtype).name == design
     a = fr.check_inputs(mode, T, N, H, dtype, device=dev)
+    n0 = fr.design_launch_counts()[design]
     got = fr.chain(mode, a, reverse)
+    assert fr.design_launch_counts()[design] == (n0[0] + 1, n0[1] + 1)
     want = fr.fed_plain(mode, a, got, reverse)
     torch.cuda.synchronize()
     for name in fr.OUTPUTS:
@@ -989,11 +1006,23 @@ def test_fused_rnn_kernels_match_plain(dev, dtype, mode, reverse, T, N, H):
             name, fr.plain_mismatch(got[name], want[name]))
 
 
-def test_fused_rnn_repeats_bit_for_bit(dev):
-    """No atomics: two runs give the same bits, dWh included."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("design,N,H", [("cluster", 32, 200),
+                                        ("cluster", 300, 200),
+                                        ("stream", 300, "past"),
+                                        ("stream", 3, 13)])
+def test_fused_rnn_repeats_bit_for_bit(dev, dtype, design, N, H):
+    """No atomics: two runs give the same bits, dWh included, in both
+    designs (the cluster design's dh partials added in rank order, and
+    several clusters' dWh rows added in cluster order: 4 at N 32, several
+    waves of them at N 300; the streaming design past the cluster
+    design's largest H and at a tiny layer)."""
     from mxnet_tpu_torch.ops import fused_rnn as fr
-    px, h0, c0, wh, dys, dhT, dcT = _rnn_case(dev, "lstm", 35, 32, 200,
-                                              torch.float32, seed=1)
+    if isinstance(H, str):
+        H = fr.cluster_limit("lstm", N, dtype) + 1
+    assert fr.rnn_design("lstm", N, H, dtype).name == design
+    px, h0, c0, wh, dys, dhT, dcT = _rnn_case(dev, "lstm", 35, N, H,
+                                              dtype, seed=1)
     outs = []
     for _ in range(2):
         ys, cs, hT, cT = fr.rnn_fwd("lstm", px, h0, c0, wh)
@@ -1015,6 +1044,74 @@ def test_fused_rnn_counts_launches_only(dev):
     fr.rnn_bwd("lstm", px, None, hp, cp, cs, wh, dys, dhT, dcT)
     fr.rnn_bwd_plain("lstm", px, ys, hp, cp, cs, wh, dys, dhT, dcT)
     assert fr.launch_counts() == (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_word_lm_shape_takes_the_cluster_design(dev, dtype):
+    """The word LM's layer (T 35, N 32, H 200, lstm) launches K4a and K4b
+    through the cluster design, by the per-design counts."""
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    px, h0, c0, wh, dys, dhT, dcT = _rnn_case(dev, "lstm", 35, 32, 200,
+                                              dtype)
+    n0 = fr.design_launch_counts()
+    ys, cs, hT, cT = fr.rnn_fwd("lstm", px, h0, c0, wh)
+    hp, cp = fr._shift_prev(h0, ys, False), fr._shift_prev(c0, cs, False)
+    fr.rnn_bwd("lstm", px, None, hp, cp, cs, wh, dys, dhT, dcT)
+    n1 = fr.design_launch_counts()
+    assert n1["cluster"] == (n0["cluster"][0] + 1, n0["cluster"][1] + 1)
+    assert n1["stream"] == n0["stream"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["lstm", "rnn_tanh"])
+def test_rnn_smem_and_clusters_match_the_kernel(dev, dtype, mode):
+    """The chooser's shared memory is the kernel's layout, byte for byte,
+    and the clusters it counts on running at once are the card's answer
+    for both kernels (at least one of every layout that fits), at the word
+    LM's H, 256, the largest H of the cluster design and a tiny one."""
+    from mxnet_tpu_torch.ops import _cuda
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    lib = _cuda.library("fused_rnn.cu")
+    dc, mc = fr._DTYPE_CODE[dtype], fr._MODE_CODE[mode]
+    for H in (200, 256, fr.cluster_limit(mode, 32, dtype), 13):
+        fits = fr.cluster_layouts(mode, 32, H, dtype)
+        assert fits
+        for P in fr.CLUSTER_BLOCKS:
+            for R in fr.CLUSTER_ROWS:
+                for bwd in (0, 1):
+                    want = fr.cluster_smem_bytes(mode, H, R, P, dtype,
+                                                 bool(bwd))
+                    assert lib.mxtt_rnn_smem_bytes(dc, mc, H, R, P, bwd) \
+                        == want
+        for P, R, _, _ in fits:
+            n = [lib.mxtt_rnn_max_clusters(dc, mc, H, R, P, bwd)
+                 for bwd in (0, 1)]
+            assert min(n) >= 1, (H, P, R, n)
+            assert fr.clusters_at_once(mode, H, dtype, P, R) == min(n)
+
+
+def test_rnn_refused_cluster_launch_raises(dev):
+    """A cluster launch the card refuses (shared memory past the limit)
+    returns its error from the C entry, which the wrapper raises; the
+    serial floor launches."""
+    from mxnet_tpu_torch.ops import _cuda
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    lib = _cuda.library("fused_rnn.cu")
+    px, h0, c0, wh, *_ = _rnn_case(dev, "lstm", 2, 64, 512, torch.float32)
+    assert fr.cluster_smem_bytes("lstm", 512, 64, 8, torch.float32,
+                                 False) > fr.SMEM_LIMIT
+    ys, cs = torch.empty(2, 64, 512, device=dev), torch.empty(2, 64, 512,
+                                                               device=dev)
+    hT, cT = torch.empty_like(h0), torch.empty_like(h0)
+    err = lib.mxtt_rnn_fwd(0, 0, px.data_ptr(), h0.data_ptr(), c0.data_ptr(),
+                           wh.data_ptr(), ys.data_ptr(), cs.data_ptr(),
+                           hT.data_ptr(), cT.data_ptr(), 2, 64, 512, 64, 8, 0,
+                           torch.cuda.current_stream().cuda_stream)
+    assert err != 0
+    with pytest.raises(MXNetError, match="fused_rnn"):
+        _cuda.check(lib, err, "fused_rnn forward kernel launch")
+    fr.serial_floor("lstm", 35, 32, 200, torch.bfloat16, dev)()
+    torch.cuda.synchronize()
 
 
 def test_fused_rnn_gate_raises_on_cuda(dev):

@@ -315,6 +315,143 @@ def test_batch_tile_fills_sixteen_or_more_blocks():
         [1, 1, 1, 2, 2, 4, 4, 4]
 
 
+#: clusters of P blocks an H100 runs at once, at every layout the cluster
+#: design takes (csrc/fused_rnn.cu mxtt_rnn_max_clusters, the card's
+#: reading in tools/rnn_design_sweep.py): the card's answer that
+#: `rnn_design` asks for, stood in for on the CPU
+_H100_AT_ONCE = {16: 7, 8: 15, 4: 30}
+
+
+def _design(mode, N, H, dt):
+    return fused_rnn.rnn_design(mode, N, H, dt,
+                                lambda P, R: _H100_AT_ONCE[P])
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_word_lm_shapes_take_the_cluster_design(dname):
+    """The word LM's layer (N 32, H 200, lstm) in both dtypes and
+    bench_lstm_sweep's H 256 in bfloat16 keep wh resident across a
+    cluster (16 blocks of 8 rows, one wave), within a block's shared
+    memory."""
+    shapes = [(32, 200), (32, 256)] if dname == "bfloat16" else [(32, 200)]
+    for N, H in shapes:
+        d = _design("lstm", N, H, _TDT[dname])
+        assert d.name == "cluster" and (d.P, d.rows) == (16, 8), d
+        assert max(d.fwd_smem, d.bwd_smem) <= fused_rnn.SMEM_LIMIT
+        assert d.blocks == -(-N // d.rows) * d.P
+
+
+@pytest.mark.parametrize("mode", ["lstm", "rnn_tanh", "rnn_relu"])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_design_streams_past_the_shared_memory_limit(mode, dname):
+    """At the largest H of the cluster design a layout fits; one more unit
+    and none fits a block's shared memory, so the streaming design runs,
+    at any batch."""
+    dt = _TDT[dname]
+    for N in (7, 32, 300):
+        edge = fused_rnn.cluster_limit(mode, N, dt)
+        assert 200 < edge < fused_rnn.MAX_HIDDEN
+        assert _design(mode, N, edge, dt).name == "cluster"
+        past = _design(mode, N, edge + 1, dt)
+        assert past.name == "stream" and past.P == 0
+        assert past.rows == fused_rnn.batch_tile(N)
+        assert fused_rnn.cluster_layouts(mode, N, edge + 1, dt) == []
+        for P in fused_rnn.CLUSTER_BLOCKS:
+            for R in fused_rnn.CLUSTER_ROWS:
+                R = min(R, N)
+                assert (max(fused_rnn.cluster_smem_bytes(
+                    mode, edge + 1, R, P, dt, b) for b in (False, True))
+                    > fused_rnn.SMEM_LIMIT
+                    or R * fused_rnn.cluster_units(edge + 1, P, dt)
+                    > fused_rnn.CLUSTER_ELEMS)
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_design_takes_the_fewest_waves(dname):
+    """Past one wave of clusters the cluster design still runs, in several
+    waves, at the layout with the fewest: at H 200 the rows a cluster
+    grow with the batch (the readings of tools/rnn_design_sweep.py, where
+    the streaming design ran 2.0-9.5 times longer); ties go to the fewest
+    rows, then the most blocks; a card that runs fewer clusters at once
+    gets more rows a cluster."""
+    dt = _TDT[dname]
+    want = {"bfloat16": {32: 8, 64: 16, 128: 32, 256: 32, 512: 32},
+            "float32": {32: 8, 64: 16, 128: 16, 256: 16, 512: 16}}[dname]
+    for N, rows in want.items():
+        d = _design("lstm", N, 200, dt)
+        assert (d.name, d.P, d.rows) == ("cluster", 16, rows), (N, d)
+        waves = -(-(d.blocks // d.P) // _H100_AT_ONCE[d.P])
+        assert all(-(-(-(-N // R)) // _H100_AT_ONCE[P]) >= waves
+                   for P, R, _, _ in fused_rnn.cluster_layouts(
+                       "lstm", N, 200, dt))
+    # at H 64 every block count fits: 16 blocks while one wave holds the
+    # clusters of 8 rows, then 8, then 4
+    assert [(_design("lstm", N, 64, dt).P, _design("lstm", N, 64, dt).rows)
+            for N in (32, 64, 128)] == [(16, 8), (8, 8), (4, 8)]
+    one = fused_rnn.rnn_design("lstm", 64, 200, dt, lambda P, R: 1)
+    assert (one.P, one.rows) == (16, max(
+        R for _, R, _, _ in fused_rnn.cluster_layouts("lstm", 64, 200, dt)))
+    none = fused_rnn.rnn_design("lstm", 64, 200, dt, lambda P, R: 0)
+    assert none.name == "stream"
+
+
+@pytest.mark.parametrize("mode", ["lstm", "rnn_tanh", "rnn_relu"])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_tiny_layers_stream(mode, dname):
+    """Layers of at most 16 batch rows and 64 gate rows take the streaming
+    design, where its step is shorter than the cluster design's (the
+    readings of tools/rnn_design_sweep.py); one more row or gate row and
+    the cluster design runs."""
+    dt = _TDT[dname]
+    G = _G[mode]
+    top = fused_rnn.STREAM_MAX_GATE_ROWS // G
+    rows = fused_rnn.STREAM_MAX_ROWS
+    for N in (1, 3, rows):
+        for H in (1, 13 // G + 1, top):
+            assert _design(mode, N, H, dt).name == "stream", (N, H)
+        assert _design(mode, N, top + 1, dt).name == "cluster", N
+    assert _design(mode, rows + 1, top, dt).name == "cluster"
+
+
+@pytest.mark.parametrize("mode", ["lstm", "rnn_tanh", "rnn_relu"])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_every_admitted_shape_gets_a_design(mode, dname):
+    """Every (N, H) that fused_rnn_limit admits gets a design, fixed by
+    (mode, N, H, dtype) and the card, whose blocks use at most 227 KB of
+    shared memory: a cluster layout of CLUSTER_BLOCKS x CLUSTER_ROWS, else
+    streaming."""
+    dt = _TDT[dname]
+    for N in (1, 2, 7, 8, 9, 16, 17, 32, 33, 56, 57, 120, 121, 240, 241,
+              4096, 2**31 - 1):
+        for H in list(range(1, 64)) + list(range(64, 1025, 29)) + [1024]:
+            assert fused_rnn.fused_rnn_limit(mode, 35, N, H, dt) is None
+            d = _design(mode, N, H, dt)
+            assert d == _design(mode, N, H, dt)
+            assert max(d.fwd_smem, d.bwd_smem) <= fused_rnn.SMEM_LIMIT, d
+            if d.name == "cluster":
+                assert d.P in fused_rnn.CLUSTER_BLOCKS
+                assert d.rows in [min(r, N) for r in fused_rnn.CLUSTER_ROWS]
+                assert d.blocks == -(-N // d.rows) * d.P
+            else:
+                assert d.name == "stream" and d.P == 0
+                assert d.rows == fused_rnn.batch_tile(N)
+
+
+def test_cluster_smem_grows_with_the_slice():
+    """The layout's bytes grow with H and with the cluster's rows, and a
+    cluster of 16 blocks keeps half the wh rows of one of 8."""
+    f = fused_rnn.cluster_smem_bytes
+    for dt in (torch.float32, torch.bfloat16):
+        for bwd in (False, True):
+            sizes = [f("lstm", H, 8, 16, dt, bwd) for H in range(16, 400, 16)]
+            assert sizes == sorted(sizes)
+            assert f("lstm", 200, 16, 16, dt, bwd) > f("lstm", 200, 8, 16,
+                                                       dt, bwd) or dt == \
+                torch.bfloat16  # bf16 pads rows to the mma tile of 16
+            assert f("lstm", 256, 8, 16, dt, bwd) < f("lstm", 256, 8, 8, dt,
+                                                      bwd)
+
+
 @pytest.mark.parametrize("mode", ["lstm", "rnn_tanh", "rnn_relu"])
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
 def test_card_limits_pass_the_plain_versions_and_reject_faults(mode, dname):
