@@ -170,7 +170,36 @@ Phases (any failure exits non-zero before the last line):
                 gradients against the eager step within ops/fused_rnn.py
                 PLAIN_TOL, then 5 gluon.Trainer sgd steps with K4a and
                 K4b launched 2 a step each and finite, falling losses.
-  15. the kernels line (K3a-d's and K4a-b's launches summed over every
+  15. bucketed LSTM LM — upstream example/rnn/bucketing/
+                cudnn_lstm_bucketing.py's defaults (vocab 10000, embed
+                and hidden 200, 2 layers, batch 32, buckets 10-60,
+                float32) on examples/lstm_bucketing.py's arithmetic
+                progressions (3200 sentences, lengths 5-60, numpy seed
+                0, token 0 the padding and the ignored label) through
+                mx.rnn.BucketSentenceIter, FusedRNNCell (its begin
+                states' batch left to the bound data) and
+                BucketingModule.fit (Adam lr 0.01, the example's Mixed
+                initializer) with MXNET_FUSED_RNN=1, one epoch: (a) the
+                first step's outputs and gradients at buckets 10 and 60
+                flag on against flag off within ops/fused_rnn.py
+                PLAIN_TOL; (b) finite losses, the last 10 batches'
+                perplexity below the first 10's, K4a and K4b launched 2
+                a step each, all six buckets bound, each bucket's
+                parameters bit equal to the current one's after a
+                switch; (c) a Monitor's statistics finite; (d)
+                save_rnn_checkpoint / load_rnn_checkpoint and a legacy
+                .params file read back onto the card bit equal; step ms
+                by bucket, tokens/s, peak memory, the switch's parameter
+                copy timed alone, a profiled bucket-60 step.
+  15b. the unrolled cells — phase 15's width as a SequentialRNNCell of
+                two LSTMCells at buckets 10 and 20, 5 Adam steps each:
+                finite losses, no K4 launch, step ms beside phase 15's.
+  15c. the other Module types — phase 12's MLP, one epoch each, as a
+                SequentialModule (features, then a head taking the
+                labels) and through DataParallelExecutorManager over
+                [gpu(0), gpu(0)] with a caller-side update: accuracy >
+                0.9 each.
+  16. the kernels line (K3a-d's and K4a-b's launches summed over every
      path that runs them, split in `launches_by_path`), nvidia-smi's
      line, and the last line {"ok": true, "device": {...}}.
 
@@ -363,6 +392,77 @@ BN_NET_STEPS = 5
 BN_NET_TOL = 1e-4
 
 
+#: phase 15: the bucketed LSTM LM at upstream example/rnn/bucketing/
+#: cudnn_lstm_bucketing.py's defaults (vocab 10000 as PTB's, num_embed and
+#: num_hidden 200, 2 layers, batch 32, buckets 10-60), float32, Adam at
+#: lr 0.01 with examples/lstm_bucketing.py's Mixed initializer, one epoch
+#: over BUCKET_SENTENCES arithmetic progressions of uniform lengths
+#: BUCKET_LENGTHS (numpy seed 0); token 0 pads and is the ignored label
+#: (upstream's invalid_label 0: an id of -1 would read a NaN embedding row,
+#: as jnp.take's fill gives it, and carry it into every gradient)
+BUCKET_VOCAB, BUCKET_EMBED, BUCKET_HIDDEN, BUCKET_LAYERS = 10000, 200, 200, 2
+BUCKET_BATCH, BUCKETS = 32, [10, 20, 30, 40, 50, 60]
+BUCKET_SENTENCES, BUCKET_LENGTHS, BUCKET_LR = 3200, (5, 60), 0.01
+BUCKET_PAD = 0
+#: the buckets of the first-step check against the composite
+BUCKET_CHECKED = (10, 60)
+#: the perplexity windows compared over the epoch (first and last batches)
+BUCKET_WINDOW = 10
+#: phase 15b: SequentialRNNCell of LSTMCells at these buckets, steps each
+UNROLLED_BUCKETS, UNROLLED_STEPS = (10, 20), 5
+
+
+def bucketing_sym_gen(mx, vocab, embed, hidden, layers, cell="fused",
+                      batch_size=0):
+    """upstream cudnn_lstm_bucketing.py's sym_gen for either package
+    (`mx`): Embedding, a 2-layer LSTM stack unrolled over the bucket
+    (`cell` "fused": one FusedRNNCell, the `RNN` op; "unrolled":
+    examples/lstm_bucketing.py's counterpart, a SequentialRNNCell of
+    LSTMCells, one graph node a step), Reshape(-1, hidden),
+    FullyConnected(vocab) and SoftmaxOutput ignoring BUCKET_PAD. The cell
+    is made once, so every bucket shares its parameter names.
+    `batch_size` 0 leaves the begin states' batch to the bound data."""
+    if cell == "fused":
+        stack = mx.rnn.FusedRNNCell(hidden, num_layers=layers, mode="lstm",
+                                    prefix="lstm_")
+    else:
+        stack = mx.rnn.SequentialRNNCell()
+        for i in range(layers):
+            stack.add(mx.rnn.LSTMCell(hidden, prefix="lstm_l%d_" % i))
+
+    def sym_gen(seq_len):
+        data = mx.sym.Variable("data")
+        label = mx.sym.Variable("softmax_label")
+        emb = mx.sym.Embedding(data, input_dim=vocab, output_dim=embed,
+                               name="embed")
+        stack.reset()
+        out, _ = stack.unroll(seq_len, inputs=emb, merge_outputs=True,
+                              batch_size=batch_size)
+        pred = mx.sym.Reshape(out, shape=(-1, hidden))
+        pred = mx.sym.FullyConnected(pred, num_hidden=vocab, name="pred")
+        label = mx.sym.Reshape(label, shape=(-1,))
+        pred = mx.sym.SoftmaxOutput(pred, label, name="softmax",
+                                    use_ignore=True,
+                                    ignore_label=BUCKET_PAD)
+        return pred, ("data",), ("softmax_label",)
+    sym_gen.cell = stack
+    return sym_gen
+
+
+def bucketing_corpus(np, n, vocab, lengths, seed=0):
+    """examples/lstm_bucketing.py's learnable corpus at `vocab`: n
+    sequences t, t+s, t+2s, ... (stride s in 1-3) of uniform lengths in
+    `lengths`, the tokens in 1..vocab-1 (0 pads)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        length = rng.randint(lengths[0], lengths[1] + 1)
+        start, stride = rng.randint(vocab - 1), rng.randint(1, 4)
+        out.append([1 + (start + i * stride) % (vocab - 1)
+                    for i in range(length)])
+    return out
+
+
 def bn_convnet(sym, num_classes=10):
     """The executor's BatchNorm path: get_lenet's layers with a BatchNorm
     (gamma trained) after each Convolution, ending in SoftmaxOutput.
@@ -381,6 +481,20 @@ def bn_convnet(sym, num_classes=10):
     net = sym.Activation(net, name="tanh3", act_type="tanh")
     net = sym.FullyConnected(net, name="fc2", num_hidden=num_classes)
     return sym.SoftmaxOutput(net, name="softmax")
+
+
+def mlp_halves(sym, num_classes=10):
+    """get_mlp (128-64-classes, relu) cut in two for a SequentialModule:
+    the features (data -> relu2) and the head (its data -> fc3 ->
+    SoftmaxOutput, the module that takes the labels). `sym` is either
+    package's symbol module."""
+    net = sym.Flatten(sym.Variable("data"), name="flatten")
+    for i, width in ((1, 128), (2, 64)):
+        net = sym.FullyConnected(net, name="fc%d" % i, num_hidden=width)
+        net = sym.Activation(net, name="relu%d" % i, act_type="relu")
+    head = sym.FullyConnected(sym.Variable("data"), name="fc3",
+                              num_hidden=num_classes)
+    return net, sym.SoftmaxOutput(head, name="softmax")
 
 
 class SmokeFailure(Exception):
@@ -3109,12 +3223,435 @@ def phase_word_lm_hybrid(torch, np, dev, card):
     return tuple(sum(c[i] for c in launches) for i in range(2)), main
 
 
+def bucket_iter(np, mx, buckets=None):
+    """phase 15's corpus through mx.rnn.BucketSentenceIter (Python's
+    random and numpy's global generator seeded 0, as the reference's
+    iterator shuffles with both)."""
+    import random
+    random.seed(0)
+    np.random.seed(0)
+    sentences = bucketing_corpus(np, BUCKET_SENTENCES, BUCKET_VOCAB,
+                                 BUCKET_LENGTHS)
+    return mx.rnn.BucketSentenceIter(sentences, BUCKET_BATCH,
+                                     buckets=buckets or BUCKETS,
+                                     invalid_label=BUCKET_PAD)
+
+
+def bucket_nll(torch, probs, label):
+    """(summed negative log-likelihood of the targets, their count), the
+    padding left out, on the card: no host copy a batch."""
+    label = label.to(probs.device).reshape(-1).long()
+    keep = label != BUCKET_PAD
+    p = probs.gather(1, label[:, None])[:, 0]
+    return -(torch.log(p.clamp(min=1e-30)) * keep).sum(), keep.sum()
+
+
+def bucket_metric(torch, mx):
+    """An EvalMetric keeping each batch's (nll sum, token count) on the
+    card, read once at the end."""
+    class DeviceNLL(mx.metric.EvalMetric):
+        def __init__(self):
+            super().__init__("nll")
+
+        def reset(self):
+            super().reset()
+            self.batches = []
+
+        def update(self, labels, preds):
+            self.batches.append(bucket_nll(torch, preds[0]._data,
+                                           labels[0]._data))
+
+        def losses(self):
+            """[(nll sum, count)] a batch, as Python numbers."""
+            flat = torch.stack([torch.stack([s.float(), c.float()])
+                                for s, c in self.batches]).cpu().tolist()
+            return [(s, int(c)) for s, c in flat]
+
+        def get(self):
+            if not self.batches:
+                return (self.name, float("nan"))
+            losses = self.losses()
+            return (self.name, sum(s for s, _ in losses)
+                    / sum(c for _, c in losses))
+    return DeviceNLL()
+
+
+class BucketClock:
+    """A batch-end callback: the host-clock time between consecutive batch
+    ends, the card synchronized at each, by the batch's bucket."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.times = {}
+        self.keys = []
+        self._last = None
+
+    def __call__(self, param):
+        self.torch.cuda.synchronize()
+        now = time.perf_counter()
+        key = param.locals["batch"].bucket_key
+        self.keys.append(key)
+        if self._last is not None:
+            self.times.setdefault(key, []).append(now - self._last)
+        self._last = now
+
+
+def bucket_params(np, mx, sym_gen, T):
+    """Numpy parameters for phase 15's graph from seed 1: the flat LSTM
+    vector uniform in +-0.1, the rest Xavier-uniform bounds."""
+    sym = sym_gen(T)[0]
+    shapes, _, _ = sym.infer_shape(data=(BUCKET_BATCH, T),
+                                   softmax_label=(BUCKET_BATCH, T))
+    rng = np.random.RandomState(1)
+    out = {}
+    for n, s in zip(sym.list_arguments(), shapes):
+        if n in ("data", "softmax_label"):
+            continue
+        bound = 0.1 if len(s) == 1 else np.sqrt(6.0 / (s[0] + s[1]))
+        out[n] = rng.uniform(-bound, bound, s).astype(np.float32)
+    return out
+
+
+def bucketing_first_step(torch, np, mx, fr, dev, sym_gen, batches):
+    """(a): at each of BUCKET_CHECKED, one training step's outputs and
+    every gradient with MXNET_FUSED_RNN=1 against =0, within
+    ops/fused_rnn.py PLAIN_TOL; the flag-on step launches K4a and K4b
+    once a layer, the flag-off one not at all."""
+    from mxnet_tpu_torch.models import module_params_from_numpy
+    errs = {}
+    for T in BUCKET_CHECKED:
+        batch = batches[T]
+        mod = mx.mod.Module(sym_gen(T)[0], context=mx.gpu(dev.index or 0))
+        mod.bind(batch.provide_data, batch.provide_label)
+        module_params_from_numpy(mod, bucket_params(np, mx, sym_gen, T))
+        got = {}
+        for flag in ("0", "1"):
+            os.environ["MXNET_FUSED_RNN"] = flag
+            before = fr.launch_counts()
+            mod.forward_backward(batch)
+            torch.cuda.synchronize()
+            want = (0, 0) if flag == "0" else (BUCKET_LAYERS,) * 2
+            moved = tuple(a - b for a, b in zip(fr.launch_counts(), before))
+            check(moved == want, "bucket %d flag %s: K4a/K4b launched %r, "
+                  "expected %r" % (T, flag, moved, want))
+            got[flag] = {"softmax_output": mod.get_outputs()[0]._data.clone()}
+            got[flag].update({n: g._data.clone() for n, g in
+                              mod._exec.grad_dict.items()
+                              if n in mod._param_names})
+        for n, want in got["0"].items():
+            check(bool(torch.isfinite(got["1"][n]).all()),
+                  "bucket %d: %s not finite" % (T, n))
+            bad = fr.plain_mismatch(got["1"][n], want)
+            check(bad is None, "bucket %d first step, %s flag on vs off: %s"
+                  % (T, n, bad))
+            errs["%d:%s" % (T, n)] = fr.plain_error(got["1"][n], want)[0]
+    os.environ["MXNET_FUSED_RNN"] = "1"
+    return errs
+
+
+def switch_copy_ms(torch, np, mod, dev, n=5):
+    """The parameter copy of a bucket switch, timed alone: the current
+    bucket's get_params into another bucket's init_params(force_init),
+    synchronized, n times; (median ms, bytes of one copy). Every
+    parameter must stay on the card."""
+    cur = mod._curr_module
+    other = next(m for k, m in mod._buckets.items()
+                 if k != mod._curr_bucket_key)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arg, aux = cur.get_params()
+        other.init_params(arg_params=arg, aux_params=aux, force_init=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check(all(a._data.device == dev
+              for a in list(arg.values()) + list(other._exec.arg_dict.values())),
+          "a bucket switch's parameter copy left the card")
+    nbytes = sum(a._data.numel() * a._data.element_size()
+                 for a in arg.values())
+    return 1e3 * float(np.median(times)), nbytes
+
+
+def bucketing_checkpoints(torch, mx, mod, sym_gen, dev):
+    """(d): save_rnn_checkpoint / load_rnn_checkpoint and a legacy-format
+    .params file written by utils.legacy and read back by nd.load onto
+    the card, both bit equal to the module's parameters."""
+    from mxnet_tpu_torch.utils import legacy
+    arg, aux = mod.get_params()
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "bucketing_lm")
+        mx.rnn.save_rnn_checkpoint([sym_gen.cell], prefix, 1, mod.symbol,
+                                   arg, aux)
+        sym, arg2, aux2 = mx.rnn.load_rnn_checkpoint([sym_gen.cell], prefix,
+                                                     1)
+        check(sym.tojson() == mod.symbol.tojson(),
+              "load_rnn_checkpoint's symbol differs from the saved one")
+        path = os.path.join(tmp, "bucketing_lm-legacy.params")
+        legacy.save_legacy_ndarrays(path, {"arg:" + n: a
+                                           for n, a in arg.items()})
+        back = mx.nd.load(path, ctx=mx.gpu(dev.index or 0))
+    check(sorted(arg2) == sorted(arg) and sorted(back) ==
+          sorted("arg:" + n for n in arg), "checkpoint names differ")
+    for n, a in arg.items():
+        for what, got in (("rnn checkpoint", arg2[n]),
+                          ("legacy .params", back["arg:" + n])):
+            check(got._data.device == dev and torch.equal(got._data,
+                                                          a._data),
+                  "%s: %s is not bit equal on the card" % (what, n))
+    return {"rnn_checkpoint": "bit-equal", "legacy_params": "bit-equal",
+            "params": len(arg)}
+
+
+def phase_bucketing(torch, np, dev, card):
+    """Phase 15: the bucketed LSTM LM (upstream cudnn_lstm_bucketing.py's
+    defaults) through mx.rnn.BucketSentenceIter, FusedRNNCell and
+    BucketingModule.fit on the card with MXNET_FUSED_RNN=1, one epoch:
+    (a) the first step against the composite at buckets 10 and 60, (b)
+    finite losses, a falling perplexity, K4a and K4b launched once a layer
+    a step, all six buckets bound, every bucket's parameters bit equal to
+    the current one's after a switch, (c) a Monitor's statistics finite,
+    (d) checkpoints bit equal; step ms by bucket, tokens/s, peak memory,
+    the switch copy's time and a profiled bucket-60 step."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    prior = os.environ.get("MXNET_FUSED_RNN")
+    os.environ["MXNET_FUSED_RNN"] = "1"
+    ctx = mx.gpu(dev.index or 0)
+    try:
+        sym_gen = bucketing_sym_gen(mx, BUCKET_VOCAB, BUCKET_EMBED,
+                                    BUCKET_HIDDEN, BUCKET_LAYERS)
+        it = bucket_iter(np, mx)
+        first = {}
+        for b in it:
+            first.setdefault(b.bucket_key, b)
+        it.reset()
+        oracle = bucketing_first_step(torch, np, mx, fr, dev, sym_gen, first)
+        mod = mx.mod.BucketingModule(sym_gen, default_bucket_key=max(BUCKETS),
+                                     context=ctx)
+        metric = bucket_metric(torch, mx)
+        clock = BucketClock(torch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fr.reset_launch_counts()
+        t0 = time.perf_counter()
+        mod.fit(it, eval_metric=metric, optimizer="adam",
+                optimizer_params={"learning_rate": BUCKET_LR},
+                initializer=mx.init.Mixed(
+                    [".*lstm_parameters", ".*"],
+                    [mx.init.Uniform(0.1), mx.init.Xavier()]),
+                num_epoch=1, batch_end_callback=clock)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = fr.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        steps = len(clock.keys)
+        losses = metric.losses()
+        check(all(np.isfinite(s) for s, _ in losses),
+              "bucketing losses not finite")
+        ppl = [float(np.exp(sum(s for s, _ in w) / sum(c for _, c in w)))
+               for w in (losses[:BUCKET_WINDOW], losses[-BUCKET_WINDOW:])]
+        check(ppl[1] < ppl[0], "perplexity did not fall over the epoch: "
+              "first %d batches %.2f, last %.2f" % (BUCKET_WINDOW, *ppl))
+        want = BUCKET_LAYERS * steps
+        check(launches == (want, want), "K4a/K4b launched %r over %d steps, "
+              "expected %d each" % (launches, steps, want))
+        check(sorted(mod._buckets) == sorted(BUCKETS),
+              "bound buckets %r, expected %r" % (sorted(mod._buckets),
+                                                 BUCKETS))
+        # every bucket, switched to by a forward, holds the current
+        # parameters bit for bit
+        current, _ = mod.get_params()
+        for key in BUCKETS:
+            mod.forward(first[key], is_train=False)
+            got, _ = mod.get_params()
+            check(all(torch.equal(got[n]._data, current[n]._data)
+                      for n in current),
+                  "bucket %d's parameters differ from the current "
+                  "bucket's after the switch" % key)
+        copy_ms, copy_bytes = switch_copy_ms(torch, np, mod, dev)
+        # (c) a Monitor on one batch
+        mon = mx.mon.Monitor(1, pattern=".*")
+        mod.install_monitor(mon)
+        mon.tic()
+        mod.forward_backward(first[max(BUCKETS)])
+        mod.update()
+        stats = mon.toc()
+        check(stats and all(np.isfinite(float(v)) for _, _, v in stats),
+              "monitor statistics: %r" % (stats[:4],))
+        ckpt = bucketing_checkpoints(torch, mx, mod, sym_gen, dev)
+        b60 = first[max(BUCKETS)]
+
+        def step60():
+            mod.forward_backward(b60)
+            mod.update()
+            s, c = bucket_nll(torch, mod.get_outputs()[0]._data,
+                              b60.label[0]._data)
+            return s / c
+        prof = profile_step(torch, "bucketing lm T=%d" % max(BUCKETS),
+                            step60)
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_RNN", None)
+        else:
+            os.environ["MXNET_FUSED_RNN"] = prior
+    by_bucket = {}
+    tokens, seconds = 0, 0.0
+    for key in sorted(clock.times):
+        ms = [1e3 * t for t in clock.times[key]]
+        by_bucket[key] = {"steps": len(ms), "mean": sum(ms) / len(ms),
+                          "p50": float(np.median(ms))}
+        tokens += BUCKET_BATCH * key * len(ms)
+        seconds += sum(clock.times[key])
+    valid = sum(c for _, c in losses[1:])
+    main = {"card": card, "model": "FusedRNNCell lstm bucketing",
+            "vocab": BUCKET_VOCAB, "embed": BUCKET_EMBED,
+            "hidden": BUCKET_HIDDEN, "layers": BUCKET_LAYERS,
+            "batch": BUCKET_BATCH, "buckets": BUCKETS, "dtype": "float32",
+            "steps": steps, "fit_s": fit_s, "step_ms_by_bucket": by_bucket,
+            "tokens_per_s_padded": tokens / seconds,
+            "tokens_per_s_valid": valid / seconds,
+            "peak_memory_bytes": peak,
+            "perplexity_first_last": ppl,
+            "first_step_rel_frobenius": max(oracle.values()),
+            "switch_copy_ms": copy_ms, "switch_copy_bytes": copy_bytes,
+            "monitor_stats": len(stats), "checkpoints": ckpt,
+            "k4_launches": {"fwd": launches[0], "bwd": launches[1]},
+            "profile": prof}
+    print("bucketing lm path (phase 15): " + json.dumps(main))
+    return launches, main
+
+
+def phase_bucketing_unrolled(torch, np, dev, card, fused_ms):
+    """Phase 15b: examples/lstm_bucketing.py's counterpart, phase 15's width
+    as a SequentialRNNCell of two LSTMCells (one graph node a step, no
+    RNN op), BucketingModule at buckets UNROLLED_BUCKETS, UNROLLED_STEPS
+    Adam steps each: finite losses, no K4 launch; step ms beside phase
+    15's at the same buckets (`fused_ms`)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    sym_gen = bucketing_sym_gen(mx, BUCKET_VOCAB, BUCKET_EMBED,
+                                BUCKET_HIDDEN, BUCKET_LAYERS, cell="unrolled")
+    it = bucket_iter(np, mx, buckets=list(UNROLLED_BUCKETS))
+    batches = {}
+    for b in it:
+        batches.setdefault(b.bucket_key, []).append(b)
+    mod = mx.mod.BucketingModule(sym_gen,
+                                 default_bucket_key=max(UNROLLED_BUCKETS),
+                                 context=mx.gpu(dev.index or 0))
+    mod.bind(it.provide_data, it.provide_label)
+    mod.init_params(mx.init.Xavier())
+    mod.init_optimizer(optimizer="adam",
+                       optimizer_params={"learning_rate": BUCKET_LR})
+    fr.reset_launch_counts()
+    out = {}
+    for key in UNROLLED_BUCKETS:
+        times, losses = [], []
+        for batch in batches[key][:UNROLLED_STEPS]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mod.forward_backward(batch)
+            mod.update()
+            s, c = bucket_nll(torch, mod.get_outputs()[0]._data,
+                              batch.label[0]._data)
+            losses.append(float(s / c))
+            times.append(time.perf_counter() - t0)
+        check(all(np.isfinite(losses)), "unrolled bucket %d losses %r"
+              % (key, losses))
+        ms = [1e3 * t for t in times[1:]]
+        out[key] = {"steps_timed": len(ms), "step_ms_mean": sum(ms) / len(ms),
+                    "step_ms_p50": float(np.median(ms)),
+                    "first_step_ms": 1e3 * times[0], "losses": losses,
+                    "fused_step_ms_p50": fused_ms.get(key, {}).get("p50")}
+    check(fr.launch_counts() == (0, 0), "the unrolled cells launched K4: %r"
+          % (fr.launch_counts(),))
+    main = {"card": card, "model": "SequentialRNNCell(LSTMCell x 2)",
+            "buckets": list(UNROLLED_BUCKETS), "by_bucket": out,
+            "graph_nodes": len(sym_gen(max(UNROLLED_BUCKETS))[0]._topo())}
+    print("bucketing unrolled path (phase 15b): " + json.dumps(main))
+    return main
+
+
+def phase_module_family(torch, np, dev, card):
+    """Phase 15c: phase 12's MLP on its synthetic MNIST, one epoch each,
+    as a SequentialModule (chip_smoke.mlp_halves: a feature Module, then a
+    Module taking the labels) and through DataParallelExecutorManager
+    over [gpu(0), gpu(0)] with tests/test_module.py's caller-side update
+    (the slices' gradients summed over the batch, SGD lr MNIST_LR, here
+    with momentum MNIST_MOMENTUM): validation accuracy > MNIST_ACC each."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.executor_manager import DataParallelExecutorManager
+    ctx = mx.gpu(dev.index or 0)
+    np.random.seed(0)
+    train, val = mx.test_utils.get_mnist_iterator(batch_size=MNIST_BATCH,
+                                                  input_shape=(784,))
+    features, head = mlp_halves(mx.sym)
+    seq = mx.mod.SequentialModule()
+    seq.add(mx.mod.Module(features, label_names=None, context=ctx))
+    seq.add(mx.mod.Module(head, context=ctx), take_labels=True,
+            auto_wiring=True)
+    t0 = time.perf_counter()
+    seq.fit(train, optimizer="sgd", initializer=mx.init.Xavier(),
+            optimizer_params={"learning_rate": MNIST_LR,
+                              "momentum": MNIST_MOMENTUM}, num_epoch=1)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    seq_acc = seq.score(val, "acc")[0][1]
+    check(seq_acc > MNIST_ACC, "SequentialModule accuracy %.4f <= %g"
+          % (seq_acc, MNIST_ACC))
+    # the executor manager: two slices of each batch on one card
+    sym = mx.models.get_mlp()
+    names = sym.list_arguments()
+    params = [n for n in names if n not in ("data", "softmax_label")]
+    mgr = DataParallelExecutorManager(sym, [ctx, ctx], train, names, params,
+                                      sym.list_auxiliary_states())
+    init = mx.init.Xavier()
+    arg = {n: mx.nd.zeros(a[0].shape, ctx=ctx)
+           for n, a in zip(params, mgr.param_arrays)}
+    for n, a in arg.items():
+        init(mx.init.InitDesc(n), a)
+    mgr.set_params(arg, {})
+    moms = [torch.zeros_like(p[0]._data) for p in mgr.param_arrays]
+    train.reset()
+    t0 = time.perf_counter()
+    for batch in train:
+        mgr.load_data_batch(batch)
+        mgr.forward(is_train=True)
+        mgr.backward()
+        for i, (p_devs, g_devs) in enumerate(zip(mgr.param_arrays,
+                                                 mgr.grad_arrays)):
+            total = sum(g._data for g in g_devs) / MNIST_BATCH
+            moms[i] = MNIST_MOMENTUM * moms[i] - MNIST_LR * total
+            for p in p_devs:
+                p._data = p._data + moms[i]
+    torch.cuda.synchronize()
+    mgr_s = time.perf_counter() - t0
+    check(all(p._data.device == dev for devs in mgr.param_arrays
+              for p in devs), "the manager's parameters left the card")
+    metric = mx.metric.Accuracy()
+    val.reset()
+    for batch in val:
+        mgr.load_data_batch(batch)
+        mgr.forward(is_train=False)
+        mgr.update_metric(metric, batch.label)
+    mgr_acc = metric.get()[1]
+    check(mgr_acc > MNIST_ACC, "DataParallelExecutorManager accuracy %.4f "
+          "<= %g" % (mgr_acc, MNIST_ACC))
+    main = {"card": card, "sequential_module": {"val_acc": seq_acc,
+                                                "fit_s": seq_s},
+            "executor_manager": {"contexts": 2, "val_acc": mgr_acc,
+                                 "epoch_s": mgr_s}}
+    print("module family (phase 15c): " + json.dumps(main))
+    return main
+
+
 def rnn_kernel_rows(errs, rows, by_path):
     """K4a-b's entries of the kernels line: phase 10's timings at the
     path's shape in bfloat16 (the timed run's type) with their design and
-    its serial floor, the launches of phase 11's timed TrainStep run and
-    phase 14c's hybridized Gluon steps, summed and split in
-    `launches_by_path`, and the largest float32 kernel-vs-plain error."""
+    its serial floor, the launches of phase 11's timed TrainStep run,
+    phase 14c's hybridized Gluon steps and phase 15's bucketed epoch
+    through BucketingModule, summed and split in `launches_by_path`, and
+    the largest float32 kernel-vs-plain error."""
     out = []
     for i, (kind, line) in enumerate((("fwd", 209), ("bwd", 323))):
         r = rows[kind, "bfloat16"]
@@ -3180,6 +3717,10 @@ def main():
         phase_export(torch, np, dev, smi, g50_net, g50_batch)
         del g50_net, g50_batch
         lmh_launches, _ = phase_word_lm_hybrid(torch, np, dev, smi)
+        bucket_launches, bucket_path = phase_bucketing(torch, np, dev, smi)
+        phase_bucketing_unrolled(torch, np, dev, smi,
+                                 bucket_path["step_ms_by_bucket"])
+        phase_module_family(torch, np, dev, smi)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -3242,7 +3783,8 @@ def main():
         "resnet50_gluon_hybridized": g50_launches["hybridized"]})
     kernels += rnn_kernel_rows(rnn_errs, rnn_rows, {
         "word_lm_trainstep": lm_launches,
-        "word_lm_gluon_hybridized": lmh_launches})
+        "word_lm_gluon_hybridized": lmh_launches,
+        "bucketing_lm_module": bucket_launches})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

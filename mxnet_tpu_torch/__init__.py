@@ -22,7 +22,10 @@ stochastic ops and `random`) on the persistent fused-RNN kernels
 through the symbolic stack (`sym`, the executor, `mod.Module`, `io`,
 `metric`, `kv`, `callback`, `lr_scheduler`, `model`) and through Gluon
 with `gluon.data`; an executor's training-mode BatchNorm reaches the
-fused BatchNorm kernels as the imperative one does.
+fused BatchNorm kernels as the imperative one does; and the symbolic
+RNN workflow (`rnn`: the cells, `BucketSentenceIter`; `mod.BucketingModule`,
+`SequentialModule`, `PythonModule`, `monitor`, `executor_manager`), whose
+`FusedRNNCell` reaches the fused-RNN kernels through the executor.
 """
 from .base import MXNetError, resolve_device
 from .context import Context, cpu, current_context, gpu, num_gpus
@@ -53,6 +56,10 @@ from . import symbol_doc
 from . import module
 from . import module as mod
 from . import callback
+from . import executor_manager
+from . import monitor
+from . import monitor as mon
+from . import rnn
 from . import models
 from . import test_utils
 from . import visualization
@@ -63,4 +70,5 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "attribute", "AttrScope", "symbol", "sym", "Symbol", "executor",
            "lr_scheduler", "metric", "kvstore", "kv", "io", "gluon",
            "model", "FeedForward", "symbol_doc", "module", "mod",
-           "callback", "models", "test_utils", "visualization"]
+           "callback", "executor_manager", "monitor", "mon", "rnn",
+           "models", "test_utils", "visualization"]

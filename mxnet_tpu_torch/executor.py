@@ -13,7 +13,8 @@ kept graph (after an inference forward, or a second backward) evaluates
 the graph again in training mode first, as the reference's re-trace does,
 leaving the aux states alone. An inference `forward` runs under
 `torch.no_grad()`. BatchNorm's moving statistics are updated
-functionally after a training forward (Symbol._eval).
+functionally after a training forward (Symbol._eval). Creation nodes
+(`sym.zeros`, ...) make their tensors on the executor's device.
 """
 from __future__ import annotations
 
@@ -73,6 +74,11 @@ class Executor:
         self.outputs = []
         self._graph = None      # (output tensors, {name: leaf}) to backward
         self._monitor_callback = None
+        # creation nodes with a 0 in their shape (an RNN cell's begin
+        # state, `sym.zeros((L, 0, H))`): the dim solved once per set of
+        # argument shapes
+        self._deferred = symbol._has_deferred()
+        self._batches = {}
 
     # -- the surface --------------------------------------------------------
     @property
@@ -123,8 +129,17 @@ class Executor:
                 leaves[n] = values[n] = \
                     values[n].detach().requires_grad_(True)
         values.update({n: a._data for n, a in self.aux_dict.items()})
+        batch = None
+        if self._deferred:
+            shapes = {n: tuple(v.shape) for n, v in values.items()}
+            key = tuple(sorted(shapes.items()))
+            if key not in self._batches:
+                self._batches[key] = self._symbol._deferred_batch(shapes)
+            batch = self._batches[key]
         with torch.set_grad_enabled(grad):
-            outs, aux_up = self._symbol._eval(values, train=train)
+            outs, aux_up = self._symbol._eval(
+                values, train=train, device=self._ctx.torch_device(),
+                batch=batch)
         return outs, aux_up, leaves
 
     def forward(self, is_train=False, **kwargs):

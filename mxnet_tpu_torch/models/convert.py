@@ -72,15 +72,25 @@ def gluon_params_from_numpy(net, arrays):
 
 def module_params_from_numpy(mod, arg_arrays, aux_arrays=None):
     """Set a bound Module's parameters from {name: np.ndarray} (and its
-    aux states from `aux_arrays`), keyed by the symbol's argument names.
-    Every parameter (and, when aux_arrays is given, every aux state) must
-    be there with its bound shape, and nothing else: a mismatch raises
-    before anything is written."""
+    aux states from `aux_arrays`), keyed by the symbol's argument names;
+    a BucketingModule's go to its current bucket, which the others copy
+    at their next switch. An `RNN` op's flat parameter vector
+    (`lstm_parameters`, `*_rnn_parameters`) crosses as one 1-D array: the
+    two packages share its layout (for each layer and direction: i2h
+    weight, h2h weight, i2h bias, h2h bias). Every parameter (and, when
+    aux_arrays is given, every aux state) must be there with its bound
+    shape, and nothing else: a mismatch raises before anything is
+    written."""
     from ..ndarray import NDArray
     from ..context import cpu
-    want = {"arg": {n: mod._exec.arg_dict[n].shape
-                    for n in mod._param_names},
-            "aux": {n: mod._exec.aux_dict[n].shape for n in mod._aux_names}}
+    bound = getattr(mod, "_curr_module", None) or mod
+    if getattr(bound, "_exec", None) is None:
+        raise MXNetError("module_params_from_numpy needs a bound Module or "
+                         "BucketingModule")
+    want = {"arg": {n: bound._exec.arg_dict[n].shape
+                    for n in bound._param_names},
+            "aux": {n: bound._exec.aux_dict[n].shape
+                    for n in bound._aux_names}}
     given = {"arg": arg_arrays, "aux": aux_arrays}
     out = {}
     for kind in ("arg", "aux"):

@@ -6,8 +6,7 @@ context, `gpu(0)` unless the caller enters `with mx.cpu():` or passes
 `context=`). The updater's integer keys and the kvstore's keys follow
 `_param_names`, the symbol's `list_arguments()` order less the data,
 label and state names, as the reference's do. Not ported yet: the mesh
-branches (slice 5, distributed training), and the bucketing, sequential
-and Python modules (ROADMAP.md, queue 1).
+branches (slice 5, distributed training).
 """
 from __future__ import annotations
 

@@ -6,9 +6,9 @@ and the scalar-or-array arithmetic helpers. Generated names shadow
 builtins (`sum`, `max`, `abs`): never call bare builtins in this module.
 The sampling namespace is `nd.random`; its functions also populate
 `mxnet_tpu_torch.random` (`mx.random.uniform`, ...), as the reference's
-do. Not ported yet: sparse arrays, the optimizer update ops, linalg,
-contrib and the reader of MXNet's own binary .params format (ROADMAP.md,
-queue 1).
+do. `load` reads the named .npz container and MXNet's own binary .params
+format (utils/legacy.py). Not ported yet: sparse arrays, the optimizer
+update ops, linalg and contrib (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -67,11 +67,18 @@ def empty(shape, ctx=None, dtype=None):
 
 
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
-    vals = _np.arange(start, stop, step).astype(_np.float32 if dtype is None
-                                                else dtype)
-    if repeat > 1:
-        vals = _np.repeat(vals, repeat)
-    return NDArray(vals, ctx=ctx)
+    """[start, stop) by step, each value `repeat` times, made on ctx's
+    device (the `_arange` op)."""
+    return _apply_op(_registry.get("_arange"), (),
+                     dict(start=start, stop=stop, step=step, repeat=repeat,
+                          dtype=dtype or "float32", ctx=ctx))
+
+
+def eye(N, M=0, k=0, ctx=None, dtype=None):
+    """N x M (M 0: N x N) with ones on the k-th diagonal (the `_eye`
+    op)."""
+    return _apply_op(_registry.get("_eye"), (),
+                     dict(N=N, M=M, k=k, dtype=dtype or "float32", ctx=ctx))
 
 
 def waitall():
@@ -89,7 +96,8 @@ def save(fname, data):
 
 def load(fname, ctx=None):
     """A dict or list of NDArrays from a file `save` (of either package)
-    wrote, on `ctx` (the current context by default)."""
+    or MXNet's `save_legacy_ndarrays` wrote, on `ctx` (the current context
+    by default)."""
     from ..utils import serialization
     return serialization.load_ndarrays(fname, ctx=ctx)
 

@@ -353,7 +353,8 @@ class NDArray:
 def _apply_op(opdef, args, kwargs):
     """Unwrap the NDArrays, run the op with torch's grad mode on while
     recording (a non-differentiable op never builds a graph), and wrap the
-    outputs on the first input's context."""
+    outputs on the first input's context (a creation op makes its tensor
+    on `ctx=`, the current context by default)."""
     kwargs = dict(kwargs)
     out = kwargs.pop("out", None)
     ctx = kwargs.pop("ctx", None)
@@ -363,12 +364,14 @@ def _apply_op(opdef, args, kwargs):
         if isinstance(v, NDArray):
             kwargs[k] = v._data
             first = v._data if first is None else first
-    with torch.set_grad_enabled(autograd.is_recording()
-                                and opdef.differentiable):
-        res = opdef.fn(*args, **kwargs)
     if ctx is None:
         ctx = context_of(first.device) if first is not None \
             else current_context()
+    if getattr(opdef, "creation", False):
+        kwargs["device"] = ctx.torch_device()
+    with torch.set_grad_enabled(autograd.is_recording()
+                                and opdef.differentiable):
+        res = opdef.fn(*args, **kwargs)
     if isinstance(res, (tuple, list)):
         return tuple(NDArray(r, ctx=ctx) for r in res)
     out_nd = NDArray(res, ctx=ctx)

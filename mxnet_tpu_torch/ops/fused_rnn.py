@@ -424,6 +424,11 @@ def _checked(what, mode, wh, seq, **tensors):
     return _cuda, _cuda.library("fused_rnn.cu"), T, N, H
 
 
+#: devices whose tensors take the plain versions: the CPU, and "meta",
+#: on which a Symbol infers shapes without data
+_PLAIN_DEVICES = ("cpu", "meta")
+
+
 def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
@@ -435,8 +440,9 @@ def _ptr(t):
 def rnn_fwd(mode, px, h0, c0, wh, reverse=False):
     """K4a: (ys, cs, hT, cT) as `rnn_fwd_plain`. CUDA tensors launch the
     kernel (counted in `rnn_fwd.launches`) or raise; CPU tensors take
-    `rnn_fwd_plain`."""
-    if px.device.type == "cpu":
+    `rnn_fwd_plain`, and so do "meta" ones (a Symbol's shape inference,
+    which computes no values)."""
+    if px.device.type in _PLAIN_DEVICES:
         return rnn_fwd_plain(mode, px, h0, c0, wh, reverse)
     what = "fused_rnn forward"
     lstm = mode == "lstm"
@@ -464,8 +470,9 @@ def rnn_bwd(mode, px, ys, hprev, cprev, cs, wh, dys, dhT, dcT,
             reverse=False):
     """K4b: (dpx, dh0, dc0, dwh) as `rnn_bwd_plain`. CUDA tensors launch
     the scan kernel and the dWh kernel (counted once, in
-    `rnn_bwd.launches`) or raise; CPU tensors take `rnn_bwd_plain`."""
-    if hprev.device.type == "cpu":
+    `rnn_bwd.launches`) or raise; CPU and "meta" tensors take
+    `rnn_bwd_plain`."""
+    if hprev.device.type in _PLAIN_DEVICES:
         return rnn_bwd_plain(mode, px, ys, hprev, cprev, cs, wh, dys, dhT,
                              dcT, reverse)
     what = "fused_rnn backward"

@@ -6,7 +6,11 @@ structs). Gradients come from torch.autograd through the op's body, or
 from a `torch.autograd.Function` where the op wraps a kernel. The
 imperative namespace `mxnet_tpu_torch.ndarray` is generated from this
 table, as the reference's is. `stochastic` marks an op that draws from
-the port's generators (`mxnet_tpu_torch.random`).
+the port's generators (`mxnet_tpu_torch.random`). `creation` marks an op
+with no tensor input (`_zeros`, `_arange`, ...): its caller passes the
+device to make the tensor on as `device=` (the NDArray's context, the
+executor's, or "meta" in shape inference), so nothing is made on the
+host and copied over.
 """
 from __future__ import annotations
 
@@ -17,16 +21,17 @@ OPS = {}
 
 class OpDef:
     __slots__ = ("name", "fn", "num_inputs", "num_outputs", "differentiable",
-                 "stochastic", "aliases", "doc")
+                 "stochastic", "creation", "aliases", "doc")
 
     def __init__(self, name, fn, num_inputs, num_outputs, differentiable,
-                 stochastic, aliases, doc):
+                 stochastic, aliases, doc, creation=False):
         self.name = name
         self.fn = fn
         self.num_inputs = num_inputs  # -1 = variadic (list input)
         self.num_outputs = num_outputs
         self.differentiable = differentiable
         self.stochastic = stochastic
+        self.creation = creation
         self.aliases = aliases
         self.doc = doc
 
@@ -35,7 +40,7 @@ class OpDef:
 
 
 def register(name=None, *, num_outputs=1, differentiable=True,
-             stochastic=False, aliases=()):
+             stochastic=False, creation=False, aliases=()):
     """Register an op function `fn(*tensors, **params)`."""
 
     def deco(fn):
@@ -50,7 +55,7 @@ def register(name=None, *, num_outputs=1, differentiable=True,
                 variadic = True
         od = OpDef(opname, fn, -1 if variadic else npos, num_outputs,
                    differentiable, stochastic, tuple(aliases),
-                   fn.__doc__ or "")
+                   fn.__doc__ or "", creation=creation)
         OPS[opname] = od
         for a in aliases:
             OPS[a] = od

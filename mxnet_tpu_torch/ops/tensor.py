@@ -2,14 +2,21 @@
 `mxnet_tpu/ops/tensor.py`): elementwise and broadcast arithmetic with
 tensors and scalars, comparisons, unary math, Cast, reductions, Reshape
 (with the reference's special codes), Flatten, transpose, expand_dims,
-squeeze, Concat, SliceChannel, swapaxes, pick, take, Embedding and the
-zeros/ones creators.
+squeeze, Concat, SliceChannel, swapaxes, pick, take, Embedding, the
+creation ops (`_zeros`, `_ones`, `_full`, `_arange`, `_eye`, `zeros_like`,
+`ones_like`), and `where`, `argmax`, `norm`, `broadcast_to`, `slice_axis`,
+`tile` and `one_hot`.
 
 Each op is a function of torch tensors with static keyword parameters;
 gradients come from torch.autograd through its body. A scalar operand is
 cast to the tensor's dtype first, as the reference's `jnp.asarray(scalar,
 dtype=data.dtype)` does. The rest of the reference file is listed in
 ROADMAP.md, queue 1.
+
+A creation op takes the device to make its tensor on as `device=`
+(registry.py). In a Symbol a 0 in its `shape` is a dimension resolved when
+the graph is bound (the batch of an RNN's begin state, as upstream
+MXNet's `sym.zeros((L, 0, H))`); see symbol/__init__.py.
 """
 from __future__ import annotations
 
@@ -188,6 +195,29 @@ for _name, _fn in [
     register(_name)(_make_reduce(_fn))
 
 
+@register("argmax", differentiable=False)
+def argmax(data, axis=None, keepdims=False):
+    """The index of the largest element along `axis` (of the flattened
+    data when None), as float32, as the reference's."""
+    if axis is None:
+        return torch.argmax(data).to(torch.float32)
+    out = torch.argmax(data, dim=int(axis), keepdim=bool(keepdims))
+    return out.to(torch.float32)
+
+
+@register("norm")
+def norm(data, ord=2, axis=None, keepdims=False):
+    """The L1 norm (ord=1) or the L2 norm (otherwise) over `axis` (every
+    axis when None)."""
+    ax = _axes(data, axis, False)
+    if ax is None:
+        ax = tuple(range(data.dim()))
+    if ord == 1:
+        return torch.sum(torch.abs(data), dim=ax, keepdim=bool(keepdims))
+    return torch.sqrt(torch.sum(torch.square(data), dim=ax,
+                                keepdim=bool(keepdims)))
+
+
 # ---------------------------------------------------------------------------
 # shape manipulation
 # ---------------------------------------------------------------------------
@@ -279,6 +309,28 @@ def SliceChannel(data, num_outputs=1, axis=1, squeeze_axis=False):
     return tuple(parts) if num_outputs > 1 else parts[0]
 
 
+@register("broadcast_to")
+def broadcast_to(data, shape=()):
+    """data broadcast to `shape`; a 0 keeps data's dimension there."""
+    shape = tuple(int(t) if int(t) != 0 else int(d)
+                  for t, d in zip(shape, data.shape))
+    return torch.broadcast_to(data, shape)
+
+
+@register("slice_axis")
+def slice_axis(data, axis=0, begin=0, end=None):
+    """data[begin:end] along `axis` (Python slice rules; end None runs to
+    the end)."""
+    idx = [slice(None)] * data.dim()
+    idx[axis] = slice(begin, None if end is None else int(end))
+    return data[tuple(idx)]
+
+
+@register("tile")
+def tile(data, reps=()):
+    return torch.tile(data, tuple(int(r) for r in reps))
+
+
 @register("swapaxes", aliases=("SwapAxis",))
 def swapaxes(data, dim1=0, dim2=0):
     return torch.swapaxes(data, dim1, dim2)
@@ -341,6 +393,22 @@ def Embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
         (), float("nan"), dtype=out.dtype, device=out.device), out)
 
 
+@register("where")
+def where(condition, x, y):
+    """x where condition is nonzero, else y."""
+    return torch.where(condition.bool(), x, y)
+
+
+@register("one_hot", differentiable=False)
+def one_hot(indices, depth=0, on_value=1.0, off_value=0.0, dtype="float32"):
+    """A depth-wide one-hot row per index (float ids truncate; an index
+    outside [0, depth) gives a row of off_value, as jax.nn.one_hot's)."""
+    idx = indices.to(torch.int32).long()
+    hot = (idx[..., None] == torch.arange(depth, device=idx.device)).to(
+        torch.float32)
+    return (hot * (on_value - off_value) + off_value).to(torch_dtype(dtype))
+
+
 @register("zeros_like", differentiable=False)
 def zeros_like(data):
     return torch.zeros_like(data)
@@ -349,3 +417,47 @@ def zeros_like(data):
 @register("ones_like", differentiable=False)
 def ones_like(data):
     return torch.ones_like(data)
+
+
+def _dims(shape):
+    return tuple(int(d) for d in shape)
+
+
+@register("_zeros", differentiable=False, creation=True)
+def _zeros(shape=(), dtype="float32", device=None):
+    return torch.zeros(_dims(shape), dtype=torch_dtype(dtype), device=device)
+
+
+@register("_ones", differentiable=False, creation=True)
+def _ones(shape=(), dtype="float32", device=None):
+    return torch.ones(_dims(shape), dtype=torch_dtype(dtype), device=device)
+
+
+@register("_full", differentiable=False, creation=True)
+def _full(shape=(), value=0.0, dtype="float32", device=None):
+    return torch.full(_dims(shape), value, dtype=torch_dtype(dtype),
+                      device=device)
+
+
+@register("_arange", differentiable=False, creation=True)
+def _arange(start=0.0, stop=None, step=1.0, repeat=1, dtype="float32",
+            device=None):
+    """[start, stop) by step (stop None: [0, start)), each value repeated
+    `repeat` times."""
+    if stop is None:
+        start, stop = 0.0, start
+    out = torch.arange(start, stop, step, dtype=torch_dtype(dtype),
+                       device=device)
+    if repeat > 1:
+        out = torch.repeat_interleave(out, int(repeat))
+    return out
+
+
+@register("_eye", differentiable=False, creation=True)
+def _eye(N=0, M=0, k=0, dtype="float32", device=None):
+    """N x M (M 0: N x N) with ones on the k-th diagonal."""
+    N = int(N)
+    M = int(M) if M else N
+    rows = torch.arange(N, device=device)[:, None]
+    cols = torch.arange(M, device=device)[None, :]
+    return (cols - rows == int(k)).to(torch_dtype(dtype))

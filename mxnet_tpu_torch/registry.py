@@ -46,8 +46,8 @@ def get_create_func(base_class, nickname):
         name = args[0] if args else kwargs.pop(nickname)
         args = args[1:]
         if name.lower() not in registry:
-            raise ValueError("%s is not registered as a %s (known: %s)"
-                             % (name, nickname, sorted(registry)))
+            raise ValueError("unknown %s %r: it is not registered (known: "
+                             "%s)" % (nickname, name, sorted(registry)))
         return registry[name.lower()](*args, **kwargs)
 
     return create

@@ -15,10 +15,13 @@ whose shapes are the training mode's.
 
 The JSON format is the reference's (`nodes` / `heads` /
 `mxnet_tpu_version`, op attributes as `repr` strings, variables' `shape`
-hints), so a graph written by either package loads in the other. Not
-ported yet: the creation ops (`zeros`, `arange`, ...), `random`,
-`linalg` and `contrib`, the logical and matmul operators, reading
-older MXNet JSON layouts (ROADMAP.md, queue 1). A HybridBlock traces
+hints), so a graph written by either package loads in the other, and so
+does an older MXNet layout (`utils/legacy.upgrade_json`, with the
+BatchNorm aux inputs pre-nnvm files omit). The creation ops (`zeros`,
+`ones`, `full`, `arange`, `eye`) make their tensors on the executor's
+device; a 0 in their shape is solved at bind time like a variable's. Not
+ported yet: `random`, `linalg` and `contrib`, the logical and matmul
+operators (ROADMAP.md, queue 1). A HybridBlock traces
 into a Symbol when called on one (gluon/block.py), which is how
 `hybridize`, `export` and SymbolBlock reach this module.
 """
@@ -303,24 +306,38 @@ class Symbol:
     def infer_shape(self, *args, **kwargs):
         """(arg_shapes, out_shapes, aux_shapes) from the given input
         shapes, by name."""
-        return self._infer_shape_impl(kwargs)
+        return self._solve_shapes(kwargs)[0]
 
     def infer_shape_partial(self, *args, **kwargs):
         try:
-            return self._infer_shape_impl(kwargs, partial=True)
+            return self._solve_shapes(kwargs, partial=True)[0]
         except Exception:
             return None, None, None
 
-    def _infer_shape_impl(self, known, partial=False):
-        # a 0 in a variable's shape hint is an unknown dim (RNN begin
-        # states); try batch candidates from the known shapes, data-named
-        # inputs' dims first, until the whole graph checks out
+    def _has_deferred(self):
+        """Whether a creation node's shape holds a 0 (a dim bound later)."""
+        return any(_is_deferred(n) for n in self._topo())
+
+    def _deferred_batch(self, known):
+        """The size that fills the deferred (0) dims of the graph's creation
+        nodes at the given variable shapes (None when it has none)."""
+        return self._solve_shapes(known)[1] if self._has_deferred() \
+            else None
+
+    def _solve_shapes(self, known, partial=False):
+        """((arg_shapes, out_shapes, aux_shapes), the batch guess that
+        resolved the deferred (0) dims, None when there were none).
+
+        A 0 in a variable's shape hint (an RNN cell's begin state) or in a
+        creation node's shape (`sym.zeros((L, 0, H))`) is an unknown dim:
+        batch candidates from the known shapes are tried, data-named
+        inputs' dims first, until the whole graph checks out."""
         has_unknown = any(
             n.op is None and n.name not in known and
             n.shape_hint is not None and 0 in tuple(n.shape_hint)
-            for n in self._topo())
+            for n in self._topo()) or self._has_deferred()
         if not has_unknown:
-            return self._infer_shape_once(known, partial, None)
+            return self._infer_shape_once(known, partial, None), None
         primary, fallback = [], []
         for name, shp in known.items():
             bucket = primary if "data" in name else fallback
@@ -331,7 +348,7 @@ class Symbol:
         last_err = None
         for guess in primary:
             try:
-                return self._infer_shape_once(known, partial, guess)
+                return self._infer_shape_once(known, partial, guess), guess
             except Exception as e:  # a wrong guess: try the next dim
                 last_err = e
         # weight dims are the last resort; every candidate is probed and
@@ -353,9 +370,9 @@ class Symbol:
                     "type-check but yield different shapes; pass an "
                     "explicit shape for the deferred input(s)"
                     % ([successes[0][0]] + disagreeing))
-            return successes[0][1]
+            return successes[0][1], successes[0][0]
         if partial:
-            return None, None, None
+            return (None, None, None), None
         raise MXNetError(
             "could not resolve deferred (0) dims from the provided shapes: "
             "%s" % last_err)
@@ -400,7 +417,8 @@ class Symbol:
             try:
                 with _autograd._RecordingStateScope(False, False), \
                         torch.no_grad():
-                    out = node.op.fn(*ins, **node.kwargs)
+                    out = node.op.fn(*ins, **_op_kwargs(node, "meta",
+                                                        batch_guess))
             except Exception as e:  # noqa: BLE001
                 if partial:
                     continue
@@ -425,7 +443,8 @@ class Symbol:
                 [np.float32] * len(self.list_auxiliary_states()))
 
     # -- evaluation (shared by the Executor and eval()) --------------------
-    def _eval(self, values, train=False, zero_missing_aux=False):
+    def _eval(self, values, train=False, zero_missing_aux=False,
+              device=None, batch=None):
         """Interpret the DAG on {variable name: tensor}: (outputs,
         aux_updates), aux_updates mapping a BatchNorm's moving-statistic
         variable to its new value (a functional update, detached from the
@@ -437,8 +456,17 @@ class Symbol:
         from its data, in the data's dtype; any other missing variable
         raises. A node's outputs are dropped after their last use (what
         autograd saved for the backward stays alive through it), so the
-        forward's peak memory is the eager forward's."""
+        forward's peak memory is the eager forward's. Creation nodes make
+        their tensors on `device` (by default the first value's), their
+        deferred (0) dims filled by `batch` (by default solved from the
+        values' shapes)."""
         order = self._topo()
+        if device is None:
+            device = next((v.device for v in values.values()), None) or \
+                _current_device()
+        if batch is None and any(_is_deferred(n) for n in order):
+            batch = self._deferred_batch(
+                {k: tuple(v.shape) for k, v in values.items()})
         uses, states, others = {}, set(), set()
         for node in order:
             for pos, (inp, _) in enumerate(node.inputs):
@@ -465,7 +493,7 @@ class Symbol:
                         computed[id(inp)] = (_zero_state(node, pos, inp,
                                                          computed),)
                     ins.append(computed[id(inp)][oidx])
-                out = node.op.fn(*ins, **node.kwargs)
+                out = node.op.fn(*ins, **_op_kwargs(node, device, batch))
                 outs = tuple(out) if isinstance(out, (tuple, list)) \
                     else (out,)
                 if node.op.name == "BatchNorm" and train and \
@@ -494,7 +522,8 @@ class Symbol:
         from ..ndarray import NDArray
         vals = {k: v._data for k, v in kwargs.items()}
         with torch.no_grad():
-            outs, _ = self._eval(vals, train=False)
+            outs, _ = self._eval(vals, train=False, device=None if ctx is None
+                                 else ctx.torch_device())
         return [NDArray(o, ctx=ctx) for o in outs]
 
     # -- binding -----------------------------------------------------------
@@ -558,6 +587,29 @@ class Symbol:
                 ins = ", ".join(i.name for i, _ in n.inputs)
                 lines.append("%s(%s) -> %s" % (n.op.name, ins, n.name))
         return "\n".join(lines)
+
+
+def _is_deferred(node):
+    """A creation node whose shape holds a 0: a dim the bound data sets."""
+    return node.op is not None and node.op.creation and \
+        0 in tuple(int(d) for d in node.kwargs.get("shape", ()))
+
+
+def _op_kwargs(node, device, batch):
+    """The node's op arguments; a creation op also gets the device to make
+    its tensor on, and `batch` in place of each 0 of its shape."""
+    if not node.op.creation:
+        return node.kwargs
+    kw = dict(node.kwargs, device=device)
+    if batch and "shape" in kw:
+        kw["shape"] = tuple(batch if int(d) == 0 else int(d)
+                            for d in kw["shape"])
+    return kw
+
+
+def _current_device():
+    from ..context import current_context
+    return current_context().torch_device()
 
 
 def _zero_state(node, pos, var, computed):
@@ -731,6 +783,31 @@ for _n in list(_registry.OPS):
     globals()[_n] = _make_sym_func(_n)
 
 
+def zeros(shape, dtype=None, **kwargs):
+    """A `_zeros` node; a 0 in `shape` is a dim the bound data sets."""
+    return create("_zeros", shape=tuple(shape), dtype=dtype or "float32",
+                  **kwargs)
+
+
+def ones(shape, dtype=None, **kwargs):
+    return create("_ones", shape=tuple(shape), dtype=dtype or "float32",
+                  **kwargs)
+
+
+def arange(start, stop=None, step=1.0, repeat=1, dtype=None, **kwargs):
+    return create("_arange", start=start, stop=stop, step=step,
+                  repeat=repeat, dtype=dtype or "float32", **kwargs)
+
+
+def full(shape, val, dtype=None, **kwargs):
+    return create("_full", shape=tuple(shape), value=float(val),
+                  dtype=dtype or "float32", **kwargs)
+
+
+def eye(N, M=0, k=0, dtype=None, **kwargs):
+    return create("_eye", N=N, M=M, k=k, dtype=dtype or "float32", **kwargs)
+
+
 def _sym_or_scalar(lhs, rhs, both_op, lscalar_op, rscalar_op):
     lsym, rsym = isinstance(lhs, Symbol), isinstance(rhs, Symbol)
     if lsym and rsym:
@@ -796,13 +873,29 @@ def _parse_attr_value(v):
         return v
 
 
+# pre-nnvm symbol JSON omits the auxiliary-state inputs nnvm later made
+# explicit; loading adds them under the reference's aux names (parity:
+# legacy_json_util.cc's upgrade pass)
+_LEGACY_AUX_INPUTS = {
+    "BatchNorm": ("moving_mean", "moving_var"),
+    "batch_norm_v1": ("moving_mean", "moving_var"),
+}
+
+
 def load_json(json_str):
-    """A Symbol from JSON in the reference's format. An op the port lacks
-    raises, naming it."""
-    data = json.loads(json_str)
+    """A Symbol from JSON in the reference's format, or an older MXNet
+    layout (`legacy.upgrade_json`). An op the port lacks raises, naming
+    it."""
+    from ..utils import legacy
+    data = legacy.upgrade_json(json.loads(json_str))
     nodes = []
     for spec in data["nodes"]:
         inputs = [(nodes[i], oi) for i, oi, _ in spec["inputs"]]
+        aux_names = _LEGACY_AUX_INPUTS.get(spec["op"])
+        if aux_names and len(inputs) == 5 - len(aux_names):
+            for an in aux_names:
+                inputs.append((SymNode(None, "%s_%s" % (spec["name"], an),
+                                       [], {}, is_aux=True), 0))
         node_attr = dict(spec.get("attr") or {})
         if spec["op"] == "null":
             shp = spec.get("shape")

@@ -1,1 +1,1 @@
-"""Host-side helpers of the port (`serialization`)."""
+"""Host-side helpers of the port (`serialization`, `legacy`)."""

@@ -3,9 +3,9 @@
 The reference's container: a named .npz archive. A saved dict loads as a
 dict and a saved list as a list (keys tagged `__list__:<i>`); bfloat16,
 which numpy lacks, is stored as its uint16 bits under a `__bf16__:` tag.
-So `.params` files cross between the two packages both ways. The
-reference's reader of MXNet's own binary format is not ported (ROADMAP.md,
-queue 1).
+So `.params` files cross between the two packages both ways. A file in
+MXNet's own binary format (the list magic 0x112) is detected first and
+read by `legacy.py`, as the reference's loader does.
 """
 from __future__ import annotations
 
@@ -53,10 +53,14 @@ def save_ndarrays(fname, data):
 
 def load_ndarrays(fname, ctx=None):
     """A dict or list of NDArrays from a path or from the file's bytes,
-    on `ctx` (the current context by default)."""
+    on `ctx` (the current context by default). MXNet's binary format is
+    detected by its framing and read by `legacy.load_legacy_ndarrays`."""
     from ..context import current_context
     from ..ndarray import NDArray
+    from . import legacy
     ctx = ctx if ctx is not None else current_context()
+    if legacy.is_legacy_ndarray_file(fname):
+        return legacy.load_legacy_ndarrays(fname, ctx=ctx)
     src = io.BytesIO(bytes(fname)) if isinstance(fname, (bytes, bytearray)) \
         else fname
     try:

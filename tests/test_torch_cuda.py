@@ -1371,3 +1371,61 @@ def test_symbol_block_imports_onto_the_card(dev, tmp_path):
     out = blk(tmx.nd.array(x, ctx=tmx.gpu(dev.index or 0)))
     assert out._data.device.type == "cuda"
     np.testing.assert_allclose(out.asnumpy(), want, rtol=1e-5, atol=1e-6)
+
+
+def test_bucketing_fused_cell_on_the_card_launches_k4(dev):
+    """A FusedRNNCell graph (chip_smoke.bucketing_sym_gen, small width)
+    through BucketingModule with MXNET_FUSED_RNN=1: each step launches K4a
+    and K4b once a layer, the deferred-batch `sym.zeros` begin states are
+    made on the card (a CPU state would make the kernel raise), every
+    bucket's arrays stay there, and the first step's outputs match the
+    CPU's plain run within ops/fused_rnn.py PLAIN_TOL."""
+    import os
+    import random
+    import chip_smoke
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    prior = os.environ.get("MXNET_FUSED_RNN")
+    os.environ["MXNET_FUSED_RNN"] = "1"
+    try:
+        sentences = chip_smoke.bucketing_corpus(np, 80, 50, (3, 10))
+        outs = {}
+        for where in ("cpu", "card"):
+            ctx = tmx.cpu() if where == "cpu" else tmx.gpu(dev.index or 0)
+            random.seed(0)
+            np.random.seed(0)
+            it = tmx.rnn.BucketSentenceIter(sentences, 8, buckets=[5, 10],
+                                            invalid_label=0)
+            mod = tmx.mod.BucketingModule(
+                chip_smoke.bucketing_sym_gen(tmx, 50, 16, 32, 2),
+                default_bucket_key=10, context=ctx)
+            mod.bind(it.provide_data, it.provide_label)
+            mod.init_params(tmx.init.Mixed(
+                [".*lstm_parameters", ".*"],
+                [tmx.init.Uniform(0.1), tmx.init.Xavier()]))
+            mod.init_optimizer(optimizer="adam",
+                               optimizer_params={"learning_rate": 0.01})
+            batches = list(it)[:4]
+            fr.reset_launch_counts()
+            mod.forward_backward(batches[0])
+            outs[where] = mod.get_outputs()[0]._data.cpu()
+            mod.update()
+            for batch in batches[1:]:
+                mod.forward_backward(batch)
+                mod.update()
+            torch.cuda.synchronize()
+            if where == "card":
+                assert fr.launch_counts() == (8, 8)
+                assert len(mod._buckets) == 2
+                for m in mod._buckets.values():
+                    for d in (m._exec.arg_dict, m._exec.grad_dict):
+                        for n, a in d.items():
+                            assert a._data.device.type == "cuda", n
+            else:
+                assert fr.launch_counts() == (0, 0)
+        assert fr.plain_mismatch(outs["card"], outs["cpu"]) is None
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_RNN", None)
+        else:
+            os.environ["MXNET_FUSED_RNN"] = prior

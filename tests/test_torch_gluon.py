@@ -472,4 +472,4 @@ def test_initializers():
         tmx.initializer.InitDesc("c_weight"), c)
     np.testing.assert_array_equal(c.asnumpy(), 0.5)
     with pytest.raises(ValueError, match="unknown initializer"):
-        tmx.init.create("orthogonal")
+        tmx.init.create("no_such_initializer")

@@ -1,6 +1,8 @@
 """Port parity for the executor, the optimizer repair, the kvstore, the
 Module API and the checkpoints (mxnet_tpu_torch.executor / optimizer /
-kvstore / module / model) against the JAX reference on the CPU.
+kvstore / module / model), and for SequentialModule, PythonModule /
+PythonLossModule, Monitor and executor_manager, against the JAX
+reference on the CPU.
 
 Both packages get the same numpy parameters and batches from a seed
 (`models.module_params_from_numpy` on the port's side, `set_params` on
@@ -603,3 +605,226 @@ def test_save_params_cross_and_optimizer_states_preload(writer, tmp_path):
     for i, st in port._updater.states.items():
         np.testing.assert_array_equal(loaded._updater.states[i].asnumpy(),
                                       st.asnumpy())
+
+
+# ---------------------------------------------------------------------------
+# SequentialModule, PythonLossModule, Monitor, executor_manager
+# ---------------------------------------------------------------------------
+
+
+def _sequential(pkg, head="module"):
+    """get_mlp as a SequentialModule: chip_smoke.mlp_halves' features,
+    then its head Module (taking the labels) or, head="python", a
+    PythonLossModule whose gradient is softmax(scores) - onehot(label)."""
+    with pkg.name.NameManager():
+        features, top = chip_smoke.mlp_halves(pkg.sym)
+        if head == "python":
+            features = pkg.sym.FullyConnected(features, name="fc3",
+                                              num_hidden=10)
+    seq = pkg.mod.SequentialModule()
+    seq.add(pkg.mod.Module(features, label_names=None, context=pkg.cpu()))
+    if head == "python":
+        seq.add(pkg.mod.PythonLossModule(grad_func=_softmax_grad),
+                take_labels=True, auto_wiring=True)
+    else:
+        seq.add(pkg.mod.Module(top, context=pkg.cpu()), take_labels=True,
+                auto_wiring=True)
+    return seq
+
+
+def _softmax_grad(scores, labels):
+    """The softmax cross-entropy gradient, from the host arrays."""
+    s = scores.asnumpy().astype(np.float64)
+    p = np.exp(s - s.max(axis=1, keepdims=True))
+    p /= p.sum(axis=1, keepdims=True)
+    p[np.arange(len(p)), labels.asnumpy().astype(np.int64)] -= 1.0
+    return p.astype(np.float32)
+
+
+@pytest.mark.parametrize("head", ["module", "python"])
+def test_sequential_module_matches_reference(head):
+    """Three SGD updates through the chained modules: outputs, the input
+    gradients the head hands back, and every parameter."""
+    shape = (8, 784)
+    ref, port = _sequential(mx, head), _sequential(tmx, head)
+    rng = np.random.RandomState(3)
+    data_shapes = [("data", shape)]
+    label_shapes = [("softmax_label", (8,))]
+    with _ref_scope():
+        ref.bind(data_shapes, label_shapes)
+        ref.init_params(mx.init.Zero())
+        args, _ = ref.get_params()
+        params = {n: (0.05 * rng.randn(*a.shape)).astype(np.float32)
+                  for n, a in sorted(args.items())}
+        ref.set_params({n: mx.nd.array(v) for n, v in params.items()}, {})
+        ref.init_optimizer(optimizer="sgd",
+                           optimizer_params={"learning_rate": 0.1})
+    port.bind(data_shapes, label_shapes)
+    port.init_params(tmx.init.Zero())
+    port.set_params({n: tmx.nd.array(v) for n, v in params.items()}, {})
+    port.init_optimizer(optimizer="sgd",
+                        optimizer_params={"learning_rate": 0.1})
+    assert port.output_shapes == ref.output_shapes
+    assert port.data_names == ref.data_names == ["data"]
+    for x, y in _batches(rng.rand(*shape).astype(np.float32),
+                         rng.randint(0, 10, 8).astype(np.float32), 3, 2):
+        with _ref_scope():
+            ref.forward_backward(mx.io.DataBatch([mx.nd.array(x)],
+                                                 [mx.nd.array(y)]))
+            ref.update()
+            want = ref.get_outputs()[0].asnumpy()
+            want_g = ref._modules[1].get_input_grads()[0].asnumpy()
+        port.forward_backward(tmx.io.DataBatch([tmx.nd.array(x)],
+                                               [tmx.nd.array(y)]))
+        port.update()
+        np.testing.assert_allclose(port.get_outputs()[0].asnumpy(), want,
+                                   **_FWD)
+        np.testing.assert_allclose(
+            port._modules[1].get_input_grads()[0].asnumpy(), want_g, **_FWD)
+    with _ref_scope():
+        ref_args, _ = ref.get_params()
+    port_args, _ = port.get_params()
+    assert sorted(port_args) == sorted(ref_args)
+    for n in ref_args:
+        np.testing.assert_allclose(port_args[n].asnumpy(),
+                                   ref_args[n].asnumpy(), err_msg=n, **_FWD)
+
+
+def test_sequential_module_fit_reaches_accuracy():
+    """fit's own initializer sets the chained modules (Xavier here), and
+    one epoch passes 0.9 on the synthetic MNIST."""
+    np.random.seed(0)
+    train, val = tmx.test_utils.get_mnist_iterator(batch_size=100,
+                                                   input_shape=(784,))
+    seq = _sequential(tmx)
+    seq.fit(train, optimizer="sgd", initializer=tmx.init.Xavier(),
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+            num_epoch=1)
+    assert seq.score(val, "acc")[0][1] > 0.9
+    args, _ = seq.get_params()
+    bound = np.sqrt(6.0 / (784 + 128))
+    w = args["fc1_weight"].asnumpy()
+    assert 0.5 * bound < np.abs(w).max()  # Xavier's, not Uniform(0.01)
+    assert seq.get_input_grads is not None and seq.label_shapes
+    with pytest.raises(AssertionError, match="Unknown meta"):
+        tmx.mod.SequentialModule().add(seq, take_label=True)
+
+
+def test_python_module_surface():
+    loss = tmx.mod.PythonLossModule(grad_func=_softmax_grad)
+    assert loss.get_params() == ({}, {})
+    loss.bind([("data", (4, 10))], [("softmax_label", (4,))])
+    assert loss.output_shapes == [("pyloss_output", (4, 10))]
+    loss.init_params()
+    loss.init_optimizer()
+    scores = tmx.nd.array(np.random.RandomState(0).randn(4, 10)
+                          .astype(np.float32))
+    labels = tmx.nd.array(np.array([1, 2, 3, 4], np.float32))
+    loss.forward(tmx.io.DataBatch([scores], [labels]), is_train=True)
+    assert loss.get_outputs()[0] is scores
+    loss.backward()
+    grad = loss.get_input_grads()[0]
+    np.testing.assert_allclose(grad.asnumpy(),
+                               _softmax_grad(scores, labels), rtol=1e-6)
+    assert grad.context == scores.context
+    metric = tmx.metric.Accuracy()
+    loss.update_metric(metric, [labels])
+    assert metric.num_inst == 4
+    with pytest.raises(NotImplementedError):
+        tmx.mod.PythonModule(["data"], None, ["out"]).bind(
+            [("data", (2,))])
+
+
+def test_monitor_matches_reference():
+    """interval 2, pattern over fc weights and outputs: the same steps,
+    names and statistics (mean |x|)."""
+    ref, port, data, label = _module_pair("mlp")
+    got = []
+    for pkg, mod in ((mx, ref), (tmx, port)):
+        mon = pkg.mon.Monitor(2, pattern="fc.*|softmax.*", sort=True)
+        mod.install_monitor(mon)
+        rows = []
+        for x, y in _batches(data, label, 3, seed=5):
+            mon.tic()
+            with _ref_scope():
+                mod.forward_backward(pkg.io.DataBatch([pkg.nd.array(x)],
+                                                      [pkg.nd.array(y)]))
+                mod.update()
+            rows.append(mon.toc())
+        got.append(rows)
+    ref_rows, port_rows = got
+    assert [len(r) for r in port_rows] == [len(r) for r in ref_rows] == \
+        [8, 0, 8]
+    for pr, rr in zip(port_rows, ref_rows):
+        assert [(s, n) for s, n, _ in pr] == [(s, n) for s, n, _ in rr]
+        np.testing.assert_allclose([float(v) for _, _, v in pr],
+                                   [float(v) for _, _, v in rr], **_FWD)
+
+
+def test_executor_manager_matches_reference():
+    """DataParallelExecutorManager over [cpu(0), cpu(1)] with the
+    caller-side update of tests/test_module.py: five steps against the
+    reference, then an epoch to accuracy > 0.9."""
+    from mxnet_tpu.executor_manager import DataParallelExecutorManager as R
+    from mxnet_tpu_torch.executor_manager import (
+        DataParallelExecutorManager, _split_input_slice)
+    import mxnet_tpu.executor_manager as ref_em
+    for args in ((10, [1, 1]), (9, [2, 1]), (7, [1, 1, 1])):
+        assert _split_input_slice(*args) == ref_em._split_input_slice(*args)
+    with pytest.raises(MXNetError, match="too many slices"):
+        _split_input_slice(2, [1, 1, 1])
+    np.random.seed(0)
+    train, val = tmx.test_utils.get_mnist_iterator(batch_size=32,
+                                                   input_shape=(784,))
+    mgrs = []
+    for pkg, cls in ((mx, R), (tmx, DataParallelExecutorManager)):
+        with pkg.name.NameManager():
+            sym = pkg.models.get_mlp()
+        names = sym.list_arguments()
+        params = [n for n in names if n not in ("data", "softmax_label")]
+        with _ref_scope():
+            mgrs.append(cls(sym, [pkg.cpu(0), pkg.cpu(1)], train, names,
+                            params, sym.list_auxiliary_states()))
+    ref, port = mgrs
+    rng = np.random.RandomState(1)
+    init = {n: (0.05 * rng.randn(*a[0].shape)).astype(np.float32)
+            for n, a in zip(port.param_names, port.param_arrays)}
+    ref.set_params({n: mx.nd.array(v) for n, v in init.items()}, {})
+    port.set_params({n: tmx.nd.array(v) for n, v in init.items()}, {})
+
+    def step(pkg, mgr, batch):
+        mgr.load_data_batch(batch)
+        mgr.forward(is_train=True)
+        mgr.backward()
+        for p_devs, g_devs in zip(mgr.param_arrays, mgr.grad_arrays):
+            total = sum(g.asnumpy() for g in g_devs) / 32.0
+            for p in p_devs:
+                p._data = pkg.nd.array(p.asnumpy() - 0.1 * total)._data
+
+    train.reset()
+    for i, batch in enumerate(train):
+        if i == 5:
+            break
+        rbatch = mx.io.DataBatch([mx.nd.array(batch.data[0].asnumpy())],
+                                 [mx.nd.array(batch.label[0].asnumpy())])
+        with _ref_scope():
+            step(mx, ref, rbatch)
+        step(tmx, port, batch)
+        for rp, pp in zip(ref.param_arrays, port.param_arrays):
+            for r, p in zip(rp, pp):
+                np.testing.assert_allclose(p.asnumpy(), r.asnumpy(), **_FWD)
+    metric = tmx.metric.Accuracy()
+    train.reset()
+    for batch in train:
+        step(tmx, port, batch)
+        port.update_metric(metric, batch.label)
+    assert metric.get()[1] > 0.9, metric.get()
+    out_args, out_aux = {}, {}
+    port.copy_to(out_args, out_aux)
+    assert sorted(out_args) == sorted(port.param_names) and not out_aux
+    np.testing.assert_array_equal(out_args["fc1_weight"].asnumpy(),
+                                  port.param_arrays[0][0].asnumpy())
+    mon = tmx.mon.Monitor(1)
+    port.install_monitor(mon)
+    assert all(e._monitor_callback is not None
+               for e in port.execgrp.train_execs)
