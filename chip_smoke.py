@@ -199,9 +199,45 @@ Phases (any failure exits non-zero before the last line):
                 labels) and through DataParallelExecutorManager over
                 [gpu(0), gpu(0)] with a caller-side update: accuracy >
                 0.9 each.
-  16. the kernels line (K3a-d's and K4a-b's launches summed over every
-     path that runs them, split in `launches_by_path`), nvidia-smi's
-     line, and the last line {"ok": true, "device": {...}}.
+  16. Inception-v3's BatchNorm shapes — the (C, H, W) each of the
+                model zoo's inception_v3's BatchNorm blocks sees at
+                299x299 (forward hooks over one batch-1 forward; 94 a
+                step, 18 distinct, most with an odd S), then K3a-d
+                against their plain versions in float32 at batch 128 at
+                each, relu off (each BatchNorm feeds an Activation of its
+                own), each kernel timed there beside its plain version,
+                its bound and the library yardsticks, one row a shape and
+                kernel, and the sums over the step's 94 calls.
+  16b. Inception-v3 training path — BASELINE.md's anchor: the model zoo's
+                inception_v3 at its published width (1000 classes,
+                299x299 NCHW), float32, batch 128, TF32 off, on seeded
+                class-prototype images with MXNET_FUSED_BN_EPILOGUE=1:
+                the first step flag on against flag off beside the
+                flag-off step's own floor (phase 9's check), then phase
+                14's run (gluon.Trainer sgd, eager and hybridized from
+                the same weights in turns, 2 + 10 steps each): finite,
+                falling losses, K3a-d launched once a step for each of
+                the net's BatchNorm blocks in both modes, the cached
+                graph in use, step ms, img/s, peak memory and a profiled
+                step's busy share each.
+  16c. the other model-zoo families — alexnet, vgg16_bn, squeezenet1.1,
+                densenet121, mobilenet1.0 and mobilenetv2_1.0 by their
+                registry names at 224x224, 1000 classes, batch 32: an
+                inference forward eager and hybridized (the hybridized
+                logits within 1e-5 of the largest eager |logit|) and
+                img/s of each; one flag-on training step of densenet121
+                and mobilenetv2_1.0, K3a-d launched once for each of the
+                net's BatchNorms.
+  16d. Gluon cells and losses — a SequentialRNNCell of two LSTMCells
+                unrolled over 35 steps at the word LM's width (embed and
+                hidden 200, batch 32, float32) against gluon.rnn.LSTM
+                with the same weights under MXNET_FUSED_RNN=1 (K4a once a
+                layer): outputs and final states within ops/fused_rnn.py
+                PLAIN_TOL; every Gluon loss on the card against the CPU.
+  17. the kernels line (K3a-d's and K4a-b's launches summed over every
+     path that runs them, split in `launches_by_path`; K3a-d's sums over
+     an Inception-v3 step under `inception_v3_step`), nvidia-smi's line,
+     and the last line {"ok": true, "device": {...}}.
 
 Parity settings: TF32 is off for matmuls and cuDNN, so float32 products
 run in full float32 (the reference suite forces highest matmul
@@ -390,6 +426,36 @@ BN_NET_STEPS = 5
 #: gradients (tests/test_torch_fused_bn.py's tolerance for the BatchNorm
 #: ops' float32 gradients), and the moving statistics
 BN_NET_TOL = 1e-4
+
+
+#: phases 16-16b: Inception-v3 through Gluon at its published width (1000
+#: classes, 299x299 NCHW), float32 at batch 128, BASELINE.md's anchor
+#: (batch 128 on one K80 with mirroring; example/image-classification/
+#: README.md), trained as phase 14 trains ResNet-50 (G50_OPT, class-
+#: prototype images, MXNET_FUSED_BN_EPILOGUE=1, eager and hybridized in
+#: turns)
+INC_BATCH, INC_IMAGE, INC_CLASSES = 128, 299, 1000
+INC_WARMUP, INC_STEPS = 2, 10
+#: the first Inception step, flag on against flag off: the loss to this
+#: relative error; each gradient's relative Frobenius error to max(2 x
+#: floor, INC_GRAD_MIN_TOL), the floor the flag-off step's own (a second
+#: run, the input moved one ulp), as phase 9's
+INC_LOSS_RTOL, INC_GRAD_MIN_TOL = 1e-5, 1e-4
+#: phase 16c: the model zoo's other families at their published widths
+#: (224x224, 1000 classes) by their registry names, batch 32: a forward
+#: eager against hybridized (largest logit error over the largest logit)
+#: and img/s; one flag-on training step of the two with BatchNorm layers
+#: that no other phase reaches (depthwise, concat-grown channels)
+ZOO_FAMILIES = ("alexnet", "vgg16_bn", "squeezenet1.1", "densenet121",
+                "mobilenet1.0", "mobilenetv2_1.0")
+ZOO_TRAINED = ("densenet121", "mobilenetv2_1.0")
+ZOO_BATCH, ZOO_IMAGE, ZOO_TIMED, ZOO_HYB_RTOL = 32, 224, 5, 1e-5
+#: phase 16d: a SequentialRNNCell of two LSTMCells unrolled at the word
+#: LM's width (bptt 35, batch 32, embed and hidden 200, float32) against
+#: gluon.rnn.LSTM on K4a with the same weights; each Gluon loss on the
+#: card against the CPU within LOSS_CARD_RTOL of its largest |value|
+CELL_T, CELL_N, CELL_C, CELL_H = 35, 32, 200, 200
+LOSS_CARD_RTOL = 1e-5
 
 
 #: phase 15: the bucketed LSTM LM at upstream example/rnn/bucketing/
@@ -1791,13 +1857,15 @@ def bn_bound(fb, kind, N, C, S, itemsize, relu, res):
                                  else "operations")
 
 
-def bn_time(torch, fb, dev, C, H, W, relu, res, dtype, flush, n=10):
-    """Times (ms) at one of the main path's BatchNorm shapes: each kernel,
-    its plain version, and the library yardsticks the port never calls:
-    torch.var_mean for K3a, and cuDNN's batch norm (+ add + relu) forward
-    against K3a + K3b, its autograd backward against K3c + K3d."""
+def bn_time(torch, fb, dev, C, H, W, relu, res, dtype, flush, n=10,
+            N=R50_BATCH):
+    """Times (ms) at one of the main path's BatchNorm shapes (batch N):
+    each kernel, its plain version, and the library yardsticks the port
+    never calls: torch.var_mean for K3a, and cuDNN's batch norm (+ add +
+    relu) forward against K3a + K3b, its autograd backward against K3c +
+    K3d."""
     F = torch.nn.functional
-    N, S = R50_BATCH, H * W
+    S = H * W
     x, dy, r, gamma, beta = bn_inputs(torch, dev, N, C, S, dtype, seed=C + S)
     r = r if res else None
     k = bn_chain(torch, fb, x, dy, r, gamma, beta, relu)
@@ -1994,10 +2062,12 @@ def rel_frobenius(a, b):
     return float((a - b).norm()) / max(float(b.norm()), 1e-30)
 
 
-def resnet_first_step_check(torch, fb, step, x, y):
+def resnet_first_step_check(torch, fb, step, x, y, what="resnet50"):
     """The first step's loss and gradients in float32 (TF32 off), flag on
     against flag off, beside the flag-off step's own floor: a second run
-    of it, and a run with the input moved by one ulp."""
+    of it, and a run with the input moved by one ulp. `step` has
+    `loss_and_grads(x, y)` -> (loss, {name: gradient}): a TrainStep, or
+    a GluonGrads."""
     os.environ["MXNET_FUSED_BN_EPILOGUE"] = "0"
     n0 = fb.launch_counts()
     loss_off, g_off = step.loss_and_grads(x, y)
@@ -2037,7 +2107,7 @@ def resnet_first_step_check(torch, fb, step, x, y):
                 if n not in zero)
     ulp = max(rel_frobenius(g_ulp[n], g) for n, g in g_off.items()
               if n not in zero)
-    print("resnet50 oracle: loss flag on %.7f off %.7f (rel err %.3g, tol "
+    print(what + " oracle: loss flag on %.7f off %.7f (rel err %.3g, tol "
           "%g); %d gradients, worst relative Frobenius error %.3g (%s), tol "
           "max(2 x floor, %g) = %.3g; floor %.3g (%s): flag off against a "
           "second run %.3g, against the input moved one ulp %.3g; the %d "
@@ -2155,13 +2225,15 @@ def phase_resnet(torch, np, dev, card):
     return launches, main
 
 
-def bn_kernel_rows(errs, totals, by_path):
+def bn_kernel_rows(errs, totals, by_path, inception_totals):
     """K3a-d's entries of the kernels line: the per-step sums over one
     bf16 batch-256 ResNet-50 step's 53 calls (phase 8's timings at the
     main path's shapes), the launches of every path that runs them (phase
-    9's TrainStep, phase 12b's executor, phase 14's eager and hybridized
-    Gluon steps), summed and split in `launches_by_path`, and the largest
-    float32 kernel-vs-plain error."""
+    9's TrainStep, phase 12b's executor, phase 14's and phase 16b's eager
+    and hybridized Gluon steps, phase 16c's steps), summed and split in
+    `launches_by_path`, the largest float32 kernel-vs-plain error (phases
+    8 and 16), and under `inception_v3_step` phase 16's sums over a
+    float32 batch-128 Inception-v3 step's 94 calls."""
     rows = []
     for i, (kind, line) in enumerate((("stats", 134), ("apply", 183),
                                       ("bwd_reduce", 233), ("bwd_dx", 320))):
@@ -2182,6 +2254,7 @@ def bn_kernel_rows(errs, totals, by_path):
             "bound_by": ("bytes" if 2 * tot["bytes_bound_ms"]
                          >= tot["bound_ms"] else "operations"),
             "library_ms": tot.get("library_ms"),
+            "inception_v3_step": inception_totals[kind],
         })
     return rows
 
@@ -3023,7 +3096,6 @@ def phase_gluon_resnet(torch, np, dev, card):
     net, a batch, its timed launches by mode, the summary)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.gluon.model_zoo import vision
-    from mxnet_tpu_torch.ops import fused_bn as fb
     prior = os.environ.get("MXNET_FUSED_BN_EPILOGUE")
     os.environ["MXNET_FUSED_BN_EPILOGUE"] = "1"
     try:
@@ -3041,57 +3113,13 @@ def phase_gluon_resnet(torch, np, dev, card):
         x, y = prototype_batch(torch, dev, G50_BATCH, R50_CLASSES,
                                R50_IMAGE, 0)
         x, y = mx.nd.NDArray(x), mx.nd.NDArray(y)
-        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
-        trainers = {m: mx.gluon.Trainer(net.collect_params(), "sgd",
-                                        dict(G50_OPT))
-                    for m, net in nets.items()}
-        losses = {m: [] for m in nets}
-        times = {m: [] for m in nets}
-        peaks = {m: 0 for m in nets}
-        launches = {m: [] for m in nets}
-        for i in range(G50_WARMUP + G50_STEPS):
-            for m, net in nets.items():
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats(dev)
-                fb.reset_launch_counts()
-                t0 = time.perf_counter()
-                loss = gluon_step(mx, net, trainers[m], loss_fn, x, y)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                launches[m].append(fb.launch_counts())
-                peaks[m] = max(peaks[m], torch.cuda.max_memory_allocated(dev))
-                losses[m].append(float(loss))
-                if i >= G50_WARMUP:
-                    times[m].append(dt)
-        check(nets["hybridized"]._cached_graph is not None,
-              "hybridized ResNet-50 ran without its cached graph")
-        for m in nets:
-            check(all(np.isfinite(losses[m])), "%s losses not finite: %r"
-                  % (m, losses[m]))
-            check(losses[m][-1] < losses[m][0], "%s loss did not fall: %r"
-                  % (m, losses[m]))
-            check(all(c == (53,) * 4 for c in launches[m]),
-                  "%s: K3a-d launched %r a step, expected 53 each"
-                  % (m, launches[m]))
-        profiles = {m: profile_step(
-            torch, "resnet50 gluon %s train" % m,
-            lambda net=net, m=m: gluon_step(mx, net, trainers[m], loss_fn,
-                                            x, y))
-            for m, net in nets.items()}
+        out, timed = train_in_turns(torch, np, mx, dev, "resnet50", nets,
+                                    x, y, G50_WARMUP, G50_STEPS, 53)
     finally:
         if prior is None:
             os.environ.pop("MXNET_FUSED_BN_EPILOGUE", None)
         else:
             os.environ["MXNET_FUSED_BN_EPILOGUE"] = prior
-    out = {}
-    for m in nets:
-        busy = profiles[m]["device_busy_share"] if profiles[m] else None
-        out[m] = dict(step_summary(np, times[m], G50_BATCH),
-                      loss_first=losses[m][0], loss_last=losses[m][-1],
-                      max_memory_allocated=peaks[m],
-                      device_busy_share=busy)
-    timed = {m: tuple(sum(c[i] for c in launches[m][G50_WARMUP:])
-                      for i in range(4)) for m in nets}
     main = {"card": card, "model": "resnet50_v1", "batch": G50_BATCH,
             "image": R50_IMAGE, "dtype": "float32",
             "warmup": G50_WARMUP, **out,
@@ -3099,6 +3127,65 @@ def phase_gluon_resnet(torch, np, dev, card):
             "k3_launches_a_step": 53}
     print("resnet50 gluon path (phase 14): " + json.dumps(main))
     return nets["hybridized"], (x, y), timed, main
+
+
+def train_in_turns(torch, np, mx, dev, what, nets, x, y, warmup, steps,
+                   k3_a_step):
+    """Phase 14's training run, shared with phase 16b: the nets of
+    {mode: net} (eager and hybridized, from the same weights) stepped in
+    turns through gluon.Trainer (sgd, G50_OPT, SoftmaxCrossEntropyLoss),
+    `warmup` then `steps` timed steps each. Holds finite, falling losses,
+    the hybridized net's cached graph in use, and K3a-d launched
+    `k3_a_step` times each a step in both modes; profiles a step each.
+    Returns ({mode: summary}, {mode: the timed steps' launches})."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainers = {m: mx.gluon.Trainer(net.collect_params(), "sgd",
+                                    dict(G50_OPT))
+                for m, net in nets.items()}
+    losses = {m: [] for m in nets}
+    times = {m: [] for m in nets}
+    peaks = {m: 0 for m in nets}
+    launches = {m: [] for m in nets}
+    for i in range(warmup + steps):
+        for m, net in nets.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            fb.reset_launch_counts()
+            t0 = time.perf_counter()
+            loss = gluon_step(mx, net, trainers[m], loss_fn, x, y)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            launches[m].append(fb.launch_counts())
+            peaks[m] = max(peaks[m], torch.cuda.max_memory_allocated(dev))
+            losses[m].append(float(loss))
+            if i >= warmup:
+                times[m].append(dt)
+    check(nets["hybridized"]._cached_graph is not None,
+          "hybridized %s ran without its cached graph" % what)
+    for m in nets:
+        check(all(np.isfinite(losses[m])), "%s %s losses not finite: %r"
+              % (what, m, losses[m]))
+        check(losses[m][-1] < losses[m][0], "%s %s loss did not fall: %r"
+              % (what, m, losses[m]))
+        check(all(c == (k3_a_step,) * 4 for c in launches[m]),
+              "%s %s: K3a-d launched %r a step, expected %d each"
+              % (what, m, launches[m], k3_a_step))
+    profiles = {m: profile_step(
+        torch, "%s gluon %s train" % (what, m),
+        lambda net=net, m=m: gluon_step(mx, net, trainers[m], loss_fn,
+                                        x, y))
+        for m, net in nets.items()}
+    out = {}
+    for m in nets:
+        busy = profiles[m]["device_busy_share"] if profiles[m] else None
+        out[m] = dict(step_summary(np, times[m], y.shape[0]),
+                      loss_first=losses[m][0], loss_last=losses[m][-1],
+                      max_memory_allocated=peaks[m],
+                      device_busy_share=busy)
+    timed = {m: tuple(sum(c[i] for c in launches[m][warmup:])
+                      for i in range(4)) for m in nets}
+    return out, timed
 
 
 def phase_export(torch, np, dev, card, net, batch):
@@ -3645,6 +3732,378 @@ def phase_module_family(torch, np, dev, card):
     return main
 
 
+def gluon_batchnorms(mx, block):
+    """Every nn.BatchNorm block of a Gluon net, in order."""
+    if isinstance(block, mx.gluon.nn.BatchNorm):
+        yield block
+    for child in block._children.values():
+        yield from gluon_batchnorms(mx, child)
+
+
+def inception_bn_shapes(torch, mx):
+    """{(C, H, W): count} of the inputs Inception-v3's BatchNorm layers
+    see at INC_IMAGE: forward hooks on the net's nn.BatchNorm blocks over
+    one batch-1 forward on the card."""
+    from collections import Counter
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    with mx.name.NameManager():
+        net = vision.inception_v3(classes=INC_CLASSES)
+    net.initialize(mx.init.Xavier())
+    bns = list(gluon_batchnorms(mx, net))
+    seen = []
+    for bn in bns:
+        bn.register_forward_hook(
+            lambda blk, args, out: seen.append(tuple(args[0].shape[1:])))
+    net(mx.nd.zeros((1, 3, INC_IMAGE, INC_IMAGE)))
+    check(len(seen) == len(bns), "Inception's %d BatchNorms ran %d times"
+          % (len(bns), len(seen)))
+    return Counter(seen)
+
+
+def phase_kernels_bn_inception(torch, np, dev, card, shapes):
+    """Phase 16: K3a-d against their plain versions at each distinct
+    BatchNorm shape of a float32 Inception-v3 step at batch INC_BATCH
+    (relu off: each of its BatchNorms feeds an Activation of its own),
+    then each kernel timed there beside its plain version, its bound and
+    the library yardsticks (torch.var_mean; cuDNN's batch norm forward
+    and backward for the kernel pairs), one row a shape and kernel, and
+    the sums over the step's calls. Returns (errs, totals)."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    errs = {}
+    order = sorted(shapes, key=lambda c: (-c[1] * c[2], c[0]))
+    for i, (C, H, W) in enumerate(order):
+        x, dy, _, gamma, beta = bn_inputs(torch, dev, INC_BATCH, C, H * W,
+                                          torch.float32, seed=100 + i)
+        bn_check(torch, fb, x, dy, None, gamma, beta, False, "float32",
+                 errs, "Inception N=%d C=%d H=%d W=%d" % (INC_BATCH, C, H,
+                                                          W))
+        del x, dy
+    print("fused_bn Inception-v3 check float32: %d shapes (%d BatchNorms "
+          "a step), max |kernel - plain| %s; tol as phase 8's"
+          % (len(order), sum(shapes.values()), ", ".join(
+              "%s %.3g" % (kern, errs[kern, "float32"]) for kern in
+              ("stats", "apply", "bwd_reduce", "bwd_dx"))))
+    scratch = torch.empty(64 << 20, dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.zero_()
+
+    kinds = ("stats", "apply", "bwd_reduce", "bwd_dx")
+    total = {kind: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+             for kind in kinds}
+    total["stats"]["library_ms"] = 0.0
+    pairs = {"fwd_kernels_ms": 0.0, "fwd_library_ms": 0.0,
+             "bwd_kernels_ms": 0.0, "bwd_library_ms": 0.0}
+    rows = []
+    for C, H, W in order:
+        count = shapes[C, H, W]
+        t, pair_fwd, pair_bwd = bn_time(torch, fb, dev, C, H, W, False,
+                                        False, torch.float32, flush,
+                                        N=INC_BATCH)
+        row = {"card": card, "dtype": "float32", "N": INC_BATCH, "C": C,
+               "H": H, "W": W, "relu": False, "residual": False,
+               "per_step": count, "library_pair_fwd_ms": pair_fwd,
+               "library_pair_bwd_ms": pair_bwd}
+        for kind in kinds:
+            b_ms, b_by = bn_bound(fb, kind, INC_BATCH, C, H * W, 4, False,
+                                  False)
+            ms, plain_ms, lib_ms = t[kind]
+            row[kind] = {"ms": ms, "plain_ms": plain_ms,
+                         "library_ms": lib_ms, "bound_ms": b_ms,
+                         "bound_by": b_by}
+            total[kind]["ms"] += count * ms
+            total[kind]["plain_ms"] += count * plain_ms
+            total[kind]["bound_ms"] += count * b_ms
+            if lib_ms is not None:
+                total[kind]["library_ms"] += count * lib_ms
+        pairs["fwd_kernels_ms"] += count * (t["stats"][0] + t["apply"][0])
+        pairs["bwd_kernels_ms"] += count * (t["bwd_reduce"][0]
+                                            + t["bwd_dx"][0])
+        pairs["fwd_library_ms"] += count * pair_fwd
+        pairs["bwd_library_ms"] += count * pair_bwd
+        rows.append(row)
+    del scratch
+    for kind in kinds:
+        for r in bn_shape_rows(rows, errs, kind):
+            print("fused_bn %s per Inception shape: %s"
+                  % (kind, json.dumps(r)))
+    for kind in kinds:
+        total[kind]["over_bound"] = total[kind]["ms"] / total[kind][
+            "bound_ms"]
+    print("fused_bn Inception-v3 step totals (float32, batch %d, %d calls "
+          "of each kernel): %s" % (INC_BATCH, sum(shapes.values()),
+                                   json.dumps({"card": card,
+                                               "kernels": total,
+                                               "pairs_vs_cudnn": pairs})))
+    return errs, total
+
+
+class GluonGrads:
+    """`loss_and_grads(x, y)` of a Gluon net at fixed starting weights:
+    one recorded forward and backward of the mean
+    SoftmaxCrossEntropyLoss from the generators seeded alike (so each
+    call draws the same dropout masks), after which the parameters (the
+    moving statistics too) are put back; the loss and {name: gradient}
+    as tensors. Lets resnet_first_step_check hold a Gluon step."""
+
+    def __init__(self, mx, net):
+        self.mx, self.net = mx, net
+        self.params = net.collect_params()
+        self.start = {n: p.data()._data.clone()
+                      for n, p in self.params.items()}
+        self.loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+
+    def loss_and_grads(self, x, y):
+        mx = self.mx
+        mx.random.seed(0)
+        with mx.autograd.record():
+            loss = self.loss_fn(self.net(mx.nd.NDArray(x)),
+                                mx.nd.NDArray(y)).mean()
+        loss.backward()
+        grads = {n: p.grad()._data.clone() for n, p in self.params.items()
+                 if p.grad_req != "null"}
+        for n, p in self.params.items():
+            p.set_data(self.start[n].clone())
+        return loss._data.detach(), grads
+
+
+def phase_inception(torch, np, dev, card):
+    """Phase 16b: Inception-v3 at its published width (INC_CLASSES
+    classes, INC_IMAGE x INC_IMAGE NCHW, float32, batch INC_BATCH)
+    trained as phase 14 trains ResNet-50, with MXNET_FUSED_BN_EPILOGUE=1:
+    first the first step flag on against flag off beside the flag-off
+    step's own floor (phase 9's check), then an eager and a hybridized
+    net from the same weights stepped in turns (INC_WARMUP then
+    INC_STEPS timed steps each) with K3a-d launched once a step for each
+    of the net's BatchNorm blocks (counted from the net) in both modes.
+    Returns ({mode: the timed steps' launches}, the summary)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    prior = os.environ.get("MXNET_FUSED_BN_EPILOGUE")
+    try:
+        nets = {}
+        for mode in ("eager", "hybridized"):
+            with mx.name.NameManager():
+                nets[mode] = vision.inception_v3(classes=INC_CLASSES)
+            nets[mode].initialize(mx.init.Xavier())
+            nets[mode](mx.nd.zeros((1, 3, INC_IMAGE, INC_IMAGE)))
+        src = nets["eager"].collect_params()
+        for n, p in nets["hybridized"].collect_params().items():
+            p.set_data(src[n].data()._data.clone())
+        n_bn = len(list(gluon_batchnorms(mx, nets["eager"])))
+        x, y = prototype_batch(torch, dev, INC_BATCH, INC_CLASSES,
+                               INC_IMAGE, 0)
+        first = resnet_first_step_check(
+            torch, fb, GluonGrads(mx, nets["eager"]), x, y,
+            what="inception_v3")
+        os.environ["MXNET_FUSED_BN_EPILOGUE"] = "1"
+        nets["hybridized"].hybridize()
+        out, timed = train_in_turns(
+            torch, np, mx, dev, "inception_v3", nets, mx.nd.NDArray(x),
+            mx.nd.NDArray(y), INC_WARMUP, INC_STEPS, n_bn)
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_BN_EPILOGUE", None)
+        else:
+            os.environ["MXNET_FUSED_BN_EPILOGUE"] = prior
+    main = {"card": card, "model": "inception_v3", "batch": INC_BATCH,
+            "image": INC_IMAGE, "dtype": "float32", "warmup": INC_WARMUP,
+            **out, "first_step_flag_on_vs_off": first,
+            "k3_launches_a_step": n_bn}
+    print("inception_v3 gluon path (phase 16b): " + json.dumps(main))
+    return timed, main
+
+
+def time_forward(torch, net, x, n):
+    """(the logits of an inference forward, its mean ms over n more,
+    host clock between synchronizes)."""
+    out = net(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        net(x)
+    torch.cuda.synchronize()
+    return out._data.detach().clone(), 1e3 * (time.perf_counter() - t0) / n
+
+
+def phase_zoo_families(torch, np, dev, card):
+    """Phase 16c: each of ZOO_FAMILIES at its published width (1000
+    classes, ZOO_IMAGE x ZOO_IMAGE, float32, batch ZOO_BATCH, Xavier
+    weights): an inference forward eager, then hybridized (the cached
+    graph) within ZOO_HYB_RTOL of the largest |logit|, and img/s of each;
+    then for ZOO_TRAINED one eager gluon.Trainer step (sgd, G50_OPT) with
+    MXNET_FUSED_BN_EPILOGUE=1: a finite loss and K3a-d launched once for
+    each of the net's BatchNorm blocks. Returns ({path: launches}, the
+    summary)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    x, y = prototype_batch(torch, dev, ZOO_BATCH, 1000, ZOO_IMAGE, 5)
+    x, y = mx.nd.NDArray(x), mx.nd.NDArray(y)
+    out, launches = {}, {}
+    prior = os.environ.get("MXNET_FUSED_BN_EPILOGUE")
+    os.environ["MXNET_FUSED_BN_EPILOGUE"] = "1"
+    try:
+        for name in ZOO_FAMILIES:
+            with mx.name.NameManager():
+                net = vision.get_model(name, classes=1000)
+            net.initialize(mx.init.Xavier())
+            eager, eager_ms = time_forward(torch, net, x, ZOO_TIMED)
+            net.hybridize()
+            hybrid, hybrid_ms = time_forward(torch, net, x, ZOO_TIMED)
+            check(net._cached_graph is not None,
+                  "%s: hybridized without its cached graph" % name)
+            check(bool(torch.isfinite(eager).all()), "%s: logits not "
+                  "finite" % name)
+            err = float((hybrid - eager).abs().max()) / max(
+                float(eager.abs().max()), 1e-30)
+            check(err <= ZOO_HYB_RTOL, "%s: hybridized logits off the eager "
+                  "ones by %.3g of the largest (> %g)" % (name, err,
+                                                          ZOO_HYB_RTOL))
+            rec = {"hybrid_vs_eager": err, "eager_ms": eager_ms,
+                   "hybridized_ms": hybrid_ms,
+                   "eager_img_per_s": ZOO_BATCH / (eager_ms / 1e3),
+                   "hybridized_img_per_s": ZOO_BATCH / (hybrid_ms / 1e3)}
+            if name in ZOO_TRAINED:
+                net.hybridize(False)
+                n_bn = len(list(gluon_batchnorms(mx, net)))
+                trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                           dict(G50_OPT))
+                fb.reset_launch_counts()
+                loss = gluon_step(mx, net, trainer,
+                                  mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                                  x, y)
+                torch.cuda.synchronize()
+                counts = fb.launch_counts()
+                check(bool(torch.isfinite(loss)), "%s: training loss not "
+                      "finite" % name)
+                check(counts == (n_bn,) * 4, "%s: K3a-d launched %r in a "
+                      "step, expected %d each (its BatchNorms)"
+                      % (name, counts, n_bn))
+                launches[name + "_gluon_step"] = counts
+                rec.update(train_loss=float(loss), batchnorms=n_bn)
+            out[name] = rec
+            del net
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_BN_EPILOGUE", None)
+        else:
+            os.environ["MXNET_FUSED_BN_EPILOGUE"] = prior
+    main = {"card": card, "batch": ZOO_BATCH, "image": ZOO_IMAGE,
+            "dtype": "float32", "families": out}
+    print("model zoo families (phase 16c): " + json.dumps(main))
+    return launches, main
+
+
+def gluon_loss_cases(np, L):
+    """(name, loss, [inputs as numpy]) for each Gluon loss the port has,
+    from a seeded generator."""
+    rng = np.random.RandomState(0)
+    pred = rng.uniform(-2, 2, (64, 10)).astype(np.float32)
+    real = rng.uniform(-2, 2, (64, 10)).astype(np.float32)
+    binary = (rng.uniform(0, 1, (64, 10)) > 0.5).astype(np.float32)
+    prob = rng.uniform(0.05, 0.95, (64, 10)).astype(np.float32)
+    dist = np.exp(real) / np.exp(real).sum(-1, keepdims=True)
+    counts = rng.poisson(2.0, (64, 10)).astype(np.float32)
+    sw = rng.uniform(0, 2, (64, 1)).astype(np.float32)
+    classes = rng.randint(0, 10, (64,)).astype(np.float32)
+    return [
+        ("L2Loss", L.L2Loss(), [pred, real]),
+        ("L1Loss", L.L1Loss(weight=0.5), [pred, real, sw]),
+        ("SigmoidBCELoss", L.SigmoidBinaryCrossEntropyLoss(),
+         [pred, binary]),
+        ("SigmoidBCELoss_from_sigmoid",
+         L.SigmoidBinaryCrossEntropyLoss(from_sigmoid=True), [prob, binary]),
+        ("SoftmaxCELoss", L.SoftmaxCrossEntropyLoss(), [pred, classes]),
+        ("KLDivLoss", L.KLDivLoss(from_logits=False), [pred, dist]),
+        ("HuberLoss", L.HuberLoss(rho=0.5), [pred, real]),
+        ("HingeLoss", L.HingeLoss(), [pred, 2 * binary - 1]),
+        ("SquaredHingeLoss", L.SquaredHingeLoss(), [pred, 2 * binary - 1]),
+        ("LogisticLoss", L.LogisticLoss(), [pred, 2 * binary - 1]),
+        ("TripletLoss", L.TripletLoss(), [pred, real, prob]),
+        ("PoissonNLLLoss", L.PoissonNLLLoss(compute_full=True),
+         [pred, counts])]
+
+
+def phase_gluon_cells(torch, np, dev, card):
+    """Phase 16d: a SequentialRNNCell of two gluon.rnn.LSTMCells unrolled
+    over CELL_T steps (TNC, batch CELL_N, input CELL_C, hidden CELL_H,
+    float32; the cells compose FullyConnected, SliceChannel and the gate
+    activations) against gluon.rnn.LSTM with the same weights under
+    MXNET_FUSED_RNN=1, whose forward is K4a once a layer: outputs and
+    final states within ops/fused_rnn.py PLAIN_TOL. Then each Gluon loss
+    evaluated on the card against the same loss on the CPU. Returns
+    (the K4a/K4b launches of the layer's forward, the summary)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    rnn = mx.gluon.rnn
+    with mx.name.NameManager():
+        stack = rnn.SequentialRNNCell()
+        with stack.name_scope():
+            stack.add(rnn.LSTMCell(CELL_H, input_size=CELL_C))
+            stack.add(rnn.LSTMCell(CELL_H, input_size=CELL_H))
+        layer = rnn.LSTM(CELL_H, num_layers=2, input_size=CELL_C)
+    stack.initialize(mx.init.Xavier())
+    layer.initialize(mx.init.Xavier())
+    lp = layer.collect_params()
+    for i, cell in enumerate(stack._children.values()):
+        for part in ("i2h_weight", "h2h_weight", "i2h_bias", "h2h_bias"):
+            value = getattr(cell, part).data()._data
+            if part.endswith("bias"):   # Xavier leaves biases at zero
+                value = 0.1 * torch.randn(value.shape, device=dev,
+                                          generator=torch.Generator(
+                                              device=dev).manual_seed(i))
+                getattr(cell, part).set_data(value)
+            lp["%sl%d_%s" % (layer.prefix, i, part)].set_data(value.clone())
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = mx.nd.NDArray(torch.rand((CELL_T, CELL_N, CELL_C), generator=g,
+                                 device=dev) * 2 - 1)
+    prior = os.environ.get("MXNET_FUSED_RNN")
+    os.environ["MXNET_FUSED_RNN"] = "1"
+    try:
+        outs, states = stack.unroll(CELL_T, x, layout="TNC",
+                                    merge_outputs=True)
+        fr.reset_launch_counts()
+        fused_out, (h, c) = layer(x, layer.begin_state(CELL_N))
+        torch.cuda.synchronize()
+        launches = fr.launch_counts()
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_RNN", None)
+        else:
+            os.environ["MXNET_FUSED_RNN"] = prior
+    check(launches == (2, 0), "gluon.rnn.LSTM's forward launched K4a/K4b "
+          "%r times, expected (2, 0)" % (launches,))
+    pairs = {"outputs": (fused_out, outs), "h0": (h[0], states[0]),
+             "c0": (c[0], states[1]), "h1": (h[1], states[2]),
+             "c1": (c[1], states[3])}
+    errs = {}
+    for what, (got, want) in pairs.items():
+        bad = fr.plain_mismatch(got._data, want._data)
+        check(bad is None, "LSTMCell stack against gluon.rnn.LSTM on K4a, "
+              "%s: %s" % (what, bad))
+        errs[what] = fr.plain_error(got._data, want._data)[:2]
+    loss_errs = {}
+    for name, fn, arrays in gluon_loss_cases(np, mx.gluon.loss):
+        want, got = [fn(*[mx.nd.array(a, ctx=ctx) for a in arrays])
+                     .asnumpy() for ctx in (mx.cpu(),
+                                            mx.gpu(dev.index or 0))]
+        err = float(np.abs(got - want).max()) / max(
+            float(np.abs(want).max()), 1e-30)
+        check(np.isfinite(got).all() and err <= LOSS_CARD_RTOL,
+              "%s on the card off the CPU by %.3g of the largest value "
+              "(> %g)" % (name, err, LOSS_CARD_RTOL))
+        loss_errs[name] = err
+    main = {"card": card, "T": CELL_T, "N": CELL_N, "hidden": CELL_H,
+            "layers": 2, "dtype": "float32",
+            "cells_vs_k4a": {k: {"rel_frobenius": v[0], "rel_max": v[1]}
+                             for k, v in errs.items()},
+            "k4_launches": launches, "losses_card_vs_cpu": loss_errs}
+    print("gluon cells and losses (phase 16d): " + json.dumps(main))
+    return launches, main
+
+
 def rnn_kernel_rows(errs, rows, by_path):
     """K4a-b's entries of the kernels line: phase 10's timings at the
     path's shape in bfloat16 (the timed run's type) with their design and
@@ -3721,6 +4180,13 @@ def main():
         phase_bucketing_unrolled(torch, np, dev, smi,
                                  bucket_path["step_ms_by_bucket"])
         phase_module_family(torch, np, dev, smi)
+        import mxnet_tpu_torch as mx
+        inc_shapes = inception_bn_shapes(torch, mx)
+        inc_errs, inc_totals = phase_kernels_bn_inception(
+            torch, np, dev, smi, inc_shapes)
+        inc_launches, _ = phase_inception(torch, np, dev, smi)
+        zoo_launches, _ = phase_zoo_families(torch, np, dev, smi)
+        cell_launches, _ = phase_gluon_cells(torch, np, dev, smi)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -3776,15 +4242,22 @@ def main():
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
         })
-    kernels += bn_kernel_rows(bn_errs, bn_totals, {
+    for key, err in inc_errs.items():
+        if len(key) == 2:
+            bn_errs[key] = max(bn_errs[key], err)
+    kernels += bn_kernel_rows(bn_errs, bn_totals, dict({
         "resnet50_trainstep": r50_launches,
         "executor_bn_convnet": exec_launches,
         "resnet50_gluon_eager": g50_launches["eager"],
-        "resnet50_gluon_hybridized": g50_launches["hybridized"]})
+        "resnet50_gluon_hybridized": g50_launches["hybridized"],
+        "inception_v3_gluon_eager": inc_launches["eager"],
+        "inception_v3_gluon_hybridized": inc_launches["hybridized"]},
+        **zoo_launches), inc_totals)
     kernels += rnn_kernel_rows(rnn_errs, rnn_rows, {
         "word_lm_trainstep": lm_launches,
         "word_lm_gluon_hybridized": lmh_launches,
-        "bucketing_lm_module": bucket_launches})
+        "bucketing_lm_module": bucket_launches,
+        "gluon_lstm_layer_vs_cells": cell_launches})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ engine (`models.transformer`, `serving`), on the paged-attention kernel
 (`models.lm_loss`, `models.make_transformer_train_step`), on the flash
 attention forward and backward kernels (`ops.flash_attention`); and the
 imperative framework core (`nd`, `autograd`, `init`, `gluon`,
-`optimizer`, `parallel.TrainStep`) training the model zoo's ResNets, on
+`optimizer`, `parallel.TrainStep`) training the model zoo's nets, on
 the fused BatchNorm / ReLU / residual kernels (`ops.fused_bn`); and the
 word-LM LSTM (`models.RNNModel` over `gluon.rnn`, `gluon.Trainer`, the
 stochastic ops and `random`) on the persistent fused-RNN kernels
@@ -25,7 +25,10 @@ with `gluon.data`; an executor's training-mode BatchNorm reaches the
 fused BatchNorm kernels as the imperative one does; and the symbolic
 RNN workflow (`rnn`: the cells, `BucketSentenceIter`; `mod.BucketingModule`,
 `SequentialModule`, `PythonModule`, `monitor`, `executor_manager`), whose
-`FusedRNNCell` reaches the fused-RNN kernels through the executor.
+`FusedRNNCell` reaches the fused-RNN kernels through the executor; and
+the rest of Gluon (the model zoo's other families, the remaining layers,
+losses and recurrent cells, `gluon.contrib`), whose BatchNorms reach the
+fused BatchNorm kernels eagerly and hybridized.
 """
 from .base import MXNetError, resolve_device
 from .context import Context, cpu, current_context, gpu, num_gpus

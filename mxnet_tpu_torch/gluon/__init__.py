@@ -1,10 +1,10 @@
 """Gluon, the imperative high-level API (port of `mxnet_tpu/gluon/`):
-Parameter, Block / HybridBlock (hybridize, export) and SymbolBlock, the
-layers of the ResNet, word-LM and LeNet paths, the fused recurrent layers
-(`rnn`), losses, the model zoo's ResNets, the single-process Trainer,
-`data` and `utils`. Not ported yet: contrib, the rnn cells and Constant
-(ROADMAP.md, queue 1)."""
-from .parameter import Parameter, ParameterDict, DeferredInitializationError
+Parameter and Constant, Block / HybridBlock (hybridize, export) and
+SymbolBlock, the `nn` layers, the recurrent layers and cells (`rnn`), the
+losses, the model zoo, the single-process Trainer, `data`, `contrib` and
+`utils`."""
+from .parameter import (Parameter, Constant, ParameterDict,
+                        DeferredInitializationError)
 from .block import Block, HybridBlock, SymbolBlock
 from .trainer import Trainer
 from . import nn
@@ -13,4 +13,5 @@ from . import rnn
 from . import loss
 from . import model_zoo
 from . import utils
+from . import contrib
 from .utils import split_and_load, split_data

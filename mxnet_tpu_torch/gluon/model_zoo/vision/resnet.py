@@ -314,10 +314,13 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
     block_type, layers, channels = resnet_spec[num_layers]
     resnet_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]
+    net = resnet_class(block_class, layers, channels, **kwargs)
     if pretrained:
-        raise NotImplementedError(
-            "pretrained=True needs model_store, which is not ported yet")
-    return resnet_class(block_class, layers, channels, **kwargs)
+        from ..model_store import get_model_file
+        net.load_params(get_model_file("resnet%d_v%d" % (num_layers,
+                                                         version),
+                                       root=root), ctx=ctx)
+    return net
 
 
 def resnet18_v1(**kwargs):

@@ -1,9 +1,8 @@
-"""Basic Gluon layers of the ResNet and word-LM paths (port of the
-matching share of `mxnet_tpu/gluon/nn/basic_layers.py`): Sequential,
-HybridSequential, Dense, Activation, Dropout, Flatten, Embedding and
-BatchNorm with `fused_call` and the moving-stat update. Not ported yet:
+"""Basic Gluon layers (port of `mxnet_tpu/gluon/nn/basic_layers.py`):
+Sequential, HybridSequential, Dense, Activation, Dropout, Flatten,
+Embedding, BatchNorm with `fused_call` and the moving-stat update,
 LayerNorm, InstanceNorm, Lambda, HybridLambda and the activation layers
-(ROADMAP.md, queue 1).
+LeakyReLU, PReLU, ELU, SELU, Swish and GELU.
 """
 from __future__ import annotations
 
@@ -237,6 +236,138 @@ class Flatten(HybridBlock):
 
     def hybrid_forward(self, F, x):
         return F.Flatten(x)
+
+
+class LayerNorm(HybridBlock):
+    """Normalizes over `axis` (the last by default), with a gamma and a
+    beta of that axis's size."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", grad_req="write" if scale else "null",
+                shape=(in_channels,), init=_init(gamma_initializer),
+                allow_deferred_init=True)
+            self.beta = self.params.get(
+                "beta", grad_req="write" if center else "null",
+                shape=(in_channels,), init=_init(beta_initializer),
+                allow_deferred_init=True)
+
+    def _shape_probe(self, x, *args):
+        c = x.shape[self._axis]
+        for p in (self.gamma, self.beta):
+            p.shape = (c,)
+            if p._deferred_init:
+                p._finish_deferred_init(p.shape)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
+
+
+class InstanceNorm(LayerNorm):
+    """Normalizes each sample's channel over its spatial axes, with a
+    gamma and a beta a channel (axis 1). Unlike LayerNorm, scale is off
+    by default."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(1, epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+
+
+class Lambda(Block):
+    """Wraps a function of NDArrays, or the name of an `nd` function."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as nd
+            function = getattr(nd, function)
+        self._func = function
+
+    def forward(self, *args):
+        return self._func(*args)
+
+
+class HybridLambda(HybridBlock):
+    """Wraps a function of (F, *inputs), or the name of an op that both
+    namespaces have, so that it traces under hybridize."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func_name = function if isinstance(function, str) else None
+        self._func = function
+
+    def hybrid_forward(self, F, *args):
+        if self._func_name is not None:
+            return getattr(F, self._func_name)(*args)
+        return self._func(F, *args)
+
+
+class LeakyReLU(HybridBlock):
+    def __init__(self, alpha, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """A leaky ReLU whose one slope, `alpha` (0.25 at first), is
+    learned."""
+
+    def __init__(self, alpha_initializer=None, **kwargs):
+        super().__init__(**kwargs)
+        from ... import initializer
+        with self.name_scope():
+            self.alpha = self.params.get(
+                "alpha", shape=(1,),
+                init=alpha_initializer or initializer.Constant(0.25))
+
+    def hybrid_forward(self, F, x, alpha):
+        return F.LeakyReLU(x, gamma=alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    def __init__(self, alpha=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    def hybrid_forward(self, F, x):
+        return F.LeakyReLU(x, act_type="selu")
+
+
+class Swish(HybridBlock):
+    def __init__(self, beta=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.sigmoid(self._beta * x)
+
+
+class GELU(HybridBlock):
+    """The tanh approximation, as the reference's."""
+
+    def hybrid_forward(self, F, x):
+        return 0.5 * x * (1.0 + F.tanh(0.7978845608028654 *
+                                       (x + 0.044715 * x * x * x)))
 
 
 def _init(spec):

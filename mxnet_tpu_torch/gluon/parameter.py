@@ -6,17 +6,18 @@ states, and lr_mult / wd_mult.
 One buffer per parameter, on the context it was initialized on.
 `ParameterDict.save` / `load` write and read the reference's container
 (utils/serialization.py), so a file either package saved loads in the
-other. Not ported yet: Constant, row_sparse data and reset_ctx
-(ROADMAP.md, queue 1).
+other. `Constant` is a parameter fixed at its value. Not ported yet:
+row_sparse data and reset_ctx (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import autograd
 from .. import initializer as init_mod
 from ..base import MXNetError, torch_dtype
-from ..context import current_context
+from ..context import cpu, current_context
 from ..ndarray import NDArray
 
 
@@ -188,6 +189,26 @@ class Parameter:
                 self._grad._data = self._grad._data.to(want)
 
 
+class Constant(Parameter):
+    """A parameter fixed at `value`: it takes no gradient, and its own
+    initializer writes the value on the parameter's device whatever
+    initializer the caller passes (a parameter's own init wins, as for
+    every parameter)."""
+
+    def __init__(self, name, value):
+        if not isinstance(value, NDArray):
+            value = NDArray(np.asarray(value), ctx=cpu())
+        self.value = value
+
+        class _ConstantInit(init_mod.Initializer):
+            def _init_weight(self, _, arr):
+                self._set(arr, value._data.detach())
+
+        super().__init__(name, grad_req="null", shape=value.shape,
+                         dtype=value.dtype, init=_ConstantInit(),
+                         differentiable=False)
+
+
 class ParameterDict:
     def __init__(self, prefix="", shared=None):
         self._prefix = prefix
@@ -250,6 +271,18 @@ class ParameterDict:
                 if len(v) == len(existing):
                     param.shape = tuple(a if a else b
                                         for a, b in zip(existing, v))
+        return param
+
+    def get_constant(self, name, value=None):
+        """The Constant `prefix + name`, made from `value` on first
+        request."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise KeyError("No constant named '{}'.".format(name))
+            param = Constant(name, value)
+            self._params[name] = param
         return param
 
     def update(self, other):

@@ -1,10 +1,13 @@
-"""Gluon utilities (port of the matching share of
-`mxnet_tpu/gluon/utils.py`): split_data, split_and_load and
-clip_global_norm. `download` and `check_sha1` are not ported yet
-(ROADMAP.md, queue 1)."""
+"""Gluon utilities (port of `mxnet_tpu/gluon/utils.py`): split_data,
+split_and_load, clip_global_norm, check_sha1 and download."""
 from __future__ import annotations
 
+import hashlib
 import math
+import os
+import shutil
+import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -66,3 +69,49 @@ def clip_global_norm(arrays, max_norm):
         for a in arrays:
             a._data = a._data * scale
     return total_norm
+
+
+def check_sha1(filename, sha1_hash):
+    """True when the file's sha1 hex digest is `sha1_hash`."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 20), b""):
+            sha1.update(chunk)
+    return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None, retries=3):
+    """Fetch `url` (any scheme urllib opens; `file://` needs no network)
+    to `path` (a file, or a directory that takes the URL's last
+    component; the working directory when None) and return the file's
+    path. An existing file that passes the sha1 check (when given) is
+    kept unless `overwrite`. The bytes land in a temporary file renamed
+    into place, so a failed fetch leaves no partial file; a failure is
+    tried `retries` times in all, with a doubling pause between tries,
+    then raises IOError."""
+    fname = path if path and not os.path.isdir(path) else os.path.join(
+        path or ".", url.split("/")[-1])
+    if os.path.exists(fname) and not overwrite and (
+            not sha1_hash or check_sha1(fname, sha1_hash)):
+        return fname
+    os.makedirs(os.path.dirname(os.path.abspath(fname)), exist_ok=True)
+    tmp = "%s.tmp-%d" % (fname, os.getpid())
+    err = None
+    for attempt in range(max(1, int(retries))):
+        try:
+            with urllib.request.urlopen(url, timeout=30) as src, \
+                    open(tmp, "wb") as dst:
+                shutil.copyfileobj(src, dst)
+            if sha1_hash and not check_sha1(tmp, sha1_hash):
+                raise IOError("%s fails its sha1 check" % url)
+            os.replace(tmp, fname)
+            return fname
+        except OSError as e:
+            err = e
+            if attempt + 1 < retries:
+                time.sleep(0.2 * 2 ** attempt)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    raise IOError("download(%s) failed after %d attempts (%s); place the "
+                  "file at %s by hand" % (url, retries, err, fname))

@@ -1,8 +1,8 @@
 """Models of the port: the functional transformer LM and its training
 step, the word-LM RNN (`RNNModel`), LeNet and the MLP of BASELINE
 config 1 (`get_mlp`, `get_lenet`, `LeNet`, `get_resnetish`), and the
-weight converters from the JAX reference (the Gluon model zoo's ResNets
-are `gluon.model_zoo.vision`)."""
+weight converters from the JAX reference (the Gluon model zoo's
+families are `gluon.model_zoo.vision`)."""
 from .transformer import (TransformerConfig, init_transformer_params,
                           lm_loss, transformer_apply)
 from .transformer import make_train_step as make_transformer_train_step

@@ -1,15 +1,18 @@
 """Neural-network ops of the ResNet and word-LM training paths (port of
-the matching share of `mxnet_tpu/ops/nn.py`): Activation, softmax /
-log_softmax, the loss heads the symbolic models end in (SoftmaxOutput,
-the regression outputs, SVMOutput, make_loss), FullyConnected,
-Convolution, Pooling, BatchNorm, _contrib_BatchNormAddRelu, Dropout and
-the fused multi-layer RNN op.
+the matching share of `mxnet_tpu/ops/nn.py`): Activation, LeakyReLU
+(leaky, prelu, elu, selu, rrelu), softmax / log_softmax, the loss heads
+the symbolic models end in (SoftmaxOutput, the regression outputs,
+SVMOutput, make_loss), FullyConnected, Convolution, Deconvolution,
+Pooling, BatchNorm, _contrib_BatchNormAddRelu, LayerNorm, InstanceNorm,
+Dropout and the fused multi-layer RNN op.
 
 Convolutions, fully connected layers and pooling run outside any Pallas
 kernel in the reference (lax.conv_general_dilated, jnp.matmul,
 lax.reduce_window); here they are torch's conv / linear / pooling
 functions, in the reference's layouts (NCHW data, OIHW weights; a
-channels-last layout is permuted around the channels-first call). The
+channels-last layout is permuted around the channels-first call), and
+Deconvolution is torch's transposed convolution, whose weight layout
+(C_in, C_out / groups, *kernel) is the reference's. The
 BatchNorm ops keep the reference's selection rule: with
 MXNET_FUSED_BN_EPILOGUE=1, in training mode, for channel axis 1, float32
 or bfloat16 data and (for the residual op) an addend of the same shape,
@@ -67,6 +70,40 @@ def Activation(data, act_type="relu"):
     if act_type not in _ACTIVATIONS:
         raise ValueError("unknown act_type %s" % act_type)
     return _ACTIVATIONS[act_type](data)
+
+
+_SELU_ALPHA, _SELU_SCALE = 1.6732632423543772, 1.0507009873554805
+
+
+@register("LeakyReLU", stochastic=True)
+def LeakyReLU(data, gamma=None, act_type="leaky", slope=0.25,
+              lower_bound=0.125, upper_bound=0.334):
+    """The leaky family: leaky (x < 0 scaled by slope), prelu (by the
+    learned gamma, one per channel of axis 1 when 1-D), elu, selu, and
+    rrelu, whose negative slopes are drawn uniformly from [lower_bound,
+    upper_bound) in training (from the device's generator) and are their
+    mean otherwise."""
+    if act_type == "leaky":
+        return torch.where(data > 0, data, slope * data)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.dim() - 2)) \
+            if gamma.dim() == 1 else gamma
+        return torch.where(data > 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data > 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_SCALE * torch.where(
+            data > 0, data, _SELU_ALPHA * torch.expm1(data))
+    if act_type == "rrelu":
+        if autograd.is_training():
+            dev = data.device
+            slopes = torch.rand(data.shape, generator=generator(dev),
+                                device=dev, dtype=data.dtype)
+            slopes = lower_bound + (upper_bound - lower_bound) * slopes
+        else:
+            slopes = (lower_bound + upper_bound) / 2.0
+        return torch.where(data > 0, data, slopes * data)
+    raise ValueError("unknown act_type %s" % act_type)
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +341,32 @@ def Convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
     return _to_last(out) if last else out
 
 
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+@register("Deconvolution")
+def Deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), target_shape=(), num_filter=0, num_group=1,
+                  workspace=512, no_bias=True, cudnn_tune=None,
+                  cudnn_off=False, layout=None):
+    """The transposed convolution of channels-first data with the
+    reference's (C_in, num_filter / num_group, *kernel) weights: each
+    spatial size out = (in - 1) * stride - 2 * pad + dilate * (kernel - 1)
+    + adj + 1. target_shape is accepted and ignored, as the reference's
+    is."""
+    if layout in _CHANNELS_LAST:
+        raise NotImplementedError(
+            "Deconvolution supports channel-first layouts only; transpose "
+            "the data or use the default NCHW layout")
+    nd = len(kernel)
+    b = bias if (bias is not None and not no_bias) else None
+    return _CONV_T[nd](data, weight, b, stride=_tup(stride, nd, 1),
+                       padding=_tup(pad, nd, 0),
+                       output_padding=_tup(adj, nd, 0), groups=num_group,
+                       dilation=_tup(dilate, nd, 1))
+
+
 _POOL = {"max": {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d},
          "avg": {1: F.avg_pool1d, 2: F.avg_pool2d, 3: F.avg_pool3d}}
 
@@ -341,6 +404,14 @@ def Pooling(data, kernel=(), pool_type="max", global_pool=False,
             size = x.shape[2 + i] + 2 * pad[i]
             n_out = int(np.ceil((size - kernel[i]) / stride[i])) + 1
             extra[i] = max(0, (n_out - 1) * stride[i] + kernel[i] - size)
+    sizes = [(x.shape[2 + i] + 2 * pad[i] + extra[i] - kernel[i])
+             // stride[i] + 1 for i in range(nd)]
+    if min(sizes) <= 0:
+        # a window wider than the padded input: an empty result, as the
+        # reference's reduce_window gives (still attached to the graph)
+        out = x.flatten()[:0].reshape(
+            tuple(x.shape[:2]) + tuple(max(0, n) for n in sizes))
+        return _to_last(out) if last else out
     native = not any(extra) and all(2 * p <= k for p, k in zip(pad, kernel))
     if pool_type == "max" and native:
         out = _POOL["max"][nd](x, kernel, stride, pad)
@@ -469,6 +540,38 @@ def BatchNormAddRelu(data, gamma, beta, moving_mean, moving_var, addend=None,
     if relu:
         out = torch.relu(out)
     return out, mean, var
+
+
+# ---------------------------------------------------------------------------
+# LayerNorm, InstanceNorm
+# ---------------------------------------------------------------------------
+
+
+def _normalized(data, axes, eps):
+    """(data - mean) / sqrt(var + eps) over `axes` (population
+    variance)."""
+    mean = torch.mean(data, dim=axes, keepdim=True)
+    var = torch.var(data, dim=axes, keepdim=True, unbiased=False)
+    return (data - mean) * torch.rsqrt(var + eps)
+
+
+@register("LayerNorm")
+def LayerNorm(data, gamma, beta, axis=-1, eps=1e-5, output_mean_var=False):
+    """Normalized over `axis`, then scaled by gamma and shifted by beta
+    along it."""
+    shape = [1] * data.dim()
+    shape[axis] = data.shape[axis]
+    out = _normalized(data, (axis,), eps)
+    return out * gamma.reshape(shape) + beta.reshape(shape)
+
+
+@register("InstanceNorm")
+def InstanceNorm(data, gamma, beta, eps=1e-3):
+    """Normalized over the spatial axes of each sample and channel, then
+    scaled and shifted per channel (axis 1)."""
+    out = _normalized(data, tuple(range(2, data.dim())), eps)
+    shape = (1, -1) + (1,) * (data.dim() - 2)
+    return out * gamma.reshape(shape) + beta.reshape(shape)
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,11 @@
 """Tensor ops (port of the ResNet and word-LM training paths' share of
 `mxnet_tpu/ops/tensor.py`): elementwise and broadcast arithmetic with
 tensors and scalars, comparisons, unary math, Cast, reductions, Reshape
-(with the reference's special codes), Flatten, transpose, expand_dims,
-squeeze, Concat, SliceChannel, swapaxes, pick, take, Embedding, the
-creation ops (`_zeros`, `_ones`, `_full`, `_arange`, `_eye`, `zeros_like`,
-`ones_like`), and `where`, `argmax`, `norm`, `broadcast_to`, `slice_axis`,
-`tile` and `one_hot`.
+(with the reference's special codes), reshape_like, Flatten, transpose,
+expand_dims, squeeze, Concat, stack, SliceChannel, swapaxes, Pad, pick,
+take, SequenceMask, Embedding, the creation ops (`_zeros`, `_ones`,
+`_full`, `_arange`, `_eye`, `zeros_like`, `ones_like`), and `where`,
+`argmax`, `norm`, `broadcast_to`, `slice_axis`, `tile` and `one_hot`.
 
 Each op is a function of torch tensors with static keyword parameters;
 gradients come from torch.autograd through its body. A scalar operand is
@@ -277,6 +277,12 @@ def _infer_reshape(dshape, tshape, reverse=False):
     return tuple(out)
 
 
+@register("reshape_like")
+def reshape_like(lhs, rhs):
+    """lhs with rhs's shape (the gradient reaches lhs only)."""
+    return torch.reshape(lhs, rhs.shape)
+
+
 @register("Flatten", aliases=("flatten",))
 def Flatten(data):
     return torch.reshape(data, (data.shape[0], -1))
@@ -292,6 +298,11 @@ def transpose(data, axes=()):
 @register("Concat", aliases=("concat",))
 def Concat(*data, dim=1):
     return torch.cat(data, dim=dim)
+
+
+@register("stack")
+def stack(*data, axis=0):
+    return torch.stack(data, dim=axis)
 
 
 @register("SliceChannel", aliases=("split",), num_outputs=-1)
@@ -329,6 +340,42 @@ def slice_axis(data, axis=0, begin=0, end=None):
 @register("tile")
 def tile(data, reps=()):
     return torch.tile(data, tuple(int(r) for r in reps))
+
+
+def _pad_index(n, before, after, mode):
+    """The source index of each position of an axis of size n padded by
+    (before, after): numpy's "edge" (the end values repeated) or
+    "reflect" (mirrored about the end values, which are not repeated)."""
+    idx = np.arange(-before, n + after)
+    if mode == "edge":
+        return np.clip(idx, 0, n - 1)
+    if n == 1:
+        return np.zeros_like(idx)
+    period = 2 * (n - 1)
+    idx = np.mod(idx, period)
+    return np.where(idx > n - 1, period - idx, idx)
+
+
+@register("Pad", aliases=("pad",))
+def Pad(data, mode="constant", pad_width=(), constant_value=0.0):
+    """data padded by pad_width, (before, after) pairs for every axis in
+    order: with constant_value ("constant"), the edge values ("edge") or
+    the mirrored interior ("reflect"), as numpy.pad's modes."""
+    pw = np.asarray(pad_width, dtype=np.int64).reshape(-1, 2)
+    if mode == "constant":
+        widths = []
+        for before, after in reversed(pw.tolist()):
+            widths += [before, after]
+        return torch.nn.functional.pad(data, widths, value=constant_value)
+    if mode not in ("edge", "reflect"):
+        raise ValueError("unknown pad mode %s" % mode)
+    out = data
+    for axis, (before, after) in enumerate(pw.tolist()):
+        if before or after:
+            idx = torch.from_numpy(_pad_index(
+                data.shape[axis], before, after, mode)).to(data.device)
+            out = torch.index_select(out, axis, idx)
+    return out
 
 
 @register("swapaxes", aliases=("SwapAxis",))
@@ -375,6 +422,23 @@ def take(a, indices, axis=0, mode="clip"):
     out = torch.index_select(a, axis, idx.reshape(-1))
     return out.reshape(tuple(a.shape[:axis]) + tuple(indices.shape)
                        + tuple(a.shape[axis + 1:]))
+
+
+@register("SequenceMask")
+def SequenceMask(data, sequence_length=None, use_sequence_length=False,
+                 value=0.0, axis=0):
+    """data with the steps at or past each sequence's length set to
+    `value`: time along axis 0 ([T, N, ...]) or axis 1 ([N, T, ...])."""
+    if not use_sequence_length or sequence_length is None:
+        return data
+    steps = torch.arange(data.shape[axis], device=data.device)
+    lengths = sequence_length.to(torch.int32)
+    if axis == 0:
+        mask = steps[:, None] < lengths[None, :]
+    else:
+        mask = steps[None, :] < lengths[:, None]
+    mask = mask.reshape(tuple(mask.shape) + (1,) * (data.dim() - 2))
+    return torch.where(mask, data, _scalar(value, data).to(data.device))
 
 
 @register("Embedding", aliases=("_contrib_SparseEmbedding",))

@@ -98,9 +98,13 @@ def _static_num_outputs(opdef, kwargs):
 _OP_INPUT_NAMES = {
     "FullyConnected": (("data", "weight", "bias"), ()),
     "Convolution": (("data", "weight", "bias"), ()),
+    "Deconvolution": (("data", "weight", "bias"), ()),
     "BatchNorm": (("data", "gamma", "beta"), ("moving_mean", "moving_var")),
+    "LayerNorm": (("data", "gamma", "beta"), ()),
+    "InstanceNorm": (("data", "gamma", "beta"), ()),
     "Embedding": (("data", "weight"), ()),
     "RNN": (("data", "parameters", "state", "state_cell"), ()),
+    "LeakyReLU": (("data", "gamma"), ()),
     "SoftmaxOutput": (("data", "label"), ()),
     "LinearRegressionOutput": (("data", "label"), ()),
     "MAERegressionOutput": (("data", "label"), ()),
@@ -647,16 +651,21 @@ def _param_shape(node, pos, metas):
             return (num_hidden, in_units)
         if pname == "bias":
             return (num_hidden,)
-    if op == "Convolution":
+    if op in ("Convolution", "Deconvolution"):
         nf = int(kw.get("num_filter"))
         g = int(kw.get("num_group", 1))
         kernel = tuple(int(k) for k in kw.get("kernel", ()))
         if pname == "weight":
+            if op == "Deconvolution":   # (C_in, num_filter / groups, *k)
+                return (data_shape[1], nf // g) + kernel
             return (nf, data_shape[1] // g) + kernel
         if pname == "bias":
             return (nf,)
-    if op == "BatchNorm":
-        return (data_shape[int(kw.get("axis", 1))],)
+    if op in ("BatchNorm", "LayerNorm", "InstanceNorm"):
+        axis = int(kw.get("axis", -1 if op == "LayerNorm" else 1))
+        return (data_shape[axis],)
+    if op == "LeakyReLU":
+        return (data_shape[1],)
     if op == "Embedding":
         return (int(kw.get("input_dim")), int(kw.get("output_dim")))
     if op == "RNN":
@@ -712,6 +721,26 @@ def Group(symbols):
     return Symbol(outs)
 
 
+def _bind_positional_params(opdef, args, kwargs):
+    """A positional argument that is neither a Symbol nor None (the
+    `0, 6` of `F.clip(x, 0, 6)`) is the op's parameter at that position,
+    as the ndarray namespace passes it; bind it by name into `kwargs`."""
+    params = None
+    for i, a in enumerate(args):
+        if a is None or isinstance(a, Symbol):
+            continue
+        if params is None:
+            params = list(inspect.signature(opdef.fn).parameters.values())
+        if i >= len(params) or params[i].kind not in (
+                params[i].POSITIONAL_ONLY, params[i].POSITIONAL_OR_KEYWORD):
+            raise MXNetError("op %s: positional argument %d (%r) has no "
+                             "parameter" % (opdef.name, i, a))
+        if params[i].name in kwargs:
+            raise MXNetError("op %s got %s twice" % (opdef.name,
+                                                     params[i].name))
+        kwargs[params[i].name] = a
+
+
 def create(op_name, *args, name=None, attr=None, **kwargs):
     """An op node over the Symbol arguments; parameter inputs the caller
     omits become variables named `<name>_<input>`."""
@@ -719,16 +748,21 @@ def create(op_name, *args, name=None, attr=None, **kwargs):
     name = _name_mod.current().get(name, opdef.name.lower().lstrip("_"))
     attr = _attr_mod.current().get(attr)
     inputs = [a._outputs[0] for a in args if isinstance(a, Symbol)]
+    _bind_positional_params(opdef, args, kwargs)
 
     names = _OP_INPUT_NAMES.get(opdef.name)
     if names is not None:
         input_names, aux_names = names
         want = list(input_names)
-        if opdef.name in ("FullyConnected", "Convolution") \
+        if opdef.name in ("FullyConnected", "Convolution",
+                          "Deconvolution") \
                 and kwargs.get("no_bias", False):
             want.remove("bias")
         if opdef.name == "RNN" and kwargs.get("mode", "lstm") != "lstm":
             want.remove("state_cell")
+        if opdef.name == "LeakyReLU" \
+                and kwargs.get("act_type", "leaky") != "prelu":
+            want.remove("gamma")  # only prelu has a parameter
         # declared inputs by keyword (weight=some_sym), else new variables
         for i, nm in enumerate(want):
             if i < len(inputs):

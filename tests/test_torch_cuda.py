@@ -1429,3 +1429,82 @@ def test_bucketing_fused_cell_on_the_card_launches_k4(dev):
             os.environ.pop("MXNET_FUSED_RNN", None)
         else:
             os.environ["MXNET_FUSED_RNN"] = prior
+
+
+# ---------------------------------------------------------------------------
+# Inception-v3's BatchNorm shapes, the Gluon cells on K4a, the model zoo
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,S", [(192, 5041), (96, 1225), (160, 289),
+                                 (448, 64)])
+def test_fused_bn_kernels_match_plain_at_inception_shapes(dev, dtype, C, S):
+    """K3a-d at Inception-v3's odd spatial sizes (71x71, 35x35, 17x17)
+    and its 8x8 one, relu off as its BatchNorms run, batch 16."""
+    x, dy, _, gamma, beta = _bn_case(dev, 16, C, S, dtype, seed=C + S)
+    _bn_check_all(x, dy, None, gamma, beta, False)
+
+
+def test_gluon_lstm_cells_equal_the_lstm_layer_on_k4a(dev):
+    """chip_smoke.py's phase 16d at a small width: a SequentialRNNCell of
+    two LSTMCells unrolled against gluon.rnn.LSTM with the same weights
+    under MXNET_FUSED_RNN=1 (K4a once a layer), within PLAIN_TOL."""
+    import chip_smoke
+    mods = {n: getattr(chip_smoke, n) for n in ("CELL_T", "CELL_N",
+                                                "CELL_C", "CELL_H")}
+    try:
+        chip_smoke.CELL_T, chip_smoke.CELL_N = 9, 5
+        chip_smoke.CELL_C, chip_smoke.CELL_H = 24, 40
+        launches, main = chip_smoke.phase_gluon_cells(torch, np, dev,
+                                                      "card test")
+    finally:
+        for n, v in mods.items():
+            setattr(chip_smoke, n, v)
+    assert launches == (2, 0)
+    assert set(main["losses_card_vs_cpu"]) >= {"L1Loss", "TripletLoss"}
+
+
+def test_model_zoo_step_on_card_launches_k3_per_batchnorm(dev):
+    """One flag-on Gluon step of mobilenetv2_0.25 (depthwise BatchNorms)
+    and of a small DenseNet (concat-grown channels) on the card: K3a-d
+    once for each BatchNorm block, a finite loss, and the hybridized
+    inference logits equal to the eager ones."""
+    import os
+    import chip_smoke
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    vision = tmx.gluon.model_zoo.vision
+    prior = os.environ.get("MXNET_FUSED_BN_EPILOGUE")
+    os.environ["MXNET_FUSED_BN_EPILOGUE"] = "1"
+    try:
+        for make, size in ((lambda: vision.get_model(
+                "mobilenetv2_0.25", classes=10), 32),
+                (lambda: vision.DenseNet(16, 8, (2, 2), classes=10), 64)):
+            with tmx.name.NameManager():
+                net = make()
+            net.initialize(tmx.init.Xavier())
+            x, y = chip_smoke.prototype_batch(torch, dev, 8, 10, size, 1)
+            x, y = tmx.nd.NDArray(x), tmx.nd.NDArray(y)
+            eager = net(x).asnumpy()
+            n_bn = len(list(chip_smoke.gluon_batchnorms(tmx, net)))
+            trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                        {"learning_rate": 0.01})
+            fb.reset_launch_counts()
+            loss = chip_smoke.gluon_step(
+                tmx, net, trainer, tmx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                x, y)
+            torch.cuda.synchronize()
+            assert fb.launch_counts() == (n_bn,) * 4
+            assert bool(torch.isfinite(loss))
+            before = net(x).asnumpy()
+            net.hybridize()
+            np.testing.assert_allclose(net(x).asnumpy(), before, rtol=1e-5,
+                                       atol=1e-5 * np.abs(before).max())
+            assert net._cached_graph is not None
+            assert eager.shape == (8, 10)
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_BN_EPILOGUE", None)
+        else:
+            os.environ["MXNET_FUSED_BN_EPILOGUE"] = prior
