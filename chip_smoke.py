@@ -79,9 +79,13 @@ Phases (any failure exits non-zero before the last line):
                 plain BatchNorm (the hybridized graph's) at all 9
                 shapes; then each kernel
                 timed beside its plain version, its bound and the library
-                yardsticks (torch.var_mean; cuDNN batch norm forward and
-                backward for the kernel pairs) at the step's shapes in
-                bfloat16, summed over the step's 53 calls.
+                yardsticks (the one call that computes its function where
+                there is one: torch.var_mean, torch.batch_norm_elemt,
+                torch.batch_norm_backward_reduce and
+                torch.batch_norm_backward_elemt; cuDNN batch norm forward
+                and backward for the kernel pairs) at the step's shapes
+                in bfloat16, one row a shape and kernel, summed over the
+                step's 53 calls.
   9. ResNet-50 training path — the framework core (NDArray, autograd,
                 Gluon, TrainStep) trains the model zoo's resnet50_v1 at
                 bench.py's non-smoke bench_resnet50 config (1000 classes,
@@ -436,6 +440,16 @@ BN_NET_TOL = 1e-4
 #: turns)
 INC_BATCH, INC_IMAGE, INC_CLASSES = 128, 299, 1000
 INC_WARMUP, INC_STEPS = 2, 10
+#: the BatchNorm shapes of a float32 Inception-v3 step at INC_IMAGE, which
+#: phase 16 finds by forward hooks (inception_bn_shapes) and checks
+#: against this list: (C, H, W, count), 18 shapes, 94 calls
+INC_BNS = [(32, 149, 149, 1), (32, 147, 147, 1), (64, 147, 147, 1),
+           (80, 73, 73, 1), (192, 71, 71, 1),
+           (64, 35, 35, 12), (48, 35, 35, 3), (96, 35, 35, 7),
+           (32, 35, 35, 1),
+           (384, 17, 17, 1), (96, 17, 17, 1), (192, 17, 17, 26),
+           (128, 17, 17, 6), (160, 17, 17, 12),
+           (320, 8, 8, 3), (192, 8, 8, 3), (384, 8, 8, 12), (448, 8, 8, 2)]
 #: the first Inception step, flag on against flag off: the loss to this
 #: relative error; each gradient's relative Frobenius error to max(2 x
 #: floor, INC_GRAD_MIN_TOL), the floor the flag-off step's own (a second
@@ -1857,37 +1871,80 @@ def bn_bound(fb, kind, N, C, S, itemsize, relu, res):
                                  else "operations")
 
 
+def bn_library_calls(torch, x, dy, res, relu, gamma, beta, k):
+    """{kind: (call, error)} for each kernel whose function one PyTorch
+    call computes on these inputs, the calls SyncBatchNorm makes (the
+    port never calls them): torch.var_mean for K3a;
+    torch.batch_norm_elemt for K3b without residual or relu;
+    torch.batch_norm_backward_reduce for K3c without relu (its
+    sum dy (x - mean), times inv, is K3c's sum dz xhat);
+    torch.batch_norm_backward_elemt for K3d (the mean and var cotangents
+    zero). `error()` is the largest |call - kernel| over the kernel's
+    outputs (k, bn_chain's); a kind without such a call is absent."""
+    N, C, S = x.shape
+    mean, inv = k["mean"], k["inv"]
+    count = torch.tensor([N * S], dtype=torch.int32, device=x.device)
+    xmu = k["sdx"] / inv
+
+    def err(pairs):
+        return max(float((a.float() - b.float()).abs().max())
+                   for a, b in pairs)
+
+    def var_mean():
+        return torch.var_mean(x, dim=(0, 2), correction=0)
+
+    def bwd_dx():
+        return torch.batch_norm_backward_elemt(k["dz"], x, mean, inv, gamma,
+                                               k["sdz"], xmu, count)
+    calls = {"stats": (var_mean, lambda: err(zip(var_mean(),
+                                                  (k["var"], k["mean"])))),
+             "bwd_dx": (bwd_dx, lambda: err([(bwd_dx(), k["dx"])]))}
+    if res is None and not relu:
+        def apply():
+            return torch.batch_norm_elemt(x, gamma, beta, mean, inv, 1e-5)
+        calls["apply"] = (apply, lambda: err([(apply(), k["y"])]))
+    if not relu:
+        def bwd_reduce():
+            return torch.batch_norm_backward_reduce(dy, x, mean, inv, gamma,
+                                                    True, False, False)
+        calls["bwd_reduce"] = (bwd_reduce, lambda: err(zip(
+            bwd_reduce()[:2], (k["sdz"], k["sdx"] / inv))))
+    return calls
+
+
 def bn_time(torch, fb, dev, C, H, W, relu, res, dtype, flush, n=10,
             N=R50_BATCH):
     """Times (ms) at one of the main path's BatchNorm shapes (batch N):
     each kernel, its plain version, and the library yardsticks the port
-    never calls: torch.var_mean for K3a, and cuDNN's batch norm (+ add +
-    relu) forward against K3a + K3b, its autograd backward against K3c +
-    K3d."""
+    never calls: the one call that computes a kernel's function
+    (bn_library_calls; None where there is none), and cuDNN's batch norm
+    (+ add + relu) forward against K3a + K3b, its autograd backward
+    against K3c + K3d. Returns ({kind: (ms, plain_ms, library_ms,
+    library_max_abs_err)}, pair_fwd, pair_bwd)."""
     F = torch.nn.functional
     S = H * W
     x, dy, r, gamma, beta = bn_inputs(torch, dev, N, C, S, dtype, seed=C + S)
     r = r if res else None
     k = bn_chain(torch, fb, x, dy, r, gamma, beta, relu)
     c = k["c"]
-    t = {
-        "stats": (time_ms(torch, lambda: fb.bn_stats(x), n, flush),
-                  time_ms(torch, lambda: fb.bn_stats_plain(x), n, flush),
-                  time_ms(torch, lambda: torch.var_mean(
-                      x, dim=(0, 2), correction=0), n, flush)),
-        "apply": (time_ms(torch, lambda: fb.bn_apply(
-            x, k["scale"], k["offset"], r, relu), n, flush),
-                  time_ms(torch, lambda: fb.bn_apply_plain(
-                      x, k["scale"], k["offset"], r, relu), n, flush), None),
-        "bwd_reduce": (time_ms(torch, lambda: fb.bn_bwd_reduce(
-            dy, k["y"], x, k["mean"], k["inv"], relu), n, flush),
-                       time_ms(torch, lambda: fb.bn_bwd_reduce_plain(
-                           dy, k["y"], x, k["mean"], k["inv"], relu), n,
-                           flush), None),
-        "bwd_dx": (time_ms(torch, lambda: fb.bn_bwd_dx(
-            k["dz"], x, *c), n, flush),
-                   time_ms(torch, lambda: fb.bn_bwd_dx_plain(
-                       k["dz"], x, *c), n, flush), None)}
+    lib = bn_library_calls(torch, x, dy, r, relu, gamma, beta, k)
+    kernel = {
+        "stats": (lambda: fb.bn_stats(x), lambda: fb.bn_stats_plain(x)),
+        "apply": (lambda: fb.bn_apply(x, k["scale"], k["offset"], r, relu),
+                  lambda: fb.bn_apply_plain(x, k["scale"], k["offset"], r,
+                                            relu)),
+        "bwd_reduce": (lambda: fb.bn_bwd_reduce(dy, k["y"], x, k["mean"],
+                                                k["inv"], relu),
+                       lambda: fb.bn_bwd_reduce_plain(
+                           dy, k["y"], x, k["mean"], k["inv"], relu)),
+        "bwd_dx": (lambda: fb.bn_bwd_dx(k["dz"], x, *c),
+                   lambda: fb.bn_bwd_dx_plain(k["dz"], x, *c))}
+    t = {}
+    for kind, (fn, plain) in kernel.items():
+        call, err = lib.get(kind, (None, None))
+        t[kind] = (time_ms(torch, fn, n, flush), time_ms(torch, plain, n, flush),
+                   None if call is None else time_ms(torch, call, n, flush),
+                   None if call is None else err())
     x4 = x.view(N, C, H, W).detach().requires_grad_(True)
     w4 = gamma.to(dtype).requires_grad_(True)
     b4 = beta.to(dtype).requires_grad_(True)
@@ -1905,6 +1962,40 @@ def bn_time(torch, fb, dev, C, H, W, relu, res, dtype, flush, n=10,
     pair_bwd = time_ms(torch, lambda: torch.autograd.grad(
         out, (x4, w4, b4), dy4, retain_graph=True), n, flush)
     return t, pair_fwd, pair_bwd
+
+
+def bn_time_row(fb, t, kind, N, C, S, itemsize, relu, res):
+    """One kernel's entry of a timing row: its time, its plain version's,
+    the library call's (and its largest |call - kernel|) where there is
+    one, and its bound."""
+    b_ms, b_by = bn_bound(fb, kind, N, C, S, itemsize, relu, res)
+    ms, plain_ms, lib_ms, lib_err = t[kind]
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_max_abs_err": lib_err, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def bn_add_total(total, one, count):
+    """Add one shape's entry (count calls a step) to a kernel's step sums:
+    the library call's over the calls it covers, beside the kernel's over
+    the same calls."""
+    total["ms"] += count * one["ms"]
+    total["plain_ms"] += count * one["plain_ms"]
+    total["bound_ms"] += count * one["bound_ms"]
+    if one["bound_by"] == "bytes":
+        total["bytes_bound_ms"] += count * one["bound_ms"]
+    if one["library_ms"] is not None:
+        total["library_ms"] = (total["library_ms"] or 0.0) \
+            + count * one["library_ms"]
+        total["library_calls"] += count
+        total["ms_library_calls"] += count * one["ms"]
+
+
+def bn_totals(kinds):
+    return {kind: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bytes_bound_ms": 0.0, "library_ms": None,
+                   "library_calls": 0, "ms_library_calls": 0.0}
+            for kind in kinds}
 
 
 def phase_kernels_bn(torch, np, dev, card):
@@ -1935,6 +2026,11 @@ def phase_kernels_bn(torch, np, dev, card):
                      % (N, C, H, W, relu, res))
             del x, dy, r
             ncases += 1
+    print("fused_bn K3c clusters the card runs at once, by cluster size: "
+          + json.dumps({"%s relu=%d" % (dname, relu): fb.reduce_clusters_at_once(
+              dev, dtype, relu) for dname, dtype in (
+                  ("float32", torch.float32), ("bfloat16", torch.bfloat16))
+              for relu in (0, 1)}))
     for dname in ("float32", "bfloat16"):
         print("fused_bn kernel check %s: %d cases, max |kernel - plain| %s; "
               "tol (atol = rtol) stats %g, y and dx %g, dz exact, channel "
@@ -1952,9 +2048,7 @@ def phase_kernels_bn(torch, np, dev, card):
         scratch.zero_()
 
     kinds = ("stats", "apply", "bwd_reduce", "bwd_dx")
-    total = {kind: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                    "bytes_bound_ms": 0.0} for kind in kinds}
-    total["stats"]["library_ms"] = 0.0
+    total = bn_totals(kinds)
     pairs = {"fwd_kernels_ms": 0.0, "fwd_library_ms": 0.0,
              "bwd_kernels_ms": 0.0, "bwd_library_ms": 0.0}
     rows = []
@@ -1969,20 +2063,10 @@ def phase_kernels_bn(torch, np, dev, card):
                    "per_step": count, "library_pair_fwd_ms": pair_fwd,
                    "library_pair_bwd_ms": pair_bwd}
             for kind in kinds:
-                b_ms, b_by = bn_bound(fb, kind, R50_BATCH, C, H * W,
-                                      itemsize, relu, res)
-                ms, plain_ms, lib_ms = t[kind]
-                row[kind] = {"ms": ms, "plain_ms": plain_ms,
-                             "library_ms": lib_ms, "bound_ms": b_ms,
-                             "bound_by": b_by}
+                row[kind] = bn_time_row(fb, t, kind, R50_BATCH, C, H * W,
+                                        itemsize, relu, res)
                 if dname == "bfloat16":
-                    total[kind]["ms"] += count * ms
-                    total[kind]["plain_ms"] += count * plain_ms
-                    total[kind]["bound_ms"] += count * b_ms
-                    if b_by == "bytes":
-                        total[kind]["bytes_bound_ms"] += count * b_ms
-                    if lib_ms is not None:
-                        total[kind]["library_ms"] += count * lib_ms
+                    bn_add_total(total[kind], row[kind], count)
             if dname == "bfloat16":
                 pairs["fwd_kernels_ms"] += count * (t["stats"][0]
                                                     + t["apply"][0])
@@ -2002,9 +2086,9 @@ def phase_kernels_bn(torch, np, dev, card):
     return errs, total
 
 
-#: the kernels phase 8 prints a row a shape for: K3a (with torch.var_mean
-#: beside it), K3b and K3d
-SHAPE_ROW_KINDS = ("stats", "apply", "bwd_dx")
+#: the kernels phase 8 prints a row a shape for: all four, each with the
+#: library call beside it where one computes its function
+SHAPE_ROW_KINDS = ("stats", "apply", "bwd_reduce", "bwd_dx")
 
 
 def bn_shape_rows(rows, errs, kind):
@@ -2012,7 +2096,7 @@ def bn_shape_rows(rows, errs, kind):
     BatchNorm shape of the step in bfloat16 (S = 196 and 49 among them,
     rows that are not a whole number of 8-element vectors) and the stem's
     in float32, each with its time, bound, their ratio, the library
-    call's time where there is one (K3a: torch.var_mean) and the largest
+    call's time where there is one (bn_library_calls) and the largest
     |kernel - plain| at that shape in phase 8's check."""
     out = []
     for r in rows:
@@ -2022,7 +2106,10 @@ def bn_shape_rows(rows, errs, kind):
                     "per_step": r["per_step"], "ms": t["ms"],
                     "bound_ms": t["bound_ms"],
                     "over_bound": t["ms"] / t["bound_ms"],
-                    "library_ms": t.get("library_ms"),
+                    "library_ms": t["library_ms"],
+                    "library_over_kernel": (None if t["library_ms"] is None
+                                            else t["library_ms"] / t["ms"]),
+                    "library_max_abs_err": t.get("library_max_abs_err"),
                     "max_abs_err": errs.get((kind, r["dtype"], r["N"],
                                              r["C"], S))})
     return out
@@ -2233,7 +2320,9 @@ def bn_kernel_rows(errs, totals, by_path, inception_totals):
     and hybridized Gluon steps, phase 16c's steps), summed and split in
     `launches_by_path`, the largest float32 kernel-vs-plain error (phases
     8 and 16), and under `inception_v3_step` phase 16's sums over a
-    float32 batch-128 Inception-v3 step's 94 calls."""
+    float32 batch-128 Inception-v3 step's 94 calls. `library_ms` sums the
+    library call (bn_library_calls) over the `library_calls` of the 53
+    it covers, beside the kernel's `ms_library_calls` over the same."""
     rows = []
     for i, (kind, line) in enumerate((("stats", 134), ("apply", 183),
                                       ("bwd_reduce", 233), ("bwd_dx", 320))):
@@ -2253,7 +2342,9 @@ def bn_kernel_rows(errs, totals, by_path, inception_totals):
             # what bounds most of the step's calls of this kernel
             "bound_by": ("bytes" if 2 * tot["bytes_bound_ms"]
                          >= tot["bound_ms"] else "operations"),
-            "library_ms": tot.get("library_ms"),
+            "library_ms": tot["library_ms"],
+            "library_calls": tot["library_calls"],
+            "ms_library_calls": tot["ms_library_calls"],
             "inception_v3_step": inception_totals[kind],
         })
     return rows
@@ -3743,7 +3834,7 @@ def gluon_batchnorms(mx, block):
 def inception_bn_shapes(torch, mx):
     """{(C, H, W): count} of the inputs Inception-v3's BatchNorm layers
     see at INC_IMAGE: forward hooks on the net's nn.BatchNorm blocks over
-    one batch-1 forward on the card."""
+    one batch-1 forward on the card, held to INC_BNS."""
     from collections import Counter
     from mxnet_tpu_torch.gluon.model_zoo import vision
     with mx.name.NameManager():
@@ -3757,6 +3848,9 @@ def inception_bn_shapes(torch, mx):
     net(mx.nd.zeros((1, 3, INC_IMAGE, INC_IMAGE)))
     check(len(seen) == len(bns), "Inception's %d BatchNorms ran %d times"
           % (len(bns), len(seen)))
+    want = {(C, H, W): n for C, H, W, n in INC_BNS}
+    check(Counter(seen) == want, "Inception's BatchNorm shapes %r, "
+          "expected INC_BNS %r" % (dict(Counter(seen)), want))
     return Counter(seen)
 
 
@@ -3765,7 +3859,8 @@ def phase_kernels_bn_inception(torch, np, dev, card, shapes):
     BatchNorm shape of a float32 Inception-v3 step at batch INC_BATCH
     (relu off: each of its BatchNorms feeds an Activation of its own),
     then each kernel timed there beside its plain version, its bound and
-    the library yardsticks (torch.var_mean; cuDNN's batch norm forward
+    the library yardsticks (bn_library_calls, each of which computes its
+    kernel's function at every shape here; cuDNN's batch norm forward
     and backward for the kernel pairs), one row a shape and kernel, and
     the sums over the step's calls. Returns (errs, totals)."""
     from mxnet_tpu_torch.ops import fused_bn as fb
@@ -3789,9 +3884,7 @@ def phase_kernels_bn_inception(torch, np, dev, card, shapes):
         scratch.zero_()
 
     kinds = ("stats", "apply", "bwd_reduce", "bwd_dx")
-    total = {kind: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-             for kind in kinds}
-    total["stats"]["library_ms"] = 0.0
+    total = bn_totals(kinds)
     pairs = {"fwd_kernels_ms": 0.0, "fwd_library_ms": 0.0,
              "bwd_kernels_ms": 0.0, "bwd_library_ms": 0.0}
     rows = []
@@ -3805,17 +3898,9 @@ def phase_kernels_bn_inception(torch, np, dev, card, shapes):
                "per_step": count, "library_pair_fwd_ms": pair_fwd,
                "library_pair_bwd_ms": pair_bwd}
         for kind in kinds:
-            b_ms, b_by = bn_bound(fb, kind, INC_BATCH, C, H * W, 4, False,
-                                  False)
-            ms, plain_ms, lib_ms = t[kind]
-            row[kind] = {"ms": ms, "plain_ms": plain_ms,
-                         "library_ms": lib_ms, "bound_ms": b_ms,
-                         "bound_by": b_by}
-            total[kind]["ms"] += count * ms
-            total[kind]["plain_ms"] += count * plain_ms
-            total[kind]["bound_ms"] += count * b_ms
-            if lib_ms is not None:
-                total[kind]["library_ms"] += count * lib_ms
+            row[kind] = bn_time_row(fb, t, kind, INC_BATCH, C, H * W, 4,
+                                    False, False)
+            bn_add_total(total[kind], row[kind], count)
         pairs["fwd_kernels_ms"] += count * (t["stats"][0] + t["apply"][0])
         pairs["bwd_kernels_ms"] += count * (t["bwd_reduce"][0]
                                             + t["bwd_dx"][0])

@@ -74,6 +74,7 @@ _SIGNATURES = {
     "mxtt_bn_bwd_reduce": ([_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _I, _P,
                            _P, _P, _P], _I),
     "mxtt_bn_bwd_dx": ([_I, _P, _P, _P, _P, _P, _P, _L, _L, _L, _P], _I),
+    "mxtt_bn_reduce_max_clusters": ([_I, _I, _I], _I),
     "mxtt_paged_attention": ([_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                               _I, _I, _I, _I, _I, _F, _P], _I),
     "mxtt_paged_smem_bytes": ([_I, _I, _I, _I], ctypes.c_longlong),

@@ -69,15 +69,19 @@
 //     wrapper sizes P for about two blocks an SM, one wave. A C not a
 //     multiple of G (or a group too wide for a block, or an unaligned x)
 //     takes the same kernel at W = 1, G = 1.
-//   * K3c: grid of C x P blocks, block (c, p) summing the p-th of P equal
-//     chunks of channel c's N * S elements into float32 partials (a
-//     warp-shuffle then shared-memory tree, in a fixed order), written to
-//     a [2, C, P] workspace; a second tiny kernel adds each channel's P
-//     partials in a fixed order (in double). With S % V == 0 each thread
-//     takes whole vectors, else single elements.
+//   * K3c (bn_bwd_reduce_kernel): a block walks whole rows (n, c) of one
+//     channel, each row covered by the aligned 16-byte vectors that
+//     overlap it, the head and tail masked to the row's own elements (so
+//     odd S keeps 16-byte loads; dz is stored through the same vectors).
+//     A thread steps its (row, vector) pair without a division and keeps
+//     four vectors in flight; the P blocks of a channel form a cluster
+//     whose rank 0 adds their sums through distributed shared memory in
+//     rank order (in double), as K3a does: one launch, no workspace, a
+//     result that repeats bit for bit. Pointers that do not share one
+//     offset mod 16 bytes take the same kernel at W = 1.
 //
 // The kernels launch on the caller's stream, allocate nothing (the
-// wrapper allocates outputs and K3c's workspace) and do not synchronise;
+// wrapper allocates the outputs) and do not synchronise;
 // each C entry returns the launch's error, or cudaGetLastError().
 
 #include <cooperative_groups.h>
@@ -130,13 +134,6 @@ __device__ __forceinline__ void store_vec(T* p, const float (&in)[Vec<T>::V]) {
 #pragma unroll
   for (int k = 0; k < Vec<T>::V; ++k) e[k] = from_f<T>(in[k]);
   *reinterpret_cast<uint4*>(p) = u;
-}
-
-// i / d for non-negative i and d; 32-bit division where both fit
-__device__ __forceinline__ int64_t div_idx(int64_t i, int64_t d, bool small) {
-  return small ? static_cast<int64_t>(static_cast<uint32_t>(i) /
-                                      static_cast<uint32_t>(d))
-               : i / d;
 }
 
 // sum of a and of b over the block, in a fixed order; valid in thread 0
@@ -459,95 +456,286 @@ cudaError_t bn_stats_entry(const void* x, int64_t N, int64_t C, int64_t S,
 }
 
 // ---------------------------------------------------------------------------
-// K3c: relu mask, dz store, per-channel partial sums of dz and dz * xhat
+// K3c: relu mask, dz store, per-channel sums of dz and dz * xhat
 // ---------------------------------------------------------------------------
 
-// The chunk [u0, u1) of channel c's units (a unit is one vector when vec,
-// else one element), as 64-bit element offsets: calls f(offset, vec).
-struct Chunk {
-  int64_t c, u0, u1, unit;
-};
+// Replaces mxnet_tpu/ops/pallas_fused.py::_bwd_reduce_kernel. Bound by
+// device-memory bytes: it reads dy and x (and y with relu) once and writes
+// dz once with relu, 2 passes over the activation without relu and 4 with
+// (fused_bn_call_cost("bwd_reduce")), at 6 flops an element.
+//
+// The design keeps every byte in 16-byte vectors whatever S is, with no
+// index math inside a row and one launch:
+//   * a unit is one aligned W-element vector that overlaps a row (n, c);
+//     a row's Q units cover its S elements, the head and tail units
+//     masked to the row's own elements (the neighbouring channels' bytes
+//     they also read are the only extra: two vectors a row at most, 1/73
+//     at S = 289 in float32). dz goes out through the same vectors: whole
+//     16-byte stores in the middle, the row's own elements at its ends.
+//     Where dy, x, y and dz do not share one offset mod 16 bytes, W = 1.
+//   * the block's units (its rows x Q) are dealt to its threads in turn,
+//     each thread stepping its (row, unit) pair by the block's width with
+//     an add and a compare: one division a thread, none an element; the
+//     row's start (n C + c) S is one multiply a unit;
+//   * four units in flight a thread, float32 sums by vector lane over 16
+//     trips, then a thread's sum, a warp-shuffle and shared-memory tree;
+//   * channel c's P blocks (P <= 8: the wrapper takes the most with which
+//     all C clusters run at once, asking the card, mxtt_bn_reduce_max_
+//     clusters) form a thread-block cluster: after a cluster barrier rank 0
+//     adds the blocks' sums through distributed shared memory in rank
+//     order, in double, and writes sum(dz) and sum(dz xhat). No atomics,
+//     no workspace and no second launch; a result repeats bit for bit.
+//
+// Measured on an H100 80GB HBM3 at 700 W (tools/bn_ab.py, in turns with
+// the earlier design of C x P chunk blocks, a [2, C, P] workspace and a
+// combining launch): a float32 batch-128 Inception-v3 step's 94 calls
+// 4.46 ms against 8.40 (bound 2.74; 1.13-1.24x the bound at S >= 5041,
+// 1.6-2.3x at S = 1225 and 289, 2.6-3.6x at S = 64, where a call moves
+// ~25 MB and launch and latency rule), a bfloat16 batch-256 ResNet-50
+// step's 53 calls 7.49 ms against 9.83 (bound 5.77; 1.3-1.6x at S = 196,
+// 2.1-2.7x at S = 49). tools/bn_reduce_sweep.py times U and the launch
+// bounds' blocks an SM: U = 4 at 2 blocks was within 3 % of the best of
+// six builds on both steps; at 3 or 4 blocks (fewer registers a thread)
+// the ResNet-50 step's calls took twice as long.
+constexpr int kReduceThreads = 256;
 
-__device__ __forceinline__ Chunk chunk_of(int64_t C, int64_t S, int64_t M,
-                                          int P, int unit) {
-  Chunk k;
-  k.c = blockIdx.x / P;
-  const int64_t p = blockIdx.x % P;
-  const int64_t U = M / unit;
-  const int64_t per = (U + P - 1) / P;
-  k.u0 = p * per;
-  k.u1 = k.u0 + per < U ? k.u0 + per : U;
-  k.unit = unit;
-  return k;
+template <typename T, int W>
+__device__ __forceinline__ void store_raw(T* p, const T (&v)[W]) {
+  if constexpr (W == 1) {
+    *p = v[0];
+  } else {
+    uint4 u;
+    T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+    for (int k = 0; k < W; ++k) e[k] = v[k];
+    *reinterpret_cast<uint4*>(p) = u;
+  }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// Grid: C x P blocks, one cluster of P blocks a channel; block rank q of
+// channel c sums rows n in [q per, q per + per). Pointers are the
+// tensors' own less o0 elements, so that virtual element o0 + i (element
+// i of the tensor) lies in vector (o0 + i) / W at an aligned address.
+template <typename T, typename I, int W, bool kRelu>
+__global__ void __launch_bounds__(kReduceThreads, 2)
     bn_bwd_reduce_kernel(const T* __restrict__ dy, const T* __restrict__ y,
                          const T* __restrict__ x,
                          const float* __restrict__ mean,
                          const float* __restrict__ inv, T* __restrict__ dz,
-                         int64_t C, int64_t S, int64_t M, int P, int vec,
-                         float* __restrict__ part) {
-  constexpr int V = Vec<T>::V;
-  const Chunk k = chunk_of(C, S, M, P, vec ? V : 1);
-  const bool small = M <= INT32_MAX;
-  const bool relu = y != nullptr;
-  const float m = mean[k.c], iv = inv[k.c];
+                         I N, I C, I S, I Q, I o0, float* __restrict__ sdz,
+                         float* __restrict__ sdx) {
+  constexpr int U = 4;  // units in flight a thread
+  constexpr int kTrips = 16;
+  using UI = std::make_unsigned_t<I>;
+  __shared__ float blk[2];  // this block's sums
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned P = cluster.num_blocks(), rank = cluster.block_rank();
+  const I c = blockIdx.x / P;
+  const I per = (N + P - 1) / P;
+  const I n0 = rank * per < N ? rank * per : N;
+  const I rows = (n0 + per < N ? n0 + per : N) - n0;
+  const float m = __ldg(mean + c), iv = __ldg(inv + c);
+  // thread t's units are t, t + kReduceThreads, ... of the block's rows x Q
+  const I dr = kReduceThreads / Q, dk = kReduceThreads % Q;
+  I r = static_cast<I>(threadIdx.x) / Q, k = static_cast<I>(threadIdx.x) % Q;
+
   float a = 0.f, b = 0.f;
-  for (int64_t u = k.u0 + threadIdx.x; u < k.u1; u += blockDim.x) {
-    const int64_t j = u * k.unit;
-    const int64_t n = div_idx(j, S, small);
-    const int64_t off = (n * C + k.c) * S + (j - n * S);
-    if (vec) {
-      float g[V], xv[V];
-      load_vec(dy + off, g);
-      load_vec(x + off, xv);
-      if (relu) {
-        float yv[V];
-        load_vec(y + off, yv);
+  while (r < rows) {
+    float ca[W], cb[W];
 #pragma unroll
-        for (int e = 0; e < V; ++e)
-          g[e] = to_f(from_f<T>(yv[e] > 0.f ? g[e] : 0.f));
-        store_vec(dz + off, g);
+    for (int e = 0; e < W; ++e) ca[e] = cb[e] = 0.f;
+    for (int trip = 0; trip < kTrips && r < rows; ++trip) {
+      I vg[U], off[U];  // vector index; its first element's place in the row
+      bool live[U];
+      Raw<T, W> rdy[U], rx[U], ry[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        live[u] = false;
+        if (r < rows) {
+          const UI start = static_cast<UI>(((n0 + r) * C + c) * S + o0);
+          vg[u] = static_cast<I>(start / W) + k;
+          off[u] = k * W - static_cast<I>(start % W);
+          // unit 0 always holds the row's first element; a later one
+          // holds some element when it starts inside the row
+          live[u] = k == 0 || static_cast<UI>(off[u]) < static_cast<UI>(S);
+          k += dk;
+          r += dr;
+          if (k >= Q) {
+            k -= Q;
+            ++r;
+          }
+        }
+        if (live[u]) {
+          rdy[u] = load_raw<T, W>(dy + vg[u] * W);
+          rx[u] = load_raw<T, W>(x + vg[u] * W);
+          if constexpr (kRelu) ry[u] = load_raw<T, W>(y + vg[u] * W);
+        }
       }
 #pragma unroll
-      for (int e = 0; e < V; ++e) {
-        a += g[e];
-        b += g[e] * ((xv[e] - m) * iv);
+      for (int u = 0; u < U; ++u) {
+        if (!live[u]) continue;
+        bool in[W];  // element e is the row's
+#pragma unroll
+        for (int e = 0; e < W; ++e)
+          in[e] = static_cast<UI>(off[u] + e) < static_cast<UI>(S);
+        float g[W], xv[W];
+        unpack<T, W>(rdy[u], g);
+        unpack<T, W>(rx[u], xv);
+        if constexpr (kRelu) {
+          float yv[W];
+          unpack<T, W>(ry[u], yv);
+          T z[W];
+#pragma unroll
+          for (int e = 0; e < W; ++e) {
+            z[e] = from_f<T>(yv[e] > 0.f ? g[e] : 0.f);
+            g[e] = to_f(z[e]);
+          }
+          T* out = dz + vg[u] * W;
+          if (in[0] && in[W - 1]) {  // the elements in a row are contiguous
+            store_raw<T, W>(out, z);
+          } else {
+#pragma unroll
+            for (int e = 0; e < W; ++e)
+              if (in[e]) out[e] = z[e];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          ca[e] += in[e] ? g[e] : 0.f;
+          cb[e] += in[e] ? g[e] * ((xv[e] - m) * iv) : 0.f;
+        }
       }
-    } else {
-      float g = to_f(dy[off]);
-      if (relu) {
-        const T r = from_f<T>(to_f(y[off]) > 0.f ? g : 0.f);
-        dz[off] = r;
-        g = to_f(r);
-      }
-      a += g;
-      b += g * ((to_f(x[off]) - m) * iv);
+    }
+#pragma unroll
+    for (int e = 0; e < W; ++e) {
+      a += ca[e];
+      b += cb[e];
     }
   }
+
   block_sum2(a, b);
   if (threadIdx.x == 0) {
-    part[k.c * P + blockIdx.x % P] = a;
-    part[(C + k.c) * P + blockIdx.x % P] = b;
+    blk[0] = a;
+    blk[1] = b;
   }
+  cluster.sync();  // every block of the channel has written blk
+  if (rank == 0 && threadIdx.x == 0) {
+    double sa = 0.0, sb = 0.0;
+    for (unsigned q = 0; q < P; ++q) {
+      const float* rb = cluster.map_shared_rank(blk, q);
+      sa += rb[0];
+      sb += rb[1];
+    }
+    sdz[c] = static_cast<float>(sa);
+    sdx[c] = static_cast<float>(sb);
+  }
+  cluster.sync();  // no block leaves while rank 0 reads its blk
 }
 
-// Each channel's P partials added in a fixed order (in double)
-__global__ void bn_combine_kernel(const float* __restrict__ part, int64_t C,
-                                  int P, float* __restrict__ out0,
-                                  float* __restrict__ out1) {
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (c >= C) return;
-  double a = 0.0, b = 0.0;
-  for (int p = 0; p < P; ++p) {
-    a += part[c * P + p];
-    b += part[(C + c) * P + p];
-  }
-  out0[c] = static_cast<float>(a);
-  out1[c] = static_cast<float>(b);
+template <typename T, typename I, int W, bool kRelu>
+cudaError_t bn_bwd_reduce_launch(const T* dy, const T* y, const T* x,
+                                 const float* mean, const float* inv, T* dz,
+                                 int64_t N, int64_t C, int64_t S, int o0,
+                                 int P, float* sdz, float* sdx,
+                                 cudaStream_t st) {
+  // units a row: the vectors a row covers where it starts latest in its
+  // first vector (row starts o0 + m S fall on o0 mod gcd(S, W))
+  const int64_t g = gcd(S, W);
+  const int64_t Q = (W - g + o0 % g + S - 1) / W + 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(C * P));
+  cfg.blockDim = dim3(kReduceThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(P);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, bn_bwd_reduce_kernel<T, I, W, kRelu>, dy, y, x, mean, inv, dz,
+      static_cast<I>(N), static_cast<I>(C), static_cast<I>(S),
+      static_cast<I>(Q), static_cast<I>(o0), sdz, sdx);
+  const cudaError_t last = cudaGetLastError();
+  return e != cudaSuccess ? e : last;
+}
+
+// p less o elements (null stays null)
+template <typename T>
+T* back(const void* p, int o) {
+  return p == nullptr ? nullptr
+                      : reinterpret_cast<T*>(reinterpret_cast<uintptr_t>(p) -
+                                             o * sizeof(T));
+}
+
+template <typename T, typename I, bool kRelu>
+cudaError_t bn_bwd_reduce_width(const void* dy, const void* y, const void* x,
+                                const float* mean, const float* inv, void* dz,
+                                int64_t N, int64_t C, int64_t S, int o0,
+                                bool vec, int P, float* sdz, float* sdx,
+                                cudaStream_t st) {
+  constexpr int V = Vec<T>::V;
+  if (vec)
+    return bn_bwd_reduce_launch<T, I, V, kRelu>(
+        back<const T>(dy, o0), back<const T>(y, o0), back<const T>(x, o0),
+        mean, inv, back<T>(dz, o0), N, C, S, o0, P, sdz, sdx, st);
+  return bn_bwd_reduce_launch<T, I, 1, kRelu>(
+      static_cast<const T*>(dy), static_cast<const T*>(y),
+      static_cast<const T*>(x), mean, inv, static_cast<T*>(dz), N, C, S, 0,
+      P, sdz, sdx, st);
+}
+
+// cudaOccupancyMaxActiveClusters of K3c's vector kernel at clusters of P
+template <typename T, bool kRelu>
+cudaError_t bn_bwd_reduce_max_clusters(int P, int* n) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(P));
+  cfg.blockDim = dim3(kReduceThreads);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(P);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(
+      n, bn_bwd_reduce_kernel<T, uint32_t, Vec<T>::V, kRelu>, &cfg);
+  if (e != cudaSuccess) cudaGetLastError();  // not left for the next launch
+  return e;
+}
+
+// K3c's launch: 16-byte vectors where dy, x (and y, dz) share one offset
+// mod 16 bytes (o0 elements), else single elements; 32-bit offsets while
+// the last vector's end fits
+template <typename T>
+cudaError_t bn_bwd_reduce_entry(const void* dy, const void* y, const void* x,
+                                const float* mean, const float* inv, void* dz,
+                                int64_t N, int64_t C, int64_t S, int P,
+                                float* sdz, float* sdx, cudaStream_t st) {
+  constexpr int V = Vec<T>::V;
+  const uintptr_t o = reinterpret_cast<uintptr_t>(dy) & 15u;
+  bool vec = o % sizeof(T) == 0 &&
+             (reinterpret_cast<uintptr_t>(x) & 15u) == o;
+  if (y != nullptr)
+    vec = vec && (reinterpret_cast<uintptr_t>(y) & 15u) == o &&
+          (reinterpret_cast<uintptr_t>(dz) & 15u) == o;
+  const int o0 = vec ? static_cast<int>(o / sizeof(T)) : 0;
+  const bool small = N * C * S + 2 * V <= INT32_MAX;
+  if (y != nullptr)
+    return small ? bn_bwd_reduce_width<T, uint32_t, true>(
+                       dy, y, x, mean, inv, dz, N, C, S, o0, vec, P, sdz,
+                       sdx, st)
+                 : bn_bwd_reduce_width<T, int64_t, true>(
+                       dy, y, x, mean, inv, dz, N, C, S, o0, vec, P, sdz,
+                       sdx, st);
+  return small ? bn_bwd_reduce_width<T, uint32_t, false>(
+                     dy, y, x, mean, inv, dz, N, C, S, o0, vec, P, sdz, sdx,
+                     st)
+               : bn_bwd_reduce_width<T, int64_t, false>(
+                     dy, y, x, mean, inv, dz, N, C, S, o0, vec, P, sdz, sdx,
+                     st);
 }
 
 // ---------------------------------------------------------------------------
@@ -754,8 +942,6 @@ cudaError_t bn_dx_entry(const void* dz, const void* x, const void* c1,
   return flat_entry<T, DxOp>(a, n, C, S, st);
 }
 
-int elem_size(int dtype) { return dtype == 0 ? 4 : 2; }
-
 }  // namespace
 
 #define MXTT_DISPATCH(dtype, T, ...)   \
@@ -801,29 +987,35 @@ extern "C" int mxtt_bn_apply(int dtype, const void* x, const void* scale,
                     x, scale, offset, nullptr, y, n, C, S, relu, st)));
 }
 
-// K3c. y and dz are null without relu; part: float32 [2, C, P]; sdz, sdx:
-// float32 [C].
+// K3c. y and dz are null without relu; P: blocks a channel (the cluster
+// size, 1 to 8); part: unused (K3c keeps no workspace; the argument keeps
+// the entry's signature); sdz, sdx: float32 [C].
 extern "C" int mxtt_bn_bwd_reduce(int dtype, const void* dy, const void* y,
                                   const void* x, const void* mean,
                                   const void* inv, void* dz, int64_t N,
                                   int64_t C, int64_t S, int P, void* part,
                                   void* sdz, void* sdx, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  (void)part;
+  if (P < 1 || P > 8) return cudaErrorInvalidValue;
   if ((y == nullptr) != (dz == nullptr)) return cudaErrorInvalidValue;
-  const int V = 16 / elem_size(dtype);
-  const int vec = (S % V == 0) && aligned16(dy) && aligned16(x) &&
-                  (y == nullptr || (aligned16(y) && aligned16(dz)));
-  float* pt = static_cast<float*>(part);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   MXTT_DISPATCH(dtype, T,
-                bn_bwd_reduce_kernel<T><<<static_cast<unsigned>(C * P),
-                                          kThreads, 0, st>>>(
-                    static_cast<const T*>(dy), static_cast<const T*>(y),
-                    static_cast<const T*>(x), static_cast<const float*>(mean),
-                    static_cast<const float*>(inv), static_cast<T*>(dz), C, S,
-                    N * S, P, vec, pt));
-  bn_combine_kernel<<<static_cast<unsigned>((C + 127) / 128), 128, 0, st>>>(
-      pt, C, P, static_cast<float*>(sdz), static_cast<float*>(sdx));
-  return static_cast<int>(cudaGetLastError());
+                return static_cast<int>(bn_bwd_reduce_entry<T>(
+                    dy, y, x, static_cast<const float*>(mean),
+                    static_cast<const float*>(inv), dz, N, C, S, P,
+                    static_cast<float*>(sdz), static_cast<float*>(sdx), st)));
+}
+
+// How many clusters of P K3c blocks (relu 0 or 1) the card runs at once
+// (cudaOccupancyMaxActiveClusters); a negative value is a CUDA error.
+extern "C" int mxtt_bn_reduce_max_clusters(int dtype, int relu, int P) {
+  if (P < 1 || P > 8) return -static_cast<int>(cudaErrorInvalidValue);
+  int n = 0;
+  cudaError_t e = cudaErrorInvalidValue;
+  MXTT_DISPATCH(dtype, T,
+                e = relu ? bn_bwd_reduce_max_clusters<T, true>(P, &n)
+                         : bn_bwd_reduce_max_clusters<T, false>(P, &n));
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 // K3d. c1, c2, c3: float32 [C].

@@ -42,24 +42,20 @@ import torch
 from ..base import MXNetError
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-#: threads per block of the reduction kernels (csrc/fused_bn.cu kThreads,
-#: kStatsThreads) and the elements a K3c thread takes per loop trip there,
-#: at the least
+#: threads per block of the reduction kernels (csrc/fused_bn.cu
+#: kStatsThreads, kReduceThreads)
 _THREADS = 256
-_UNROLL = 4
-#: the H100's streaming multiprocessors, and K3c's reduction blocks a pass
-#: aims for per SM: 8 blocks of 256 threads fill an SM, so 32 give four
-#: waves and the last wave's tail is a small share of the pass
+#: the H100's streaming multiprocessors
 _SMS = 132
-_BLOCKS_PER_SM = 32
 #: K3a's blocks a pass aims for per SM: one wave of 2 (an SM holds 4,
 #: csrc/fused_bn.cu bn_stats_kernel's launch bounds). On an H100 2 an SM
 #: beat 4 at every ResNet-50 shape where the cluster could shrink (e.g.
 #: 0.0158 against 0.0192 ms at C 512, S 49 in bfloat16), and 1 an SM lost
 #: (tools/bn_stats_sweep.py)
 _STATS_BLOCKS_PER_SM = 2
-#: most blocks of a K3a cluster (a channel group): the portable cluster size
-_STATS_MAX_CLUSTER = 8
+#: most blocks of a cluster (a K3a channel group, a K3c channel): the
+#: portable cluster size
+_MAX_CLUSTER = 8
 
 
 def fuse_enabled():
@@ -201,14 +197,6 @@ def _per_channel(what, x3, **vectors):
     return out
 
 
-def _parts(N, C, S):
-    """Blocks per channel of K3c: C * P fills the card's SMs with several
-    waves, while each thread keeps a few loop trips."""
-    target = _SMS * _BLOCKS_PER_SM
-    most = -(-(N * S) // (_THREADS * _UNROLL))
-    return max(1, min(-(-target // C), most))
-
-
 def _stats_cluster(N, C, S, itemsize):
     """K3a's blocks a channel group (its cluster size P: 1, 2, 4 or 8):
     the most that keep the grid of C / G groups x P blocks within
@@ -222,10 +210,49 @@ def _stats_cluster(N, C, S, itemsize):
     if C % G or (G > 1 and G * S // V > _THREADS):
         G = 1
     groups, P = C // G, 1
-    while (2 * P <= min(_STATS_MAX_CLUSTER, N)
+    while (2 * P <= min(_MAX_CLUSTER, N)
            and groups * 2 * P <= _SMS * _STATS_BLOCKS_PER_SM):
         P *= 2
     return P
+
+
+def _reduce_cluster(N, C, at_once):
+    """K3c's blocks a channel (its cluster size P: 1, 2, 4 or 8): the
+    most, up to N, with which the C clusters all run at once, one wave;
+    `at_once[P]` is how many clusters of P blocks the card holds at once
+    (`reduce_clusters_at_once`). Not the blocks an SM holds: a cluster
+    lives in one GPC, so an H100 holds fewer clusters of 4 or 8 than its
+    blocks would allow, and a grid one cluster past that runs a second
+    wave (tools/bn_ab.py's `ms_by_P`)."""
+    P = 1
+    while 2 * P <= min(_MAX_CLUSTER, N) and C <= at_once[2 * P]:
+        P *= 2
+    return P
+
+
+_AT_ONCE = {}
+
+
+def reduce_clusters_at_once(device, dtype, relu):
+    """{P: clusters of P K3c blocks the card runs at once} for P = 1, 2,
+    4, 8 (cudaOccupancyMaxActiveClusters through csrc/fused_bn.cu
+    mxtt_bn_reduce_max_clusters), asked once per device, dtype and
+    relu."""
+    key = (device.index, dtype, bool(relu))
+    table = _AT_ONCE.get(key)
+    if table is None:
+        from . import _cuda
+        lib = _cuda.library("fused_bn.cu")
+        table = {}
+        with torch.cuda.device(device):
+            for P in (1, 2, 4, 8):
+                n = lib.mxtt_bn_reduce_max_clusters(_DTYPE_CODE[dtype],
+                                                    int(bool(relu)), P)
+                if n < 0:
+                    _cuda.check(lib, -n, "fused_bn cluster occupancy query")
+                table[P] = n
+        _AT_ONCE[key] = table
+    return table
 
 
 def _stream(dev):
@@ -287,9 +314,9 @@ def bn_bwd_reduce(dy3, y3, x3, mean, inv, relu):
     _same(what, x3, x=x3, dy=dy3, **({"y": y3} if relu else {}))
     mean, inv = _per_channel(what, x3, mean=mean, inv=inv)
     N, C, S = x3.shape
-    P = _parts(N, C, S)
+    P = _reduce_cluster(N, C, reduce_clusters_at_once(x3.device, x3.dtype,
+                                                      relu))
     f32 = dict(dtype=torch.float32, device=x3.device)
-    part = torch.empty((2, C, P), **f32)
     sdz, sdx = torch.empty(C, **f32), torch.empty(C, **f32)
     dz = torch.empty_like(dy3) if relu else dy3
     with torch.cuda.device(x3.device):
@@ -297,8 +324,7 @@ def bn_bwd_reduce(dy3, y3, x3, mean, inv, relu):
             _DTYPE_CODE[x3.dtype], dy3.data_ptr(),
             y3.data_ptr() if relu else None, x3.data_ptr(), mean.data_ptr(),
             inv.data_ptr(), dz.data_ptr() if relu else None, N, C, S, P,
-            part.data_ptr(), sdz.data_ptr(), sdx.data_ptr(),
-            _stream(x3.device))
+            None, sdz.data_ptr(), sdx.data_ptr(), _stream(x3.device))
     _cuda.check(lib, err, "fused_bn backward reduce kernel launch")
     bn_bwd_reduce.launches += 1
     return dz, sdz, sdx

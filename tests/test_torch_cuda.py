@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import flash_attention as fa
 from mxnet_tpu_torch.ops import paged_attention as pa
@@ -860,6 +861,164 @@ def test_fused_bn_gate_raises_on_cuda(dev):
         fb.bn_apply(x, gamma, beta, r.double(), True)
     with pytest.raises(MXNetError, match="\\[N, C, S\\]"):
         fb.bn_stats(x.view(2, 8, 6, 6))
+
+
+def _bwd_reduce_check(dy, y, x, relu):
+    """K3c against its plain version (dz exact, the channel sums within
+    the sum tolerance); returns the kernel's outputs."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    N, C, S = x.shape
+    mean, var = fb.bn_stats_plain(x)
+    inv = torch.rsqrt(var + 1e-5)
+    got = fb.bn_bwd_reduce(dy, y, x, mean, inv, relu)
+    want = fb.bn_bwd_reduce_plain(dy, y, x, mean, inv, relu)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    sum_atol = 1e-4 * (N * S) ** 0.5
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a, b, atol=sum_atol, rtol=1e-4)
+    return got
+
+
+def _shift(t):
+    """t's values in a tensor that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+#: (C, S) of the 18 BatchNorm shapes of an Inception-v3 step
+_INC_CS = [(C, H * W) for C, H, W, _ in cs.INC_BNS]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("C,S", _INC_CS)
+def test_bn_bwd_reduce_matches_plain_at_the_inception_shapes(dev, dtype,
+                                                             relu, C, S):
+    """K3c at each of Inception-v3's BatchNorm shapes (odd S but 64), at
+    batch 16: every row's head and tail vectors masked to its own
+    elements."""
+    x, dy, r, _, _ = _bn_case(dev, 16, C, S, dtype, seed=C + S)
+    _bwd_reduce_check(dy, r, x, relu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [289, 49, 8, 7, 1])
+def test_bn_bwd_reduce_pointer_offsets(dev, dtype, S):
+    """Tensors one element past a 16-byte boundary: dy and x sharing that
+    offset (no relu) keep 16-byte vectors with every row's start moved;
+    dy and y moved but not the dz the wrapper allocates (relu), or dy
+    alone moved, take the same kernel at W = 1. All as the plain
+    version."""
+    x, dy, r, _, _ = _bn_case(dev, 4, 5, S, dtype, seed=S)
+    xs, dys, rs = _shift(x), _shift(dy), _shift(r)
+    assert xs.data_ptr() % 16 != 0
+    _bwd_reduce_check(dys, None, xs, False)
+    _bwd_reduce_check(dys, rs, xs, True)
+    _bwd_reduce_check(dys, None, x, False)
+    _bwd_reduce_check(dys, r, x, True)
+
+
+def test_bn_bwd_reduce_64_bit_offsets(dev):
+    """n >= 2^31 elements (bfloat16, 4.3 GB a tensor), relu on: dz at both
+    ends and across the 2^31 boundary, and the channel sums against the
+    plain version's summed over slices of N."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    C, S = 3, 7
+    N = (1 << 31) // (C * S) + 2
+    dy, y, x = (torch.randn(N, C, S, device=dev, dtype=torch.bfloat16)
+                for _ in range(3))
+    mean = torch.randn(C, device=dev) * 0.1
+    inv = torch.rand(C, device=dev) + 0.5
+    dz, sdz, sdx = fb.bn_bwd_reduce(dy, y, x, mean, inv, True)
+    edge = (1 << 31) // (C * S)
+    for sl in (slice(0, 4), slice(edge - 2, edge + 2), slice(N - 4, N)):
+        want = fb.bn_bwd_reduce_plain(dy[sl], y[sl], x[sl], mean, inv, True)
+        assert torch.equal(dz[sl], want[0])
+    del dz
+    want = [torch.zeros(C, device=dev, dtype=torch.float64) for _ in "ab"]
+    for n0 in range(0, N, 1 << 24):
+        sl = slice(n0, n0 + (1 << 24))
+        _, a, b = fb.bn_bwd_reduce_plain(dy[sl], y[sl], x[sl], mean, inv,
+                                         True)
+        want[0] += a.double()
+        want[1] += b.double()
+    sum_atol = 1e-4 * (N * S) ** 0.5
+    torch.testing.assert_close(sdz.double(), want[0], atol=sum_atol,
+                               rtol=1e-4)
+    torch.testing.assert_close(sdx.double(), want[1], atol=sum_atol,
+                               rtol=1e-4)
+    del dy, y, x
+
+
+@pytest.mark.parametrize("dtype,relu,N,C,S", [
+    (torch.float32, False, 128, 32, 1225), (torch.float32, True, 16, 192,
+                                            289),
+    (torch.bfloat16, True, 256, 64, 49), (torch.bfloat16, False, 256, 2048,
+                                          49)])
+def test_bn_bwd_reduce_repeats_bit_for_bit(dev, dtype, relu, N, C, S):
+    """Clusters of 8, 1 and 4 blocks a channel (the cluster's sums added
+    in rank order, no atomics): three calls give the same bits."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    x, dy, r, _, _ = _bn_case(dev, N, C, S, dtype, seed=C)
+    mean, var = fb.bn_stats_plain(x)
+    inv = torch.rsqrt(var + 1e-5)
+    runs = [fb.bn_bwd_reduce(dy, r, x, mean, inv, relu) for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+
+
+def test_bn_bwd_reduce_is_one_launch(dev):
+    """One call of K3c launches one kernel on the card (no combining
+    pass) in both variants, by torch.profiler's device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    x, dy, r, _, _ = _bn_case(dev, 32, 64, 289, torch.float32)
+    mean, var = fb.bn_stats_plain(x)
+    inv = torch.rsqrt(var + 1e-5)
+    for relu in (False, True):
+        fb.bn_bwd_reduce(dy, r, x, mean, inv, relu)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fb.bn_bwd_reduce(dy, r, x, mean, inv, relu)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1 and "bn_bwd_reduce_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_reduce_clusters_at_once_reads_the_card(dev, dtype):
+    """The card's cluster occupancy of K3c: every cluster size runs, no
+    more clusters of 2P than of P, and at least one block an SM."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    for relu in (False, True):
+        at_once = fb.reduce_clusters_at_once(dev, dtype, relu)
+        assert sorted(at_once) == [1, 2, 4, 8]
+        assert all(at_once[2 * P] <= at_once[P] for P in (1, 2, 4))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert at_once[8] >= 1 and at_once[1] >= sms
+
+
+def test_bn_library_calls_compute_the_kernels_functions(dev):
+    """The PyTorch calls chip_smoke.py times beside K3a-d compute the
+    kernels' functions: each agrees with its kernel's outputs on the
+    same inputs (float32, no relu or residual, where all four apply)."""
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    N, C, S = 8, 16, 289
+    x, dy, _, gamma, beta = _bn_case(dev, N, C, S, torch.float32, seed=7)
+    k = cs.bn_chain(torch, fb, x, dy, None, gamma, beta, False)
+    calls = cs.bn_library_calls(torch, x, dy, None, False, gamma, beta, k)
+    assert set(calls) == {"stats", "apply", "bwd_reduce", "bwd_dx"}
+    sum_atol = 1e-4 * (N * S) ** 0.5
+    for kind, (_, err) in calls.items():
+        assert err() <= (sum_atol if kind == "bwd_reduce" else 1e-4), kind
 
 
 def test_fused_bn_autograd_matches_the_composite_on_card(dev):

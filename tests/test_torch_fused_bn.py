@@ -41,6 +41,9 @@ _GRAD_TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
              "bfloat16": dict(rtol=5e-2, atol=2e-1)}
 #: [N, C, S] views: a residual-block shape, C=3 with an odd S, and S=1
 _SHAPES3 = [(2, 8, 36), (3, 3, 35), (4, 16, 1), (2, 8, 3136)]
+#: odd S of Inception-v3's step (17x17, 35x35) and ResNet-50's S that are
+#: not whole 16-byte vectors in bfloat16 (7x7, 14x14)
+_ODD_S3 = [(2, 8, 289), (2, 8, 1225), (2, 8, 49), (2, 8, 196)]
 
 
 def _np(t):
@@ -102,7 +105,7 @@ def test_apply_plain_matches_pallas(dname, relu, res, shape3):
 
 @pytest.mark.parametrize("dname", ["float32", "bfloat16"])
 @pytest.mark.parametrize("relu", [False, True])
-@pytest.mark.parametrize("shape3", _SHAPES3)
+@pytest.mark.parametrize("shape3", _SHAPES3 + _ODD_S3)
 def test_bwd_reduce_plain_matches_pallas(dname, relu, shape3):
     """K3c: dz (relu only, rounded to the activation dtype) and the
     channel sums of dz and dz * xhat over the same rounded dz."""
@@ -453,10 +456,90 @@ def test_stats_cluster_fills_one_wave_at_the_resnet_shapes(itemsize):
     assert fb._stats_cluster(256, 3, 49, 2) == 8
 
 
-@pytest.mark.parametrize("kind", ["bwd_dx", "stats", "apply"])
+def _main_path_bn_shapes():
+    """(N, C, S) of every BatchNorm of the two main paths' steps: the 13
+    of a batch-256 ResNet-50 step and the 18 of a batch-128 Inception-v3
+    step."""
+    import chip_smoke as cs
+    return ([(cs.R50_BATCH, C, H * W) for C, H, W, *_ in cs.R50_BNS]
+            + [(cs.INC_BATCH, C, H * W) for C, H, W, _ in cs.INC_BNS])
+
+
+#: clusters of P K3c blocks an H100 80GB HBM3 runs at once, by P (the
+#: card's cudaOccupancyMaxActiveClusters, printed by chip_smoke.py's
+#: phase 8; float32 and bfloat16, relu on and off alike)
+_H100_AT_ONCE = {1: 264, 2: 132, 4: 62, 8: 30}
+
+
+def test_reduce_cluster_fills_one_wave_at_the_main_path_shapes():
+    """K3c's grid (C channels x P blocks, P the cluster size): P is 1, 2,
+    4 or 8 and at most N, the C clusters all run at once unless P is 1,
+    and P is the most that does, at the 31 main-path shapes and the
+    ragged ones (C 3 and S 35 at N 7; S 1; C 2048)."""
+    shapes = _main_path_bn_shapes()
+    assert len(shapes) == 31
+    at_once = _H100_AT_ONCE
+    for N, C, S in shapes + [(7, 3, 35), (256, 2048, 1), (256, 2048, 49),
+                             (1, 3, 5), (3, 16, 49)]:
+        P = fb._reduce_cluster(N, C, at_once)
+        assert P in (1, 2, 4, 8) and P <= N
+        assert C <= at_once[P] or P == 1
+        # one more doubling would pass N, the cluster size or the wave
+        assert 2 * P > min(fb._MAX_CLUSTER, N) or C > at_once[2 * P]
+    assert fb._reduce_cluster(128, 32, at_once) == 4   # Inception 149x149
+    assert fb._reduce_cluster(128, 64, at_once) == 2
+    assert fb._reduce_cluster(128, 192, at_once) == 1
+    assert fb._reduce_cluster(7, 3, at_once) == 4
+    assert fb._reduce_cluster(1, 3, at_once) == 1
+    assert fb._reduce_cluster(128, 32, {1: 264, 2: 132, 4: 60, 8: 32}) == 8
+
+
+def test_chip_smoke_inc_bns_are_the_nets_batchnorm_shapes():
+    """chip_smoke.INC_BNS (the Inception-v3 shapes tools/bn_ab.py times
+    and phase 16 checks its hooks against) is what the model zoo's
+    inception_v3 runs at 299x299: 18 shapes, 94 BatchNorms."""
+    import chip_smoke as cs
+    with tmx.cpu():
+        got = cs.inception_bn_shapes(torch, tmx)
+    assert got == {(C, H, W): n for C, H, W, n in cs.INC_BNS}
+    assert len(got) == 18 and sum(got.values()) == 94
+
+
+@pytest.mark.parametrize("relu,res,kinds", [
+    (False, False, {"stats", "apply", "bwd_reduce", "bwd_dx"}),
+    (True, False, {"stats", "bwd_dx"}),
+    (False, True, {"stats", "bwd_reduce", "bwd_dx"}),
+    (True, True, {"stats", "bwd_dx"})])
+def test_chip_smoke_library_calls_only_where_they_compute_the_kernel(
+        relu, res, kinds):
+    """chip_smoke.bn_library_calls offers a PyTorch call beside a kernel
+    only where it computes the kernel's function: batch_norm_elemt
+    beside K3b without residual or relu, batch_norm_backward_reduce
+    beside K3c without relu, var_mean and batch_norm_backward_elemt
+    always; the step sums count the library only over the calls it
+    covers, beside the kernel's time over the same calls."""
+    import chip_smoke as cs
+    N, C, S = 2, 3, 5
+    x, dy, r = (torch.randn(N, C, S) for _ in range(3))
+    gamma, beta = torch.rand(C) + 0.5, torch.randn(C)
+    k = cs.bn_chain(torch, fb, x, dy, r if res else None, gamma, beta, relu)
+    calls = cs.bn_library_calls(torch, x, dy, r if res else None, relu,
+                                gamma, beta, k)
+    assert set(calls) == kinds
+    total = cs.bn_totals(("apply",))["apply"]
+    for lib_ms, count in ((None, 3), (0.5, 2)):
+        cs.bn_add_total(total, {"ms": 1.0, "plain_ms": 4.0, "bound_ms": 0.5,
+                                "bound_by": "bytes", "library_ms": lib_ms},
+                        count)
+    assert total["ms"] == 5.0 and total["bound_ms"] == 2.5
+    assert total["library_ms"] == 1.0 and total["library_calls"] == 2
+    assert total["ms_library_calls"] == 2.0
+
+
+@pytest.mark.parametrize("kind", ["bwd_dx", "stats", "apply", "bwd_reduce"])
 def test_chip_smoke_bn_dx_rows_hold_the_unaligned_bf16_shapes(kind):
-    """chip_smoke.py's phase 8 prints one row per timed shape for K3a, K3b
-    and K3d, with the kernel's error at that shape: the rows cover the
+    """chip_smoke.py's phase 8 prints one row per timed shape for K3a-d,
+    with the kernel's error at that shape: the rows cover the
     bfloat16 S = 196 and S = 49 BatchNorms (rows that are not whole
     8-element vectors) and the stem in float32, K3a's with torch.var_mean
     beside it, and bn_check records each shape's error (run here on CPU
