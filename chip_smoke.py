@@ -267,7 +267,29 @@ Phases (any failure exits non-zero before the last line):
                 DevicePrefetchIter(depth=2): accuracy > 0.9, step ms with
                 and without the prefetch; an autograd.Function (sigmoid)
                 on the card against the CPU.
-  21. the kernels line (K3a-d's and K4a-b's launches summed over every
+  21. ROADMAP item 2 on the card — (a) every dense op name the slice
+                adds (and once each, its aliases) through mx.nd on the
+                card at a user's size (ITEM2_*: 2^24 float32 elements
+                elementwise, dot at 4096^2, batch_dot at (64, 512, 512),
+                sort / argsort / topk over (64, 32000) logits with and
+                without ties, linalg on 64 128 x 128 matrices, ROIPooling
+                with 128 ROIs on (8, 256, 38, 50), Correlation on (4, 256,
+                48, 64), BilinearSampler and SpatialTransformer on (32, 3,
+                224, 224)) against the same call on the CPU, and its
+                gradients where it has them, within ITEM2_TOL; gelqf and
+                syevd by reconstruction and up to each row's sign; per
+                family the count, the largest error and the card ms.
+                (b) K1 through nd.contrib.PagedAttention with
+                MXNET_PAGED_ATTENTION=1 (decode B 8, a 32-row chunk;
+                float32 and bfloat16) and a bound sym.contrib.
+                PagedAttention: one launch a call, each output within TOL
+                of the flag-off composite. (c) examples/nce_word_
+                embeddings.py at its defaults on the card (its `mx` the
+                port) passing its own check. (d) examples/stochastic_
+                depth.py's net hybridized on the card: fresh (1, 1, 1, 1)
+                gates each step, repeated under a reseed, losses equal to
+                the eager net's.
+  22. the kernels line (K3a-d's and K4a-b's launches summed over every
      path that runs them, split in `launches_by_path`; K3a-d's sums over
      an Inception-v3 step under `inception_v3_step`), nvidia-smi's line,
      and the last line {"ok": true, "device": {...}}.
@@ -4927,6 +4949,794 @@ def phase_data(torch, np, dev, card):
     return out
 
 
+#: phase 21a's tolerances by kind, each on max |card - CPU| / max(1,
+#: max |CPU|): index, shape and ordering results exact; elementwise
+#: arithmetic 1e-6; transcendental functions (CUDA's libm against the
+#: CPU's) and sums over thousands of terms in another order (the
+#: reductions, the products' contractions, scatter-adds) 1e-5;
+#: factorizations and solves 1e-4. A gradient takes its op's tolerance,
+#: and arithmetic's where the op is exact (it sums cotangents).
+ITEM2_TOL = {"exact": 0.0, "arith": 1e-6, "trans": 1e-5, "sum": 1e-5,
+             "linalg": 1e-4}
+#: phase 21a's user sizes: 2^24 float32 elements for the elementwise
+#: ops, dot at 4096^2, batch_dot at (64, 512, 512), the ordering ops over
+#: (64, 32000) logits, linalg on 64 128 x 128 matrices, the image ops on
+#: batches of 32 (BilinearSampler and SpatialTransformer on (32, 3, 224,
+#: 224)), ROIPooling with 128 ROIs on a (8, 256, 38, 50) feature map,
+#: Correlation on (4, 256, 48, 64)
+ITEM2_N = (4096, 4096)
+#: the shape, index and assignment ops on 2^22 elements
+ITEM2_M = (2048, 2048)
+#: where each output row comes from the same input rows alone (the
+#: elementwise ops, the reductions along axis 1), the CPU computes every
+#: ITEM2_ROW_STRIDE-th row of the card's full-size call, and those rows
+#: are compared
+ITEM2_ROW_STRIDE = 16
+ITEM2_LOGITS = (64, 32000)
+ITEM2_BATCH = (64, 128, 128)
+ITEM2_MM = (64, 512, 512)
+ITEM2_IMAGES = 32
+ITEM2_ROIS = 128
+ITEM2_CORR = (4, 256, 48, 64)
+#: phase 21b: K1 through the op at the serving main path's widths (H 4,
+#: Dh 128, block 16): (label, B, Tq, w, q_starts)
+PAGED_OP_CASES = [("decode", 8, 1, 16, [190, 17, 64, 100, 33, 5, 240, 150]),
+                  ("chunk", 2, 32, 8, [32, 96])]
+#: phase 21d: examples/stochastic_depth.py's net at its defaults (4
+#: blocks, p_last 0.5, Adam lr 0.001) on seeded (64, 1, 28, 28) batches
+SD_BATCH, SD_STEPS, SD_BLOCKS, SD_P_LAST = 64, 4, 4, 0.5
+
+
+def item2_cases(torch, dev):
+    """Phase 21a's cases: (family, name, make inputs, params, kind, rows),
+    the inputs made on `dev` from one seeded generator when called inside
+    `with torch.device(dev)`; `rows`: each output row depends on the same
+    input rows alone."""
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def u(*shape, lo=-1.0, hi=1.0):
+        return torch.rand(shape, generator=g) * (hi - lo) + lo
+
+    def away(*shape, lo=0.2, hi=3.0):
+        sign = torch.randint(0, 2, shape, generator=g).float() * 2 - 1
+        return u(*shape, lo=lo, hi=hi) * sign
+
+    def choice(values, *shape):
+        v = torch.tensor(values)
+        return v[torch.randint(0, len(values), shape, generator=g)]
+
+    def specials():
+        x = u(*ITEM2_N, lo=-2, hi=2)
+        x.view(-1)[::97] = float("nan")
+        x.view(-1)[1::101] = float("inf")
+        x.view(-1)[2::103] = float("-inf")
+        x.view(-1)[3::89] = 0.0
+        return [x]
+
+    def ints(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g).float()
+
+    B = ITEM2_BATCH
+
+    def spd():
+        m = u(*B)
+        return [m @ m.transpose(1, 2) + B[-1] * torch.eye(B[-1])]
+
+    def spd_separated():
+        """Q diag(w) Q^T with eigenvalues at least 0.5 apart, so the
+        eigenvectors are well conditioned."""
+        q = torch.linalg.qr(torch.randn(B, generator=g))[0]
+        w = torch.linspace(1.0, float(B[-1]), B[-1]) + u(B[0], B[-1],
+                                                          lo=0, hi=0.5)
+        a = q @ (w[:, :, None] * q.transpose(1, 2))
+        return [(a + a.transpose(1, 2)) / 2]
+
+    def lower():
+        """Diagonally dominant lower-triangular matrices (well
+        conditioned at any size)."""
+        m = torch.tril(u(*B)) * (0.5 / B[-1])
+        d = torch.arange(B[-1])
+        m[:, d, d] = 1.0 + u(B[0], B[-1], lo=0, hi=1)
+        return m
+
+    def unique_points(n, shape):
+        flat = torch.randperm(shape[0] * shape[1], generator=g)[:n]
+        return torch.stack([flat // shape[1], flat % shape[1]]).float()
+
+    N, L = ITEM2_N, ITEM2_LOGITS
+    cases = []
+
+    def add(family, name, make, params=None, kind="arith", rows=None):
+        if rows is None:
+            rows = family == "elementwise"
+        cases.append((family, name, make, params or {}, kind, rows))
+
+    domains = {"sin": (-3, 3), "cos": (-3, 3), "tan": (-1.2, 1.2),
+               "arcsin": (-0.9, 0.9), "arccos": (-0.9, 0.9),
+               "arctan": (-3, 3), "sinh": (-3, 3), "cosh": (-3, 3),
+               "arcsinh": (-3, 3), "arccosh": (1.1, 4),
+               "arctanh": (-0.9, 0.9), "degrees": (-3, 3),
+               "radians": (-200, 200), "erf": (-2, 2),
+               "erfinv": (-0.9, 0.9), "gamma": (0.2, 5),
+               "gammaln": (0.2, 5), "log10": (0.1, 5), "log2": (0.1, 5),
+               "log1p": (-0.5, 5), "expm1": (-2, 2)}
+    for name, (lo, hi) in domains.items():
+        add("elementwise", name, lambda lo=lo, hi=hi: [u(*N, lo=lo, hi=hi)],
+            kind="trans")
+    for name in ("floor", "ceil", "round", "rint", "fix", "trunc"):
+        # half-way values included: k / 2 for integers k
+        add("elementwise", name,
+            lambda: [torch.round(u(*N, lo=-20, hi=20)) / 2], kind="exact")
+    for name in ("cbrt", "rcbrt"):
+        add("elementwise", name, lambda: [away(*N)], kind="trans")
+    for name in ("isnan", "isinf", "logical_not"):
+        add("elementwise", name, specials, kind="exact")
+    for op in ("and", "or", "xor"):
+        add("elementwise", "_logical_" + op,
+            lambda: [choice([0.0, 1.5, -2.0], *N), choice([0.0, 3.0], *N)],
+            kind="exact")
+        add("elementwise", "broadcast_logical_" + op,
+            lambda: [choice([0.0, 1.5, -2.0], *N),
+                     choice([0.0, 3.0], 1, N[1])], kind="exact")
+        add("elementwise", "_logical_%s_scalar" % op,
+            lambda: [choice([0.0, 1.5, -2.0], *N)], {"scalar": 2.0},
+            kind="exact")
+    add("elementwise", "_mod", lambda: [away(*N, hi=9), away(*N)],
+        kind="trans")
+    # its rhs's gradient sums over every row: compared whole
+    add("elementwise", "broadcast_mod",
+        lambda: [away(*N, hi=9), away(1, N[1])], kind="trans", rows=False)
+    add("elementwise", "_mod_scalar", lambda: [away(*N, hi=9)],
+        {"scalar": -2.5}, kind="trans")
+    add("elementwise", "_rmod_scalar", lambda: [away(*N)], {"scalar": 7.0},
+        kind="trans")
+    add("elementwise", "_hypot", lambda: [u(*N), u(*N)], kind="trans")
+    add("elementwise", "broadcast_hypot", lambda: [u(*N), u(N[0], 1)],
+        kind="trans")
+    add("elementwise", "_hypot_scalar", lambda: [u(*N)], {"scalar": 1.5},
+        kind="trans")
+    add("elementwise", "quadratic", lambda: [u(*N)],
+        {"a": 2.0, "b": -3.0, "c": 1.0})
+    # reductions over 4096 terms a row
+    add("reductions", "prod", lambda: [u(*N, lo=0.99, hi=1.01)],
+        {"axis": 1}, kind="sum", rows=True)
+    add("reductions", "nansum", lambda: [
+        torch.where(torch.rand(N, generator=g) < 0.01,
+                    torch.tensor(float("nan")), u(*N))], {"axis": 1},
+        kind="sum", rows=True)
+    add("reductions", "nanprod", lambda: [
+        torch.where(torch.rand(N, generator=g) < 0.01,
+                    torch.tensor(float("nan")), u(*N, lo=0.99, hi=1.01))],
+        {"axis": 1, "keepdims": True}, kind="sum", rows=True)
+    add("reductions", "square_sum", lambda: [u(*N)], {"axis": 1},
+        kind="sum", rows=True)
+    IM = ITEM2_IMAGES
+    add("reductions", "L2Normalization", lambda: [u(IM, 256, 32, 32)],
+        {"mode": "channel"}, kind="sum")
+    # products
+    add("products", "dot", lambda: [u(*N), u(*N)], kind="sum")
+    MM = ITEM2_MM
+    add("products", "batch_dot", lambda: [u(*MM), u(*MM)],
+        {"transpose_b": True}, kind="sum")
+    add("products", "_matmul", lambda: [u(*MM), u(*MM)], kind="sum")
+    add("products", "add_n", lambda: [u(*N), u(*N), u(*N)], rows=True)
+    add("products", "khatri_rao", lambda: [u(*MM[:2]), u(*MM[:2])])
+    # ordering over logits, tie-free (normal) and with ties (few values)
+    for tag, make in (("", lambda: [torch.randn(L, generator=g)]),
+                      ("ties", lambda: [ints(50, *L)])):
+        add("ordering", "sort", make, {"axis": -1}, kind="exact")
+        add("ordering", "argsort", make, {"is_ascend": False},
+            kind="exact")
+        add("ordering", "topk", make, {"k": 10, "ret_typ": "both"},
+            kind="exact")
+        add("ordering", "topk", make, {"k": 10, "ret_typ": "mask",
+                                       "is_ascend": True}, kind="exact")
+    add("ordering", "argmin", lambda: [torch.randn(L, generator=g)],
+        {"axis": 1}, kind="exact")
+    add("ordering", "argmax_channel", lambda: [torch.randn(L, generator=g)],
+        kind="exact")
+    add("losses", "smooth_l1", lambda: [u(*N, lo=-2, hi=2)], {"scalar": 1.5})
+    add("losses", "softmax_cross_entropy",
+        lambda: [torch.randn(L, generator=g) * 3, ints(L[1], L[0])],
+        kind="sum")
+    # shape and index, assignment
+    M = ITEM2_M
+    P = M[0] * M[1] // 16    # the index ops' points
+    add("shape_index", "slice", lambda: [u(*M)],
+        {"begin": (M[0] - 96, None), "end": (None, M[1] // 40),
+         "step": (-3, 2)},
+        kind="exact")
+    add("shape_index", "slice_like", lambda: [u(*M), u(M[0] // 2,
+                                                      M[1] // 4)],
+        kind="exact")
+    add("shape_index", "broadcast_axis", lambda: [u(M[0], 1)],
+        {"axis": 1, "size": M[1]}, kind="exact")
+    add("shape_index", "broadcast_like", lambda: [u(1, M[1]), u(*M)],
+        kind="exact")
+    add("shape_index", "repeat", lambda: [u(M[0] // 2, M[1])],
+        {"repeats": 2, "axis": 0}, kind="exact")
+    add("shape_index", "flip", lambda: [u(*M)], {"axis": (0, 1)},
+        kind="exact")
+    add("shape_index", "gather_nd",
+        lambda: [u(*M), unique_points(P, M)], kind="exact")
+    add("shape_index", "scatter_nd",
+        lambda: [u(P), ints(M[0], 2, P)], {"shape": M},
+        kind="sum")
+    add("shape_index", "batch_take", lambda: [u(*L), ints(L[1], L[0])],
+        kind="exact")
+    add("shape_index", "shape_array", lambda: [u(*M)], kind="exact")
+    add("shape_index", "size_array", lambda: [u(*M)], kind="exact")
+    add("shape_index", "diag", lambda: [u(*M)], {"k": 3}, kind="exact")
+    add("shape_index", "depth_to_space", lambda: [u(IM, 256, 32, 32)],
+        {"block_size": 2}, kind="exact")
+    add("shape_index", "space_to_depth", lambda: [u(IM, 64, 64, 64)],
+        {"block_size": 2}, kind="exact")
+    add("shape_index", "SequenceLast",
+        lambda: [u(35, 64, 1024), ints(35, 64) + 1],
+        {"use_sequence_length": True}, kind="exact")
+    add("shape_index", "SequenceReverse",
+        lambda: [u(35, 64, 1024), ints(35, 64) + 1],
+        {"use_sequence_length": True}, kind="exact")
+    # assignment
+    add("assignment", "_slice_assign", lambda: [u(*M), u(M[0] // 2,
+                                                         M[1] // 2)],
+        {"begin": (None, 1), "end": (None, None), "step": (-2, 2)},
+        kind="exact")
+    add("assignment", "_slice_assign_scalar", lambda: [u(*M)],
+        {"scalar": 2.5, "begin": (M[0] // 40, 0), "end": (M[0] * 3 // 4,
+                                                          None),
+         "step": (3, -1)}, kind="exact")
+    add("assignment", "_scatter_set_nd",
+        lambda: [u(*M), u(P), unique_points(P, M)],
+        {"shape": M}, kind="exact")
+    add("assignment", "_scatter_plus_scalar", lambda: [u(*M)],
+        {"scalar": 1.5})
+    add("assignment", "_scatter_minus_scalar", lambda: [u(*M)],
+        {"scalar": 1.5})
+    add("assignment", "_scatter_elemwise_div", lambda: [u(*M), away(*M)])
+    add("assignment", "choose_element_0index",
+        lambda: [u(*L), ints(L[1], L[0])], kind="exact")
+    add("assignment", "fill_element_0index",
+        lambda: [u(*L), u(L[0]), ints(L[1], L[0])], kind="exact")
+    add("assignment", "_grad_add", lambda: [u(*M), u(*M)])
+    add("assignment", "_identity_with_attr_like_rhs",
+        lambda: [u(*M), u(*M)], kind="exact")
+    # linalg on 64 128 x 128 matrices
+    add("linalg", "linalg_gemm", lambda: [u(*B), u(*B), u(*B)],
+        {"transpose_b": True, "alpha": 2.0, "beta": 0.5}, kind="linalg")
+    add("linalg", "linalg_gemm2", lambda: [u(*B), u(*B)],
+        {"transpose_a": True}, kind="linalg")
+    add("linalg", "linalg_potrf", spd, kind="linalg")
+    add("linalg", "linalg_potri", lambda: [lower()], kind="linalg")
+    for transpose in (False, True):
+        for rightside in (False, True):
+            for low in (False, True):
+                add("linalg", "linalg_trsm",
+                    lambda low=low: [lower() if low
+                                     else lower().transpose(1, 2)
+                                     .contiguous(), u(*B)],
+                    {"transpose": transpose, "rightside": rightside,
+                     "lower": low, "alpha": 1.5}, kind="linalg")
+    add("linalg", "linalg_trmm", lambda: [lower(), u(*B)],
+        {"rightside": True}, kind="linalg")
+    add("linalg", "linalg_sumlogdiag", spd, kind="linalg")
+    add("linalg", "linalg_syrk", lambda: [u(*B)], {"alpha": 0.5},
+        kind="linalg")
+    add("linalg", "linalg_gelqf", lambda: [u(*B)], kind="signed")
+    add("linalg", "linalg_syevd", spd_separated, kind="signed")
+    # nn
+    add("nn", "hard_sigmoid", lambda: [u(*N, lo=-4, hi=4)])
+    add("nn", "softmin", lambda: [u(*L, lo=-3, hi=3)], kind="trans")
+    add("nn", "SoftmaxActivation", lambda: [u(IM, 256, 32, 32)],
+        {"mode": "channel"}, kind="trans")
+    add("nn", "LRN", lambda: [u(IM, 96, 55, 55)], {"nsize": 5},
+        kind="trans")
+    add("nn", "UpSampling", lambda: [u(IM, 256, 28, 28)], {"scale": 2},
+        kind="exact")
+    add("nn", "UpSampling", lambda: [u(IM, 256, 28, 28)],
+        {"scale": 2, "sample_type": "bilinear"}, kind="trans")
+    add("nn", "Crop", lambda: [u(IM, 3, 224, 224)],
+        {"h_w": (200, 200), "center_crop": True}, kind="exact")
+
+    def theta():
+        return torch.tensor([[1.0, 0, 0, 0, 1, 0]]) + u(IM, 6, lo=-0.3,
+                                                        hi=0.3)
+
+    add("nn", "GridGenerator", lambda: [theta()],
+        {"target_shape": (224, 224)}, kind="trans")
+    add("nn", "BilinearSampler",
+        lambda: [u(IM, 3, 224, 224), u(IM, 2, 224, 224, lo=-1.1, hi=1.1)],
+        kind="trans")
+    add("nn", "SpatialTransformer", lambda: [u(IM, 3, 224, 224), theta()],
+        {"target_shape": (224, 224)}, kind="trans")
+    add("nn", "ROIPooling", lambda: [u(8, 256, 38, 50), roi_boxes(
+        torch, g, ITEM2_ROIS, 8, 600, 800)],
+        {"pooled_size": (7, 7), "spatial_scale": 1.0 / 16}, kind="exact")
+    add("nn", "Correlation", lambda: [u(*ITEM2_CORR), u(*ITEM2_CORR)],
+        {"max_displacement": 4}, kind="sum")
+    add("nn", "IdentityAttachKLSparseReg", lambda: [u(256, N[1], lo=0.05,
+                                                      hi=0.95)],
+        {"sparseness_target": 0.2, "penalty": 0.01}, kind="trans")
+    add("nn", "_contrib_AdaptiveAvgPooling2D", lambda: [u(IM, 2048, 14, 14)],
+        {"output_size": 7}, kind="sum")
+    add("nn", "_contrib_BilinearResize2D", lambda: [u(IM, 256, 28, 28)],
+        {"height": 56, "width": 56}, kind="trans")
+    add("nn", "_contrib_BilinearResize2D", lambda: [u(IM, 256, 28, 28)],
+        {"height": 13, "width": 9}, kind="trans")
+    add("nn", "_image_to_tensor", lambda: [
+        torch.randint(0, 256, (IM, 224, 224, 3), generator=g).to(
+            torch.uint8)], kind="arith")
+    add("nn", "_image_normalize", lambda: [u(IM, 3, 224, 224, lo=0, hi=1)],
+        {"mean": (0.485, 0.456, 0.406), "std": (0.229, 0.224, 0.225)},
+        kind="trans")
+    add("contrib", "_contrib_div_sqrt_dim", lambda: [u(IM, 8, 256, 128)],
+        kind="trans")
+    return cases
+
+
+#: the aliases phase 21a runs once each, with their op's first case
+ITEM2_ALIASES = {
+    "crop": "slice", "reverse": "flip", "broadcast_axes": "broadcast_axis",
+    "ElementWiseSum": "add_n", "_sum": "add_n", "_square_sum": "square_sum",
+    "make_loss_identity": None, "_contrib_quadratic": "quadratic",
+    "_crop_assign": "_slice_assign",
+    "_crop_assign_scalar": "_slice_assign_scalar"}
+ITEM2_ALIASES.update({"_linalg_" + n: "linalg_" + n for n in (
+    "gemm", "gemm2", "potrf", "potri", "trsm", "trmm", "sumlogdiag",
+    "syrk", "gelqf", "syevd")})
+
+
+def roi_boxes(torch, g, R, N, H, W):
+    """R ROIs (batch, x1, y1, x2, y2) over N images of H x W pixels."""
+    b = torch.randint(0, N, (R, 1), generator=g).float()
+    xy = torch.rand(R, 2, generator=g) * torch.tensor([W * 0.8, H * 0.8])
+    wh = torch.rand(R, 2, generator=g) * torch.tensor([W * 0.5, H * 0.5]) \
+        + 16
+    x2y2 = torch.minimum(xy + wh, torch.tensor([W - 1.0, H - 1.0]))
+    return torch.cat([b, xy, x2y2], dim=1)
+
+
+def item2_err(torch, got, want):
+    """max |got - want| / max(1, max |want|) over the finite entries;
+    inf where the non-finite entries or the shapes and dtypes differ."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return float("inf")
+    got = got.cpu()
+    if not got.is_floating_point():
+        return 0.0 if torch.equal(got, want) else float("inf")
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)) or not torch.equal(
+            got[~fin], want[~fin]):
+        return float("inf")
+    diff = (got[fin].float() - want[fin].float()).abs()
+    if not diff.numel():
+        return 0.0
+    return float(diff.max()) / max(1.0, float(want[fin].abs().max()))
+
+
+def item2_signed(torch, name, a, outs):
+    """gelqf / syevd on the card by reconstruction (L Q = A with Q Q^T = I
+    and L lower; A V^T^T = V^T^T diag(w)), relative to max |A|."""
+    a = a.double()
+    if name == "linalg_gelqf":
+        L, Q = (o.double() for o in outs)
+        eye = torch.eye(Q.shape[-2], dtype=torch.float64, device=Q.device)
+        err = max(float((L @ Q - a).abs().max()),
+                  float((Q @ Q.transpose(1, 2) - eye).abs().max()),
+                  float(torch.triu(L, 1).abs().max()))
+    else:
+        Vt, w = (o.double() for o in outs)
+        V = Vt.transpose(1, 2)
+        err = float((a @ V - V * w[:, None, :]).abs().max())
+    return err / max(1.0, float(a.abs().max()))
+
+
+def item2_up_to_sign(torch, got, want, axis):
+    """got against want with each row (axis -2) or column (axis -1) of
+    want flipped to got's sign."""
+    got = got.cpu()
+    dots = (got.double() * want.double()).sum(dim=-1 if axis == -2 else -2,
+                                              keepdim=True)
+    return item2_err(torch, got, (want.double() * torch.sign(dots)).to(
+        want.dtype))
+
+
+def item2_grads(torch, fn, ins, params, signed, cts):
+    """Gradients of the op's float inputs under the cotangents `cts` (one
+    per output; for gelqf / syevd the weights of the sign-free sum(c1
+    X^2) + sum(c2 Y^2))."""
+    ins = [t.detach().clone().requires_grad_(t.is_floating_point())
+           for t in ins]
+    outs = fn(*ins, **params)
+    outs = list(outs) if isinstance(outs, (tuple, list)) else [outs]
+    pairs = [(o, c.to(o.device, o.dtype)) for o, c in zip(outs, cts)
+             if o.requires_grad]
+    leaves = [t for t in ins if t.requires_grad]
+    if not pairs:
+        return []
+    if signed:
+        grads = torch.autograd.grad(sum((c * o * o).sum() for o, c in pairs),
+                                    leaves)
+    else:
+        grads = torch.autograd.grad([o for o, _ in pairs], leaves,
+                                    [c for _, c in pairs], allow_unused=True)
+    return [torch.zeros_like(t) if gr is None else gr.detach()
+            for t, gr in zip(leaves, grads)]
+
+
+def item2_eig_tol(torch, a, w):
+    """The tolerance syevd's eigenvectors (and the gradients through
+    them) are held to against the CPU: ITEM2_TOL's linalg, or where the
+    problem allows no better, 4 float32 epsilons of ||A||_F over the
+    smallest eigenvalue gap (an eigenvector moves by about the solver's
+    backward error over the gap; the card's Jacobi solver stops at a
+    backward error near eps ||A||_F, the CPU's LAPACK well below it)."""
+    gaps = (w[..., 1:] - w[..., :-1]).double().clamp_min(1e-30)
+    fro = torch.linalg.matrix_norm(a.double())
+    bound = 4 * torch.finfo(torch.float32).eps * float(
+        (fro / gaps.min(dim=-1).values).max())
+    return max(ITEM2_TOL["linalg"], bound)
+
+
+def phase_item2_ops(torch, np, dev, card):
+    """Phase 21a: every name of ROADMAP item 2 (and once each, its
+    aliases) on the card at a user's size (item2_cases), through
+    mx.nd.<name> on NDArrays of the card, held against the same call on
+    the CPU, and where the reference differentiates it, its gradients
+    against the CPU's, within ITEM2_TOL; gelqf and syevd by
+    reconstruction and against the CPU up to each row's sign. Prints,
+    per family, the count, the largest error and the card ms (time_ms)
+    of its calls."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+    families, first_case, names, walls, card_ms = {}, {}, set(), [], {}
+    for i, (family, name, make, params, kind, rows) in enumerate(
+            item2_cases(torch, dev)):
+        first_case.setdefault(name, (make, params, kind, rows))
+        names.add(name)
+        t0 = time.perf_counter()
+        with torch.device(dev):
+            inputs = make()
+        err, gerr, ms, tol, gtol = item2_one(
+            torch, mx, registry, name, inputs, params, kind, dev, i,
+            grads=True, rows=rows)
+        walls.append((time.perf_counter() - t0, name))
+        key = name if name not in card_ms else "%s#%d" % (name, i)
+        card_ms[key] = ms
+        fam = families.setdefault(family, {"count": 0, "max_err": 0.0,
+                                           "max_grad_err": 0.0,
+                                           "card_ms": 0.0, "wall_s": 0.0,
+                                           "tol": 0.0, "grad_tol": 0.0,
+                                           "names": set()})
+        fam["wall_s"] += walls[-1][0]
+        fam["tol"] = max(fam["tol"], tol)
+        fam["grad_tol"] = max(fam["grad_tol"], gtol)
+        fam["count"] += 1
+        fam["names"].add(name)
+        fam["max_err"] = max(fam["max_err"], err)
+        fam["max_grad_err"] = max(fam["max_grad_err"], gerr)
+        fam["card_ms"] += ms
+    aliases = {"count": 0, "max_err": 0.0, "card_ms": 0.0}
+    for alias, op in ITEM2_ALIASES.items():
+        if op is None:   # make_loss_identity: BlockGrad's alias
+            make, params, kind, rows = (lambda: [torch.randn(ITEM2_N)], {},
+                                        "exact", True)
+        else:
+            make, params, kind, rows = first_case[op]
+        with torch.device(dev):
+            inputs = make()
+        err, _, ms, _, _ = item2_one(torch, mx, registry, alias, inputs,
+                                     params, kind, dev, 0, grads=False,
+                                     rows=rows)
+        aliases["count"] += 1
+        aliases["max_err"] = max(aliases["max_err"], err)
+        aliases["card_ms"] += ms
+    out = {"card": card, "cases": sum(f["count"] for f in
+                                      families.values()),
+           "names": len(names), "aliases": aliases, "tol": ITEM2_TOL,
+           "slowest_cases_s": sorted(walls, reverse=True)[:8],
+           "card_ms_by_case": card_ms, "by_family": {}}
+    for family, f in families.items():
+        f["names"] = len(f["names"])
+        out["by_family"][family] = f
+        print("item 2 ops, %s (phase 21a): %d cases over %d names, max err "
+              "%.3g (tol %g), max grad err %.3g (tol %.3g), card %.3f ms, "
+              "%.1f s with the CPU's (%s)"
+              % (family, f["count"], f["names"], f["max_err"], f["tol"],
+                 f["max_grad_err"], f["grad_tol"], f["card_ms"],
+                 f["wall_s"], card))
+    print("item 2 ops (phase 21a): " + json.dumps(out))
+    return out
+
+
+def item2_one(torch, mx, registry, name, card_in, params, kind, dev, seed,
+              grads, rows=False):
+    """One case of phase 21a on inputs made on the card: (largest error,
+    largest gradient error, card ms of the mx.nd call, the tolerances
+    held); fails the phase past a tolerance. With `rows` the CPU computes
+    every ITEM2_ROW_STRIDE-th row of the inputs whose first axis is the
+    data's."""
+    opdef = registry.get(name)
+    nd_fn = getattr(mx.nd, name)
+    R = ITEM2_ROW_STRIDE if rows else 1
+    sliced = [R > 1 and t.dim() > 0 and t.shape[0] == card_in[0].shape[0]
+              for t in card_in]
+    ref_in = [(t[::R] if s else t).cpu() for t, s in zip(card_in, sliced)]
+    with mx.cpu():
+        want = nd_fn(*[mx.nd.NDArray(t) for t in ref_in], **params)
+    card_nds = [mx.nd.NDArray(t) for t in card_in]
+    got = nd_fn(*card_nds, **params)
+    want = [w._data for w in (want if isinstance(want, tuple) else (want,))]
+    got = [o._data for o in (got if isinstance(got, tuple) else (got,))]
+    check(all(o.device == dev for o in got), "%s: output not on %s"
+          % (name, dev))
+    signed = kind == "signed"
+    tol = gtol = ITEM2_TOL["linalg" if signed else kind]
+    if signed:
+        lq = opdef.name == "linalg_gelqf"
+        vec_tol = tol if lq else item2_eig_tol(torch, ref_in[0], want[1])
+        vec_err = item2_up_to_sign(torch, got[0], want[0], -1 if lq else -2)
+        check(vec_err <= vec_tol, "%s's %s on the card against the CPU up to "
+              "sign: %.3g > %.3g" % (name, "L" if lq else "V^T", vec_err,
+                                     vec_tol))
+        err = max(item2_signed(torch, opdef.name, card_in[0], got),
+                  item2_up_to_sign(torch, got[1], want[1], -2) if lq
+                  else item2_err(torch, got[1], want[1]))
+        gtol = vec_tol
+    else:
+        err = max(item2_err(torch, o[::R], w) for o, w in zip(got, want))
+    check(len(got) == len(want) and err <= tol,
+          "%s on the card against the CPU (%s): %.3g > %g"
+          % (name, params, err, tol))
+    gerr = 0.0
+    if grads and opdef.differentiable:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        cts = [torch.randn(o.shape, generator=g, device=dev) for o in got]
+        gc = item2_grads(torch, opdef.fn, ref_in, params, signed,
+                         [c[::R].cpu() for c in cts])
+        gg = item2_grads(torch, opdef.fn, card_in, params, signed, cts)
+        fl = [s for t, s in zip(card_in, sliced) if t.is_floating_point()]
+        gerr = max([item2_err(torch, a[::R] if s else a, b)
+                    for a, b, s in zip(gg, gc, fl)] or [0])
+        gtol = gtol or ITEM2_TOL["arith"]
+        check(gerr <= gtol, "%s gradient on the card against the CPU (%s): "
+              "%.3g > %g" % (name, params, gerr, gtol))
+    ms = time_ms(torch, lambda: nd_fn(*card_nds, **params), n=5,
+                 sleep=False)
+    return err, gerr, ms, tol, gtol
+
+
+def phase_paged_op(torch, np, dev, card):
+    """Phase 21b: K1 through `nd.contrib.PagedAttention` with
+    MXNET_PAGED_ATTENTION=1 at PAGED_OP_CASES (float32 and bfloat16),
+    and through `sym.contrib.PagedAttention` bound in an executor on the
+    card: paged_attention.launches rises by exactly the op calls; each
+    output within TOL of the flag-off composite on the same inputs.
+    Returns the op's launches."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    H, Dh, bs = 4, 128, 16
+    saved = os.environ.get("MXNET_PAGED_ATTENTION")
+    rows, calls, errs = [], 0, {}
+    pa.paged_attention.launches = 0
+    try:
+        for dname, dtype in (("float32", torch.float32),
+                             ("bfloat16", torch.bfloat16)):
+            for i, (label, B, Tq, w, q_starts) in enumerate(PAGED_OP_CASES):
+                args = paged_case(torch, np, dev, B, Tq, w, q_starts, dtype,
+                                  seed=300 + i, H=H, Dh=Dh, bs=bs)
+                nds = [mx.nd.NDArray(a) for a in args]
+                os.environ["MXNET_PAGED_ATTENTION"] = "0"
+                ref = mx.nd.contrib.PagedAttention(*nds, block_size=bs)
+                before = pa.paged_attention.launches
+                os.environ["MXNET_PAGED_ATTENTION"] = "1"
+                out = mx.nd.contrib.PagedAttention(*nds, block_size=bs)
+                torch.cuda.synchronize()
+                calls += 1
+                check(pa.paged_attention.launches == before + 1,
+                      "nd.contrib.PagedAttention (%s, %s) launched K1 %d "
+                      "times, not once" % (label, dname,
+                                           pa.paged_attention.launches
+                                           - before))
+                e = paged_check(torch, out._data, ref._data, dname,
+                                "PagedAttention op %s %s" % (label, dname))
+                errs[dname] = max(errs.get(dname, 0.0), e)
+                rows.append({"case": label, "dtype": dname, "B": B, "Tq": Tq,
+                             "w": w, "max_abs_err": e})
+        # the Symbol op bound on the card (float32 decode)
+        label, B, Tq, w, q_starts = PAGED_OP_CASES[0]
+        args = paged_case(torch, np, dev, B, Tq, w, q_starts, torch.float32,
+                          seed=310, H=H, Dh=Dh, bs=bs)
+        names = ["query", "k_pool", "v_pool", "block_table", "q_start"]
+        s = mx.sym.contrib.PagedAttention(
+            *[mx.sym.Variable(n, dtype=str(a.dtype).replace("torch.", ""))
+              for n, a in zip(names, args)], block_size=bs)
+        check(s.infer_shape(**{n: tuple(a.shape) for n, a in
+                               zip(names, args)})[1] == [tuple(args[0].shape)],
+              "sym.contrib.PagedAttention's inferred shape")
+        ex = s.bind(mx.gpu(dev.index or 0),
+                    {n: mx.nd.NDArray(a) for n, a in zip(names, args)},
+                    grad_req="null")
+        before = pa.paged_attention.launches
+        sym_out = ex.forward()[0]._data
+        torch.cuda.synchronize()
+        calls += 1
+        check(pa.paged_attention.launches == before + 1,
+              "the bound sym.contrib.PagedAttention launched K1 %d times"
+              % (pa.paged_attention.launches - before))
+        os.environ["MXNET_PAGED_ATTENTION"] = "0"
+        ref = mx.nd.contrib.PagedAttention(
+            *[mx.nd.NDArray(a) for a in args], block_size=bs)._data
+        e = paged_check(torch, sym_out, ref, "float32", "bound Symbol op")
+        errs["float32"] = max(errs["float32"], e)
+        rows.append({"case": "symbol_" + label, "dtype": "float32",
+                     "max_abs_err": e})
+        launches = pa.paged_attention.launches
+    finally:
+        if saved is None:
+            os.environ.pop("MXNET_PAGED_ATTENTION", None)
+        else:
+            os.environ["MXNET_PAGED_ATTENTION"] = saved
+    check(launches == calls, "K1 launches %d != the op's %d calls"
+          % (launches, calls))
+    out = {"card": card, "calls": calls, "launches": launches,
+           "max_abs_err": errs, "tol": TOL, "cases": rows}
+    print("paged attention op (phase 21b): " + json.dumps(out))
+    return launches
+
+
+_EXAMPLE_ALIASES = ("mxnet_tpu", "mxnet_tpu.gluon")
+
+
+def load_example(fname, pkg=None):
+    """examples/<fname> as a fresh module whose `import mxnet_tpu` (and
+    its gluon) resolve to `pkg` while it imports, by default
+    `mxnet_tpu_torch`: the example runs on the port unchanged, and
+    nothing of the JAX package loads (the CPU tests pass the reference
+    itself for the other side)."""
+    import importlib.util
+    if pkg is None:
+        import mxnet_tpu_torch as pkg
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", fname)
+    spec = importlib.util.spec_from_file_location(
+        "%s_%s" % (fname[:-3], pkg.__name__), path)
+    module = importlib.util.module_from_spec(spec)
+    saved = {k: sys.modules.get(k) for k in _EXAMPLE_ALIASES}
+    sys.modules.update({"mxnet_tpu": pkg, "mxnet_tpu.gluon": pkg.gluon})
+    try:
+        spec.loader.exec_module(module)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    return module
+
+
+def phase_nce_example(torch, np, dev, card):
+    """Phase 21c: examples/nce_word_embeddings.py at its defaults (400
+    Adam steps, vocab 50, dim 16, 8 noise words, batch 128) on the port,
+    the default context gpu(0): its own final check must pass (main()
+    returns 0: the loss falls and the true successor wins > 75 %)."""
+    import mxnet_tpu_torch as mx
+    module = load_example("nce_word_embeddings.py")
+    check("mxnet_tpu_torch" in module.mx.__name__,
+          "the example did not load the port")
+    mx.random.seed(0)
+    argv = sys.argv
+    sys.argv = ["nce_word_embeddings.py"]
+    t0 = time.perf_counter()
+    try:
+        with mx.gpu(dev.index or 0):
+            rc = module.main()
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check(rc == 0, "examples/nce_word_embeddings.py failed its own check "
+          "on the card (rc %s)" % rc)
+    out = {"card": card, "steps": 400, "seconds": secs, "rc": rc}
+    print("nce example (phase 21c): " + json.dumps(out))
+    return out
+
+
+def sd_run(torch, np, mx, module, dev, hybridize, batches, seed):
+    """SD_STEPS Adam steps of the stochastic-depth net from one set of
+    seeded weights, under generator seed `seed`: the losses and each
+    step's uniform draws (shape, value, device)."""
+    import functools
+    from mxnet_tpu_torch.ops import registry
+    ctx = mx.gpu(dev.index or 0)
+    opdef = registry.get("_random_uniform")
+    orig = opdef.fn
+    draws = []
+
+    @functools.wraps(orig)
+    def recorded(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        if out.device.type != "meta" and draws:
+            draws[-1].append((tuple(out.shape), float(out.reshape(-1)[0]),
+                              str(out.device)))
+        return out
+
+    with ctx:
+        mx.random.seed(0)
+        net = module.build(SD_BLOCKS, SD_P_LAST)
+        net.initialize(mx.init.Xavier())
+        net(mx.nd.array(batches[0][0]))  # deferred shapes
+        for i, (_, p) in enumerate(sorted(net.collect_params().items())):
+            p.set_data(mx.nd.array(np.random.RandomState(i).uniform(
+                -0.1, 0.1, p.shape).astype(np.float32)))
+        if hybridize:
+            net.hybridize()
+        trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                   {"learning_rate": 0.001})
+        ce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        mx.random.seed(seed)
+        losses = []
+        opdef.fn = recorded
+        try:
+            for x, y in batches:
+                draws.append([])
+                with mx.autograd.record():
+                    loss = ce(net(mx.nd.array(x)), mx.nd.array(y))
+                loss.backward()
+                trainer.step(x.shape[0])
+                losses.append(float(loss.mean().asscalar()))
+        finally:
+            opdef.fn = orig
+    return losses, draws, net
+
+
+def phase_stochastic_depth(torch, np, dev, card):
+    """Phase 21d: examples/stochastic_depth.py's net (build(), 4 blocks)
+    hybridized on the card, SD_STEPS Adam steps on seeded (SD_BATCH, 1,
+    28, 28) batches with cuDNN deterministic: each step draws 4 fresh
+    (1, 1, 1, 1) gates on the card (no two steps alike), a reseeded run
+    repeats the draws and the losses, and the eager net under the same
+    seed gives the same losses within 1e-5."""
+    import mxnet_tpu_torch as mx
+    module = load_example("stochastic_depth.py")
+    rs = np.random.RandomState(9)
+    batches = [(rs.rand(SD_BATCH, 1, 28, 28).astype(np.float32),
+                rs.randint(0, 10, SD_BATCH).astype(np.float32))
+               for _ in range(SD_STEPS)]
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        hyb, draws, net = sd_run(torch, np, mx, module, dev, True, batches,
+                                 seed=1)
+        hyb_s = time.perf_counter() - t0
+        again, draws2, _ = sd_run(torch, np, mx, module, dev, True, batches,
+                                  seed=1)
+        eager, draws_e, _ = sd_run(torch, np, mx, module, dev, False,
+                                   batches, seed=1)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    check(net._cached_graph is not None, "the hybridized net ran eagerly")
+    check([len(d) for d in draws] == [SD_BLOCKS] * SD_STEPS,
+          "gates drawn per step: %s" % [len(d) for d in draws])
+    check(all(s == (1, 1, 1, 1) and dv.startswith(dev.type)
+              for d in draws for s, _, dv in d),
+          "gate draws not (1, 1, 1, 1) on the card: %s" % draws[0])
+    vals = [tuple(v for _, v, _ in d) for d in draws]
+    check(len(set(vals)) == SD_STEPS, "two steps drew the same gates")
+    check(draws2 == draws and again == hyb,
+          "a reseeded run did not repeat the gates and losses")
+    check(draws_e == draws, "the eager net drew other gates")
+    err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(hyb, eager))
+    check(err <= 1e-5, "hybridized losses against eager: %.3g > 1e-5" % err)
+    check(all(math.isfinite(v) for v in hyb), "non-finite loss")
+    out = {"card": card, "batch": SD_BATCH, "steps": SD_STEPS,
+           "losses": hyb, "eager_losses": eager, "max_rel_err": err,
+           "gate_shape": [1, 1, 1, 1], "hybridized_s": hyb_s}
+    print("stochastic depth hybridized (phase 21d): " + json.dumps(out))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4986,6 +5796,10 @@ def main():
         guard_k3, resume_k4, _ = phase_guard_probe_resume(
             torch, np, dev, smi)
         phase_data(torch, np, dev, smi)
+        phase_item2_ops(torch, np, dev, smi)
+        op_launches = phase_paged_op(torch, np, dev, smi)
+        phase_nce_example(torch, np, dev, smi)
+        phase_stochastic_depth(torch, np, dev, smi)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -4996,7 +5810,10 @@ def main():
         "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "mxnet_tpu/ops/pallas_paged.py:108",
-        "launches": launches,
+        # the serving main path's (phase 4) and the contrib op's (21b)
+        "launches": launches + op_launches,
+        "launches_by_path": {"serving_main_path": launches,
+                             "contrib_paged_attention_op": op_launches},
         "max_abs_err": errs["float32"],
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],

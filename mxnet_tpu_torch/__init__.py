@@ -28,7 +28,11 @@ RNN workflow (`rnn`: the cells, `BucketSentenceIter`; `mod.BucketingModule`,
 `FusedRNNCell` reaches the fused-RNN kernels through the executor; and
 the rest of Gluon (the model zoo's other families, the remaining layers,
 losses and recurrent cells, `gluon.contrib`), whose BatchNorms reach the
-fused BatchNorm kernels eagerly and hybridized.
+fused BatchNorm kernels eagerly and hybridized; and the rest of the
+dense op library with its namespaces (`nd.linalg`, `nd.contrib`,
+`sym.random`, `sym.linalg`, `sym.contrib`, `contrib.ndarray` /
+`contrib.symbol`), whose `_contrib_PagedAttention` reaches the
+paged-attention kernel from the op registry.
 """
 from .base import MXNetError, resolve_device
 from .context import Context, cpu, current_context, gpu, num_gpus
@@ -41,6 +45,7 @@ from . import ndarray as nd
 from .ndarray import NDArray
 from . import optimizer
 from . import random
+from .random import seed
 from . import attribute
 from .attribute import AttrScope
 from . import symbol
@@ -66,12 +71,13 @@ from . import rnn
 from . import models
 from . import test_utils
 from . import visualization
+from . import contrib
 
 __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "autograd", "initializer", "init",
-           "name", "ndarray", "nd", "NDArray", "optimizer", "random",
+           "name", "ndarray", "nd", "NDArray", "optimizer", "random", "seed",
            "attribute", "AttrScope", "symbol", "sym", "Symbol", "executor",
            "lr_scheduler", "metric", "kvstore", "kv", "io", "gluon",
            "model", "FeedForward", "symbol_doc", "module", "mod",
            "callback", "executor_manager", "monitor", "mon", "rnn",
-           "models", "test_utils", "visualization"]
+           "models", "test_utils", "visualization", "contrib"]

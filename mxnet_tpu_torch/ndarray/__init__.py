@@ -9,8 +9,11 @@ The sampling namespace is `nd.random`; its functions also populate
 do. `load` reads the named .npz container and MXNet's own binary .params
 format (utils/legacy.py). The optimizer update ops (`sgd_update`,
 `adam_update`, ...) write their state arguments in place and honour
-`out=`, as the reference's do. Not ported yet: sparse arrays, linalg and
-contrib (ROADMAP.md, queue 1).
+`out=`, as the reference's do. The sub-namespaces `nd.linalg` (the
+`linalg_*` ops without their prefix), `nd.contrib` (every `_contrib_*`
+op under its short name, `quadratic`, `rand_zipfian` and `foreach`) and
+`nd.op` (this namespace again) are the reference's. Not ported yet:
+sparse arrays (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -18,9 +21,10 @@ import numpy as _np
 import torch as _torch
 
 from ..base import torch_dtype as _torch_dtype
-from ..context import current_context as _current_context
+from ..context import current_context
 from ..base import MXNetError as _MXNetError
-from ..ops import nn as _ops_nn  # noqa: F401  (registers the ops)
+from ..ops import contrib as _ops_contrib  # noqa: F401  (registers ops)
+from ..ops import nn as _ops_nn  # noqa: F401
 from ..ops import optimizer_ops as _ops_optimizer
 from ..ops import random_ops as _ops_random  # noqa: F401
 from ..ops import registry as _registry
@@ -66,7 +70,7 @@ for _uname, _upos in _ops_optimizer.UPDATE_OP_STATES.items():
 
 
 def _device(ctx):
-    return (ctx if ctx is not None else _current_context()).torch_device()
+    return (ctx if ctx is not None else current_context()).torch_device()
 
 
 def array(source_array, ctx=None, dtype=None):
@@ -155,6 +159,34 @@ def concatenate(arrays, axis=0, always_copy=True):
                    ctx=arrays[0].context)
 
 
+def moveaxis(data, source, destination):
+    """data with axis `source` moved to `destination`."""
+    return NDArray(_torch.movedim(data._data.detach(), source, destination),
+                   ctx=data.context)
+
+
+def split_v2(ary, indices_or_sections, axis=0, squeeze_axis=False):
+    """numpy.split: `indices_or_sections` equal parts (an uneven split
+    raises) or the parts between the given indices."""
+    t = ary._data.detach()
+    if _np.isscalar(indices_or_sections) and \
+            t.shape[axis] % int(indices_or_sections):
+        raise ValueError("array split does not result in an equal division")
+    parts = _torch.tensor_split(
+        t, indices_or_sections if _np.isscalar(indices_or_sections)
+        else [int(i) for i in indices_or_sections], dim=axis)
+    if squeeze_axis:
+        parts = [_torch.squeeze(p, axis) for p in parts]
+    return [NDArray(p, ctx=ary.context) for p in parts]
+
+
+def onehot_encode(indices, out):
+    """One-hot rows of indices written into `out` (depth out.shape[1])."""
+    res = globals()["one_hot"](indices, depth=out.shape[1])
+    out._data = res._data
+    return out
+
+
 def _mixed_binary(tensor_op, scalar_op, rscalar_op=None):
     """nd.add and friends: array or scalar on either side."""
     def fn(lhs, rhs):
@@ -185,8 +217,12 @@ divide = _mixed_binary("broadcast_div", "_div_scalar", "_rdiv_scalar")
 true_divide = divide
 
 
-# sub-namespace (parity: mxnet.ndarray.random), and mx.random.* from it
+# sub-namespaces (parity: mxnet.ndarray.random / .linalg / .contrib /
+# .op), and mx.random.* from the first
 from . import random  # noqa: E402
+from . import linalg  # noqa: E402
+from . import contrib  # noqa: E402
+from . import op  # noqa: E402
 from .. import random as _random_mod  # noqa: E402
 
 for _name in ("uniform", "normal", "randn", "gamma", "exponential",

@@ -263,6 +263,43 @@ class NDArray:
     def __rtruediv__(self, other):
         return self._binary(other, "broadcast_div", "_rdiv_scalar")
 
+    __div__ = __truediv__
+    __rdiv__ = __rtruediv__
+
+    def __mod__(self, other):
+        return self._binary(other, "broadcast_mod", "_mod_scalar")
+
+    def __rmod__(self, other):
+        return self._binary(other, "broadcast_mod", "_rmod_scalar")
+
+    def __and__(self, other):
+        return self._binary(other, "broadcast_logical_and",
+                            "_logical_and_scalar")
+
+    __rand__ = __and__
+
+    def __or__(self, other):
+        return self._binary(other, "broadcast_logical_or",
+                            "_logical_or_scalar")
+
+    __ror__ = __or__
+
+    def __xor__(self, other):
+        return self._binary(other, "broadcast_logical_xor",
+                            "_logical_xor_scalar")
+
+    __rxor__ = __xor__
+
+    def __invert__(self):
+        from . import logical_not
+        return logical_not(self)
+
+    def __matmul__(self, other):
+        if not isinstance(other, NDArray):
+            return NotImplemented
+        from . import _matmul
+        return _matmul(self, other)
+
     def __pow__(self, other):
         return self._binary(other, "broadcast_power", "_power_scalar")
 

@@ -10,5 +10,8 @@
 (hand-written kernels: csrc/fused_rnn.cu).
 `ops.quantization` — int8 per-channel weights and the s8 x s8 -> s32
 matmul of quantized serving (no kernel of its own).
+`ops.contrib` — khatri_rao, _contrib_div_sqrt_dim and
+_contrib_PagedAttention, the last on the paged-attention kernel with
+MXNET_PAGED_ATTENTION=1.
 Import the modules themselves; each entry function has its module's name.
 """

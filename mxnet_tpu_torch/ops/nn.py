@@ -1,10 +1,13 @@
-"""Neural-network ops of the ResNet and word-LM training paths (port of
-the matching share of `mxnet_tpu/ops/nn.py`): Activation, LeakyReLU
-(leaky, prelu, elu, selu, rrelu), softmax / log_softmax, the loss heads
-the symbolic models end in (SoftmaxOutput, the regression outputs,
+"""Neural-network ops (port of `mxnet_tpu/ops/nn.py`, all of it):
+Activation, LeakyReLU (leaky, prelu, elu, selu, rrelu), hard_sigmoid,
+softmax / log_softmax / softmin / SoftmaxActivation, the loss heads the
+symbolic models end in (SoftmaxOutput, the regression outputs,
 SVMOutput, make_loss), FullyConnected, Convolution, Deconvolution,
 Pooling, BatchNorm, _contrib_BatchNormAddRelu, LayerNorm, InstanceNorm,
-Dropout and the fused multi-layer RNN op.
+LRN, Dropout, the fused multi-layer RNN op, UpSampling and the resizing
+ops, the spatial transforms (GridGenerator, BilinearSampler,
+SpatialTransformer), ROIPooling, Correlation, Crop,
+IdentityAttachKLSparseReg and the image ops.
 
 Convolutions, fully connected layers and pooling run outside any Pallas
 kernel in the reference (lax.conv_general_dilated, jnp.matmul,
@@ -18,8 +21,7 @@ MXNET_FUSED_BN_EPILOGUE=1, in training mode, for channel axis 1, float32
 or bfloat16 data and (for the residual op) an addend of the same shape,
 they call `ops.fused_bn.fused_bn_act`, whose K3a-d kernels run on the
 card; everything else composes the same math from torch ops, exactly as
-the reference composes it from XLA ops. The rest of the reference file is
-listed in ROADMAP.md, queue 1.
+the reference composes it from XLA ops.
 
 Inside a segment of TrainStep(remat="io") a Convolution's output, a
 FullyConnected's product and a training BatchNorm's batch statistics are
@@ -36,6 +38,11 @@ with MXNET_FUSED_RNN=1 (or `fused=True`) for lstm, rnn_relu and rnn_tanh,
 through `ops.fused_rnn`, whose K4a-b kernels run on the card. Dropout and
 the RNN op's inter-layer dropout draw their masks from the port's
 generators (`mxnet_tpu_torch.random`).
+
+The resizing ops keep jax.image.resize's sampling: half-pixel centres,
+and a triangle filter widened when an axis shrinks, which is torch's
+antialiased bilinear interpolation in either direction; its "nearest" is
+torch's "nearest-exact".
 """
 from __future__ import annotations
 
@@ -473,6 +480,14 @@ def Pooling(data, kernel=(), pool_type="max", global_pool=False,
             extra[i] = max(0, (n_out - 1) * stride[i] + kernel[i] - size)
     sizes = [(x.shape[2 + i] + 2 * pad[i] + extra[i] - kernel[i])
              // stride[i] + 1 for i in range(nd)]
+    if not nd:
+        # no spatial axis: each window is one element (the reference's
+        # reduce_window over an empty window), so max / avg / sum give
+        # the input back
+        if pool_type == "lp":
+            return torch.pow(torch.pow(torch.abs(data), p_value),
+                             1.0 / p_value)
+        return data
     if min(sizes) <= 0:
         # a window wider than the padded input: an empty result, as the
         # reference's reduce_window gives (still attached to the graph)
@@ -864,3 +879,316 @@ def RNN(data, parameters, state, state_cell=None, state_size=0, num_layers=1,
             return out, hT, torch.stack(cTs)
         return out, hT
     return out
+
+
+# ---------------------------------------------------------------------------
+# the rest of the activations and softmax family
+# ---------------------------------------------------------------------------
+
+
+@register("hard_sigmoid")
+def hard_sigmoid(data, alpha=0.2, beta=0.5):
+    return torch.clamp(alpha * data + beta, 0.0, 1.0)
+
+
+@register("softmin")
+def softmin(data, axis=-1, temperature=None):
+    x = _promote(data)
+    x = x / temperature if temperature else x
+    return torch.softmax(-x, dim=axis)
+
+
+@register("SoftmaxActivation")
+def SoftmaxActivation(data, mode="instance"):
+    """softmax over the channel axis ("channel") or over everything but
+    the batch axis ("instance")."""
+    x = _promote(data)
+    if mode == "channel":
+        return torch.softmax(x, dim=1)
+    return torch.softmax(x.reshape(x.shape[0], -1), dim=-1).reshape(x.shape)
+
+
+@register("LRN")
+def LRN(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across channels (NCHW)."""
+    sq = torch.square(data)
+    half = nsize // 2
+    padded = F.pad(sq, (0, 0, 0, 0, half, half))
+    windows = padded[:, 0:data.shape[1]]
+    for i in range(1, nsize):
+        windows = windows + padded[:, i:i + data.shape[1]]
+    return data / torch.pow(knorm + (alpha / nsize) * windows, beta)
+
+
+# ---------------------------------------------------------------------------
+# UpSampling and resizing: jax.image.resize's "bilinear" samples at
+# half-pixel centres and widens its triangle filter when it shrinks (an
+# antialiased resize), which is F.interpolate(mode="bilinear",
+# align_corners=False, antialias=True) whichever way each axis goes; its
+# "nearest" is half-pixel nearest, torch's "nearest-exact"
+# ---------------------------------------------------------------------------
+
+
+def _resize_bilinear(x, h, w):
+    return F.interpolate(x, size=(int(h), int(w)), mode="bilinear",
+                         align_corners=False, antialias=True)
+
+
+@register("UpSampling")
+def UpSampling(*data, scale=1, sample_type="nearest", num_filter=0,
+               multi_input_mode="concat", num_args=1, workspace=512):
+    """Each input enlarged `scale` times (nearest: repeated pixels, or
+    bilinear); several inputs are resized (half-pixel nearest) to the
+    largest and concatenated on the channels or summed."""
+    outs = []
+    for d in data:
+        if sample_type == "nearest":
+            o = torch.repeat_interleave(torch.repeat_interleave(
+                d, scale, dim=2), scale, dim=3)
+        else:
+            o = _resize_bilinear(d, d.shape[2] * scale, d.shape[3] * scale)
+        outs.append(o)
+    if len(outs) == 1:
+        return outs[0]
+    maxh = max(o.shape[2] for o in outs)
+    maxw = max(o.shape[3] for o in outs)
+    outs = [F.interpolate(o, size=(maxh, maxw), mode="nearest-exact")
+            if tuple(o.shape[2:]) != (maxh, maxw) else o for o in outs]
+    if multi_input_mode == "sum":
+        total = outs[0]
+        for o in outs[1:]:
+            total = total + o
+        return total
+    return torch.cat(outs, dim=1)
+
+
+@register("_contrib_BilinearResize2D")
+def BilinearResize2D(data, height=1, width=1, scale_height=None,
+                     scale_width=None):
+    _, _, h, w = data.shape
+    if scale_height is not None:
+        height, width = int(h * scale_height), int(w * scale_width)
+    return _resize_bilinear(data, height, width)
+
+
+@register("_contrib_AdaptiveAvgPooling2D")
+def AdaptiveAvgPooling2D(data, output_size=()):
+    """The mean over (H / oh) x (W / ow) tiles: H and W must divide by the
+    output size, as the reference's reshape needs (torch's
+    adaptive_avg_pool2d takes other windows where they do not)."""
+    if not output_size:
+        oh = ow = 1
+    elif np.isscalar(output_size):
+        oh = ow = int(output_size)
+    else:
+        oh, ow = (int(x) for x in output_size)
+    n, c, h, w = data.shape
+    if h % oh or w % ow:
+        raise TypeError("cannot reshape array of shape %s into shape %s"
+                        % (tuple(data.shape),
+                           (n, c, oh, h // oh, ow, w // ow)))
+    x = data.reshape(n, c, oh, h // oh, ow, w // ow)
+    return torch.mean(x, dim=(3, 5))
+
+
+# ---------------------------------------------------------------------------
+# spatial transforms, ROI pooling and correlation
+# ---------------------------------------------------------------------------
+
+
+@register("GridGenerator")
+def GridGenerator(data, transform_type="affine", target_shape=(0, 0)):
+    """An affine (N, 6) transform applied to the [-1, 1] target grid:
+    (N, 2, H, W) source x, y; "warp" data is already the flow."""
+    H, W = int(target_shape[0]), int(target_shape[1])
+    if transform_type != "affine":
+        return data
+    n = data.shape[0]
+    theta = data.reshape(n, 2, 3)
+    ys = torch.linspace(-1, 1, H, dtype=data.dtype, device=data.device)
+    xs = torch.linspace(-1, 1, W, dtype=data.dtype, device=data.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    grid = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                        torch.ones_like(gx).reshape(-1)])  # [3, H*W]
+    out = torch.einsum("nij,jk->nik", theta, grid)
+    return out.reshape(n, 2, H, W)
+
+
+def _bilinear_sample(data, grid):
+    """data [N, C, Hi, Wi] at grid [N, 2, H, W] (x, y in [-1, 1]): each
+    of the four corners weighted and masked by its own in-bounds test,
+    its index truncated and clipped, as the reference samples."""
+    N, C, Hi, Wi = data.shape
+    gx = (grid[:, 0] + 1.0) * (Wi - 1) / 2.0
+    gy = (grid[:, 1] + 1.0) * (Hi - 1) / 2.0
+    x0 = torch.floor(gx)
+    y0 = torch.floor(gy)
+    x1 = x0 + 1
+    y1 = y0 + 1
+    wx1 = gx - x0
+    wy1 = gy - y0
+    wx0 = 1.0 - wx1
+    wy0 = 1.0 - wy1
+    batch = torch.arange(N, device=data.device).reshape(N, 1, 1)
+
+    def gather(yy, xx):
+        yi = torch.clamp(yy.to(torch.int32), 0, Hi - 1).long()
+        xi = torch.clamp(xx.to(torch.int32), 0, Wi - 1).long()
+        return data[batch, :, yi, xi].permute(0, 3, 1, 2)
+
+    def inb(yy, xx):
+        return ((yy >= 0) & (yy <= Hi - 1) & (xx >= 0)
+                & (xx <= Wi - 1)).to(data.dtype)
+
+    return (gather(y0, x0) * (wy0 * wx0 * inb(y0, x0))[:, None]
+            + gather(y0, x1) * (wy0 * wx1 * inb(y0, x1))[:, None]
+            + gather(y1, x0) * (wy1 * wx0 * inb(y1, x0))[:, None]
+            + gather(y1, x1) * (wy1 * wx1 * inb(y1, x1))[:, None])
+
+
+@register("BilinearSampler")
+def BilinearSampler(data, grid, cudnn_off=False):
+    return _bilinear_sample(data, grid)
+
+
+@register("SpatialTransformer")
+def SpatialTransformer(data, loc, target_shape=(0, 0),
+                       transform_type="affine", sampler_type="bilinear",
+                       cudnn_off=False):
+    grid = GridGenerator(loc, transform_type="affine",
+                         target_shape=target_shape)
+    return _bilinear_sample(data, grid)
+
+
+@register("ROIPooling")
+def ROIPooling(data, rois, pooled_size=(1, 1), spatial_scale=1.0):
+    """Max over each ROI's PH x PW bins. rois [R, 5]: (batch index, x1,
+    y1, x2, y2), scaled and rounded half to even (jnp.round); a bin no
+    pixel falls in gives 0."""
+    PH, PW = int(pooled_size[0]), int(pooled_size[1])
+    N, C, H, W = data.shape
+    R = rois.shape[0]
+    b = rois[:, 0].to(torch.int32).long()
+    x1, y1, x2, y2 = (torch.round(rois[:, i] * spatial_scale)
+                      .to(torch.int32) for i in range(1, 5))
+    rh = torch.clamp(y2 - y1 + 1, min=1).to(torch.float32)
+    rw = torch.clamp(x2 - x1 + 1, min=1).to(torch.float32)
+    ys = torch.arange(H, device=data.device, dtype=torch.int32)
+    xs = torch.arange(W, device=data.device, dtype=torch.int32)
+    py = torch.clamp((ys[None] - y1[:, None]).to(torch.float32) * PH
+                     / rh[:, None], 0, PH - 1).to(torch.int32)   # [R, H]
+    px = torch.clamp((xs[None] - x1[:, None]).to(torch.float32) * PW
+                     / rw[:, None], 0, PW - 1).to(torch.int32)   # [R, W]
+    valid_y = (ys[None] >= y1[:, None]) & (ys[None] <= y2[:, None])
+    valid_x = (xs[None] >= x1[:, None]) & (xs[None] <= x2[:, None])
+    mask = valid_y[:, :, None] & valid_x[:, None, :]             # [R,H,W]
+    neg = torch.full((), float("-inf"), dtype=data.dtype,
+                     device=data.device)
+    src = torch.where(mask[:, None], data[b], neg)               # [R,C,H,W]
+    cell = (py[:, :, None] * PW + px[:, None, :]).long()         # [R,H,W]
+    seg = cell.reshape(R, 1, H * W).expand(R, C, H * W)
+    out = torch.full((R, C, PH * PW), float("-inf"), dtype=data.dtype,
+                     device=data.device)
+    out = out.scatter_reduce(2, seg, src.reshape(R, C, H * W), "amax")
+    out = torch.where(torch.isfinite(out), out,
+                      torch.zeros((), dtype=data.dtype, device=data.device))
+    return out.reshape(R, C, PH, PW)
+
+
+@register("Correlation")
+def Correlation(data1, data2, kernel_size=1, max_displacement=1, stride1=1,
+                stride2=1, pad_size=0, is_multiply=True):
+    """The channel mean of data1 times (or minus, absolute) data2 shifted
+    by each displacement up to max_displacement; the shift wraps around
+    (jnp.roll), the reference's simplification of upstream's."""
+    d = max_displacement
+    pads = (pad_size, pad_size, pad_size, pad_size)
+    p1 = F.pad(data1, pads)
+    p2 = F.pad(data2, pads)
+    outs = []
+    for dy in range(-d, d + 1, stride2):
+        for dx in range(-d, d + 1, stride2):
+            shifted = torch.roll(p2, (-dy, -dx), dims=(2, 3))
+            if is_multiply:
+                corr = torch.mean(p1 * shifted, dim=1)
+            else:
+                corr = torch.mean(torch.abs(p1 - shifted), dim=1)
+            outs.append(corr)
+    out = torch.stack(outs, dim=1)
+    if pad_size:
+        out = out[:, :, pad_size:-pad_size, pad_size:-pad_size]
+    return out[:, :, ::stride1, ::stride1]
+
+
+# ---------------------------------------------------------------------------
+# legacy Crop, the KL sparsity identity and the image ops
+# ---------------------------------------------------------------------------
+
+
+@register("Crop")
+def Crop(*inputs, offset=(0, 0), h_w=(0, 0), center_crop=False, num_args=1):
+    """An (h, w) window of NCHW data at `offset` (y, x) or centred; a
+    second input gives the window its own H and W."""
+    data = inputs[0]
+    if len(inputs) > 1:
+        th, tw = inputs[1].shape[2], inputs[1].shape[3]
+    else:
+        th, tw = int(h_w[0]), int(h_w[1])
+    H, W = data.shape[2], data.shape[3]
+    if center_crop:
+        y0, x0 = (H - th) // 2, (W - tw) // 2
+    else:
+        y0, x0 = int(offset[0]), int(offset[1])
+    if y0 < 0 or x0 < 0 or y0 + th > H or x0 + tw > W:
+        raise ValueError("Crop window [%d:%d, %d:%d] exceeds input %dx%d"
+                         % (y0, y0 + th, x0, x0 + tw, H, W))
+    return data[:, :, y0:y0 + th, x0:x0 + tw]
+
+
+class _KLSparseIdentity(torch.autograd.Function):
+    """Identity forward; the backward adds the KL sparsity penalty's
+    gradient at the batch's mean activation per unit."""
+
+    @staticmethod
+    def forward(ctx, data, target, penalty):
+        ctx.save_for_backward(data)
+        ctx.target = target
+        ctx.penalty = penalty
+        return data.view_as(data)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, = ctx.saved_tensors
+        rho = torch.clamp(torch.mean(data, dim=0, keepdim=True), 1e-6,
+                          1 - 1e-6)
+        kl = ctx.penalty * (-ctx.target / rho
+                            + (1.0 - ctx.target) / (1.0 - rho))
+        return g + torch.broadcast_to(kl, g.shape), None, None
+
+
+@register("IdentityAttachKLSparseReg")
+def IdentityAttachKLSparseReg(data, sparseness_target=0.1, penalty=0.001,
+                              momentum=0.9):
+    """Identity whose gradient carries the KL sparsity penalty (the
+    batch's mean activation stands for the reference's moving average,
+    its momentum-0 case)."""
+    return _KLSparseIdentity.apply(data, float(sparseness_target),
+                                   float(penalty))
+
+
+@register("_image_to_tensor")
+def _image_to_tensor(data):
+    """HWC (NHWC) [0, 255] to CHW (NCHW) float32 in [0, 1]."""
+    out = data.to(torch.float32) / 255.0
+    if data.dim() == 3:
+        return out.permute(2, 0, 1)
+    return out.permute(0, 3, 1, 2)
+
+
+@register("_image_normalize")
+def _image_normalize(data, mean=(0.0,), std=(1.0,)):
+    """(x - mean) / std by channel, on CHW or NCHW images."""
+    shape = (-1, 1, 1) if data.dim() == 3 else (1, -1, 1, 1)
+    mean = torch.tensor(mean, dtype=data.dtype, device=data.device)
+    std = torch.tensor(std, dtype=data.dtype, device=data.device)
+    return (data - mean.reshape(shape)) / std.reshape(shape)

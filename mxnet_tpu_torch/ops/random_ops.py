@@ -2,11 +2,15 @@
 
 Each op draws from the generator of the device it samples on
 (`mxnet_tpu_torch.random.generator`). The `_random_*` ops take scalar
-parameters and sample on the current context's device; the `_sample_*`
-ops draw one sample array per element of their parameter tensors, on the
-parameters' device (parity: the reference's multisample_op.h). torch and
-jax.random give different numbers from one seed, so the port matches the
-reference in distribution, not bit for bit.
+parameters and are creation ops (registry.py): they sample on the device
+their caller passes as `device=` (the NDArray call's context, a bound
+Symbol's executor device), and on the "meta" device of Symbol shape
+inference they give an empty tensor of the sample's shape and draw
+nothing. The `_sample_*` ops draw one sample array per element of their
+parameter tensors, on the parameters' device (parity: the reference's
+multisample_op.h). torch and jax.random give different numbers from one
+seed, so the port matches the reference in distribution, not bit for
+bit.
 """
 from __future__ import annotations
 
@@ -16,7 +20,6 @@ import numpy as np
 import torch
 
 from ..base import torch_dtype
-from ..context import current_context
 from ..random import generator
 from .registry import register
 
@@ -29,56 +32,83 @@ def _shp(shape):
     return tuple(int(s) for s in shape)
 
 
-def _here():
-    return current_context().torch_device()
+def _shape_only(device, shape, dtype):
+    """An empty tensor of the sample's shape when shape inference calls
+    the op on the "meta" device (no generator is touched), else None."""
+    if torch.device(device).type != "meta":
+        return None
+    return torch.empty(_shp(shape), dtype=torch_dtype(dtype), device="meta")
 
 
 @register("_random_uniform", differentiable=False, stochastic=True,
-          aliases=("uniform",))
-def _random_uniform(low=0.0, high=1.0, shape=None, dtype="float32"):
-    dev = _here()
+          creation=True, aliases=("uniform",))
+def _random_uniform(low=0.0, high=1.0, shape=None, dtype="float32",
+                    device=None):
+    empty = _shape_only(device, shape, dtype)
+    if empty is not None:
+        return empty
+    dev = torch.device(device)
     u = torch.rand(_shp(shape), generator=generator(dev), device=dev,
                    dtype=torch_dtype(dtype))
     return low + u * (high - low)
 
 
 @register("_random_normal", differentiable=False, stochastic=True,
-          aliases=("normal",))
-def _random_normal(loc=0.0, scale=1.0, shape=None, dtype="float32"):
-    dev = _here()
+          creation=True, aliases=("normal",))
+def _random_normal(loc=0.0, scale=1.0, shape=None, dtype="float32",
+                   device=None):
+    empty = _shape_only(device, shape, dtype)
+    if empty is not None:
+        return empty
+    dev = torch.device(device)
     return loc + scale * torch.randn(_shp(shape), generator=generator(dev),
                                      device=dev, dtype=torch_dtype(dtype))
 
 
-@register("_random_gamma", differentiable=False, stochastic=True)
-def _random_gamma(alpha=1.0, beta=1.0, shape=None, dtype="float32"):
-    dev = _here()
+@register("_random_gamma", differentiable=False, stochastic=True,
+          creation=True)
+def _random_gamma(alpha=1.0, beta=1.0, shape=None, dtype="float32",
+                  device=None):
+    empty = _shape_only(device, shape, dtype)
+    if empty is not None:
+        return empty
+    dev = torch.device(device)
     a = torch.full(_shp(shape), float(alpha), device=dev)
     g = torch._standard_gamma(a, generator=generator(dev))
     return (beta * g).to(torch_dtype(dtype))
 
 
 @register("_random_exponential", differentiable=False, stochastic=True,
-          aliases=("exponential",))
-def _random_exponential(lam=1.0, shape=None, dtype="float32"):
-    dev = _here()
+          creation=True, aliases=("exponential",))
+def _random_exponential(lam=1.0, shape=None, dtype="float32", device=None):
+    empty = _shape_only(device, shape, dtype)
+    if empty is not None:
+        return empty
+    dev = torch.device(device)
     e = torch.empty(_shp(shape), device=dev, dtype=torch_dtype(dtype))
     return e.exponential_(1.0, generator=generator(dev)) / lam
 
 
 @register("_random_poisson", differentiable=False, stochastic=True,
-          aliases=("poisson",))
-def _random_poisson(lam=1.0, shape=None, dtype="float32"):
-    dev = _here()
+          creation=True, aliases=("poisson",))
+def _random_poisson(lam=1.0, shape=None, dtype="float32", device=None):
+    empty = _shape_only(device, shape, dtype)
+    if empty is not None:
+        return empty
+    dev = torch.device(device)
     rate = torch.full(_shp(shape), float(lam), device=dev)
     return torch.poisson(rate, generator=generator(dev)).to(
         torch_dtype(dtype))
 
 
 @register("_random_negative_binomial", differentiable=False, stochastic=True,
-          aliases=("negative_binomial",))
-def _random_negative_binomial(k=1, p=1.0, shape=None, dtype="float32"):
-    dev = _here()
+          creation=True, aliases=("negative_binomial",))
+def _random_negative_binomial(k=1, p=1.0, shape=None, dtype="float32",
+                              device=None):
+    empty = _shape_only(device, shape, dtype)
+    if empty is not None:
+        return empty
+    dev = torch.device(device)
     gen = generator(dev)
     a = torch.full(_shp(shape), float(k), device=dev)
     lam = torch._standard_gamma(a, generator=gen) * (1 - p) / p
@@ -86,10 +116,14 @@ def _random_negative_binomial(k=1, p=1.0, shape=None, dtype="float32"):
 
 
 @register("_random_generalized_negative_binomial", differentiable=False,
-          stochastic=True, aliases=("generalized_negative_binomial",))
+          stochastic=True, creation=True,
+          aliases=("generalized_negative_binomial",))
 def _random_generalized_negative_binomial(mu=1.0, alpha=1.0, shape=None,
-                                          dtype="float32"):
-    dev = _here()
+                                          dtype="float32", device=None):
+    empty = _shape_only(device, shape, dtype)
+    if empty is not None:
+        return empty
+    dev = torch.device(device)
     gen = generator(dev)
     if alpha == 0.0:
         rate = torch.full(_shp(shape), float(mu), device=dev)
@@ -101,9 +135,13 @@ def _random_generalized_negative_binomial(mu=1.0, alpha=1.0, shape=None,
     return torch.poisson(lam, generator=gen).to(torch_dtype(dtype))
 
 
-@register("_random_randint", differentiable=False, stochastic=True)
-def _random_randint(low=0, high=1, shape=None, dtype="int32"):
-    dev = _here()
+@register("_random_randint", differentiable=False, stochastic=True,
+          creation=True)
+def _random_randint(low=0, high=1, shape=None, dtype="int32", device=None):
+    empty = _shape_only(device, shape, dtype)
+    if empty is not None:
+        return empty
+    dev = torch.device(device)
     return torch.randint(int(low), int(high), _shp(shape),
                          generator=generator(dev), device=dev,
                          dtype=torch_dtype(dtype))
@@ -216,11 +254,15 @@ def _shuffle(data):
     return data[perm]
 
 
-@register("_sample_unique_zipfian", differentiable=False, stochastic=True)
-def _sample_unique_zipfian(range_max=1, shape=None):
+@register("_sample_unique_zipfian", differentiable=False, stochastic=True,
+          creation=True)
+def _sample_unique_zipfian(range_max=1, shape=None, device=None):
     """Approximately Zipfian draws: exp(u log(range_max + 1)) - 1, as the
     reference draws them."""
-    dev = _here()
+    empty = _shape_only(device, shape, "int64")
+    if empty is not None:
+        return empty
+    dev = torch.device(device)
     u = torch.rand(_shp(shape), generator=generator(dev), device=dev)
     out = torch.exp(u * math.log(float(range_max) + 1.0)) - 1.0
     return torch.clamp(out.to(torch.int64), 0, range_max - 1)

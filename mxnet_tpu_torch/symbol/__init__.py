@@ -21,16 +21,19 @@ BatchNorm aux inputs pre-nnvm files omit). The creation ops (`zeros`,
 `ones`, `full`, `arange`, `eye`) make their tensors on the executor's
 device; a 0 in their shape is solved at bind time like a variable's. The
 optimizer update ops (`sgd_update`, `adam_update`, ...) are Symbol ops
-too, their outputs the new weight and states. Not ported yet: `random`,
-`linalg` and `contrib`, the logical and matmul operators (ROADMAP.md,
-queue 1). A HybridBlock traces into a Symbol when called on one
-(gluon/block.py), which is how `hybridize`, `export` and SymbolBlock
-reach this module.
+too, their outputs the new weight and states. The sub-namespaces
+`sym.random`, `sym.linalg` and `sym.contrib` are the reference's; a
+`sym.random` node is a creation op too, so it samples on the executor's
+device from that device's generator each time the graph runs, and shape
+inference (on "meta") draws nothing. A HybridBlock traces into a Symbol
+when called on one (gluon/block.py), which is how `hybridize`, `export`
+and SymbolBlock reach this module.
 """
 from __future__ import annotations
 
 import inspect
 import json
+import math
 
 import numpy as np
 import torch
@@ -39,7 +42,8 @@ from .. import attribute as _attr_mod
 from .. import autograd as _autograd
 from .. import name as _name_mod
 from ..base import MXNetError, NotImplementedForSymbol, torch_dtype
-from ..ops import nn as _ops_nn  # noqa: F401  (registers the ops)
+from ..ops import contrib as _ops_contrib  # noqa: F401  (registers ops)
+from ..ops import nn as _ops_nn  # noqa: F401
 from ..ops import optimizer_ops as _ops_optimizer  # noqa: F401
 from ..ops import random_ops as _ops_random  # noqa: F401
 from ..ops import registry as _registry
@@ -93,6 +97,8 @@ def _static_num_outputs(opdef, kwargs):
         return 3
     if name == "_sample_multinomial":
         return 2 if kwargs.get("get_prob") else 1
+    if name == "topk":
+        return 2 if kwargs.get("ret_typ") == "both" else 1
     return opdef.num_outputs if opdef.num_outputs > 1 else 1
 
 
@@ -262,6 +268,34 @@ class Symbol:
 
     def __rtruediv__(self, other):
         return create("_rdiv_scalar", self, scalar=float(other))
+
+    __div__ = __truediv__
+
+    def __matmul__(self, other):
+        if not isinstance(other, Symbol):
+            return NotImplemented
+        return create("_matmul", self, other)
+
+    def __and__(self, other):
+        return self._binary(other, "broadcast_logical_and",
+                            "_logical_and_scalar")
+
+    __rand__ = __and__
+
+    def __or__(self, other):
+        return self._binary(other, "broadcast_logical_or",
+                            "_logical_or_scalar")
+
+    __ror__ = __or__
+
+    def __xor__(self, other):
+        return self._binary(other, "broadcast_logical_xor",
+                            "_logical_xor_scalar")
+
+    __rxor__ = __xor__
+
+    def __invert__(self):
+        return create("logical_not", self)
 
     def __pow__(self, other):
         return self._binary(other, "_power", "_power_scalar")
@@ -596,21 +630,32 @@ class Symbol:
         return "\n".join(lines)
 
 
+def _creation_shape(node):
+    """A creation node's `shape` argument as a tuple (a sampler's may be
+    None or one int)."""
+    shape = node.kwargs.get("shape")
+    if shape is None:
+        return ()
+    return (int(shape),) if np.isscalar(shape) else \
+        tuple(int(d) for d in shape)
+
+
 def _is_deferred(node):
     """A creation node whose shape holds a 0: a dim the bound data sets."""
     return node.op is not None and node.op.creation and \
-        0 in tuple(int(d) for d in node.kwargs.get("shape", ()))
+        0 in _creation_shape(node)
 
 
 def _op_kwargs(node, device, batch):
-    """The node's op arguments; a creation op also gets the device to make
-    its tensor on, and `batch` in place of each 0 of its shape."""
+    """The node's op arguments; a creation op (a sampler included) also
+    gets the device to make its tensor on, and `batch` in place of each 0
+    of its shape."""
     if not node.op.creation:
         return node.kwargs
     kw = dict(node.kwargs, device=device)
-    if batch and "shape" in kw:
-        kw["shape"] = tuple(batch if int(d) == 0 else int(d)
-                            for d in kw["shape"])
+    if batch and _is_deferred(node):
+        kw["shape"] = tuple(batch if d == 0 else d
+                            for d in _creation_shape(node))
     return kw
 
 
@@ -869,6 +914,54 @@ def maximum(lhs, rhs):
 def minimum(lhs, rhs):
     return _sym_or_scalar(lhs, rhs, "_minimum", "_minimum_scalar",
                           "_minimum_scalar")
+
+
+def hypot(lhs, rhs):
+    return _sym_or_scalar(lhs, rhs, "_hypot", "_hypot_scalar",
+                          "_hypot_scalar")
+
+
+class _SubNS:
+    """A sub-namespace of Symbol functions: {public name: op name}."""
+
+    def __init__(self, mapping):
+        for pub, opname in mapping.items():
+            setattr(self, pub, _make_sym_func(opname))
+
+
+random = _SubNS({
+    "uniform": "_random_uniform", "normal": "_random_normal",
+    "gamma": "_random_gamma", "exponential": "_random_exponential",
+    "poisson": "_random_poisson", "randint": "_random_randint",
+    "multinomial": "_sample_multinomial", "shuffle": "_shuffle",
+})
+linalg = _SubNS({n: "linalg_" + n for n in (
+    "gemm", "gemm2", "potrf", "potri", "trsm", "trmm", "sumlogdiag",
+    "syrk", "gelqf", "syevd")})
+# every registered `_contrib_*` op under its short name, and quadratic
+contrib = _SubNS(dict(
+    {n[len("_contrib_"):]: n for n in _registry.list_ops()
+     if n.startswith("_contrib_")}, quadratic="quadratic"))
+
+
+def _rand_zipfian(true_classes, num_sampled, range_max):
+    """The log-uniform candidate sampler as a graph: the same math as
+    `nd.contrib.rand_zipfian`, composed from registered ops."""
+    log_range = math.log(range_max + 1)
+    rand = random.uniform(low=0, high=log_range, shape=(num_sampled,))
+    sampled = create("_mod_scalar", create(
+        "Cast", create("exp", rand) - 1, dtype="int32"), scalar=range_max)
+
+    def expected_count(cls_sym):
+        prob = create("log", (cls_sym + 2.0) / (cls_sym + 1.0))
+        return prob * (float(num_sampled) / log_range)
+
+    return (sampled,
+            expected_count(create("Cast", true_classes, dtype="float32")),
+            expected_count(create("Cast", sampled, dtype="float32")))
+
+
+contrib.rand_zipfian = _rand_zipfian
 
 
 # ---------------------------------------------------------------------------

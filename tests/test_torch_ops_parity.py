@@ -150,3 +150,15 @@ def test_ndarray_split_method(num_outputs, axis, squeeze):
     for r, p in zip(ref, port):
         assert p.shape == r.shape
         np.testing.assert_array_equal(p.asnumpy(), r.asnumpy())
+
+
+@pytest.mark.parametrize("pool_type", ["max", "avg", "sum"])
+def test_pooling_without_spatial_axes(pool_type):
+    """F13: Pooling of an input with no spatial axis (a (3, 4) array at
+    the default kernel) gives the input back, as the reference's
+    reduce_window over an empty window does."""
+    x = _uniform(3, 4, seed=7)
+    ref, port = _both(lambda nd, a: nd.Pooling(a, pool_type=pool_type), x)
+    assert port.shape == ref.shape == (3, 4)
+    np.testing.assert_allclose(port, ref, **_EXACT)
+    np.testing.assert_allclose(port, x, **_EXACT)
