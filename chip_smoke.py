@@ -289,7 +289,36 @@ Phases (any failure exits non-zero before the last line):
                 depth.py's net hybridized on the card: fresh (1, 1, 1, 1)
                 gates each step, repeated under a reseed, losses equal to
                 the eager net's.
-  22. the kernels line (K3a-d's and K4a-b's launches summed over every
+  22. the serving front door — phase 4's config and width on K1 (block
+                16, max_batch 8, token_budget 256, 64-token prompts, 128
+                new tokens, weights from phase 4's seed): (a) tenant
+                `batch` 8 requests at priority 0, then `interactive` 4 at
+                priority 1, under tenant_budget 128: no batch request
+                admitted while an interactive one enqueued before it
+                waits, greedy tokens against the gather oracle, K1
+                launches = n_layers x (decode steps + prefill chunks);
+                (b) over HTTP on the warm server `deadline_ms: 1` gets 503
+                with Retry-After >= 1 and 10x the solo latency gets 200
+                with oracle tokens and its traceparent echoed, and on a
+                fresh server a request behind a full batch with a 200 ms
+                deadline gets 504 with no prefill chunk on its trace; (c)
+                brownout (after 0.2 s at >= 12 of max_queue 16): the
+                priority-0 class shed (BrownoutShed; 503 over HTTP),
+                requests admitted while it is on clamped, those admitted
+                before it full length, all tokens the oracle's; (d) one
+                Perfetto row for the traced request, the text/plain
+                /metrics under the Prometheus grammar with counters equal
+                to snapshot()'s, /statusz's token identity overall and per
+                tenant (MXNET_SLO_TTFT_MS set), every MXNET_REQUEST_LOG
+                line with the required keys, flight().dump in
+                MXNET_FLIGHT_RECORDER_DIR, tools/postmortem.py and
+                tools/fleet_top.py --once --plain exiting 0; (e) phase 4's
+                traffic on fresh servers with MXNET_TELEMETRY=0 and =1,
+                a warm-up and then 4 ABBA blocks: the step period, the
+                decode call and the gap between calls (p50s), tokens/s
+                and TTFT p50 per run, and the paired on - off medians
+                (no limit).
+  23. the kernels line (K3a-d's and K4a-b's launches summed over every
      path that runs them, split in `launches_by_path`; K3a-d's sums over
      an Inception-v3 step under `inception_v3_step`), nvidia-smi's line,
      and the last line {"ok": true, "device": {...}}.
@@ -307,6 +336,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 
 #: H100 SXM data-sheet peaks (dense): device-memory bytes/s, and
@@ -1165,6 +1195,17 @@ def serve_traffic(serving, pa, params, cfg, prompts, gen, kw):
     return outs, wall, launches, snap, reqs, srv.engine
 
 
+def decode_step_mean_ms(snap):
+    """Mean decode-step wall time (ms) out of a server snapshot, whose
+    key tree is the reference's: the per-token mean times tokens over
+    steps."""
+    per_token = snap["latency_ms"]["decode_per_token_mean"]
+    steps = snap["throughput"]["decode_steps"]
+    if per_token is None or not steps:
+        return None
+    return per_token * snap["throughput"]["tokens_generated"] / steps
+
+
 def phase_main_path(torch, np, dev, card):
     from mxnet_tpu_torch import serving
     from mxnet_tpu_torch.models import TransformerConfig, params_from_numpy
@@ -1214,8 +1255,8 @@ def phase_main_path(torch, np, dev, card):
     main = {"card": card, "requests": n_req, "tokens": n_req * gen,
             "wall_s": wall, "tokens_per_s": n_req * gen / wall,
             "ttft_p50_ms_inproc": 1e3 * float(np.median(ttfts)),
-            "ttft_p50_ms_hist": lat["time_to_first_token_p50"],
-            "decode_step_mean_ms": lat["decode_step_mean"],
+            "ttft_p95_ms_hist": lat["time_to_first_token_p95"],
+            "decode_step_mean_ms": decode_step_mean_ms(snap),
             "decode_step_p50_ms": lat["decode_step_p50"],
             "decode_steps": paths["paged_decode_steps"],
             "prefill_chunks": paths["prefill_chunks"],
@@ -1313,7 +1354,7 @@ def phase_quant(torch, np, dev, card):
     main = {"card": card, "requests": n_req, "tokens": n_req * gen,
             "wall_s": wall, "tokens_per_s": n_req * gen / wall,
             "ttft_p50_ms_inproc": 1e3 * float(np.median(ttfts)),
-            "decode_step_mean_ms": lat["decode_step_mean"],
+            "decode_step_mean_ms": decode_step_mean_ms(snap),
             "decode_step_p50_ms": lat["decode_step_p50"],
             "decode_steps": paths["paged_decode_steps"],
             "prefill_chunks": paths["prefill_chunks"],
@@ -1442,15 +1483,14 @@ def phase_spec_prefix(torch, np, dev, card):
             "plain_decode_steps": paths["paged_decode_steps"] - sp["passes"],
             "prefill_chunks": paths["prefill_chunks"],
             "int8_kernel_launches": launches,
-            "decode_step_mean_ms": snap["latency_ms"]["decode_step_mean"],
+            "decode_step_mean_ms": decode_step_mean_ms(snap),
             "tokens_compared": compared,
             "float_pool": {
                 "tokens_per_s": N_SPEC_REQ * SPEC_GEN / f_wall,
                 "spec_passes": f_snap["spec"]["passes"],
                 "acceptance_rate": f_snap["spec"]["acceptance_rate"],
                 "kernel_launches": f_launches,
-                "decode_step_mean_ms":
-                    f_snap["latency_ms"]["decode_step_mean"],
+                "decode_step_mean_ms": decode_step_mean_ms(f_snap),
                 "tokens_compared": f_compared}}
     print("spec+prefix path: " + json.dumps(main))
     return launches, main
@@ -5737,6 +5777,474 @@ def phase_stochastic_depth(torch, np, dev, card):
     return out
 
 
+#: phase 22: the serving front door at phase 4's width and config;
+#: tenants (a), deadlines (b), brownout (c), telemetry's cost (e)
+FD_PROMPTS = 12
+FD_TENANT_BUDGET = 128
+FD_BROWNOUT_AFTER_S = 0.2
+FD_MAX_QUEUE = 16
+FD_DEADLINE_504_MS = 200.0
+FD_COST_BLOCKS = 4
+#: the Prometheus sample-line grammar of tests/test_telemetry.py:92-93
+PROM_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)\{[^}]*\} "
+                         r"(NaN|[+-]?(Inf|[0-9.e+-]+))$")
+#: exposition counters and the snapshot() field each must equal
+PROM_VS_SNAPSHOT = (
+    ("serving_requests_submitted_total", ("requests", "submitted")),
+    ("serving_requests_completed_total", ("requests", "completed")),
+    ("serving_requests_failed_total", ("requests", "failed")),
+    ("serving_deadline_shed_total", ("requests", "deadline_shed")),
+    ("serving_tokens_generated_total", ("throughput", "tokens_generated")),
+    ("serving_decode_steps_total", ("throughput", "decode_steps")),
+    ("serving_decode_steps_paged_total", ("paths", "paged_decode_steps")),
+    ("serving_prefill_chunks_total", ("paths", "prefill_chunks")),
+    ("serving_goodput_tokens_total", ("tokens", "goodput")),
+    ("serving_slow_tokens_total", ("tokens", "slow")),
+    ("serving_shed_tokens_total", ("tokens", "shed")),
+    ("serving_expired_tokens_total", ("tokens", "expired")),
+    ("serving_failed_tokens_total", ("tokens", "failed")),
+    ("serving_submitted_tokens_total", ("tokens", "submitted")))
+
+
+def http_json(url, payload=None, headers=None, timeout=600):
+    """(status, JSON body, headers) of one GET (payload None) or POST;
+    an HTTP error status is returned, not raised."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url, data=data, headers=dict(
+        {"Content-Type": "application/json"}, **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read()), dict(r.headers)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read()), dict(e.headers)
+
+
+def token_identity(tok, what):
+    check(tok["submitted"] == tok["goodput"] + tok["slow"] + tok["shed"]
+          + tok["expired"] + tok["failed"],
+          "%s: submitted != goodput + slow + shed + expired + failed: %r"
+          % (what, tok))
+
+
+def front_door_tenants(pa, srv, cfg, prompts):
+    """22a: tenant `batch` submits 8 requests at priority 0, then tenant
+    `interactive` 4 at priority 1, under a per-tenant token budget. No
+    batch request may be admitted while an interactive one enqueued
+    before that admission (`t_enqueue`, stamped under the scheduler's
+    lock, as `t_admit` is) is still queued. Returns the requests and the
+    kernel's launches, checked against n_layers x (decode steps + prefill
+    chunks)."""
+    n0 = srv.snapshot()["paths"]
+    pa.paged_attention.launches = 0
+    reqs = []
+    for i, p in enumerate(prompts):
+        inter = i >= 8
+        reqs.append(srv.submit(p, max_new_tokens=GEN,
+                               tenant="interactive" if inter else "batch",
+                               priority=int(inter)))
+    outs = [r.result(timeout=600) for r in reqs]
+    launches = pa.paged_attention.launches
+    paths = srv.snapshot()["paths"]
+    steps = paths["paged_decode_steps"] - n0["paged_decode_steps"]
+    chunks = paths["prefill_chunks"] - n0["prefill_chunks"]
+    want = cfg.n_layers * (steps + chunks)
+    check(launches == want and launches > 0,
+          "22a: paged kernel launched %d times, expected n_layers x "
+          "(decode steps + prefill chunks) = %d x (%d + %d) = %d"
+          % (launches, cfg.n_layers, steps, chunks, want))
+    for b in reqs[:8]:
+        for i in reqs[8:]:
+            check(not (i.t_enqueue < b.t_admit and i.t_admit > b.t_admit),
+                  "22a: batch request %d admitted at %.6f while interactive "
+                  "request %d (enqueued %.6f) waited until %.6f"
+                  % (b.id, b.t_admit, i.id, i.t_enqueue, i.t_admit))
+    return outs, reqs, launches
+
+
+def front_door_deadlines(serving, params, cfg, srv, prompts, ref, margins,
+                         kw):
+    """22b over HTTP: `deadline_ms: 1` on the warm server gets 503 with a
+    Retry-After; a deadline of 10x the solo latency gets 200 with oracle
+    tokens and its traceparent echoed; on a fresh server, a request
+    queued behind a full batch of 8 whose deadline is shorter than the
+    batch's remaining time gets 504 and no prefill chunk carries its
+    trace. Returns the traced request's trace id and the numbers."""
+    from mxnet_tpu_torch import telemetry
+    check(srv.metrics.decode_steps >= 8, "22b: the server ran only %d "
+          "decode steps" % srv.metrics.decode_steps)
+    host, port = srv.serve_http(port=0, block=False)
+    url = "http://%s:%d/v1/generate" % (host, port)
+    code, body, hdr = http_json(url, {"tokens": prompts[0],
+                                      "max_new_tokens": GEN,
+                                      "deadline_ms": 1})
+    check(code == 503 and int(hdr.get("Retry-After", 0)) >= 1,
+          "22b: deadline 1 ms: status %d, Retry-After %r (want 503, >= 1)"
+          % (code, hdr.get("Retry-After")))
+    retry_after = int(hdr["Retry-After"])
+    t0 = time.perf_counter()
+    srv.generate(prompts[1], max_new_tokens=GEN, timeout=600)
+    solo_ms = 1e3 * (time.perf_counter() - t0)
+    tid = telemetry.new_trace_id()
+    code, body, hdr = http_json(
+        url, {"tokens": prompts[2], "max_new_tokens": GEN,
+              "deadline_ms": 10 * solo_ms, "tenant": "http"},
+        headers={"traceparent": "00-%s-00f067aa0ba902b7-01" % tid})
+    check(code == 200, "22b: deadline %.0f ms (10x solo): status %d: %r"
+          % (10 * solo_ms, code, body))
+    check(body["trace"] == tid and telemetry.parse_traceparent(
+        hdr.get("traceparent")) == tid,
+          "22b: traceparent not echoed: body %r, header %r"
+          % (body["trace"], hdr.get("traceparent")))
+    compare_tokens("22b deadline 10x solo", [body["tokens"]], [ref[2]],
+                   [margins[2]], quiet=True)
+
+    cold = serving.serve((params, cfg), **kw)
+    try:
+        cold_url = "http://%s:%d/v1/generate" % cold.serve_http(
+            port=0, block=False)
+        # the cold server has no observed rate yet, so its admission gate
+        # lets the request in; the batch of 8 ahead of it is full
+        fillers = [cold.submit(p, max_new_tokens=GEN, priority=1)
+                   for p in prompts[:8]]
+        tid504 = telemetry.new_trace_id()
+        out = {}
+
+        def post():
+            out["r"] = http_json(
+                cold_url,
+                {"tokens": prompts[8], "max_new_tokens": GEN,
+                 "deadline_ms": FD_DEADLINE_504_MS},
+                headers={"traceparent": "00-%s-00f067aa0ba902b7-01"
+                         % tid504})
+
+        t = threading.Thread(target=post, daemon=True)
+        t.start()
+        t.join(timeout=600)
+        check("r" in out, "22b: the 504 request never returned")
+        code504, body504, _ = out["r"]
+        for r in fillers:
+            r.result(timeout=600)
+        shed = cold.metrics.deadline_shed
+    finally:
+        cold.close()
+    check(code504 == 504, "22b: a %.0f ms deadline behind a full batch: "
+          "status %d: %r (want 504)" % (FD_DEADLINE_504_MS, code504,
+                                        body504))
+    check(shed == 1, "22b: deadline sheds %d, want 1" % shed)
+    names = [s["name"] for s in telemetry.spans(trace=tid504)]
+    check("serving.submit" in names, "22b: the expired request's trace "
+          "holds no submit span: %r" % names)
+    check("serving.prefill" not in names, "22b: %d prefill chunks carry "
+          "the expired request's trace" % names.count("serving.prefill"))
+    return tid, {"retry_after_s": retry_after, "solo_ms": solo_ms,
+                 "deadline_200_ms": 10 * solo_ms,
+                 "deadline_504_ms": FD_DEADLINE_504_MS}
+
+
+def front_door_brownout(serving, params, cfg, prompts, ref, margins, kw):
+    """22c: brownout on (after 0.2 s of a queue at >= 3/4 of max_queue
+    16). A first wave of 8 priority-1 requests fills the batch; a second
+    wave of 16 (8 at priority 1, 8 at priority 0, one of them over HTTP)
+    fills the queue. The priority-0 class is shed (BrownoutShed; 503 over
+    HTTP), requests admitted while brownout is on are clamped to
+    brownout_max_new and those admitted before keep their length; every
+    token equals the oracle's."""
+    srv = serving.serve((params, cfg), brownout=True,
+                        max_queue=FD_MAX_QUEUE, **kw)
+    # the server takes the reference's arguments; the saturation time is
+    # the scheduler's (read at every admission)
+    srv.scheduler.brownout_after_s = FD_BROWNOUT_AFTER_S
+    clamp = srv.scheduler.brownout_max_new
+    try:
+        host, port = srv.serve_http(port=0, block=False)
+        first = [srv.submit(p, max_new_tokens=GEN, priority=1)
+                 for p in prompts[:8]]
+        t_wait = time.perf_counter()
+        while any(r.t_admit is None for r in first):
+            check(time.perf_counter() - t_wait < 60, "22c: first wave "
+                  "not admitted in 60 s")
+            time.sleep(0.001)
+        idx = [i % len(prompts) for i in range(8, 24)]
+        second, out = [], {}
+
+        def post():
+            out["r"] = http_json(
+                "http://%s:%d/v1/generate" % (host, port),
+                {"tokens": prompts[idx[-1]], "max_new_tokens": GEN,
+                 "priority": 0})
+
+        for k, i in enumerate(idx[:-1]):
+            second.append(srv.submit(prompts[i], max_new_tokens=GEN,
+                                     priority=int(k < 8)))
+        t = threading.Thread(target=post, daemon=True)
+        t.start()
+        first_out = [r.result(timeout=600) for r in first]
+        results = []
+        for r in second:
+            try:
+                results.append(r.result(timeout=600))
+            except serving.BrownoutShed:
+                results.append(None)
+        t.join(timeout=600)
+        sheds = srv.metrics.brownout_shed
+        stz = srv.statusz()
+    finally:
+        srv.close()
+    check("r" in out and out["r"][0] == 503
+          and int(out["r"][2].get("Retry-After", 0)) >= 1,
+          "22c: priority-0 request over HTTP: %r (want 503 + Retry-After)"
+          % (out.get("r", (None,))[:2],))
+    check(all(len(o) == GEN for o in first_out), "22c: a request admitted "
+          "before brownout lost tokens: %r" % [len(o) for o in first_out])
+    compare_tokens("22c before brownout", first_out,
+                   [ref[i] for i in range(8)], [margins[i] for i in range(8)],
+                   quiet=True)
+    high = [(r, o) for r, o in zip(second[:8], results[:8])]
+    low = results[8:]
+    check(all(o is None for o in low) and sheds == 8,
+          "22c: priority-0 class: %d of 7 in-process shed, %d sheds "
+          "counted (want all, 8)" % (sum(o is None for o in low), sheds))
+    check(all(o is not None for _, o in high), "22c: a priority-1 request "
+          "was shed")
+    clamped = [r for r, o in high if len(o) == clamp]
+    full = [r for r, o in high if len(o) == GEN]
+    check(clamped and len(clamped) + len(full) == 8
+          and max(r.t_admit for r in clamped)
+          <= min([r.t_admit for r in full] or [float("inf")]),
+          "22c: second-wave lengths %r: want clamped (%d) ones first, "
+          "then full ones once brownout disengaged"
+          % ([len(o) for _, o in high], clamp))
+    compare_tokens("22c during brownout", [o for _, o in high],
+                   [ref[i] for i in idx[:8]], [margins[i] for i in idx[:8]],
+                   quiet=True)
+    token_identity(stz["tokens"], "22c /statusz")
+    return {"brownout_sheds": sheds, "clamped": len(clamped),
+            "clamped_to": clamp, "unclamped_after": len(full),
+            "shed_tokens": stz["tokens"]["shed"]}
+
+
+def front_door_observability(srv, tid, tmp):
+    """22d on the warm server after 22a-b: the traced request's spans on
+    one Perfetto row; the text/plain /metrics under the Prometheus
+    grammar with its counters equal to snapshot()'s; /statusz's token
+    identity overall and per tenant; the request log's required keys;
+    a flight dump; tools/postmortem.py and tools/fleet_top.py rendering
+    the dump and the live server."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.telemetry import slo
+    doc = telemetry.export_perfetto(os.path.join(tmp, "trace.json"))
+    evs = [e for e in doc["traceEvents"]
+           if e["ph"] == "X" and e["args"].get("trace") == tid]
+    names = {e["name"] for e in evs}
+    check({"serving.submit", "serving.queue", "serving.prefill",
+           "serving.decode"} <= names and len({e["tid"] for e in evs}) == 1,
+          "22d: the traced request's spans %r on rows %r"
+          % (sorted(names), sorted({e["tid"] for e in evs})))
+    host, port = srv._httpd.server_address
+    base = "http://%s:%d" % (host, port)
+    snap = srv.snapshot()
+    rq = urllib.request.Request(base + "/metrics",
+                                headers={"Accept": "text/plain"})
+    with urllib.request.urlopen(rq, timeout=60) as r:
+        check(r.headers["Content-Type"].startswith("text/plain"),
+              "22d: /metrics content type %r" % r.headers["Content-Type"])
+        text = r.read().decode()
+    samples = {}
+    for ln in text.splitlines():
+        if ln.startswith("#"):
+            continue
+        m = PROM_SAMPLE.match(ln)
+        check(m is not None, "22d: /metrics line off the Prometheus "
+              "grammar: %r" % ln)
+        samples.setdefault(m.group(1), float(m.group(2)))
+    for name, (a, b) in PROM_VS_SNAPSHOT:
+        check(samples.get(name) == snap[a][b], "22d: %s = %r, snapshot "
+              "%s.%s = %r" % (name, samples.get(name), a, b, snap[a][b]))
+    code, stz, _ = http_json(base + "/statusz")
+    check(code == 200 and any(o["objective"] == "ttft" for o in stz["slo"]),
+          "22d: /statusz %d without the ttft objective" % code)
+    token_identity(stz["tokens"], "22d /statusz")
+    for name, t in stz["tenants"].items():
+        token_identity(t["tokens"], "22d /statusz tenant %s" % name)
+    with open(os.environ["MXNET_REQUEST_LOG"]) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    check(recs and all(all(k in r for k in slo.REQUEST_LOG_REQUIRED)
+                       and r["event"] in slo.REQUEST_LOG_EVENTS
+                       for r in recs),
+          "22d: request log: %d lines, some without %r"
+          % (len(recs), slo.REQUEST_LOG_REQUIRED))
+    flight_dir = os.environ["MXNET_FLIGHT_RECORDER_DIR"]
+    dump = telemetry.flight().dump("smoke")
+    check(dump is not None and os.path.dirname(dump) == flight_dir,
+          "22d: flight dump %r not in %r" % (dump, flight_dir))
+    tools = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "tools")
+    pm = subprocess.run([sys.executable, os.path.join(tools, "postmortem.py"),
+                         flight_dir], capture_output=True, text=True,
+                        timeout=120)
+    check(pm.returncode == 0 and "smoke" in pm.stdout,
+          "22d: postmortem.py rc %d: %s" % (pm.returncode, pm.stderr[-500:]))
+    ft = subprocess.run([sys.executable, os.path.join(tools, "fleet_top.py"),
+                         "--url", base, "--once", "--plain"],
+                        capture_output=True, text=True, timeout=120)
+    check(ft.returncode == 0 and "server: OK" in ft.stdout,
+          "22d: fleet_top.py rc %d: %s" % (ft.returncode,
+                                           (ft.stdout + ft.stderr)[-500:]))
+    return {"prometheus_samples": len(samples), "request_log_lines":
+            len(recs), "tenants": sorted(stz["tenants"]),
+            "goodput_tokens": stz["tokens"]["goodput"],
+            "slow_tokens": stz["tokens"]["slow"],
+            "perfetto_spans_of_trace": len(evs)}
+
+
+def front_door_cost_run(serving, params, cfg, prompts, kw, flag):
+    """One run of phase 4's traffic (8 in-process requests and one HTTP
+    POST) on a fresh server under MXNET_TELEMETRY=`flag`. A wrapper on
+    the engine's decode_step stamps each call's start and end: the step
+    period (start to next start) holds the loop's whole iteration, the
+    per-token accounting after the call included; the call alone is
+    the engine's share, and the gap from a call's end to the next
+    call's start the loop's own."""
+    os.environ["MXNET_TELEMETRY"] = flag
+    srv = serving.serve((params, cfg), **kw)
+    starts, calls = [], []
+    real = srv.engine.decode_step
+
+    def timed(seqs):
+        t0 = time.perf_counter()
+        out = real(seqs)
+        starts.append(t0)
+        calls.append(time.perf_counter() - t0)
+        return out
+
+    srv.engine.decode_step = timed
+    try:
+        host, port = srv.serve_http(port=0, block=False)
+        out = {}
+
+        def post():
+            out["r"] = http_json("http://%s:%d/v1/generate" % (host, port),
+                                 {"tokens": prompts[8],
+                                  "max_new_tokens": GEN})
+
+        t0 = time.perf_counter()
+        client = threading.Thread(target=post, daemon=True)
+        client.start()
+        reqs = [srv.submit(p, max_new_tokens=GEN) for p in prompts[:8]]
+        outs = [r.result(timeout=600) for r in reqs]
+        client.join(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        srv.close()
+    check("r" in out and out["r"][0] == 200
+          and all(len(o) == GEN for o in outs),
+          "22e: a run under MXNET_TELEMETRY=%s failed" % flag)
+    periods = sorted(b - a for a, b in zip(starts, starts[1:]))
+    gaps = sorted(b - a - c for a, b, c in zip(starts, starts[1:], calls))
+    ttft = sorted(r.t_first_token - r.t_submit for r in reqs)
+    return {"telemetry": int(flag),
+            "step_period_p50_ms": 1e3 * periods[len(periods) // 2],
+            "decode_call_p50_ms": 1e3 * sorted(calls)[len(calls) // 2],
+            "between_calls_p50_ms": 1e3 * gaps[len(gaps) // 2],
+            "tokens_per_s": 9 * GEN / wall,
+            "ttft_p50_ms": 1e3 * ttft[len(ttft) // 2]}
+
+
+def front_door_cost(serving, params, cfg, prompts, kw):
+    """22e: phase 4's traffic on fresh servers with MXNET_TELEMETRY=0 and
+    =1 in ABBA blocks (off, on, on, off), FD_COST_BLOCKS of them, after
+    one warm-up run that is reported apart. Returns the warm-up, the
+    runs in order, and for each metric the medians off and on and the
+    median of the on - off differences over the 2 x FD_COST_BLOCKS
+    pairs."""
+    prev = os.environ.get("MXNET_TELEMETRY")
+    try:
+        warm = front_door_cost_run(serving, params, cfg, prompts, kw, "1")
+        runs = [front_door_cost_run(serving, params, cfg, prompts, kw, f)
+                for _ in range(FD_COST_BLOCKS) for f in "0110"]
+    finally:
+        if prev is None:
+            os.environ.pop("MXNET_TELEMETRY", None)
+        else:
+            os.environ["MXNET_TELEMETRY"] = prev
+
+    def med(xs):
+        xs = sorted(xs)
+        n = len(xs)
+        return (xs[(n - 1) // 2] + xs[n // 2]) / 2
+
+    summary = {}
+    for key in ("step_period_p50_ms", "decode_call_p50_ms",
+                "between_calls_p50_ms", "tokens_per_s", "ttft_p50_ms"):
+        off = [r[key] for r in runs if not r["telemetry"]]
+        on = [r[key] for r in runs if r["telemetry"]]
+        # a block's pairs are (run 0, run 1) and (run 3, run 2)
+        diffs = [runs[4 * b + j][key] - runs[4 * b + i][key]
+                 for b in range(FD_COST_BLOCKS)
+                 for i, j in ((0, 1), (3, 2))]
+        summary[key] = {"off": med(off), "on": med(on),
+                        "on_minus_off": med(diffs),
+                        "on_minus_off_range": [min(diffs), max(diffs)]}
+    return {"warm_up": warm, "runs": runs, "median": summary}
+
+
+def phase_front_door(torch, np, dev, card):
+    """Phase 22: the serving front door's contract at phase 4's width on
+    K1 — tenants and priorities (a), deadlines over HTTP (b), brownout
+    (c), observability (d) and telemetry's cost (e). Returns K1's
+    launches in 22a and the printed numbers."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.models import TransformerConfig, params_from_numpy
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    cfg = TransformerConfig(dtype=torch.float32, **BENCH_CFG)
+    params = params_from_numpy(bench_params(np, cfg), cfg, dev)
+    rng = np.random.RandomState(22)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab, PROMPT_LEN)]
+               for _ in range(FD_PROMPTS)]
+    ref, margins = gather_oracle(torch, np, serving, params, cfg, prompts,
+                                 GEN, dev)
+    kw = dict(max_batch=8, paged=True, block_size=16, token_budget=256)
+    env = {k: os.environ.get(k) for k in (
+        "MXNET_SLO_TTFT_MS", "MXNET_REQUEST_LOG",
+        "MXNET_FLIGHT_RECORDER_DIR")}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["MXNET_SLO_TTFT_MS"] = "1000"
+        os.environ["MXNET_REQUEST_LOG"] = os.path.join(tmp, "requests.jsonl")
+        os.environ["MXNET_FLIGHT_RECORDER_DIR"] = os.path.join(tmp,
+                                                               "flight")
+        try:
+            srv = serving.serve((params, cfg),
+                                tenant_budget=FD_TENANT_BUDGET, **kw)
+            try:
+                outs, reqs, launches = front_door_tenants(pa, srv, cfg,
+                                                          prompts)
+                n = compare_tokens("22a", outs, ref, margins, quiet=True)
+                tid, dl = front_door_deadlines(serving, params, cfg, srv,
+                                               prompts, ref, margins, kw)
+                obs = front_door_observability(srv, tid, tmp)
+            finally:
+                srv.close()
+            brown = front_door_brownout(serving, params, cfg, prompts, ref,
+                                        margins, kw)
+        finally:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    cost = front_door_cost(serving, params, cfg, prompts, kw)
+    out = {"card": card, "tenants": {
+        "kernel_launches": launches, "tokens_compared": n,
+        "interactive_admit_ms_after_submit": [
+            1e3 * (r.t_admit - r.t_submit) for r in reqs[8:]],
+        "batch_admit_ms_after_submit": [
+            1e3 * (r.t_admit - r.t_submit) for r in reqs[:8]]},
+        "deadlines": dl, "brownout": brown, "observability": obs,
+        "telemetry_cost": cost}
+    print("front door path (phase 22): " + json.dumps(out))
+    return launches, out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5800,6 +6308,7 @@ def main():
         op_launches = phase_paged_op(torch, np, dev, smi)
         phase_nce_example(torch, np, dev, smi)
         phase_stochastic_depth(torch, np, dev, smi)
+        fd_launches, _ = phase_front_door(torch, np, dev, smi)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -5810,10 +6319,12 @@ def main():
         "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "mxnet_tpu/ops/pallas_paged.py:108",
-        # the serving main path's (phase 4) and the contrib op's (21b)
-        "launches": launches + op_launches,
+        # the serving main path's (phase 4), the contrib op's (21b) and
+        # the front door's tenants-and-priorities traffic (22a)
+        "launches": launches + op_launches + fd_launches,
         "launches_by_path": {"serving_main_path": launches,
-                             "contrib_paged_attention_op": op_launches},
+                             "contrib_paged_attention_op": op_launches,
+                             "front_door_phase22": fd_launches},
         "max_abs_err": errs["float32"],
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],

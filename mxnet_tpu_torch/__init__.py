@@ -70,6 +70,8 @@ from . import monitor as mon
 from . import rnn
 from . import models
 from . import test_utils
+from . import profiler
+from . import utils
 from . import visualization
 from . import contrib
 
@@ -80,4 +82,5 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "lr_scheduler", "metric", "kvstore", "kv", "io", "gluon",
            "model", "FeedForward", "symbol_doc", "module", "mod",
            "callback", "executor_manager", "monitor", "mon", "rnn",
-           "models", "test_utils", "visualization", "contrib"]
+           "models", "test_utils", "profiler", "utils", "visualization",
+           "contrib"]

@@ -5,9 +5,12 @@ with per-block scales, a host free-list), a prefill/decode engine whose
 paged path runs the hand-written paged-attention kernel once per layer
 (decode steps, chunked prefill and speculative scoring), int8 weights,
 draft-model speculative decoding (spec.py), a content-addressed prefix
-cache (prefix_cache.py), a FIFO continuous-batching scheduler with
-backpressure and a per-iteration token budget, serving metrics, and an
-in-process `serve()` API with a stdlib HTTP frontend.
+cache (prefix_cache.py), a continuous-batching scheduler with
+backpressure, a per-iteration token budget, priority classes, per-tenant
+token budgets, deadlines and brownout, serving metrics with the goodput
+ledger and SLO burn (`statusz()`, Prometheus text), and an in-process
+`serve()` API with a stdlib HTTP frontend (W3C `traceparent` in and out,
+`/statusz`, `/metrics`, `/healthz`).
 
 Quickstart::
 
@@ -23,9 +26,11 @@ Quickstart::
 from .kv_cache import BlockPool, PagedKVCache, CacheOverflow
 from .prefix_cache import PrefixCache, prefix_cache_enabled
 from .engine import Engine, Sequence, TransformerLM, pow2_bucket
-from .scheduler import Scheduler, Request, QueueFull, RequestTimeout
+from .scheduler import (Scheduler, Request, QueueFull, RequestTimeout,
+                        DeadlineExceeded, DeadlineUnmeetable,
+                        BrownoutShed, make_resume)
 from .metrics import ServingMetrics
-from .server import LMServer, serve
+from .server import LMServer, serve, spawn_resume
 from .spec import (DraftLM, self_draft, spec_decode_enabled, spec_k,
                    spec_draft_layers)
 
@@ -36,5 +41,7 @@ __all__ = [
     "spec_draft_layers",
     "Engine", "Sequence", "TransformerLM", "pow2_bucket",
     "Scheduler", "Request", "QueueFull", "RequestTimeout",
+    "DeadlineExceeded", "DeadlineUnmeetable", "BrownoutShed",
+    "make_resume", "spawn_resume",
     "ServingMetrics", "LMServer", "serve",
 ]

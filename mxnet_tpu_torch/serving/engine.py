@@ -503,6 +503,8 @@ class Engine:
         self.spec = False
         self.spec_fallback = None
         self.draft = None
+        self.chaos_spec_poison = False   # armed per-iteration by the
+                                         # serving loop's chaos seam
         self.last_spec = None            # the latest pass's accounting
         self.spec_passes = 0
         self.spec_proposed_tokens = 0
@@ -578,6 +580,19 @@ class Engine:
 
     def cache_utilization(self):
         return self.cache.utilization()
+
+    @property
+    def prefill_compilations(self):
+        """Distinct prefill shape signatures this engine ran: the
+        compiled steps the reference's bucket lattice holds for the same
+        traffic. PyTorch runs them eagerly, so nothing is compiled."""
+        return sum(1 for kind, _ in self._sigs if kind == "prefill")
+
+    @property
+    def decode_compilations(self):
+        """Distinct decode-side shape signatures (decode, draft, spec
+        scoring) this engine ran; see `prefill_compilations`."""
+        return sum(1 for kind, _ in self._sigs if kind != "prefill")
 
     def kv_bytes_per_token(self):
         """Bytes of KV-cache one token occupies (K and V, every layer):
@@ -794,15 +809,17 @@ class Engine:
                 telemetry.record_span("serving.decode", t0_us, dur_us,
                                       trace=s.request.trace,
                                       category="serving",
+                                      to_profiler=False, to_flight=False,
                                       position=len(s.tokens) - 1)
         return seqs
 
-    def _draft_propose(self, seqs, bb, k):
+    def _draft_propose(self, seqs, bb, k, poison=False):
         """k greedy steps of the cache-free draft over the (bucketed)
         batch of token histories. Returns (draft (B, k) int64, per-sequence
         proposal counts), or None when the draft emitted non-finite
-        logits. Sequences within one token of max_total get a shorter
-        (possibly empty) proposal: the bonus token takes the last slot."""
+        logits (`poison` NaN-fills them: the serving loop's chaos seam).
+        Sequences within one token of max_total get a shorter (possibly
+        empty) proposal: the bonus token takes the last slot."""
         d = self.draft
         B = len(seqs)
         hist = [list(s.tokens) for s in seqs]
@@ -819,6 +836,8 @@ class Engine:
                 lens[i] = len(h)
             self._sigs.add(("draft", (bb, s_pad)))
             logits = d.logits_at(self._tensor(toks), self._tensor(lens))[:B]
+            if poison:
+                logits = torch.full_like(logits, float("nan"))
             if not bool(torch.isfinite(logits).all()):
                 return None
             nxt = logits.argmax(-1).cpu().numpy()
@@ -838,10 +857,11 @@ class Engine:
         plain step (draft fault)."""
         k = self.spec_k
         C = k + 1
+        poison, self.chaos_spec_poison = self.chaos_spec_poison, False
         t0_us = time.perf_counter_ns() // 1000
         with telemetry.span("serving.spec", category="serving",
                             batch=len(seqs), k=k):
-            drafted = self._draft_propose(seqs, bb, k)
+            drafted = self._draft_propose(seqs, bb, k, poison)
             if drafted is None:
                 self.spec_fallbacks += 1
                 self.last_spec = {"fallback": True, "batch": len(seqs)}
@@ -886,6 +906,7 @@ class Engine:
                         telemetry.record_span(
                             "serving.decode", t0_us, dur_us,
                             trace=s.request.trace, category="serving",
+                            to_profiler=False, to_flight=False,
                             position=len(s.tokens) - 1)
         self.spec_passes += 1
         self.spec_proposed_tokens += proposed

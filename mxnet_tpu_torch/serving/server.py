@@ -1,4 +1,4 @@
-"""The serving front doors: in-process `serve()` and a stdlib HTTP shim
+"""The serving front door: in-process `serve()` and a stdlib HTTP shim
 (port of `mxnet_tpu/serving/server.py`, one replica).
 
 `serve(model, ...)` accepts a `(params, TransformerConfig)` pair or a
@@ -9,13 +9,25 @@ The HTTP frontend (`LMServer.serve_http`) is a ThreadingHTTPServer over
 the same object — one handler thread per connection, all funneling into
 the single serving thread, which alone touches the engine.
 
-Replicas, routing, failover, migration, rollout and chaos seams are not
-ported yet: an engine fault fails the requests it hit and the loop keeps
-serving.
+The front door's contract is the reference's: tenants, priorities and
+per-tenant token budgets at admission; deadlines (shed at submit when
+the observed service rate cannot meet them — 503 with a computed
+Retry-After — and dropped before prefill when they pass in queue — 504);
+brownout under sustained saturation; a decode fault re-queues the batch
+as failover replays on this server's own queue, up to `max_failovers`
+hops a request; W3C `traceparent` in and out; `/statusz` and the
+Prometheus text `/metrics`; the flight recorder dumped on a dead or
+wedged loop; and the serving chaos seams (utils/chaos.py).
+
+The reference's multi-replica door (router, failover across replicas,
+disaggregated prefill/decode roles, autoscaling, live rollout, tensor
+parallelism) is ROADMAP item 9 and its AOT executable cache item 11:
+asking for any of them raises `MXNetError` naming the item.
 """
 from __future__ import annotations
 
 import json
+import os
 import threading
 import time
 
@@ -23,9 +35,27 @@ import torch
 
 from ..base import MXNetError
 from .. import telemetry
+from ..utils import chaos
 from .engine import Engine, TransformerLM
 from .metrics import ServingMetrics
-from .scheduler import Request, Scheduler, QueueFull, RUNNING
+from .scheduler import (Scheduler, Request, QueueFull, BrownoutShed,
+                        DeadlineExceeded, DeadlineUnmeetable, make_resume,
+                        RUNNING)
+
+
+def _not_ported(what, item):
+    return MXNetError("%s is not ported yet (ROADMAP item %s)"
+                      % (what, item))
+
+
+def _queue_span(req):
+    """Record the request's submit -> admission wait as a span on its
+    trace row (req.t_submit/t_admit are perf_counter seconds; span
+    timestamps are the same clock in microseconds)."""
+    telemetry.record_span("serving.queue", int(req.t_submit * 1e6),
+                          int((req.t_admit - req.t_submit) * 1e6),
+                          trace=req.trace, category="serving",
+                          to_profiler=False, request=req.id)
 
 
 def _resolve_model(model):
@@ -40,20 +70,29 @@ def _resolve_model(model):
 
 class _HTTPFrontend:
     """The stdlib HTTP front door. A front provides submit / snapshot /
-    health / close; a full queue maps to 429 after `submit_retries`
-    attempts with exponential backoff from `submit_backoff` seconds."""
+    prometheus_text / statusz / health / close plus two backpressure
+    knobs: `saturated_status` (the HTTP code a full queue maps to) and
+    `retry_after_s` (emitted as a Retry-After header when set)."""
 
     saturated_status = 429
+    retry_after_s = None
     submit_retries = 3
     submit_backoff = 0.05
     _httpd = None
 
+    def _final_reject(self):
+        """Count one request bounced by backpressure after retries."""
+
     def serve_http(self, host="127.0.0.1", port=8080, block=True):
         """Start the HTTP frontend. Endpoints:
         POST /v1/generate  {"tokens": [...], "max_new_tokens": N,
-                            "eos_id": id?}  -> {"tokens": [...], ...}
-        GET  /metrics      -> the metrics snapshot (JSON)
-        GET  /healthz      -> loop liveness
+                            "eos_id": id?, "tenant": name?,
+                            "priority": int?, "deadline_ms": ms?}
+                           -> {"tokens": [...], ...}
+        GET  /v1/metrics, /metrics -> the JSON snapshot, or Prometheus
+                            text under `Accept: text/plain`
+        GET  /statusz      -> token ledgers, tenants, SLO burn
+        GET  /healthz      -> loop liveness (503 when dead or wedged)
         Returns the bound (host, port); with block=False the HTTP server
         runs on a daemon thread (tests bind port 0)."""
         from http.server import ThreadingHTTPServer
@@ -72,35 +111,24 @@ class _HTTPFrontend:
                              daemon=True).start()
         return addr
 
-    def _submit_with_retry(self, body):
-        """Submit with bounded backoff on QueueFull: a briefly full queue
-        drains in a few decode steps. Only the final failure counts as a
-        rejection."""
-        for attempt in range(self.submit_retries):
-            try:
-                return self.submit(
-                    body["tokens"],
-                    max_new_tokens=int(body.get("max_new_tokens", 32)),
-                    eos_id=body.get("eos_id"), count_reject=False)
-            except QueueFull:
-                if attempt == self.submit_retries - 1:
-                    raise
-                time.sleep(self.submit_backoff * 2 ** attempt)
-
 
 def _make_handler(outer):
-    """BaseHTTPRequestHandler class bound to one `_HTTPFrontend`."""
+    """BaseHTTPRequestHandler class bound to one `_HTTPFrontend`. All
+    handler threads funnel into the front's submit path; the serving
+    thread stays the single writer of its engine."""
     from http.server import BaseHTTPRequestHandler
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):   # keep stdout clean
             pass
 
-        def _reply(self, code, payload):
+        def _reply(self, code, payload, headers=None):
             body = json.dumps(payload).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
+            for k, v in (headers or {}).items():
+                self.send_header(k, v)
             self.end_headers()
             self.wfile.write(body)
 
@@ -108,22 +136,75 @@ def _make_handler(outer):
             if self.path == "/healthz":
                 h = outer.health()
                 self._reply(200 if h["ok"] else 503, h)
+            elif self.path == "/statusz":
+                self._reply(200, outer.statusz())
             elif self.path in ("/v1/metrics", "/metrics"):
-                self._reply(200, outer.snapshot())
+                if "text/plain" in self.headers.get("Accept", ""):
+                    # Prometheus scrape: text exposition 0.0.4
+                    body = outer.prometheus_text().encode()
+                    self.send_response(200)
+                    self.send_header(
+                        "Content-Type",
+                        "text/plain; version=0.0.4; charset=utf-8")
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                else:
+                    self._reply(200, outer.snapshot())
             else:
                 self._reply(404, {"error": "unknown path %s" % self.path})
 
         def do_POST(self):
             if self.path not in ("/v1/generate", "/generate"):
+                # /v1/rollout included: live rollout is ROADMAP item 9,
+                # and the reference's single server answers it 404 too
                 self._reply(404, {"error": "unknown path %s" % self.path})
                 return
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 body = json.loads(self.rfile.read(n) or b"{}")
-                req = outer._submit_with_retry(body)
+                from ..utils import retry
+                # a well-formed inbound W3C `traceparent` joins the
+                # caller's trace; anything malformed degrades to a fresh
+                # trace id — a client's garbage header never 500s the door
+                trace = telemetry.parse_traceparent(
+                    self.headers.get("traceparent"))
+                priority = body.get("priority")
+                deadline_ms = body.get("deadline_ms")
+                # a briefly-full queue drains in a few decode steps:
+                # absorb the burst with bounded backoff; only the FINAL
+                # failure below counts as a rejection
+                req = retry(
+                    lambda: outer.submit(
+                        body["tokens"],
+                        max_new_tokens=int(
+                            body.get("max_new_tokens", 32)),
+                        eos_id=body.get("eos_id"),
+                        count_reject=False,
+                        tenant=body.get("tenant"),
+                        priority=(int(priority) if priority is not None
+                                  else None),
+                        deadline_ms=(float(deadline_ms)
+                                     if deadline_ms is not None
+                                     else None),
+                        trace=trace),
+                    attempts=outer.submit_retries,
+                    backoff=outer.submit_backoff,
+                    retry_on=QueueFull)
+            except DeadlineUnmeetable as e:
+                # admission-time shed: 503 with the COMPUTED Retry-After
+                self._reply(503, {"error": str(e)},
+                            headers={"Retry-After":
+                                     "%d" % max(1, int(e.retry_after_s))})
+                return
             except QueueFull as e:
-                outer.metrics.request_rejected()
-                self._reply(outer.saturated_status, {"error": str(e)})
+                outer._final_reject()
+                headers = None
+                if outer.retry_after_s is not None:
+                    headers = {"Retry-After":
+                               "%d" % max(1, int(outer.retry_after_s))}
+                self._reply(outer.saturated_status, {"error": str(e)},
+                            headers=headers)
                 return
             except (KeyError, ValueError, TypeError, MXNetError) as e:
                 # submit-side failures are the client's fault (malformed
@@ -133,6 +214,14 @@ def _make_handler(outer):
             try:
                 generated = req.result(
                     timeout=float(body.get("timeout", 300)))
+            except DeadlineExceeded as e:
+                # the deadline passed in queue: dropped before prefill
+                self._reply(504, {"error": str(e)})
+                return
+            except BrownoutShed as e:
+                self._reply(503, {"error": str(e)},
+                            headers={"Retry-After": "1"})
+                return
             except MXNetError as e:
                 self._reply(500, {"error": str(e)})
                 return
@@ -141,7 +230,8 @@ def _make_handler(outer):
                 "prompt_len": len(req.prompt),
                 "latency_ms": 1e3 * (req.t_done - req.t_submit),
                 "trace": req.trace,
-            })
+            }, headers={"traceparent":
+                        telemetry.format_traceparent(req.trace)})
 
     return Handler
 
@@ -150,14 +240,28 @@ class LMServer(_HTTPFrontend):
     """Continuous-batching server over one Engine. Start with
     `serve(...)`; stop with `close()` (or use as a context manager).
     `device=None` serves on the card; `device="cpu"` is the only way onto
-    the CPU."""
+    the CPU. `replica_id=` labels this server's metrics registry and
+    keys its chaos seams."""
+
+    #: resume hops one request may spend before its fault is surfaced
+    max_failovers = 2
 
     def __init__(self, model, max_batch=8, max_len=None, block_size=16,
                  num_blocks=None, max_queue=64, queue_timeout=None,
                  keep_logits=False, idle_wait=0.005, paged=None,
-                 prefill_chunk=None, token_budget=None, device=None,
-                 prefix_cache=None, draft=None, spec=None, spec_k=None,
-                 kv_quant=None, weight_quant=None):
+                 prefill_chunk=None, token_budget=None, tp=None,
+                 devices=None, replica_id=None, prefix_cache=None,
+                 tenant_budget=None, tenant_budgets=None,
+                 default_priority=0, default_deadline_ms=None,
+                 brownout=None, aot_cache=None, role=None, draft=None,
+                 spec=None, spec_k=None, kv_quant=None, weight_quant=None,
+                 device=None):
+        if tp not in (None, 1) or devices is not None:
+            raise _not_ported("tensor-parallel serving (tp=, devices=)", 9)
+        if role is not None:
+            raise _not_ported("disaggregated serving (role=)", 9)
+        if aot_cache is not None:
+            raise _not_ported("the AOT executable cache (aot_cache=)", 11)
         self.engine = Engine(_resolve_model(model), max_batch=max_batch,
                              max_len=max_len, block_size=block_size,
                              num_blocks=num_blocks, keep_logits=keep_logits,
@@ -167,14 +271,27 @@ class LMServer(_HTTPFrontend):
                              kv_quant=kv_quant, weight_quant=weight_quant)
         self.scheduler = Scheduler(max_batch=max_batch, max_queue=max_queue,
                                    queue_timeout=queue_timeout,
-                                   token_budget=token_budget)
-        self.metrics = ServingMetrics()
+                                   token_budget=token_budget,
+                                   tenant_budget=tenant_budget,
+                                   tenant_budgets=tenant_budgets,
+                                   brownout=brownout)
+        self.default_priority = int(default_priority)
+        if default_deadline_ms is None:
+            env = os.environ.get("MXNET_SERVING_DEADLINE_MS")
+            default_deadline_ms = float(env) if env else None
+        self.default_deadline_ms = default_deadline_ms
+        self.metrics = ServingMetrics(replica=replica_id)
+        self.replica_id = replica_id
         self._idle_wait = idle_wait
         self._work = threading.Event()
         self._closed = False
         self._died = False
-        # liveness for /healthz: the loop beats every iteration
+        self._chaos_stolen = None     # (block ids, release-at iteration)
+        # liveness observables for /healthz: the loop thread beats every
+        # iteration; decode progress stamps separately
         self._last_beat = time.perf_counter()
+        self._last_step_t = None
+        self._wedge_dumped = False
         self._thread = threading.Thread(target=self._loop,
                                         name="mxtt-serving", daemon=True)
         self._thread.start()
@@ -182,31 +299,126 @@ class LMServer(_HTTPFrontend):
     # -- client API ----------------------------------------------------------
 
     def submit(self, prompt, max_new_tokens=32, eos_id=None,
-               count_reject=True):
+               count_reject=True, tenant=None, priority=None,
+               deadline_ms=None, trace=None):
         """Enqueue one request; returns it (a future: .result(timeout)).
         Raises QueueFull immediately when backpressure kicks in;
         `count_reject=False` leaves the rejection uncounted, for retry
-        wrappers that count only the final failure."""
+        wrappers that count only the final failure. `tenant`/`priority`
+        feed the scheduler's multi-tenant admission (default tenant,
+        server default priority when omitted). `deadline_ms` (default
+        `default_deadline_ms` / MXNET_SERVING_DEADLINE_MS) is the
+        client's total latency budget: a request the OBSERVED service
+        rate already can't meet is shed here (DeadlineUnmeetable, with
+        the computed Retry-After). `trace` is the caller's trace id (the
+        HTTP frontend passes a parsed W3C `traceparent`); unset mints a
+        fresh one. Every span of the request's life keys on it."""
         if self._closed:
             raise MXNetError("server is closed")
         if len(prompt) > self.engine.max_len:
             raise MXNetError(
                 "prompt length %d exceeds the server's max_len %d"
                 % (len(prompt), self.engine.max_len))
-        req = Request(prompt, max_new_tokens=max_new_tokens, eos_id=eos_id)
+        if deadline_ms is None:
+            deadline_ms = self.default_deadline_ms
+        req = Request(prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
+                      tenant=tenant,
+                      priority=(priority if priority is not None
+                                else self.default_priority),
+                      deadline_ms=deadline_ms, trace=trace)
+        if deadline_ms is not None:
+            # after the Request exists, so a shed has an id/trace/tenant
+            # to account and log against (it was never submitted: its
+            # terminal accounting happens in the gate)
+            self._check_deadline_meetable(req)
         try:
             self.scheduler.submit(req)
         except QueueFull:
             if count_reject:
                 self.metrics.request_rejected()
             raise
-        self.metrics.request_submitted()
+        if self._closed:
+            # the loop died between the check above and the enqueue:
+            # pull the request back if it is still queued
+            with self.scheduler._lock:
+                try:
+                    self.scheduler._queue.remove(req)
+                    pulled = True
+                except ValueError:
+                    pulled = False
+            if pulled:
+                raise MXNetError("server is closed")
+        self.metrics.request_submitted(req)
+        # the trace row's start marker: every later span (queue, prefill
+        # chunks, decode steps) shares this request's trace id
         telemetry.record_span("serving.submit", int(req.t_submit * 1e6),
                               0, trace=req.trace, category="serving",
-                              request=req.id, prompt_len=len(req.prompt),
+                              to_profiler=False, request=req.id,
+                              prompt_len=len(req.prompt),
                               max_new_tokens=req.max_new_tokens)
         self._work.set()
         return req
+
+    def adopt(self, req):
+        """Enqueue a Request object created elsewhere (a failover replay
+        of `spawn_resume`). Raises QueueFull under backpressure."""
+        if self._closed:
+            raise QueueFull("server is closed")
+        self.scheduler.submit(req)
+        self._work.set()
+        return req
+
+    def _load_split(self):
+        """Committed backlog split into (prefill tokens, decode tokens)
+        — the two drain at very different rates, and the deadline gate
+        prices each at its own observed rate. Advisory reads."""
+        sched = self.scheduler
+        with sched._lock:
+            queued = list(sched._queue)
+        pre = sum(len(r.prompt) for r in queued)
+        dec = sum(r.max_new_tokens for r in queued)
+        for s in list(sched.running):
+            dec += max(1, s.max_total - len(s.tokens))
+        for s in list(sched.prefilling):
+            pre += max(0, s.prompt_len - s.prefilled)
+            dec += max(1, s.max_total - s.prompt_len)
+        return pre, dec
+
+    def load_tokens(self):
+        """Tokens this server is still committed to: queued requests'
+        prompt + generation budgets plus every in-flight sequence's
+        remaining tokens (the same backlog walk the deadline gate
+        reads)."""
+        pre, dec = self._load_split()
+        return pre + dec
+
+    def _check_deadline_meetable(self, req):
+        """Admission-time deadline gate: the estimated completion time is
+        the committed DECODE backlog over the observed decode token rate
+        PLUS the prefill backlog over the observed prefill rate. When it
+        already exceeds the deadline, shed NOW with a Retry-After of how
+        long the backlog needs to drain below feasibility. No measured
+        rate yet: admit."""
+        deadline_ms = req.deadline_ms
+        rate = self.metrics.observed_token_rate()
+        if rate is None or rate <= 0:
+            return
+        pre_b, dec_b = self._load_split()
+        pre_b += len(req.prompt)
+        dec_b += req.max_new_tokens
+        prate = self.metrics.observed_prefill_rate()
+        est_s = dec_b / rate + (pre_b / prate if prate else 0.0)
+        if est_s <= deadline_ms / 1e3:
+            return
+        self.metrics.request_deadline_shed(req)
+        retry_after = max(1.0, est_s - deadline_ms / 1e3)
+        raise DeadlineUnmeetable(
+            "deadline %.0f ms unmeetable: %d decode + %d prefill "
+            "backlog tokens at the observed %.0f tok/s decode rate "
+            "need ~%.0f ms; retry in %.0fs"
+            % (deadline_ms, dec_b, pre_b, rate, est_s * 1e3,
+               retry_after),
+            retry_after_s=retry_after)
 
     def generate(self, prompt, max_new_tokens=32, eos_id=None,
                  timeout=None):
@@ -218,20 +430,47 @@ class LMServer(_HTTPFrontend):
     def snapshot(self):
         return self.metrics.snapshot(self.engine, self.scheduler)
 
+    def prometheus_text(self):
+        """Prometheus exposition of the server's metrics registry (the
+        `/metrics` body under `Accept: text/plain`)."""
+        return self.metrics.prometheus_text(self.engine, self.scheduler)
+
+    def statusz(self):
+        """The /statusz JSON body: the goodput token ledger, per-tenant
+        breakdown, and SLO attainment/burn for this server."""
+        return self.metrics.statusz(self.engine, self.scheduler)
+
     def health(self, max_beat_age=5.0):
-        """Loop liveness for /healthz: `ok` needs the serving thread
-        alive and beating recently."""
-        beat_age = time.perf_counter() - self._last_beat
+        """Loop liveness for /healthz: `ok` requires the serving thread
+        alive AND beating recently (a wedged loop is as dead as a crashed
+        one). `last_step_age_s` is decode-progress age — None until the
+        first decode step. The FIRST health check that observes a wedged
+        loop dumps the flight recorder (a dead loop dumped it as it
+        died)."""
+        now = time.perf_counter()
         alive = self._thread.is_alive() and not self._closed
-        return {"ok": bool(alive and beat_age < max_beat_age),
-                "loop_alive": bool(alive),
-                "last_beat_age_s": round(beat_age, 3),
-                "engine_failures": self.metrics.engine_failures}
+        beat_age = now - self._last_beat
+        ok = bool(alive and beat_age < max_beat_age)
+        if not ok and not self._closed and not self._wedge_dumped:
+            self._wedge_dumped = True
+            telemetry.flight().record(
+                "fault", "serving.healthz_wedge",
+                loop_alive=bool(alive), beat_age_s=round(beat_age, 3))
+            telemetry.flight().dump("healthz_wedge")
+        return {
+            "ok": ok,
+            "loop_alive": bool(alive),
+            "last_beat_age_s": round(beat_age, 3),
+            "last_step_age_s": (round(now - self._last_step_t, 3)
+                                if self._last_step_t is not None else None),
+            "engine_failures": self.metrics.engine_failures,
+        }
 
     def close(self, drain=True, timeout=30.0):
         """Stop the loop; with drain=True finish in-flight work first. A
-        clean close runs the engine's block-pool leak audit; anything
-        still queued or in flight afterwards fails promptly."""
+        clean close (drained, loop exited on its own terms) runs the
+        engine's block-pool leak audit; anything still queued or in
+        flight afterwards fails promptly."""
         if drain:
             deadline = time.perf_counter() + timeout
             while self.scheduler.has_work() and \
@@ -264,8 +503,13 @@ class LMServer(_HTTPFrontend):
             torch.cuda.set_device(self.engine.device)
         try:
             self._loop_inner()
-        except BaseException as e:
-            # a dead loop must not strand clients in result()
+        except BaseException as e:  # noqa: BLE001 — a dead loop must not
+            # strand clients in result(): dump the black box, then fail
+            # everything queued or in flight
+            telemetry.flight().record("fault", "serving.loop_died",
+                                      error="%s: %s"
+                                      % (type(e).__name__, e))
+            telemetry.flight().dump("serving_loop_died")
             self._died = True
             self._closed = True
             self._fail_all(MXNetError("serving loop died: %s: %s"
@@ -273,21 +517,23 @@ class LMServer(_HTTPFrontend):
             raise
 
     def _fail_all(self, err):
-        """Release every in-flight sequence's blocks and fail every
-        request still queued or in flight with `err`."""
+        """Release every in-flight sequence's blocks (not reusable: the
+        loop cannot certify their KV) and the chaos-held blocks, and fail
+        every request still queued or in flight with `err`."""
         sched = self.scheduler
         with sched._lock:
             reqs = list(sched._queue)
             sched._queue.clear()
         for seq in sched.running + sched.prefilling:
             try:
-                self.engine.release(seq)
+                self.engine.release(seq, reusable=False)
             except MXNetError:
                 pass      # a broken pool must not strand the clients
             if seq.request is not None:
                 reqs.append(seq.request)
         sched.running = []
         sched.prefilling = []
+        self._release_chaos_blocks()
         for req in reqs:
             if not req.wait(0):
                 req._finish(error=err)
@@ -295,11 +541,25 @@ class LMServer(_HTTPFrontend):
 
     def _loop_inner(self):
         eng, sched, met = self.engine, self.scheduler, self.metrics
+        rid = self.replica_id if self.replica_id is not None else 0
+        it = 0
         while not self._closed:
+            it += 1
             self._last_beat = time.perf_counter()
+            # chaos seams (no-ops unless armed): a kill raises HERE —
+            # outside the engine-fault isolation — so the loop dies like
+            # a real bug; a wedge sleeps so the beat goes stale;
+            # exhaustion steals the free list for a few rounds
+            chaos.maybe_kill_serving_loop(rid, it)
+            chaos.maybe_wedge_serving_loop(rid, it)
+            self._chaos_pool_pressure(rid, it)
             admitted, expired = sched.admit(eng)
             for req in expired:
-                met.request_expired()
+                if isinstance(req.error, DeadlineExceeded):
+                    met.request_deadline_shed()
+                elif isinstance(req.error, BrownoutShed):
+                    met.request_brownout_shed()
+                met.request_expired(req)
                 met.request_finished(req)
             if eng.paged:
                 # chunked prefill: allocate now, stream the prompt
@@ -310,24 +570,52 @@ class LMServer(_HTTPFrontend):
                 self._admit_dense(admitted)
             if sched.running:
                 t0 = time.perf_counter()
-                # a speculative step emits a burst per sequence: count
-                # the tokens as post-length minus pre-length
-                pre = {id(s): len(s.tokens) for s in sched.running}
                 try:
+                    if chaos.decode_poison(rid, it):
+                        raise MXNetError("chaos: decode step poisoned")
+                    if eng.spec:
+                        # NaN-fill THIS iteration's draft logits when
+                        # armed: the engine degrades the batch to the
+                        # plain step, token-identical
+                        eng.chaos_spec_poison = chaos.spec_poison(rid, it)
+                    # a speculative step emits a burst per sequence:
+                    # count tokens as post-length minus pre-length
+                    pre_lens = [len(s.tokens) for s in sched.running
+                                if not s.done]
                     advanced = eng.decode_step(sched.running)
-                except Exception as e:  # engine fault: fail the batch,
-                    met.engine_failure()  # keep the loop serving
-                    self._fail(sched.running, "engine decode failed", e)
+                except Exception as e:
+                    # a decode fault poisons the STEP, not the history:
+                    # re-queue the batch on this server as failover
+                    # replays (prompt + generated so far re-prefills,
+                    # decode continues token-identically); a request that
+                    # keeps hitting faults exhausts max_failovers and
+                    # surfaces the error
+                    met.engine_failure()
+                    err = MXNetError("engine decode failed: %s: %s"
+                                     % (type(e).__name__, e))
+                    self._resume_locally(sched.running, err)
                     sched.running = []
                     continue
+                self._last_step_t = time.perf_counter()
                 if advanced:
-                    met.decode_step(len(advanced), time.perf_counter() - t0,
-                                    paged=eng.paged,
-                                    tokens=sum(len(s.tokens) - pre[id(s)]
-                                               for s in advanced))
+                    emitted = sum(len(s.tokens) - n
+                                  for s, n in zip(advanced, pre_lens))
+                    met.decode_step(len(advanced), eng.max_batch,
+                                    self._last_step_t - t0,
+                                    cache_util=eng.cache_utilization(),
+                                    paged=eng.paged, tokens=emitted)
                     if eng.last_spec is not None:
                         met.spec_pass(**eng.last_spec)
                         eng.last_spec = None
+                    # per-request inter-token latency: one observation
+                    # per EMITTED token (a speculative burst's interior
+                    # gaps are ~0: the client receives them together)
+                    for s, n in zip(advanced, pre_lens):
+                        if s.request is not None:
+                            for posn in range(n, len(s.tokens)):
+                                met.token_generated(
+                                    s.request, now=self._last_step_t,
+                                    position=posn)
                 for seq in sched.evict(eng):
                     if seq.request is not None:
                         met.request_finished(seq.request)
@@ -339,15 +627,6 @@ class LMServer(_HTTPFrontend):
                 self._work.wait(self._idle_wait * 20)
             else:
                 time.sleep(self._idle_wait)
-
-    def _fail(self, seqs, what, exc):
-        """Release `seqs`' blocks and fail their requests with `exc`."""
-        err = MXNetError("%s: %s: %s" % (what, type(exc).__name__, exc))
-        for seq in seqs:
-            self.engine.release(seq)
-            if seq.request is not None:
-                seq.request._finish(error=err)
-                self.metrics.request_finished(seq.request)
 
     def _requeue(self, reqs):
         """Transient block shortage: put `reqs` back at the queue head,
@@ -361,6 +640,10 @@ class LMServer(_HTTPFrontend):
         before the decode step."""
         eng, sched, met = self.engine, self.scheduler, self.metrics
         for i, req in enumerate(admitted):
+            t0 = time.perf_counter()
+            # the engine's prefill span inherits the request's trace id
+            # through the thread-local (the Sequence only learns its
+            # request after start() returns)
             prev = telemetry.set_trace(req.trace)
             try:
                 seq = eng.start(req.prompt, req.max_new_tokens,
@@ -379,7 +662,9 @@ class LMServer(_HTTPFrontend):
                 break
             seq.request = req
             req.state = RUNNING
-            met.request_prefilled(req)
+            _queue_span(req)
+            met.request_admitted(req)
+            met.request_prefilled(req, time.perf_counter() - t0)
             sched.running.append(seq)
 
     def _admit_paged(self, admitted):
@@ -402,12 +687,16 @@ class LMServer(_HTTPFrontend):
                 break
             seq.request = req
             req.state = RUNNING
+            _queue_span(req)
+            met.request_admitted(req)
             sched.prefilling.append(seq)
 
     def _prefill_chunks(self):
         """Advance every mid-prefill sequence by ONE chunk (FIFO), bounded
-        by the scheduler's token budget net of the decode batch. At least
-        one chunk always runs when nothing is decoding."""
+        by the scheduler's token budget net of the decode batch (priced
+        as admission prices it: k+1 scored tokens per speculating
+        sequence). At least one chunk always runs when nothing is
+        decoding."""
         eng, sched, met = self.engine, self.scheduler, self.metrics
         budget = sched.token_budget
         spent = eng.decode_tokens_per_step() * len(sched.running)
@@ -418,24 +707,151 @@ class LMServer(_HTTPFrontend):
             t0 = time.perf_counter()
             try:
                 done = eng.prefill_step(seq)
-            except Exception as e:  # chunk fault: fail THIS request
-                met.engine_failure()
+            except Exception as e:  # chunk fault: fail THIS request,
+                met.engine_failure()  # free its blocks, keep serving
                 sched.prefilling.remove(seq)
-                self._fail([seq], "engine prefill failed", e)
+                try:
+                    eng.release(seq, reusable=False)
+                except Exception:
+                    pass
+                if seq.request is not None:
+                    seq.request._finish(error=MXNetError(
+                        "engine prefill failed: %s: %s"
+                        % (type(e).__name__, e)))
+                    met.request_finished(seq.request)
                 continue
-            met.prefill_chunk()
             seq.prefill_s += time.perf_counter() - t0
             spent += cost
+            if seq.request is not None:
+                met.request_chunk(seq.request, seq.prefilled)
             if done:
                 sched.prefilling.remove(seq)
                 if seq.request is not None:
-                    met.request_prefilled(seq.request)
+                    met.request_prefilled(seq.request, seq.prefill_s)
                 sched.running.append(seq)
+            met.prefill_chunk(len(sched.prefilling))
+
+    # -- decode-fault recovery -----------------------------------------------
+
+    def _resume_locally(self, seqs, err):
+        """Release every poisoned sequence's blocks and re-queue each
+        request on THIS server as a failover replay (prompt + tokens
+        generated so far; that history predates the faulted step, so the
+        greedy continuation is token-identical). A request that has
+        exhausted its failover budget surfaces the engine error."""
+        for seq in list(seqs):
+            req = seq.request
+            tokens = list(seq.tokens)
+            try:
+                self.engine.release(seq, reusable=False)
+            except Exception:
+                pass
+            if req is None or req._event.is_set():
+                continue
+            if req.failovers >= self.max_failovers:
+                req._finish(error=err)
+                self.metrics.request_finished(req)
+                continue
+            try:
+                resume, carried = spawn_resume(req, tokens, self)
+            except QueueFull:
+                req._finish(error=err)
+                self.metrics.request_finished(req)
+                continue
+            if resume is None:      # generation was already complete
+                self.metrics.request_finished(req)
+            else:
+                self.metrics.request_failover(req, carried)
+
+    # -- chaos seams ---------------------------------------------------------
+
+    def _chaos_pool_pressure(self, rid, it):
+        """Armed serve_exhaust: steal the whole free list for a few loop
+        iterations (admission sees transient exhaustion and queues), then
+        hand the blocks back."""
+        if self._chaos_stolen is not None:
+            ids, release_at = self._chaos_stolen
+            if it >= release_at:
+                if ids:
+                    self.engine.cache.pool.free(ids)
+                self._chaos_stolen = None
+            return
+        hold = chaos.pool_exhaustion(rid, it)
+        if hold:
+            pool = self.engine.cache.pool
+            ids = pool.try_alloc(pool.available) or []
+            self._chaos_stolen = (ids, it + hold)
+
+    def _release_chaos_blocks(self):
+        if self._chaos_stolen is None:
+            return
+        ids, _ = self._chaos_stolen
+        self._chaos_stolen = None
+        try:
+            if ids:
+                self.engine.cache.pool.free(ids)
+        except Exception:
+            pass
+
+    def _final_reject(self):
+        self.metrics.request_rejected()
 
 
-def serve(model, **kwargs):
+def spawn_resume(orig, tokens, target):
+    """Place one failover replay for `orig` onto `target` (an LMServer):
+    the resume's prompt is `tokens` — the original prompt plus everything
+    generated before the fault — replayed as a prefill, after which
+    decode continues. The stitch callback completes `orig` from the
+    resume's result, so the client's future resolves with ONE token
+    stream, greedy-token-identical to an undisturbed run.
+
+    Returns `(resume, carried)`; `resume` is None when the generation was
+    already complete (orig finished directly). Raises QueueFull when the
+    target can't absorb it. Metric accounting stays with the caller."""
+    resume, carried = make_resume(orig, tokens, target.engine.max_len)
+    if resume is None:
+        orig._finish(tokens=list(tokens))
+        return None, carried
+
+    def stitch(r):
+        if r.error is None:
+            orig._finish(tokens=list(r.tokens))
+        else:
+            orig._finish(error=r.error)
+
+    resume._on_finish = stitch
+    target.adopt(resume)
+    # the hop annotation on the request's (single, stitched) trace row
+    now_us = time.perf_counter_ns() // 1000
+    telemetry.record_span("serving.failover_hop", now_us, 0,
+                          trace=orig.trace, category="serving",
+                          to_profiler=False, request=orig.id,
+                          resume=resume.id, carried_tokens=carried,
+                          hop=resume.failovers,
+                          target=target.replica_id)
+    return resume, carried
+
+
+def serve(model, replicas=None, autoscale=None, roles=None, rollout=None,
+          **kwargs):
     """Build and start an `LMServer` over `model` (a (params, cfg) pair or
     a TransformerLM). Keyword args pass through to LMServer and its
     Engine (paged, kv_quant, weight_quant, draft, spec, spec_k,
-    prefix_cache, ...); `device` defaults to the card."""
+    prefix_cache, tenant budgets, deadlines, brownout, ...); `device`
+    defaults to the card. The reference's multi-replica door
+    (`replicas > 1` / MXNET_SERVING_REPLICAS, `autoscale` /
+    MXNET_SERVING_AUTOSCALE, `roles` / MXNET_SERVING_ROLES, `rollout` /
+    MXNET_SERVING_ROLLOUT_DIR) is ROADMAP item 9 and raises."""
+    env = os.environ
+    n = int(replicas if replicas is not None
+            else env.get("MXNET_SERVING_REPLICAS") or 1)
+    if n > 1:
+        raise _not_ported("multi-replica serving (replicas=%d)" % n, 9)
+    if autoscale if autoscale is not None else \
+            env.get("MXNET_SERVING_AUTOSCALE", "0") == "1":
+        raise _not_ported("autoscaling (autoscale=)", 9)
+    if roles or (roles is None and env.get("MXNET_SERVING_ROLES")):
+        raise _not_ported("disaggregated serving (roles=)", 9)
+    if rollout or (rollout is None and env.get("MXNET_SERVING_ROLLOUT_DIR")):
+        raise _not_ported("live rollout (rollout=)", 9)
     return LMServer(model, **kwargs)
