@@ -318,7 +318,37 @@ Phases (any failure exits non-zero before the last line):
                 decode call and the gap between calls (p50s), tokens/s
                 and TTFT p50 per run, and the paired on - off medians
                 (no limit).
-  23. the kernels line (K3a-d's and K4a-b's launches summed over every
+  23. the multi-replica door — phase 4's config and width on K1, every
+                replica on the one card (cuda:(i % device_count)): (a)
+                24 requests (prompts 32-256, 16-128 new tokens, seed 23)
+                from 6 client threads through serve(replicas=3), greedy
+                tokens against the gather oracle, every replica serving,
+                K1 launches = n_layers x (decode steps + prefill chunks)
+                over the replicas; the same traffic through one LMServer
+                in turns (fleet, single, fleet, single: tokens/s, TTFT
+                p50); 60 POSTs at once over queues of 2 get 200s with
+                oracle tokens and 503s with Retry-After; (b)
+                tools/chaos_serve.py's five faults in sequence under a
+                client stream (replica 1 wedged, drained and restored;
+                replica 0 killed mid-decode, its request failed over and
+                the replica respawned; replica 2's decode poisoned and
+                its pool exhausted; replica 1 crash-looping until its
+                circuit opens): every request completed with oracle
+                tokens, audit_quiescent on every pool and retired
+                corpse, the faults and the victims' failover and finish
+                in the flight dumps, tools/postmortem.py and
+                tools/fleet_top.py --once rc 0, the token and request
+                ledgers' identities; (c) roles="prefill:1,decode:2" with
+                the prefix cache, 12 requests (4 on a 256-token prefix):
+                each migrates once with oracle tokens on one trace, the
+                decode replicas' prefix hits save bytes, K1's launches
+                match; with the decode replicas retired the prefill
+                replica decodes locally; (d) serve(autoscale=
+                AutoscaleConfig(min 1, max 3)) with 1 and 2 s SLO windows
+                and a 10 ms TTFT objective: step() by hand over real
+                burns scales up, holds in its cooldown, scales down once
+                idle and cool, no request lost, oracle tokens.
+  24. the kernels line (K3a-d's and K4a-b's launches summed over every
      path that runs them, split in `launches_by_path`; K3a-d's sums over
      an Inception-v3 step under `inception_v3_step`), nvidia-smi's line,
      and the last line {"ok": true, "device": {...}}.
@@ -6245,6 +6275,648 @@ def phase_front_door(torch, np, dev, card):
     return launches, out
 
 
+
+#: phase 23: the multi-replica door at phase 4's width and config on K1;
+#: routing (a), the chaos drill (b), prefill/decode roles (c), autoscale
+#: (d). Prompt lengths and new-token counts are (low, high) ranges drawn
+#: from seed 23; the rehearsal on the CPU shrinks them with BENCH_CFG.
+FLEET_REPLICAS = 3
+FLEET_REQUESTS = 24
+FLEET_CLIENTS = 6
+FLEET_PROMPT = (32, 256)
+FLEET_GEN = (16, 128)
+FLEET_BURST = 60
+FLEET_BURST_QUEUE = 2
+DRILL_REQUESTS = 24
+DRILL_PROMPT = (32, 128)
+DRILL_GEN = (16, 64)
+DRILL_PIN_GEN = 128
+DRILL_BEAT_AGE_S = 1.5
+DRILL_WEDGE_S = 3.5
+DRILL_FAULTS = ("chaos.serve_wedge", "chaos.serve_kill",
+                "chaos.serve_poison", "chaos.serve_exhaust",
+                "chaos.serve_crash_loop")
+ROLES_SHARED = 256
+ROLES_SUFFIX = 32
+ROLES_UNSHARED = 8
+ROLES_PROMPT = (32, 128)
+ROLES_GEN = (16, 64)
+SCALE_TTFT_MS = "10"
+SCALE_WINDOWS = "1,2"
+SCALE_BURST = 16
+#: bound on every wait of phase 23 (s)
+FLEET_WAIT_S = 120
+TOOLS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools")
+
+
+def fleet_work(np, rng, n, lens, gens, vocab):
+    """`n` (prompt, new tokens) pairs, lengths drawn in the given ranges."""
+    out = []
+    for _ in range(n):
+        plen = int(rng.randint(lens[0], lens[1] + 1))
+        out.append(([int(t) for t in rng.randint(1, vocab, plen)],
+                    int(rng.randint(gens[0], gens[1] + 1))))
+    return out
+
+
+def wait_for(pred, what, timeout=FLEET_WAIT_S, poll=None):
+    t0 = time.perf_counter()
+    while not pred():
+        check(time.perf_counter() - t0 < timeout,
+              "timed out after %.0f s waiting for %s" % (timeout, what))
+        if poll is not None:
+            poll()
+        time.sleep(0.02)
+
+
+def fleet_clients(srv, work, clients, stop=None):
+    """Serve `work` from `clients` threads, client c taking requests c,
+    c + clients, ...; backpressure (QueueFull, NoHealthyReplicas) is
+    retried. With `stop` (an Event) each client cycles through its share
+    until it is set. Returns (results {i: [tokens lists]}, requests,
+    errors, wall s)."""
+    from mxnet_tpu_torch import serving
+    results, reqs, errors = {}, [], []
+    lock = threading.Lock()
+
+    def client(c):
+        rnd = 0
+        while True:
+            for i in range(c, len(work), clients):
+                if stop is not None and stop.is_set() and rnd > 0:
+                    return
+                prompt, gen = work[i]
+                for attempt in range(50):
+                    try:
+                        req = srv.submit(list(prompt), max_new_tokens=gen)
+                        break
+                    except (serving.QueueFull, serving.NoHealthyReplicas):
+                        time.sleep(0.05 * min(attempt + 1, 10))
+                else:
+                    with lock:
+                        errors.append((i, "never admitted"))
+                    continue
+                try:
+                    out = req.result(timeout=FLEET_WAIT_S)
+                except Exception as e:  # reported by the caller's check
+                    with lock:
+                        errors.append((i, "%s: %s" % (type(e).__name__, e)))
+                    continue
+                with lock:
+                    results.setdefault(i, []).append(out)
+                    reqs.append(req)
+            rnd += 1
+            if stop is None or stop.is_set():
+                return
+
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=10 * FLEET_WAIT_S)
+    check(not any(t.is_alive() for t in threads), "a client never returned")
+    return results, reqs, errors, time.perf_counter() - t0
+
+
+def check_fleet_tokens(what, results, idx, ref, margins):
+    """Every result of work item i against the oracle row idx[i]; returns
+    how many tokens were compared."""
+    n = 0
+    for i, outs in results.items():
+        for out in outs:
+            n += compare_tokens(what, [out], [ref[idx[i]]],
+                                [margins[idx[i]]], quiet=True)
+    return n
+
+
+def k1_want(cfg, snaps):
+    """K1's launches on a paged fleet: n_layers x (decode steps + prefill
+    chunks), summed over the replicas' snapshots."""
+    return cfg.n_layers * sum(s["paths"]["paged_decode_steps"]
+                              + s["paths"]["prefill_chunks"] for s in snaps)
+
+
+def fleet_run(serving, pa, params, cfg, work, kw, replicas):
+    """One timed run of `work` from FLEET_CLIENTS threads through
+    `serve(replicas=...)` (a single LMServer at replicas=1). Returns the
+    results, the numbers, K1's launches and the replicas' snapshots."""
+    srv = serving.serve((params, cfg), replicas=replicas, **kw)
+    try:
+        pa.paged_attention.launches = 0
+        results, reqs, errors, wall = fleet_clients(srv, work,
+                                                    FLEET_CLIENTS)
+        launches = pa.paged_attention.launches
+        reps = srv.replicas if replicas > 1 else [srv]
+        snaps = [r.snapshot() for r in reps]
+        devices = sorted({str(r.engine.device) for r in reps})
+    finally:
+        srv.close(timeout=FLEET_WAIT_S)
+    check(not errors, "fleet traffic failed: %r" % errors[:4])
+    tokens = sum(len(o[0]) for o in results.values())
+    ttfts = sorted(r.t_first_token - r.t_submit for r in reqs)
+    return results, {"tokens_per_s": tokens / wall, "wall_s": wall,
+                     "ttft_p50_ms": 1e3 * ttfts[len(ttfts) // 2],
+                     "completed_by_replica": [
+                         s["requests"]["completed"] for s in snaps]}, \
+        launches, snaps, devices
+
+
+def fleet_burst(serving, params, cfg, work, idx, ref, margins, kw):
+    """23a's burst past capacity over HTTP: each replica's queue cut to
+    FLEET_BURST_QUEUE, FLEET_BURST POSTs at once, no retry at the door.
+    Returns (statuses, Retry-After values of the 503s, 200s checked)."""
+    srv = serving.serve((params, cfg), replicas=FLEET_REPLICAS, **kw)
+    try:
+        for rep in srv.replicas:
+            rep.scheduler.max_queue = FLEET_BURST_QUEUE
+        srv.submit_retries = 1
+        host, port = srv.serve_http(port=0, block=False)
+        url = "http://%s:%d/v1/generate" % (host, port)
+        out = {}
+
+        def post(j):
+            i = j % len(work)
+            out[j] = (i, http_json(url, {"tokens": work[i][0],
+                                         "max_new_tokens": work[i][1]}))
+
+        threads = [threading.Thread(target=post, args=(j,), daemon=True)
+                   for j in range(FLEET_BURST)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=FLEET_WAIT_S)
+        rejected = srv.snapshot()["router"]["metrics"][
+            "serving_router_rejected_total"]["value"]
+    finally:
+        srv.close(timeout=FLEET_WAIT_S)
+    check(len(out) == FLEET_BURST, "23a burst: %d of %d POSTs returned"
+          % (len(out), FLEET_BURST))
+    codes = [code for _, (code, _, _) in out.values()]
+    retry = [int(hdr.get("Retry-After", 0))
+             for _, (code, _, hdr) in out.values() if code == 503]
+    check(set(codes) <= {200, 503} and retry and min(retry) >= 1,
+          "23a burst: statuses %r, Retry-After %r (want 200s and 503s "
+          "with Retry-After >= 1)" % (sorted(set(codes)), retry[:4]))
+    check(rejected == len(retry), "23a burst: the router counted %d "
+          "rejections for %d 503s" % (rejected, len(retry)))
+    ok = {i: [body["tokens"]] for i, (code, body, _) in out.values()
+          if code == 200}
+    n = check_fleet_tokens("23a burst", ok, idx, ref, margins)
+    return {"posts": FLEET_BURST, "ok_200": codes.count(200),
+            "rejected_503": len(retry), "retry_after_s": max(retry),
+            "tokens_compared": n}
+
+
+def fleet_routing(serving, pa, params, cfg, work, idx, ref, margins, kw):
+    """23a: FLEET_REQUESTS mixed-length requests from FLEET_CLIENTS
+    threads through serve(replicas=3), in turns with one LMServer on the
+    same traffic (fleet, single, fleet, single); the first fleet run's
+    tokens against the oracle, every replica serving, K1's launches equal
+    to n_layers x (decode steps + prefill chunks) over the replicas; then
+    the burst past capacity. Returns (K1 launches, numbers)."""
+    runs, launches = {"fleet": [], "single": []}, None
+    for turn in ("fleet", "single", "fleet", "single"):
+        n = FLEET_REPLICAS if turn == "fleet" else 1
+        results, nums, lch, snaps, devices = fleet_run(
+            serving, pa, params, cfg, work, kw, n)
+        runs[turn].append(nums)
+        if turn == "fleet" and launches is None:
+            launches = lch
+            want = k1_want(cfg, snaps)
+            check(launches == want and launches > 0,
+                  "23a: K1 launched %d times, expected n_layers x (decode "
+                  "steps + prefill chunks) over the replicas = %d"
+                  % (launches, want))
+            check(all(c > 0 for c in nums["completed_by_replica"]),
+                  "23a: a replica served nothing: %r"
+                  % nums["completed_by_replica"])
+            weights = str(next(iter(params.values())).device)
+            check(devices == [weights], "23a: replicas on %r, the weights "
+                  "on %s" % (devices, weights))
+            compared = check_fleet_tokens("23a", results, idx, ref,
+                                          margins)
+    burst = fleet_burst(serving, params, cfg, work, idx, ref, margins, kw)
+    return launches, {"kernel_launches": launches,
+                      "tokens_compared": compared, "runs": runs,
+                      "burst": burst}
+
+
+def busy_with_tokens(rep, min_generated=1):
+    """Does the replica hold a running sequence with generated tokens?"""
+    for seq in list(rep.scheduler.running):
+        if seq.request is not None and \
+                len(seq.tokens) - seq.prompt_len >= min_generated:
+            return True
+    return False
+
+
+def fleet_drill(serving, pa, params, cfg, work, idx, pins, ref, margins,
+                kw):
+    """23b: tools/chaos_serve.py's five faults in sequence on a 3-replica
+    fleet under a client stream, through the port's chaos seams: replica
+    1 wedged (drained, restored), replica 0 killed mid-decode (failover,
+    respawn, serving again), replica 2's decode poisoned (local resume),
+    replica 2's pool exhausted, replica 1 crash-looping until its circuit
+    opens. Checks availability 100 %, oracle tokens, audit_quiescent on
+    survivors and corpses, the faults and victims in the flight dumps,
+    postmortem.py and fleet_top.py rc 0, and the ledger identities."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.utils import chaos
+    (pk_prompt, pk_gen, pk_row), (pp_prompt, pp_gen, pp_row) = pins
+    flight_dir = os.environ["MXNET_FLIGHT_RECORDER_DIR"]
+    srv = serving.serve((params, cfg), replicas=FLEET_REPLICAS,
+                        max_beat_age=DRILL_BEAT_AGE_S, respawn_max=2,
+                        respawn_backoff=0.05, **kw)
+    stop_sweep, stop = threading.Event(), threading.Event()
+    faults, t_fault = [], {}
+    try:
+        host, port = srv.serve_http(port=0, block=False)
+        url = "http://%s:%d" % (host, port)
+
+        def sweeper():             # drives drain / restore / respawn
+            while not stop_sweep.is_set():
+                try:
+                    srv.health()
+                except Exception:
+                    pass
+                time.sleep(0.05)
+
+        threading.Thread(target=sweeper, daemon=True).start()
+        pa.paged_attention.launches = 0
+        stream = {}
+        runner = threading.Thread(target=lambda: stream.update(zip(
+            ("results", "reqs", "errors", "wall"),
+            fleet_clients(srv, work, FLEET_CLIENTS - 2, stop))),
+            daemon=True)
+        t0 = time.perf_counter()
+        runner.start()
+        # 1. wedge replica 1: stale beat -> drain + failover -> restore
+        wait_for(lambda: srv.replicas[1].scheduler.running,
+                 "replica 1 under load")
+        # the flight ring holds the last spans only (every decode step
+        # records one): each fault is dumped as soon as it has happened
+        chaos.configure(serve_wedge=(1, 1, DRILL_WEDGE_S))
+        wait_for(lambda: "serve_wedge" in chaos.fired(), "the wedge")
+        telemetry.flight().dump("fleet_wedge")
+        wait_for(lambda: srv._drained[1], "the wedged replica drained")
+        telemetry.flight().dump("fleet_wedge_drained")
+        wait_for(lambda: not srv._drained[1], "the wedged replica restored")
+        t_fault["wedge_to_restore_s"] = time.perf_counter() - t0
+        faults.append("wedge")
+        # 2. kill replica 0 mid-decode: in-flight failover, respawn
+        victim0 = srv.replicas[0]
+        req_kill = victim0.submit(list(pk_prompt), max_new_tokens=pk_gen)
+        wait_for(lambda: busy_with_tokens(victim0),
+                 "replica 0 decoding the pinned request")
+        t1 = time.perf_counter()
+        chaos.configure(serve_kill=(0, 1))
+        # the dying thread re-homes its work before it exits
+        wait_for(lambda: not victim0._thread.is_alive(), "the kill")
+        telemetry.flight().dump("fleet_kill")
+        got_kill = req_kill.result(timeout=FLEET_WAIT_S)
+        telemetry.flight().dump("fleet_kill_finished")
+        wait_for(lambda: srv.replicas[0] is not victim0,
+                 "replica 0 respawned")
+        t_fault["kill_to_respawn_s"] = time.perf_counter() - t1
+        again = srv.replicas[0].generate(list(pk_prompt),
+                                         max_new_tokens=pk_gen,
+                                         timeout=FLEET_WAIT_S)
+        faults.append("kill")
+        # 3. poison one decode step on replica 2 (local resume)
+        req_poison = srv.replicas[2].submit(list(pp_prompt),
+                                            max_new_tokens=pp_gen)
+        wait_for(lambda: busy_with_tokens(srv.replicas[2]),
+                 "replica 2 decoding the pinned request")
+        resumes = srv.replicas[2].metrics.failovers
+        chaos.configure(serve_poison=(2, 1))
+        wait_for(lambda: srv.replicas[2].metrics.failovers > resumes,
+                 "the poisoned batch resumed")
+        telemetry.flight().dump("fleet_poison")
+        got_poison = req_poison.result(timeout=FLEET_WAIT_S)
+        telemetry.flight().dump("fleet_poison_finished")
+        faults.append("poison")
+        # 4. transient pool exhaustion on replica 2
+        chaos.configure(serve_exhaust=(2, 1, 10))
+        wait_for(lambda: "serve_exhaust" in chaos.fired(), "the exhaustion")
+        telemetry.flight().dump("fleet_exhaust")
+        faults.append("exhaust")
+        stop.set()
+        runner.join(timeout=10 * FLEET_WAIT_S)
+        check(not runner.is_alive() and "results" in stream,
+              "23b: the client stream never finished")
+        storm_s = time.perf_counter() - t0
+        storm_launches = pa.paged_attention.launches
+        wait_for(lambda: srv.health()["replicas_healthy"] == 3,
+                 "the respawned replica back in rotation")
+        # 5. crash loop on replica 1: the circuit opens, the fleet serves
+        t2 = time.perf_counter()
+        chaos.configure(serve_crash_loop=(1, 1))
+        wait_for(lambda: srv.health()["replicas_circuit_open"] == 1,
+                 "the crash-loop circuit opening")
+        telemetry.flight().dump("fleet_crash_loop")
+        chaos.configure(serve_crash_loop=None)
+        t_fault["crash_loop_to_open_s"] = time.perf_counter() - t2
+        h = srv.health()
+        check(h["ok"] and h["degraded"] and h["replicas"][1]["circuit_open"],
+              "23b: after the crash loop /healthz says %r"
+              % {k: h[k] for k in ("ok", "degraded",
+                                   "replicas_circuit_open")})
+        after = {i: [srv.generate(list(work[i][0]),
+                                  max_new_tokens=work[i][1],
+                                  timeout=FLEET_WAIT_S)]
+                 for i in range(6)}
+        faults.append("crash_loop")
+        ft = subprocess.run(
+            [sys.executable, os.path.join(TOOLS, "fleet_top.py"), "--url",
+             url, "--once", "--plain"], capture_output=True, text=True,
+            timeout=FLEET_WAIT_S)
+        check(ft.returncode == 0 and "fleet:" in ft.stdout
+              and "CIRCUIT" in ft.stdout,
+              "23b: fleet_top.py rc %d: %s"
+              % (ft.returncode, (ft.stdout + ft.stderr)[-800:]))
+        stop_sweep.set()
+        # leak audit on every replica's pool and every retired corpse
+        engines = [r.engine for r in srv.replicas] + list(
+            srv._retired_engines)
+        wait_for(lambda: not any(e.cache.pool.in_use for e in engines),
+                 "every pool quiescent")
+        for e in engines:
+            e.audit_quiescent()
+        stz = srv.statusz()
+        agg = srv.snapshot()["aggregate"]
+        token_identity(stz["fleet"]["tokens"], "23b fleet /statusz")
+        for name, t in stz["fleet"]["tenants"].items():
+            token_identity(t["tokens"], "23b tenant %s" % name)
+        rq = agg["requests"]
+        check(rq["submitted"] == rq["completed"] + rq["failed"]
+              + rq["expired"] and rq["failed"] == 0,
+              "23b: request ledger %r" % rq)
+    finally:
+        stop.set()
+        stop_sweep.set()
+        chaos.reset()
+        srv.close(timeout=FLEET_WAIT_S)
+    check(not stream["errors"], "23b: %d stream requests failed: %r"
+          % (len(stream["errors"]), stream["errors"][:4]))
+    n_done = sum(len(v) for v in stream["results"].values())
+    compared = check_fleet_tokens("23b stream", stream["results"], idx, ref,
+                                  margins)
+    compared += check_fleet_tokens("23b survivors", after, idx, ref, margins)
+    for what, got, row in (("killed", [got_kill, again], pk_row),
+                           ("poisoned", [got_poison], pp_row)):
+        for g in got:
+            compared += compare_tokens("23b " + what, [g], [ref[row]],
+                                       [margins[row]], quiet=True)
+    check(storm_launches > 0, "23b: K1 never launched in the storm")
+    check(agg["failovers"] >= 1 and agg["respawns"] >= 1,
+          "23b: failovers %d, respawns %d" % (agg["failovers"],
+                                               agg["respawns"]))
+    # the faults and the victims' lifecycles on the postmortem timeline
+    telemetry.flight().dump("fleet_drill_end")
+    pm = subprocess.run([sys.executable, os.path.join(TOOLS,
+                                                      "postmortem.py"),
+                         flight_dir], capture_output=True, text=True,
+                        timeout=FLEET_WAIT_S)
+    check(pm.returncode == 0, "23b: postmortem.py rc %d: %s"
+          % (pm.returncode, pm.stderr[-800:]))
+    missing = [f for f in DRILL_FAULTS if f not in pm.stdout]
+    check(not missing, "23b: the postmortem timeline lacks %r" % missing)
+    for ev in ("request.failover", "request.finish"):
+        check(ev in pm.stdout, "23b: no %s on the postmortem timeline" % ev)
+    for victim in (req_kill, req_poison):
+        check(("request=%d" % victim.id) in pm.stdout
+              and victim.trace in pm.stdout,
+              "23b: victim %d's failover is not on the timeline" % victim.id)
+    return storm_launches, {
+        "faults": faults, "availability": 1.0,
+        "stream_requests": n_done, "tokens_compared": compared,
+        "storm_s": storm_s, "failovers": agg["failovers"],
+        "respawns": agg["respawns"], "orphaned": agg["orphaned"],
+        "retired_engines_audited": len(srv._retired_engines),
+        "kernel_launches_storm": storm_launches, **t_fault}
+
+
+def fleet_roles(serving, pa, params, cfg, work, idx, ref, margins, kw):
+    """23c: roles="prefill:1,decode:2" with the prefix cache: ROLES_UNSHARED
+    requests at once, then the ROLES_SHARED-prefix ones one after another.
+    Every request migrates exactly once with oracle tokens and one trace
+    across the hop, the decode replicas' prefix hits save bytes, K1's
+    launches match the replicas' steps and chunks; then, with the decode
+    replicas retired, the prefill replica finishes requests locally."""
+    from mxnet_tpu_torch import telemetry
+    srv = serving.serve((params, cfg), roles="prefill:1,decode:2",
+                        prefix_cache=True, **kw)
+    retired = []
+    try:
+        pa.paged_attention.launches = 0
+        unshared = [i for i in range(len(work)) if i < ROLES_UNSHARED]
+        reqs = {i: srv.submit(list(work[i][0]), max_new_tokens=work[i][1])
+                for i in unshared}
+        outs = {i: [r.result(timeout=FLEET_WAIT_S)] for i, r in
+                reqs.items()}
+        for i in range(ROLES_UNSHARED, len(work)):
+            reqs[i] = srv.submit(list(work[i][0]),
+                                 max_new_tokens=work[i][1])
+            outs[i] = [reqs[i].result(timeout=FLEET_WAIT_S)]
+        launches = pa.paged_attention.launches
+        snaps = [r.snapshot() for r in srv.replicas]
+        want = k1_want(cfg, snaps)
+        check(launches == want and launches > 0,
+              "23c: K1 launched %d times, expected %d" % (launches, want))
+        stz = srv.statusz()["fleet"]
+        decs = srv.replicas[1:]
+        check(stz["migrations"] == len(work)
+              and srv.replicas[0].metrics.migrations == 0,
+              "23c: %d migrations for %d requests"
+              % (stz["migrations"], len(work)))
+        hops = []
+        for i, r in reqs.items():
+            names = [s["name"] for s in telemetry.spans(trace=r.trace)]
+            hops.append(names.count("serving.migration_hop"))
+            check({"serving.prefill", "serving.decode"} <= set(names),
+                  "23c: request %d's trace holds %r" % (i, sorted(set(names))))
+        check(hops == [1] * len(work), "23c: migration hops per request %r"
+              % hops)
+        saved = sum(d.metrics.migration_bytes_saved for d in decs)
+        check(saved > 0, "23c: no bytes saved on the decode replicas' "
+              "prefix hits")
+        token_identity(stz["tokens"], "23c fleet /statusz")
+        # the decode replicas go: the prefill replica decodes locally
+        for _ in decs:
+            retired.append(srv.scale_down())
+        check(None not in retired, "23c: a decode replica was not retired")
+        check([r.role for r in srv.replicas] == ["prefill"],
+              "23c: replicas left %r" % [r.role for r in srv.replicas])
+        local = {i: [srv.generate(list(work[i][0]),
+                                  max_new_tokens=work[i][1],
+                                  timeout=FLEET_WAIT_S)]
+                 for i in range(3)}
+        check(srv.replicas[0].metrics.migrations == 0
+              and srv.statusz()["fleet"]["migrations"] == 0,
+              "23c: migrations after the decode replicas went")
+        for e in [srv.replicas[0].engine] + [r.engine for r in retired]:
+            e.audit_quiescent()
+    finally:
+        srv.close(timeout=FLEET_WAIT_S)
+    n = check_fleet_tokens("23c migrated", outs, idx, ref, margins)
+    n += check_fleet_tokens("23c local", local, idx, ref, margins)
+    return launches, {"requests": len(work), "migrations":
+                      stz["migrations"], "migration_tokens":
+                      stz["migration_tokens"],
+                      "migration_bytes_saved": saved,
+                      "tokens_compared": n, "kernel_launches": launches}
+
+
+def fleet_autoscale(serving, pa, params, cfg, work, idx, ref, margins, kw):
+    """23d: a fleet at 1 replica with AutoscaleConfig(min 1, max 3),
+    MXNET_SLO_WINDOWS=SCALE_WINDOWS and MXNET_SLO_TTFT_MS=SCALE_TTFT_MS;
+    step() driven by hand over real burns: a burst burns -> "up", a
+    second step inside the cooldown holds, the windows cool and the fleet
+    idles -> "down". No request lost, every output the oracle's, K1's
+    launches match the replicas' steps and chunks (the retiree's too)."""
+    from mxnet_tpu_torch.serving import AutoscaleConfig
+    env = {k: os.environ.get(k) for k in ("MXNET_SLO_TTFT_MS",
+                                          "MXNET_SLO_WINDOWS")}
+    os.environ["MXNET_SLO_TTFT_MS"] = SCALE_TTFT_MS
+    os.environ["MXNET_SLO_WINDOWS"] = SCALE_WINDOWS
+    srv = None
+    try:
+        srv = serving.serve((params, cfg), autoscale=AutoscaleConfig(
+            min_replicas=1, max_replicas=3, cooldown_s=5.0,
+            idle_retire_s=1.0, interval_s=3600.0), **kw)
+        sc = srv.autoscaler
+        check(type(srv).__name__ == "ReplicatedLMServer"
+              and srv.replica_count() == 1,
+              "23d: serve(autoscale=) built %s of %d"
+              % (type(srv).__name__, len(getattr(srv, "replicas", []))))
+        pa.paged_attention.launches = 0
+        steps = [sc.step(now=0.0)]           # the burn baseline
+        burst = [(i, srv.submit(list(work[i][0]), max_new_tokens=work[i][1]))
+                 for i in range(SCALE_BURST)]
+        # a burn is a window delta over the trackers' samples: keep one
+        # sample in each short window while the burst's first tokens land
+        wait_for(lambda: all(r.t_first_token is not None for _, r in burst),
+                 "the burst's first tokens", poll=sc.burn_rates)
+        burns = sc.burn_rates()
+        steps.append(sc.step(now=1.0))       # burning: up
+        n_up = srv.replica_count()
+        steps.append(sc.step(now=2.0))       # inside the cooldown: hold
+        more = [(i, srv.submit(list(work[i][0]), max_new_tokens=work[i][1]))
+                for i in range(SCALE_BURST, len(work))]
+        outs = {i: [r.result(timeout=FLEET_WAIT_S)] for i, r in burst + more}
+        served_by_new = srv.replicas[-1].metrics.completed
+        # the windows cool on the wall clock; the idle clock is injected
+        time.sleep(float(SCALE_WINDOWS.split(",")[-1]) + 0.5)
+        steps.append(sc.step(now=10.0))      # idle starts
+        snaps = [r.snapshot() for r in srv.replicas]
+        steps.append(sc.step(now=12.0))      # idle + cold: down
+        n_down = srv.replica_count()
+        launches = pa.paged_attention.launches
+    finally:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if srv is not None:
+            srv.close(timeout=FLEET_WAIT_S)
+    check(steps == [None, "up", None, None, "down"] and n_up == 2
+          and n_down == 1,
+          "23d: decisions %r, replicas %d after up, %d after down "
+          "(burns %r)" % (steps, n_up, n_down, burns))
+    check(served_by_new > 0, "23d: the new replica served nothing")
+    check(sc.scale_ups == 1 and sc.scale_downs == 1,
+          "23d: %d ups, %d downs" % (sc.scale_ups, sc.scale_downs))
+    want = k1_want(cfg, snaps)
+    check(launches == want and launches > 0,
+          "23d: K1 launched %d times, expected %d" % (launches, want))
+    n = check_fleet_tokens("23d", outs, idx, ref, margins)
+    check(len(outs) == len(work), "23d: %d of %d requests answered"
+          % (len(outs), len(work)))
+    return launches, {"decisions": steps, "burn_at_up": {
+        str(w): b["rate"] for w, b in burns.items()},
+        "served_by_new_replica": served_by_new, "tokens_compared": n,
+        "kernel_launches": launches, "decode_steps_by_replica": [
+            s["paths"]["paged_decode_steps"] for s in snaps]}
+
+
+def phase_fleet(torch, np, dev, card):
+    """Phase 23: the multi-replica door at phase 4's width on K1, every
+    replica's loop launching onto one card — routing in turns with one
+    server (a), the chaos drill (b), prefill/decode roles (c) and
+    autoscale (d). One gather oracle for the whole phase. Returns K1's
+    launches over 23a-d and the printed numbers."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.models import TransformerConfig, params_from_numpy
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    cfg = TransformerConfig(dtype=torch.float32, **BENCH_CFG)
+    params = params_from_numpy(bench_params(np, cfg), cfg, dev)
+    rng = np.random.RandomState(23)
+    route = fleet_work(np, rng, FLEET_REQUESTS, FLEET_PROMPT, FLEET_GEN,
+                       cfg.vocab)
+    drill = fleet_work(np, rng, DRILL_REQUESTS, DRILL_PROMPT, DRILL_GEN,
+                       cfg.vocab)
+    pins = fleet_work(np, rng, 2, (DRILL_PROMPT[0], DRILL_PROMPT[0]),
+                      (DRILL_PIN_GEN, DRILL_PIN_GEN), cfg.vocab)
+    roles = fleet_work(np, rng, ROLES_UNSHARED, ROLES_PROMPT, ROLES_GEN,
+                       cfg.vocab)
+    shared = [int(t) for t in rng.randint(1, cfg.vocab, ROLES_SHARED)]
+    roles += [(shared + [int(t) for t in rng.randint(1, cfg.vocab,
+                                                     ROLES_SUFFIX)],
+               int(rng.randint(ROLES_GEN[0], ROLES_GEN[1] + 1)))
+              for _ in range(4)]
+    rows = route + drill + pins + roles
+    gen = max(g for _, g in rows)
+    t0 = time.perf_counter()
+    ref, margins = gather_oracle(torch, np, serving, params, cfg,
+                                 [p for p, _ in rows], gen, dev)
+    oracle_s = time.perf_counter() - t0
+    base = {"route": 0, "drill": len(route),
+            "pins": len(route) + len(drill),
+            "roles": len(route) + len(drill) + 2}
+    kw = dict(max_batch=8, paged=True, block_size=16, token_budget=256)
+    out = {"card": card, "replicas": FLEET_REPLICAS, "oracle_s": oracle_s}
+    launches = {}
+    t0 = time.perf_counter()
+    launches["a"], out["routing"] = fleet_routing(
+        serving, pa, params, cfg, route,
+        [base["route"] + i for i in range(len(route))], ref, margins, kw)
+    out["routing_s"] = time.perf_counter() - t0
+    env = {k: os.environ.get(k) for k in ("MXNET_FLIGHT_RECORDER_DIR",)}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["MXNET_FLIGHT_RECORDER_DIR"] = os.path.join(tmp, "flight")
+        try:
+            t0 = time.perf_counter()
+            pin_rows = [(p, g, base["pins"] + j)
+                        for j, (p, g) in enumerate(pins)]
+            launches["b"], out["drill"] = fleet_drill(
+                serving, pa, params, cfg, drill,
+                [base["drill"] + i for i in range(len(drill))], pin_rows,
+                ref, margins, kw)
+            out["drill_s"] = time.perf_counter() - t0
+        finally:
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    t0 = time.perf_counter()
+    launches["c"], out["roles"] = fleet_roles(
+        serving, pa, params, cfg, roles,
+        [base["roles"] + i for i in range(len(roles))], ref, margins, kw)
+    out["roles_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launches["d"], out["autoscale"] = fleet_autoscale(
+        serving, pa, params, cfg, route[:SCALE_BURST + 8],
+        list(range(SCALE_BURST + 8)), ref, margins, kw)
+    out["autoscale_s"] = time.perf_counter() - t0
+    out["kernel_launches"] = launches
+    print("fleet path (phase 23): " + json.dumps(out))
+    return sum(launches.values()), out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6309,6 +6981,7 @@ def main():
         phase_nce_example(torch, np, dev, smi)
         phase_stochastic_depth(torch, np, dev, smi)
         fd_launches, _ = phase_front_door(torch, np, dev, smi)
+        fleet_launches, _ = phase_fleet(torch, np, dev, smi)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -6319,12 +6992,14 @@ def main():
         "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "mxnet_tpu/ops/pallas_paged.py:108",
-        # the serving main path's (phase 4), the contrib op's (21b) and
-        # the front door's tenants-and-priorities traffic (22a)
-        "launches": launches + op_launches + fd_launches,
+        # the serving main path's (phase 4), the contrib op's (21b), the
+        # front door's tenants-and-priorities traffic (22a) and the
+        # multi-replica door's (23a-d)
+        "launches": launches + op_launches + fd_launches + fleet_launches,
         "launches_by_path": {"serving_main_path": launches,
                              "contrib_paged_attention_op": op_launches,
-                             "front_door_phase22": fd_launches},
+                             "front_door_phase22": fd_launches,
+                             "fleet_phase23": fleet_launches},
         "max_abs_err": errs["float32"],
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import math
 import os
+import threading
 
 import torch
 
@@ -253,10 +254,7 @@ def paged_attention(q, k_pool, v_pool, tables, q_start, block_size,
             q_start.data_ptr(), out.data_ptr(), B, Tq, H, Dh,
             tables.shape[1], block_size, float(scale), stream)
     _cuda.check(lib, err, "paged_attention kernel launch")
-    if quant:
-        paged_attention.launches_int8 += 1
-    else:
-        paged_attention.launches += 1
+    count_launch(quant)
     return out
 
 
@@ -264,3 +262,15 @@ def paged_attention(q, k_pool, v_pool, tables, q_start, block_size,
 #: pools (plain-version calls on the CPU do not count)
 paged_attention.launches = 0
 paged_attention.launches_int8 = 0
+_count_lock = threading.Lock()
+
+
+def count_launch(quant=False):
+    """Add one to `paged_attention.launches` (or `.launches_int8`). A
+    fleet's serving threads launch K1 at once; `+=` on an attribute is a
+    read-modify-write, so the lock keeps every launch counted."""
+    with _count_lock:
+        if quant:
+            paged_attention.launches_int8 += 1
+        else:
+            paged_attention.launches += 1

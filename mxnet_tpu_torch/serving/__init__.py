@@ -10,7 +10,10 @@ backpressure, a per-iteration token budget, priority classes, per-tenant
 token budgets, deadlines and brownout, serving metrics with the goodput
 ledger and SLO burn (`statusz()`, Prometheus text), and an in-process
 `serve()` API with a stdlib HTTP frontend (W3C `traceparent` in and out,
-`/statusz`, `/metrics`, `/healthz`).
+`/statusz`, `/metrics`, `/healthz`). `serve(replicas=N)`,
+`serve(roles="prefill:1,decode:2")` and `serve(autoscale=True)` put a
+fleet of servers behind one door (router.py: least-loaded routing,
+failover and respawn, prefill/decode migration; autoscale.py).
 
 Quickstart::
 
@@ -30,7 +33,11 @@ from .scheduler import (Scheduler, Request, QueueFull, RequestTimeout,
                         DeadlineExceeded, DeadlineUnmeetable,
                         BrownoutShed, make_resume)
 from .metrics import ServingMetrics
-from .server import LMServer, serve, spawn_resume
+from .server import LMServer, serve, spawn_resume, spawn_migrate
+from .router import (ReplicatedLMServer, serving_replicas,
+                     serving_respawn_max, serving_roles, replica_device,
+                     NoHealthyReplicas)
+from .autoscale import Autoscaler, AutoscaleConfig, autoscale_enabled
 from .spec import (DraftLM, self_draft, spec_decode_enabled, spec_k,
                    spec_draft_layers)
 
@@ -42,6 +49,9 @@ __all__ = [
     "Engine", "Sequence", "TransformerLM", "pow2_bucket",
     "Scheduler", "Request", "QueueFull", "RequestTimeout",
     "DeadlineExceeded", "DeadlineUnmeetable", "BrownoutShed",
-    "make_resume", "spawn_resume",
+    "make_resume", "spawn_resume", "spawn_migrate",
     "ServingMetrics", "LMServer", "serve",
+    "ReplicatedLMServer", "serving_replicas", "serving_respawn_max",
+    "serving_roles", "replica_device", "NoHealthyReplicas",
+    "Autoscaler", "AutoscaleConfig", "autoscale_enabled",
 ]

@@ -531,6 +531,28 @@ class ServingMetrics:
         self.log_event("failover", req, resumed_tokens=resumed_tokens,
                        hop=req.failovers + 1)
 
+    def request_migration(self, req, carried):
+        """One planned prefill->decode migration hop placed for `req`'s
+        trace (disaggregated serving). Counts the hop and the carried
+        tokens; does NOT credit the tenant `replayed` ledger — replayed
+        is failover salvage (unplanned extra work), and keeping the two
+        apart preserves fleet-replayed == sum(tenant-replayed). The hop's
+        own finish classifies the delivery exactly once."""
+        self._migrations.inc()
+        if carried:
+            self._migration_tokens.inc(carried)
+        self.log_event("migrate", req, carried_tokens=carried)
+
+    def request_migration_savings(self, req, hit_tokens, nbytes):
+        """Bytes of KV a migration hop skipped rebuilding because this
+        (target) engine's prefix cache already held `hit_tokens` of the
+        replayed prompt — accounted per hop, on the target, priced at the
+        target's KV layout."""
+        if nbytes:
+            self._migration_bytes.inc(int(nbytes))
+        self.log_event("migrate_savings", req, hit_tokens=hit_tokens,
+                       bytes_saved=int(nbytes))
+
     def request_expired(self, req):
         """Counts the expiry only; request_finished() (always called
         after) does the failed/total accounting exactly once."""

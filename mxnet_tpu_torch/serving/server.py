@@ -19,10 +19,15 @@ hops a request; W3C `traceparent` in and out; `/statusz` and the
 Prometheus text `/metrics`; the flight recorder dumped on a dead or
 wedged loop; and the serving chaos seams (utils/chaos.py).
 
-The reference's multi-replica door (router, failover across replicas,
-disaggregated prefill/decode roles, autoscaling, live rollout, tensor
-parallelism) is ROADMAP item 9 and its AOT executable cache item 11:
-asking for any of them raises `MXNetError` naming the item.
+The server also carries the multi-replica door's hooks (router.py):
+`role` (an advisory prefill/decode label), `on_prefill_done` (the
+migration hand-off of a disaggregated fleet), `on_death` (the rescue of a
+dying loop's queued and in-flight work) and `drain_queue`. `serve()`
+builds a `ReplicatedLMServer` for `replicas > 1`, `autoscale` or `roles`.
+Tensor parallelism (`tp > 1`, `devices=`) and live rollout wait for the
+mesh, the collectives and the checkpoint manager (ROADMAP item 12), and
+the AOT executable cache for item 11: asking for any of them raises
+`MXNetError` naming the item.
 """
 from __future__ import annotations
 
@@ -30,6 +35,7 @@ import json
 import os
 import threading
 import time
+from http.server import ThreadingHTTPServer
 
 import torch
 
@@ -93,11 +99,11 @@ class _HTTPFrontend:
                             text under `Accept: text/plain`
         GET  /statusz      -> token ledgers, tenants, SLO burn
         GET  /healthz      -> loop liveness (503 when dead or wedged)
+        POST /v1/rollout   -> the front's `rollout_command` (404 on a
+                              single server)
         Returns the bound (host, port); with block=False the HTTP server
         runs on a daemon thread (tests bind port 0)."""
-        from http.server import ThreadingHTTPServer
-        self._httpd = ThreadingHTTPServer((host, port),
-                                          _make_handler(self))
+        self._httpd = _Server((host, port), _make_handler(self))
         addr = self._httpd.server_address
         if block:
             try:
@@ -112,11 +118,21 @@ class _HTTPFrontend:
         return addr
 
 
+class _Server(ThreadingHTTPServer):
+    """The stdlib threading server with a listen backlog sized for a
+    burst of clients (the stdlib's 5 resets connections that arrive
+    while the accept loop waits for the interpreter)."""
+
+    request_queue_size = 128
+    daemon_threads = True
+
+
 def _make_handler(outer):
     """BaseHTTPRequestHandler class bound to one `_HTTPFrontend`. All
     handler threads funnel into the front's submit path; the serving
     thread stays the single writer of its engine."""
     from http.server import BaseHTTPRequestHandler
+    from .router import NoHealthyReplicas
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *args):   # keep stdout clean
@@ -155,9 +171,26 @@ def _make_handler(outer):
                 self._reply(404, {"error": "unknown path %s" % self.path})
 
         def do_POST(self):
+            if self.path in ("/v1/rollout", "/rollout"):
+                # live-rollout operator overrides: 404 on a door with no
+                # rollout support (a single LMServer); the fleet's
+                # dispatch raises MXNetError (400) until rollout exists
+                dispatch = getattr(outer, "rollout_command", None)
+                if dispatch is None:
+                    self._reply(404, {"error": "no rollout support on "
+                                               "this server"})
+                    return
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    body = json.loads(self.rfile.read(n) or b"{}")
+                    out = dispatch(body.get("cmd"), step=body.get("step"),
+                                   reason=body.get("reason"))
+                    self._reply(200, out)
+                except (KeyError, ValueError, TypeError,
+                        MXNetError) as e:
+                    self._reply(400, {"error": "bad request: %s" % e})
+                return
             if self.path not in ("/v1/generate", "/generate"):
-                # /v1/rollout included: live rollout is ROADMAP item 9,
-                # and the reference's single server answers it 404 too
                 self._reply(404, {"error": "unknown path %s" % self.path})
                 return
             try:
@@ -205,6 +238,11 @@ def _make_handler(outer):
                                "%d" % max(1, int(outer.retry_after_s))}
                 self._reply(outer.saturated_status, {"error": str(e)},
                             headers=headers)
+                return
+            except NoHealthyReplicas as e:
+                # a fleet outage, NOT a client error: 503, so load
+                # balancers fail over and clients retry
+                self._reply(503, {"error": str(e)})
                 return
             except (KeyError, ValueError, TypeError, MXNetError) as e:
                 # submit-side failures are the client's fault (malformed
@@ -257,9 +295,7 @@ class LMServer(_HTTPFrontend):
                  spec=None, spec_k=None, kv_quant=None, weight_quant=None,
                  device=None):
         if tp not in (None, 1) or devices is not None:
-            raise _not_ported("tensor-parallel serving (tp=, devices=)", 9)
-        if role is not None:
-            raise _not_ported("disaggregated serving (role=)", 9)
+            raise _not_ported("tensor-parallel serving (tp=, devices=)", 12)
         if aot_cache is not None:
             raise _not_ported("the AOT executable cache (aot_cache=)", 11)
         self.engine = Engine(_resolve_model(model), max_batch=max_batch,
@@ -282,11 +318,30 @@ class LMServer(_HTTPFrontend):
         self.default_deadline_ms = default_deadline_ms
         self.metrics = ServingMetrics(replica=replica_id)
         self.replica_id = replica_id
+        # disaggregated serving: `role` is an advisory label
+        # ("prefill"/"decode"/None) the router stamps for placement and
+        # observability — it never changes this server's compute.
+        # `on_prefill_done` is the router's migration hook on prefill
+        # replicas, called on the serving thread when a prompt finishes
+        # prefilling.
+        self.role = str(role) if role is not None else None
+        self.on_prefill_done = None
         self._idle_wait = idle_wait
         self._work = threading.Event()
         self._closed = False
+        # `on_death` is the router's rescue hook — called with the queued
+        # requests and the in-flight (request, tokens, prompt_len) states
+        # of a dying or closing loop so they can be re-homed instead of
+        # failed; `_died` tells a crashed loop (respawnable) from an
+        # administrative close
+        self.on_death = None
         self._died = False
         self._chaos_stolen = None     # (block ids, release-at iteration)
+        # serializes in-flight capture between the death path, the
+        # migration hand-off (serving thread) and the router's wedge
+        # rescue (sweep thread): whoever detaches a sequence first owns
+        # it — the other side sees request=None and captures nothing
+        self._failover_lock = threading.Lock()
         # liveness observables for /healthz: the loop thread beats every
         # iteration; decode progress stamps separately
         self._last_beat = time.perf_counter()
@@ -314,6 +369,11 @@ class LMServer(_HTTPFrontend):
         HTTP frontend passes a parsed W3C `traceparent`); unset mints a
         fresh one. Every span of the request's life keys on it."""
         if self._closed:
+            # a replica behind the router reports closure as
+            # backpressure, so the door tries the next replica; a
+            # standalone server keeps the hard contract
+            if self.replica_id is not None:
+                raise QueueFull("replica %s is closed" % self.replica_id)
             raise MXNetError("server is closed")
         if len(prompt) > self.engine.max_len:
             raise MXNetError(
@@ -347,6 +407,9 @@ class LMServer(_HTTPFrontend):
                 except ValueError:
                     pulled = False
             if pulled:
+                if self.replica_id is not None:
+                    raise QueueFull("replica %s closed mid-submit"
+                                    % self.replica_id)
                 raise MXNetError("server is closed")
         self.metrics.request_submitted(req)
         # the trace row's start marker: every later span (queue, prefill
@@ -360,13 +423,23 @@ class LMServer(_HTTPFrontend):
         return req
 
     def adopt(self, req):
-        """Enqueue a Request object created elsewhere (a failover replay
-        of `spawn_resume`). Raises QueueFull under backpressure."""
+        """Enqueue a Request object created elsewhere (a drained
+        replica's orphan, or a replay of `spawn_resume` /
+        `spawn_migrate`). Raises QueueFull under backpressure."""
         if self._closed:
-            raise QueueFull("server is closed")
+            raise QueueFull("replica is closed")
         self.scheduler.submit(req)
         self._work.set()
         return req
+
+    def drain_queue(self):
+        """Pull every queued (not yet admitted) request off this
+        server's scheduler — the router calls this when the replica
+        wedges, then re-routes the orphans to healthy replicas."""
+        with self.scheduler._lock:
+            orphans = list(self.scheduler._queue)
+            self.scheduler._queue.clear()
+        return orphans
 
     def _load_split(self):
         """Committed backlog split into (prefill tokens, decode tokens)
@@ -438,7 +511,12 @@ class LMServer(_HTTPFrontend):
     def statusz(self):
         """The /statusz JSON body: the goodput token ledger, per-tenant
         breakdown, and SLO attainment/burn for this server."""
-        return self.metrics.statusz(self.engine, self.scheduler)
+        body = self.metrics.statusz(self.engine, self.scheduler)
+        if self.role is not None:
+            # stamped only on disaggregated fleets: role-less bodies
+            # keep the single server's key set
+            body["role"] = self.role
+        return body
 
     def health(self, max_beat_age=5.0):
         """Loop liveness for /healthz: `ok` requires the serving thread
@@ -469,8 +547,10 @@ class LMServer(_HTTPFrontend):
     def close(self, drain=True, timeout=30.0):
         """Stop the loop; with drain=True finish in-flight work first. A
         clean close (drained, loop exited on its own terms) runs the
-        engine's block-pool leak audit; anything still queued or in
-        flight afterwards fails promptly."""
+        engine's block-pool leak audit. Anything still queued or in
+        flight afterwards (a submit that slipped past the closed check,
+        a request mid-admission) is rescued through `on_death` when a
+        router installed one, and failed promptly otherwise."""
         if drain:
             deadline = time.perf_counter() + timeout
             while self.scheduler.has_work() and \
@@ -480,8 +560,8 @@ class LMServer(_HTTPFrontend):
         self._closed = True
         self._work.set()
         self._thread.join(timeout=timeout)
-        self._fail_all(MXNetError("server closed with the request still "
-                                  "in flight"))
+        self._strand(MXNetError("server closed with the request still "
+                                "in flight"))
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -504,37 +584,54 @@ class LMServer(_HTTPFrontend):
         try:
             self._loop_inner()
         except BaseException as e:  # noqa: BLE001 — a dead loop must not
-            # strand clients in result(): dump the black box, then fail
-            # everything queued or in flight
+            # strand clients in result(): dump the black box, then rescue
+            # (through the router's on_death hook) or fail everything
+            # queued or in flight
             telemetry.flight().record("fault", "serving.loop_died",
                                       error="%s: %s"
                                       % (type(e).__name__, e))
             telemetry.flight().dump("serving_loop_died")
             self._died = True
             self._closed = True
-            self._fail_all(MXNetError("serving loop died: %s: %s"
-                                      % (type(e).__name__, e)))
+            self._strand(MXNetError("serving loop died: %s: %s"
+                                    % (type(e).__name__, e)))
             raise
 
-    def _fail_all(self, err):
-        """Release every in-flight sequence's blocks (not reusable: the
-        loop cannot certify their KV) and the chaos-held blocks, and fail
-        every request still queued or in flight with `err`."""
+    def _strand(self, err):
+        """Capture AND DETACH every in-flight request (under the failover
+        lock, so a concurrent wedge rescue cannot capture one twice) with
+        the tokens it has so far, release every sequence's blocks (not
+        reusable: an exited loop cannot certify their KV) and the
+        chaos-held blocks, and pull the queue. Then hand queued and
+        in-flight work to `on_death`, or fail it with `err`."""
         sched = self.scheduler
-        with sched._lock:
-            reqs = list(sched._queue)
-            sched._queue.clear()
+        states = []
+        with self._failover_lock:
+            for seq in sched.running + sched.prefilling:
+                req = seq.request
+                if req is None or req._event.is_set():
+                    continue
+                states.append((req, list(seq.tokens), seq.prompt_len))
+                seq.request = None
+                seq.done = True
         for seq in sched.running + sched.prefilling:
             try:
                 self.engine.release(seq, reusable=False)
-            except MXNetError:
+            except Exception:
                 pass      # a broken pool must not strand the clients
-            if seq.request is not None:
-                reqs.append(seq.request)
         sched.running = []
         sched.prefilling = []
         self._release_chaos_blocks()
-        for req in reqs:
+        queued = self.drain_queue()
+        if not (queued or states):
+            return
+        if self.on_death is not None:
+            try:
+                self.on_death(self, queued, states)
+                return
+            except Exception:
+                pass      # rescue failed: fall back to failing
+        for req in [st[0] for st in states] + queued:
             if not req.wait(0):
                 req._finish(error=err)
                 self.metrics.request_finished(req)
@@ -665,6 +762,12 @@ class LMServer(_HTTPFrontend):
             _queue_span(req)
             met.request_admitted(req)
             met.request_prefilled(req, time.perf_counter() - t0)
+            # disaggregated serving: the chunked path's hand-off seam —
+            # the one-shot prefill completed, its first token appended
+            if not seq.done and self.on_prefill_done is not None \
+                    and not req._event.is_set() \
+                    and self._migrate_out(seq, req):
+                continue
             sched.running.append(seq)
 
     def _admit_paged(self, admitted):
@@ -689,6 +792,13 @@ class LMServer(_HTTPFrontend):
             req.state = RUNNING
             _queue_span(req)
             met.request_admitted(req)
+            if req.migrated and seq.cache_hit_tokens:
+                # the migration hop's savings, priced at THIS engine's KV
+                # layout: every prompt token the prefix cache already
+                # held is KV the hop did not rebuild
+                met.request_migration_savings(
+                    req, seq.cache_hit_tokens,
+                    seq.cache_hit_tokens * eng.kv_bytes_per_token())
             sched.prefilling.append(seq)
 
     def _prefill_chunks(self):
@@ -701,6 +811,16 @@ class LMServer(_HTTPFrontend):
         budget = sched.token_budget
         spent = eng.decode_tokens_per_step() * len(sched.running)
         for seq in list(sched.prefilling):
+            if seq.done:
+                # detached by a router failover while this loop was
+                # wedged: the request lives elsewhere now — release the
+                # blocks (mid-prefill KV may be partial) and move on
+                sched.prefilling.remove(seq)
+                try:
+                    eng.release(seq, reusable=False)
+                except Exception:
+                    pass
+                continue
             cost = eng.prefill_tokens_per_step(seq.prompt_len)
             if budget is not None and spent + cost > budget and spent > 0:
                 break             # the rest keep their place
@@ -726,10 +846,66 @@ class LMServer(_HTTPFrontend):
                 met.request_chunk(seq.request, seq.prefilled)
             if done:
                 sched.prefilling.remove(seq)
-                if seq.request is not None:
-                    met.request_prefilled(seq.request, seq.prefill_s)
+                req = seq.request
+                if req is not None:
+                    met.request_prefilled(req, seq.prefill_s)
+                # disaggregated serving: a prefill replica hands the
+                # finished prompt to a decode replica here — after the
+                # first token (TTFT observed on THIS replica, which
+                # produced it), before any steady-state decode. A
+                # sequence already complete finishes locally; a failed
+                # placement decodes locally (co-scheduled fallback)
+                if req is not None and not seq.done \
+                        and self.on_prefill_done is not None \
+                        and not req._event.is_set() \
+                        and self._migrate_out(seq, req):
+                    met.prefill_chunk(len(sched.prefilling))
+                    continue
                 sched.running.append(seq)
             met.prefill_chunk(len(sched.prefilling))
+
+    # -- migration (disaggregated serving) -----------------------------------
+
+    def _migrate_out(self, seq, req):
+        """Hand one just-prefilled sequence to the router's migration
+        hook (`on_prefill_done`). Returns True when the request now lives
+        elsewhere (a migration resume was placed on a decode replica, or
+        nothing remained and the hook finished it): the local sequence is
+        released, its prefilled KV registered in THIS replica's prefix
+        cache. Returns False when the source should keep decoding it
+        (no healthy decode replica, or every one saturated).
+
+        Exactly-once: the sequence is DETACHED under the failover lock
+        before the hook can place a replay anywhere — once a resume
+        exists, this loop can only release, never finish. A failed
+        placement re-attaches; the sequence was in neither scheduler
+        list meanwhile (the caller popped it from `prefilling` and has
+        not appended it to `running`), so no rescue sweep can have
+        captured it."""
+        hook = self.on_prefill_done
+        with self._failover_lock:
+            if seq.request is None or req._event.is_set():
+                return False
+            seq.request = None
+            seq.done = True
+        tokens = list(seq.tokens)
+        try:
+            placed = bool(hook(self, req, tokens))
+        except Exception:
+            placed = False
+        if not placed:
+            with self._failover_lock:
+                seq.request = req
+                seq.done = False
+            return False
+        # the prompt is fully prefilled and its first token appended:
+        # the KV is certified, so the prompt stays resident in the
+        # source's prefix cache while the blocks go back to the pool
+        try:
+            self.engine.release(seq, reusable=True)
+        except Exception:
+            pass
+        return True
 
     # -- decode-fault recovery -----------------------------------------------
 
@@ -832,26 +1008,75 @@ def spawn_resume(orig, tokens, target):
     return resume, carried
 
 
+def spawn_migrate(orig, tokens, target):
+    """Place one PLANNED prefill->decode migration hop for `orig` onto
+    `target` (a decode-role LMServer): the replay transport of
+    `spawn_resume` — the target re-prefills prompt + generated-so-far,
+    skipping every KV block its prefix cache already holds, and decode
+    continues greedy-token-identically — but the hop spends no failover
+    budget and admission treats it as already-admitted work (never
+    brownout-shed or clamped). Deadline, tenant, priority, the client's
+    latency anchors and the trace ride along, so the request stays ONE
+    trace row and is SLO-classified once, at its terminal state on the
+    target.
+
+    Returns `(resume, carried)`; `resume` is None when the generation was
+    already complete (orig finished directly). Raises QueueFull when the
+    target can't absorb it. Metric accounting stays with the caller."""
+    resume, carried = make_resume(orig, tokens, target.engine.max_len,
+                                  migrate=True)
+    if resume is None:
+        orig._finish(tokens=list(tokens))
+        return None, carried
+
+    def stitch(r):
+        if r.error is None:
+            orig._finish(tokens=list(r.tokens))
+        else:
+            orig._finish(error=r.error)
+
+    resume._on_finish = stitch
+    target.adopt(resume)
+    now_us = time.perf_counter_ns() // 1000
+    telemetry.record_span("serving.migration_hop", now_us, 0,
+                          trace=orig.trace, category="serving",
+                          to_profiler=False, request=orig.id,
+                          resume=resume.id, carried_tokens=carried,
+                          target=target.replica_id)
+    return resume, carried
+
+
 def serve(model, replicas=None, autoscale=None, roles=None, rollout=None,
           **kwargs):
-    """Build and start an `LMServer` over `model` (a (params, cfg) pair or
-    a TransformerLM). Keyword args pass through to LMServer and its
-    Engine (paged, kv_quant, weight_quant, draft, spec, spec_k,
+    """Build and start a serving front door over `model` (a (params, cfg)
+    pair or a TransformerLM). Keyword args pass through to each LMServer
+    and its Engine (paged, kv_quant, weight_quant, draft, spec, spec_k,
     prefix_cache, tenant budgets, deadlines, brownout, ...); `device`
-    defaults to the card. The reference's multi-replica door
-    (`replicas > 1` / MXNET_SERVING_REPLICAS, `autoscale` /
-    MXNET_SERVING_AUTOSCALE, `roles` / MXNET_SERVING_ROLES, `rollout` /
-    MXNET_SERVING_ROLLOUT_DIR) is ROADMAP item 9 and raises."""
-    env = os.environ
-    n = int(replicas if replicas is not None
-            else env.get("MXNET_SERVING_REPLICAS") or 1)
-    if n > 1:
-        raise _not_ported("multi-replica serving (replicas=%d)" % n, 9)
-    if autoscale if autoscale is not None else \
-            env.get("MXNET_SERVING_AUTOSCALE", "0") == "1":
-        raise _not_ported("autoscaling (autoscale=)", 9)
-    if roles or (roles is None and env.get("MXNET_SERVING_ROLES")):
-        raise _not_ported("disaggregated serving (roles=)", 9)
-    if rollout or (rollout is None and env.get("MXNET_SERVING_ROLLOUT_DIR")):
-        raise _not_ported("live rollout (rollout=)", 9)
+    defaults to the card. With `replicas=N > 1` (or
+    MXNET_SERVING_REPLICAS) this is a `ReplicatedLMServer`: N replicas,
+    each with its own scheduler, block pool, serving thread and metrics
+    registry, behind one least-loaded front (router.py). `autoscale=True`
+    (or MXNET_SERVING_AUTOSCALE=1) arms SLO-driven elastic scaling
+    (autoscale.py) and always builds the replicated door, even at one
+    replica, so the fleet can grow. `roles="prefill:N,decode:M"` (or
+    MXNET_SERVING_ROLES) builds a disaggregated fleet of N + M replicas
+    (`replicas` is then ignored). Otherwise a single `LMServer`.
+    `rollout=` / MXNET_SERVING_ROLLOUT_DIR raises: live rollout reads
+    checkpoints through ROADMAP item 12's checkpoint manager."""
+    from .autoscale import autoscale_enabled
+    from .router import (ReplicatedLMServer, serving_replicas,
+                         serving_roles)
+    if rollout or (rollout is None
+                   and os.environ.get("MXNET_SERVING_ROLLOUT_DIR")):
+        raise _not_ported("live rollout (rollout=, "
+                          "MXNET_SERVING_ROLLOUT_DIR)", 12)
+    role_map = serving_roles(roles)
+    scale = autoscale_enabled() if autoscale is None else autoscale
+    if role_map:
+        return ReplicatedLMServer(model, roles=role_map, autoscale=scale,
+                                  **kwargs)
+    n = serving_replicas() if replicas is None else int(replicas)
+    if n > 1 or scale:
+        return ReplicatedLMServer(model, replicas=n, autoscale=scale,
+                                  **kwargs)
     return LMServer(model, **kwargs)

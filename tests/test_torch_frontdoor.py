@@ -516,12 +516,11 @@ def test_deadline_expired_in_queue_dropped_before_prefill(lm):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    ({"tp": 2}, "item 9"), ({"devices": ["cuda:0"]}, "item 9"),
-    ({"role": "prefill"}, "item 9"), ({"aot_cache": "/nonexistent"},
-                                      "item 11"),
-    ({"replicas": 2}, "item 9"), ({"autoscale": True}, "item 9"),
-    ({"roles": "prefill:1,decode:1"}, "item 9"),
-    ({"rollout": "/nonexistent"}, "item 9")])
+    ({"tp": 2}, "item 12"), ({"devices": ["cuda:0"]}, "item 12"),
+    ({"aot_cache": "/nonexistent"}, "item 11"),
+    ({"rollout": "/nonexistent"}, "item 12"),
+    ({"replicas": 2, "tp": 2}, "item 12"),
+    ({"replicas": 2, "aot_cache": "/nonexistent"}, "item 11")])
 def test_unported_arguments_raise_naming_their_item(lm, kwargs, item):
     _, _, params, cfg = lm
     with pytest.raises(MXNetError, match="ROADMAP %s" % item):
@@ -529,11 +528,33 @@ def test_unported_arguments_raise_naming_their_item(lm, kwargs, item):
 
 
 @pytest.mark.parametrize("var,value", [
-    ("MXNET_SERVING_REPLICAS", "2"), ("MXNET_SERVING_AUTOSCALE", "1"),
-    ("MXNET_SERVING_ROLES", "prefill:1,decode:1"),
     ("MXNET_SERVING_ROLLOUT_DIR", "/nonexistent")])
 def test_unported_env_knobs_raise(lm, monkeypatch, var, value):
     _, _, params, cfg = lm
     monkeypatch.setenv(var, value)
-    with pytest.raises(MXNetError, match="ROADMAP item 9"):
+    with pytest.raises(MXNetError, match="ROADMAP item 12"):
         serving.serve((params, cfg), device="cpu")
+
+
+@pytest.mark.parametrize("kwargs,env,want", [
+    ({"replicas": 2}, None, "ReplicatedLMServer"),
+    ({"autoscale": True}, None, "ReplicatedLMServer"),
+    ({"roles": "prefill:1,decode:1"}, None, "ReplicatedLMServer"),
+    ({"role": "prefill"}, None, "LMServer"),
+    ({}, ("MXNET_SERVING_REPLICAS", "2"), "ReplicatedLMServer"),
+    ({}, ("MXNET_SERVING_AUTOSCALE", "1"), "ReplicatedLMServer"),
+    ({}, ("MXNET_SERVING_ROLES", "prefill:1,decode:1"),
+     "ReplicatedLMServer")])
+def test_fleet_arguments_build_the_replicated_door(lm, monkeypatch, kwargs,
+                                                   env, want):
+    """The multi-replica door is ported: what raised before builds it."""
+    _, _, params, cfg = lm
+    if env is not None:
+        monkeypatch.setenv(*env)
+    srv = serving.serve((params, cfg), device="cpu", max_batch=1, **kwargs)
+    try:
+        assert type(srv).__name__ == want
+        assert len(srv.generate(PROMPTS[1], max_new_tokens=2,
+                                timeout=60)) == 2
+    finally:
+        srv.close(timeout=60)
