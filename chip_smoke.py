@@ -391,7 +391,50 @@ Phases (any failure exits non-zero before the last line):
                 the bytes through the collectives and those staged
                 through host memory, and per-rank launches, beside the
                 card's name and power limit.
-  25. the kernels line (K2's, K3a-d's and K4a-b's launches summed over
+  25. training resilience (ROADMAP item 12's training side) on the word
+                LM at phase 11's width (vocab 10000, embed and hidden
+                200, 2 layers, bptt 35 x batch 32, float32, fused RNN)
+                with dropout 0.5 and adam, through K4a-b: (a) in process,
+                12 steps through ResilientLoop(TrainStep,
+                CheckpointManager(async_save=True)) against 5 steps, a
+                fresh net and step, restore() and the other 7: the
+                parameters bit-identical and K4a-b launched LM_LAYERS
+                times a step in both; (b) the subprocess drill
+                (`python -m mxnet_tpu_torch.tools.chaos_train --device
+                cuda`): SIGTERM exits 83, a kill during the save exits 43
+                with the last published step intact, a NaN step rolls
+                back, and the faulted run's final line and parameter
+                sha256 equal the clean run's; (c) the pod drill
+                (`--multihost`): a world of 2 ranks sharing cuda:0 over
+                gloo, {'dp': 2}, sharded_update, per-rank sharded
+                checkpoints, no dropout (each rank draws its own slice's
+                masks): rank 1 SIGKILLed and then killed mid-save, the
+                survivor ending within its grace window each time (83,
+                or gloo's error about the dead peer), a same-shape
+                relaunch from the newest complete step bit-identical to
+                an undisturbed world (step losses included), an elastic
+                relaunch onto a world of one whose step losses,
+                parameter sums of squares and eval loss lie within
+                chaos_train.ELASTIC_RTOL, and a rank that hangs
+                (SIGSTOP): its survivor ended by gloo's timeout within
+                MXNET_WORLD_TIMEOUT, or, under SIGTERM with the world's
+                timeout far off, by the grace timer with 83; (d) the
+                supervised campaign (`--multihost --supervised`, an
+                emulated pod of 3 hosts, each a world of one,
+                relaunched through tools/train_supervise.py): a slow
+                host cordoned and the pod finishing at 2 hosts equal to
+                the undisturbed run, a truncated step demoted by the
+                audit before restore, and an SDC digest flip naming the
+                armed host. (b) and (c) run at the same time, sharing
+                the card; (d) runs alone after them, since its
+                straggler flag reads step times. (b)-(d) launch K4a-b
+                once a layer for each step and SDC probe their
+                finishing workers ran. Prints the
+                save latency (the caller's host copy against the
+                writer's write + fsync), checkpoint bytes a rank, restore
+                ms and each leg's wall time beside the card's name and
+                power limit.
+  26. the kernels line (K2's, K3a-d's and K4a-b's launches summed over
      every path that runs them, split in `launches_by_path`; K3a-d's
      sums over an Inception-v3 step under `inception_v3_step`),
      nvidia-smi's line, and the last line {"ok": true, "device": {...}}.
@@ -404,6 +447,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -7621,6 +7665,210 @@ def phase_distributed(torch, np, dev, card, r50_floor):
                     e[0]["int8"]["k4_launches"]))}
     return launches, summary
 
+#: phase 25: training resilience on the word LM at phase 11's width.
+#: 25a trains RES_STEPS steps straight and RES_SPLIT + restore + the rest
+RES_STEPS, RES_SPLIT, RES_SAVE_EVERY = 12, 5, 4
+RES_DROPOUT, RES_LR = 0.5, 0.001
+#: the subprocess drills: steps of 25b-c and of 25d's campaign (whose
+#: healthy hosts must still be training when the slow one's windows
+#: arrive), and the seconds any one drill may take
+RES_DRILL_STEPS, RES_SUP_STEPS, RES_DRILL_TIMEOUT = 12, 48, 600
+#: 25d's straggler sleeps this long a step: several times a healthy
+#: host's step (25d runs alone, after 25b and 25c)
+RES_SLOW_S = 0.5
+
+
+def res_batch(torch, np, dev, step):
+    """25a's time-major batch of `step`: a function of the step only."""
+    rng = np.random.RandomState(20_000 + step)
+    tok = rng.randint(0, LM_VOCAB, (LM_BPTT + 1, LM_BATCH))
+    return (torch.from_numpy(tok[:-1].astype(np.float32)).to(dev),
+            torch.from_numpy(tok[1:].reshape(-1).astype(np.float32))
+            .to(dev))
+
+
+def res_run(torch, np, mx, fr, dev, ckpt, start, stop, restore):
+    """A fresh seeded word LM (dropout RES_DROPOUT) and adam step in a
+    ResilientLoop over CheckpointManager(ckpt, async_save=True): restore
+    first when asked, then train to step `stop`, publish, and return the
+    parameters, the K4a-b launches a step, the restore ms and the
+    manager."""
+    from mxnet_tpu_torch.parallel import ResilientLoop, TrainStep
+    from mxnet_tpu_torch.utils.recovery import CheckpointManager
+    mx.random.seed(0)
+    np.random.seed(0)
+    torch.manual_seed(0)
+    with _ctx(mx, dev):
+        net = word_lm_net(torch, mx, dev, RES_DROPOUT)
+        step = TrainStep(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                         "adam", {"learning_rate": RES_LR})
+        mgr = CheckpointManager(ckpt, keep=3, async_save=True)
+        loop = ResilientLoop(step, mgr, save_every=RES_SAVE_EVERY,
+                             policy="skip", watch_preemption=False,
+                             verbose=False, metrics_port=False)
+        restore_ms = None
+        if restore:
+            t0 = time.perf_counter()
+            got = loop.restore()
+            _sync(torch, dev)
+            restore_ms = 1e3 * (time.perf_counter() - t0)
+            check(got == start, "25a: restored step %d, expected %d"
+                  % (got, start))
+        per_step = []
+        while loop.t < stop:
+            n0 = fr.launch_counts()
+            loop.step(*res_batch(torch, np, dev, loop.t))
+            n1 = fr.launch_counts()
+            per_step.append((n1[0] - n0[0], n1[1] - n0[1]))
+        loop.finish()
+    params = {n: p.data()._data.detach().clone()
+              for n, p in net.collect_params().items()}
+    return params, per_step, restore_ms, mgr
+
+
+def res_drill(what, dev, argv, timeout=RES_DRILL_TIMEOUT, env=None):
+    """Run `python -m mxnet_tpu_torch.tools.chaos_train` with `argv` on
+    the word LM at phase 11's width on `dev` (the card; the CPU only in a
+    rehearsal); fail the phase unless it passes. Returns (its
+    DRILL_STATS, wall seconds, its stdout)."""
+    t0 = time.perf_counter()
+    lm = ",".join(str(v) for v in (LM_VOCAB, LM_EMBED, LM_HIDDEN,
+                                   LM_LAYERS, LM_BPTT, LM_BATCH))
+    with tempfile.TemporaryDirectory(prefix="mxtt_drill_") as work:
+        try:
+            out = subprocess.run(
+                [sys.executable, "-m", "mxnet_tpu_torch.tools.chaos_train",
+                 "--device", dev.type, "--net", "lm", "--lm", lm,
+                 "--work-dir", work] + argv, capture_output=True,
+                text=True, timeout=timeout,
+                env=None if env is None else dict(os.environ, **env),
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+        except subprocess.TimeoutExpired as e:
+            raise SmokeFailure("%s: the drill ran past %ds:\n%s"
+                               % (what, timeout, (e.stdout or "")[-4000:]))
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, "%s: the drill failed (rc %d):\n%s\n%s"
+          % (what, out.returncode, out.stdout[-6000:], out.stderr[-3000:]))
+    stats = None
+    for line in out.stdout.splitlines():
+        if line.startswith("DRILL_STATS "):
+            stats = json.loads(line[len("DRILL_STATS "):])
+    check(stats is not None, "%s: no DRILL_STATS line" % what)
+    return stats, wall, out.stdout
+
+
+def res_inproc(torch, np, mx, fr, dev, tmp):
+    """25a: RES_STEPS steps straight against RES_SPLIT, a fresh net and
+    step, restore() and the rest; the parameters must be bit-identical
+    and K4a-b launched LM_LAYERS times a step both ways. Returns its
+    summary (with the launches of both runs)."""
+    t0 = time.perf_counter()
+    fr.reset_launch_counts()
+    want, per_straight, _, mgr = res_run(
+        torch, np, mx, fr, dev, os.path.join(tmp, "straight"), 0, RES_STEPS,
+        False)
+    _, per_first, _, _ = res_run(torch, np, mx, fr, dev,
+                                 os.path.join(tmp, "split"), 0, RES_SPLIT,
+                                 False)
+    got, per_rest, restore_ms, mgr2 = res_run(
+        torch, np, mx, fr, dev, os.path.join(tmp, "split"), RES_SPLIT,
+        RES_STEPS, True)
+    launches = fr.launch_counts()
+    differ = [n for n in want if not torch.equal(got[n], want[n])]
+    check(not differ, "25a: after restore() the parameters differ from the "
+          "straight run's in %d tensors (%s)" % (len(differ), differ[:3]))
+    expect = [(LM_LAYERS, LM_LAYERS)] * RES_STEPS
+    check(per_straight == expect and per_first + per_rest == expect,
+          "25a: K4a/K4b launches a step %r straight, %r resumed; expected "
+          "%r" % (per_straight, per_first + per_rest, expect[0]))
+    log = list(mgr.save_log) + list(mgr2.save_log)
+    return {"steps": RES_STEPS, "split_at": RES_SPLIT,
+            "tensors_differing": len(differ),
+            "max_abs_diff": max(float((got[n] - want[n]).abs().max())
+                                for n in want),
+            "k4_per_step": expect[0], "k4_launches": list(launches),
+            "save_copy_ms": [1e3 * r["copy_s"] for r in log],
+            "save_write_fsync_ms": [1e3 * r["write_s"] for r in log
+                                    if r["write_s"] is not None],
+            "ckpt_bytes": mgr._metrics["bytes"].value,
+            "restore_ms": restore_ms, "wall_s": time.perf_counter() - t0}
+
+
+def res_pod_drill(dev, env=None):
+    """25c: the pod drill over a world of 2 on `dev`; (its DRILL_STATS,
+    wall seconds, stdout), failing the phase unless it passes."""
+    stats, wall, out = res_drill("25c", dev, [
+        "--multihost", "--steps", str(RES_DRILL_STEPS),
+        "--save-every", str(RES_SAVE_EVERY)], env=env)
+    check("same-shape relaunch: bit-identical on all 2 hosts" in out,
+          "25c: no bit-identical same-shape relaunch line")
+    return stats, wall, out
+
+
+def phase_resilience(torch, np, dev, card):
+    """Phase 25 (module docstring). Returns the K4a-b launches of the
+    phase's paths and a summary."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    from mxnet_tpu_torch.tools.chaos_train import ELASTIC_RTOL
+    prior = os.environ.get("MXNET_FUSED_RNN")
+    os.environ["MXNET_FUSED_RNN"] = "1"
+    tmp = tempfile.mkdtemp(prefix="mxtt_phase25_")
+    summary = {"card": card}
+    launches = {}
+    try:
+        summary["25a"] = res_inproc(torch, np, mx, fr, dev, tmp)
+        launches["25a"] = tuple(summary["25a"]["k4_launches"])
+        print("resilience 25a (%s): %s" % (card, json.dumps(summary["25a"])))
+        sys.stdout.flush()
+        # 25b and 25c share nothing but the card: run them at once
+        # (their leg times then include each other's load; 25a's save
+        # and restore times above are the phase's unloaded readings).
+        # 25d's straggler flag reads step times, so it runs alone
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(2) as pool:
+            b = pool.submit(res_drill, "25b", dev, [
+                "--steps", str(RES_DRILL_STEPS),
+                "--save-every", str(RES_SAVE_EVERY),
+                "--dropout", str(RES_DROPOUT)])
+            c = pool.submit(res_pod_drill, dev)
+            runs = {"25b": b.result(), "25c": c.result()}
+        runs["25d"] = res_drill("25d", dev, [
+            "--multihost", "--supervised", "--legs", "A,B,C",
+            "--steps", str(RES_SUP_STEPS),
+            "--save-every", str(RES_SAVE_EVERY),
+            "--dropout", str(RES_DROPOUT), "--slow-s", str(RES_SLOW_S)])
+        for leg in ("leg A OK", "leg B OK", "leg C OK"):
+            check(leg in runs["25d"][2], "25d: %r missing" % leg)
+        for leg, what in (("25b", "drill"), ("25c", "pod drill"),
+                          ("25d", "supervised")):
+            stats, wall, _ = runs[leg]
+            summary[leg] = dict(stats, wall_s=wall)
+            print("resilience %s %s (%s): %s"
+                  % (leg, what, card, json.dumps(summary[leg])))
+        summary["25c"]["elastic_rtol"] = ELASTIC_RTOL
+        sys.stdout.flush()
+        for leg in ("25b", "25c", "25d"):
+            launches[leg] = tuple(summary[leg]["k4_launches"])
+            # one K4a and one K4b launch a layer for each step and SDC
+            # probe the drill's finishing workers ran (on the CPU the
+            # plain versions run and launch nothing)
+            want = tuple(summary[leg]["k4_expected"])
+            check(launches[leg] == want and want[0] > 0
+                  or dev.type == "cpu",
+                  "phase %s: K4a/K4b launched %r, the workers' steps and "
+                  "probes call for %r" % (leg, launches[leg], want))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_RNN", None)
+        else:
+            os.environ["MXNET_FUSED_RNN"] = prior
+    total = tuple(sum(v[i] for v in launches.values()) for i in (0, 1))
+    summary["k4_launches"] = {k: list(v) for k, v in launches.items()}
+    return total, summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7688,6 +7936,7 @@ def main():
         fleet_launches, _ = phase_fleet(torch, np, dev, smi)
         dist_launches, _ = phase_distributed(
             torch, np, dev, smi, r50_path["first_step_float32"]["grad_floor"])
+        res_launches, _ = phase_resilience(torch, np, dev, smi)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -7778,7 +8027,8 @@ def main():
         "gluon_lstm_layer_vs_cells": cell_launches,
         "word_lm_16_optimizers": opt_launches,
         "word_lm_probe_resume": resume_k4,
-        "word_lm_mesh_dp2_f32_and_int8_rank0": dist_launches["k4"]})
+        "word_lm_mesh_dp2_f32_and_int8_rank0": dist_launches["k4"],
+        "word_lm_resilience_phase25": res_launches})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

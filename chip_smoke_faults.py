@@ -1,4 +1,5 @@
-"""The readings that phase 24's limits in chip_smoke.py sit between.
+"""The readings that phase 24's and phase 25's limits in chip_smoke.py sit
+between.
 
 chip_smoke.py's 24c holds one float32 step's change of the BatchNorm
 running statistics to the single process's (DIST_BN_STATS_TOL), and its
@@ -17,17 +18,35 @@ what each run reads:
        int8_scale_x2 (the dequantized int8 sum doubled); int8_no_feedback
        (the error-feedback residuals dropped after every step).
 
-A fault replaces one function of the port in the rank's process; no
-file changes. In a run with a fault, chip_smoke's checks record what
-fails instead of raising. Run from the repository root on a machine with
-one card:
+  25a  tensors_differing between the resumed and the straight run, for:
+       sound; resume_no_rng (load_state_dict drops the generators'
+       states, so the masks after a restore repeat the first steps').
+  25c  the pod drill's outcome and its elastic readings (the largest
+       relative errors, against the world of 2, of the eval loss, of a
+       step's loss and of a parameter's sum of squares),
+       for: sound (twice); restore_incomplete (the manager accepts a
+       sharded step whose files are missing, filling nothing in);
+       elastic_no_reduce (the world's gradient sum dropped: each step's
+       gradient is the first rank's half batch's, broadcast, so the
+       ranks agree and the world of one differs); grace_after_collective
+       (the watcher ignores the signal's wakeup byte, so its grace timer
+       starts only when Python runs the handler, which a rank blocked in
+       a collective never does until the collective returns).
 
-    python3 chip_smoke_faults.py
+A fault replaces one function of the port in the rank's process (25c's
+in every process of the drill, through a sitecustomize module on
+PYTHONPATH that `MXTT_PLANT` arms); no file changes. In a run with a
+fault, chip_smoke's checks record what fails instead of raising. Run
+from the repository root on a machine with one card:
+
+    python3 chip_smoke_faults.py [--phase 24|25]
 
 It prints one line a run, the card's name and power limit, and as its
 last line a JSON object of every reading. It exits 1 without a card.
 """
 import json
+import os
+import re
 import shutil
 import sys
 import tempfile
@@ -40,6 +59,23 @@ FAULTS_24E = ("sound", "sound", "int8_scale_x2", "int8_no_feedback")
 READ_24C = ("bn_running_stats_rel_err", "grad_rel_err", "grad_tol",
             "loss_rel_err")
 READ_24E = ("int8_update_rel_err", "int8_gap")
+FAULTS_25A = ("sound", "resume_no_rng")
+FAULTS_25C = ("sound", "sound", "restore_incomplete", "elastic_no_reduce",
+              "grace_after_collective")
+
+_SITECUSTOMIZE = """\
+import importlib.machinery, importlib.util, os, sys
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path
+                      if os.path.abspath(p or ".") != _here])
+if _spec is not None:
+    _mod = importlib.util.module_from_spec(_spec)
+    _spec.loader.exec_module(_mod)
+if os.environ.get("MXTT_PLANT"):
+    import chip_smoke_faults
+    chip_smoke_faults.plant_worker(os.environ["MXTT_PLANT"])
+"""
 
 
 def _plant(fault):
@@ -63,6 +99,124 @@ def _plant(fault):
         TrainStep._int8_allreduce = faulty
     elif fault != "sound":
         raise ValueError("unknown fault %r" % fault)
+
+
+def plant_worker(fault):
+    """Break the port in a drill process as `fault` names (25c)."""
+    from mxnet_tpu_torch.parallel import trainer
+    from mxnet_tpu_torch.utils import recovery
+    if fault == "restore_incomplete":
+        import numpy as np
+
+        def lenient(self, step, g):
+            """What the files on disk hold, zeros where none covers."""
+            out = {k: np.zeros(a["shape"], np.dtype(a["dtype"]))
+                   for k, a in g.get("arrays", {}).items()}
+            for fname in g.get("files", []):
+                path = os.path.join(self.directory, fname)
+                if not os.path.exists(path):
+                    continue
+                m = self._verify_shard(path)
+                archive = np.load(path, allow_pickle=False)
+                for entry, info in m.get("entries", {}).items():
+                    if info.get("index") is None:
+                        out[info["key"]] = archive[entry]
+                    else:
+                        out[info["key"]][tuple(
+                            slice(a, b) for a, b in info["index"])] = \
+                            archive[entry]
+            return recovery._unflatten(out)
+        recovery.CheckpointManager._restore_sharded = lenient
+        recovery.CheckpointManager._verify_step = lambda self, step: None
+    elif fault == "elastic_no_reduce":
+        import torch.distributed as dist
+
+        def first(t, ax):
+            t = t.clone()
+            dist.broadcast(t, src=ax.ranks[0], group=ax.group)
+            return t * ax.size
+        trainer.all_reduce_flat = lambda ts, ax: [first(t, ax) for t in ts]
+        trainer.reduce_scatter_raw = lambda t, ax, dim: first(t, ax).narrow(
+            dim, ax.index * (t.shape[dim] // ax.size),
+            t.shape[dim] // ax.size)
+    elif fault == "grace_after_collective":
+        from mxnet_tpu_torch.parallel import resilient
+
+        def drain(self, r, prior):
+            while os.read(r, 64):
+                pass
+            os.close(r)
+        resilient.PreemptionWatcher._read_wakeups = drain
+    elif fault != "sound":
+        raise ValueError("unknown fault %r" % fault)
+
+
+def _phase25(torch, np, dev, card):
+    """25a sound and without the generators' states; 25c sound (twice)
+    and with each worker fault."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    from mxnet_tpu_torch.parallel.trainer import TrainStep
+    failed = []
+
+    def record(cond, msg):
+        if not cond:
+            failed.append(msg[-1500:])
+    cs.check = record
+    os.environ["MXNET_FUSED_RNN"] = "1"
+    out = {"25a": [], "25c": []}
+    sound_load = TrainStep.load_state_dict
+    for fault in FAULTS_25A:
+        del failed[:]
+        if fault == "resume_no_rng":
+            TrainStep.load_state_dict = lambda self, st: sound_load(
+                self, {k: v for k, v in st.items() if k != "rng_key"})
+        tmp = tempfile.mkdtemp(prefix="mxtt_faults25_")
+        try:
+            r = cs.res_inproc(torch, np, mx, fr, dev, tmp)
+        finally:
+            TrainStep.load_state_dict = sound_load
+            shutil.rmtree(tmp, ignore_errors=True)
+        reading = {"fault": fault,
+                   "tensors_differing": r["tensors_differing"],
+                   "max_abs_diff": r["max_abs_diff"],
+                   "failed_checks": list(failed)}
+        print("25a %s (%s): %s" % (fault, card, json.dumps(reading)))
+        sys.stdout.flush()
+        out["25a"].append(reading)
+    site = tempfile.mkdtemp(prefix="mxtt_site_")
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(_SITECUSTOMIZE)
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.pathsep.join([site, here] + [p for p in [
+        os.environ.get("PYTHONPATH")] if p])
+    try:
+        for fault in FAULTS_25C:
+            del failed[:]
+            t0 = time.perf_counter()
+            stats, _, stdout = cs.res_pod_drill(
+                dev, env={"MXTT_PLANT": fault, "PYTHONPATH": path})
+            m = re.search(r"eval loss rel err ([-\d.e+]+), step loss max "
+                          r"rel err ([-\d.e+]+) over \d+ steps, parameter "
+                          r"sum-of-squares max rel err ([-\d.e+]+)", stdout)
+            asserted = re.findall(r"AssertionError: (.*)", stdout +
+                                  "".join(failed))
+            reading = {"fault": fault, "passed": not failed,
+                       "elastic_eval_loss_rel_err":
+                           float(m.group(1)) if m else None,
+                       "elastic_step_loss_rel_err":
+                           float(m.group(2)) if m else None,
+                       "elastic_param_sumsq_rel_err":
+                           float(m.group(3)) if m else None,
+                       "rejected_by": asserted[-1][:300] if asserted
+                       else None,
+                       "wall_s": time.perf_counter() - t0}
+            print("25c %s (%s): %s" % (fault, card, json.dumps(reading)))
+            sys.stdout.flush()
+            out["25c"].append(reading)
+    finally:
+        shutil.rmtree(site, ignore_errors=True)
+    return out
 
 
 def rank_fault(fault, target, args):
@@ -109,21 +263,32 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--phase", choices=("24", "25"), default=None,
+                    help="one phase's faults (default: both)")
+    phases = {"24", "25"} if ap.parse_args().phase is None else \
+        {ap.parse_args().phase}
     card = cs.nvidia_smi()
     cs.build_kernels(_cuda)
-    tmp = tempfile.mkdtemp(prefix="mxtt_faults_")
-    try:
-        r50_path, ulp_floor = cs.prep_24c(torch, np, mx, dev, tmp)
-        torch.cuda.empty_cache()
-        c = _runs("rank_24c", FAULTS_24C, (r50_path, ulp_floor), READ_24C,
-                  card)
-        lm_path = cs.prep_24e(torch, mx, dev, tmp)
-        torch.cuda.empty_cache()
-        e = _runs("rank_24e", FAULTS_24E, (lm_path,), READ_24E, card)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    readings = {"card": card}
+    if "24" in phases:
+        tmp = tempfile.mkdtemp(prefix="mxtt_faults_")
+        try:
+            r50_path, ulp_floor = cs.prep_24c(torch, np, mx, dev, tmp)
+            torch.cuda.empty_cache()
+            readings["24c"] = _runs("rank_24c", FAULTS_24C,
+                                    (r50_path, ulp_floor), READ_24C, card)
+            lm_path = cs.prep_24e(torch, mx, dev, tmp)
+            torch.cuda.empty_cache()
+            readings["24e"] = _runs("rank_24e", FAULTS_24E, (lm_path,),
+                                    READ_24E, card)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    if "25" in phases:
+        readings.update(_phase25(torch, np, dev, card))
     print(card)
-    print(json.dumps({"card": card, "24c": c, "24e": e}))
+    print(json.dumps(readings))
     return 0
 
 

@@ -16,6 +16,12 @@ an explicit `init_world(...)`, or not at all: with no world and no
 `DMLC_*` a mesh of one rank runs in-process and every collective is the
 identity.
 
+`MXNET_WORLD_TIMEOUT` (seconds, default 600) bounds every collective of
+the world and of its groups: a rank whose peer died (a SIGKILLed host)
+gets an error from its next collective within that time instead of
+gloo's 30 minutes, so a resilient loop's preemption grace timer can end
+it (`parallel/resilient.py`).
+
 The backend rule, printed once when the world comes up (never silent):
 NCCL when every rank has a card of its own, gloo on the CPU, and gloo on
 CUDA tensors when ranks share a card (NCCL refuses two ranks of one
@@ -87,6 +93,21 @@ def choose_backend(device_type, world_size, local_world_size=None):
                     % (local, cards))
 
 
+def world_timeout():
+    """MXNET_WORLD_TIMEOUT as a timedelta (default 600 s): the longest
+    any collective of the world waits for its peers."""
+    import datetime
+    raw = os.environ.get("MXNET_WORLD_TIMEOUT", "") or "600"
+    try:
+        secs = float(raw)
+    except ValueError:
+        raise ValueError("MXNET_WORLD_TIMEOUT must be seconds, got %r"
+                         % (raw,))
+    if secs <= 0:
+        raise ValueError("MXNET_WORLD_TIMEOUT must be > 0, got %r" % (raw,))
+    return datetime.timedelta(seconds=secs)
+
+
 def init_world(init_method=None, rank=None, world_size=None, device=None):
     """Bring up the torch.distributed world once per process and return
     (backend, rank, world size). Arguments left None come from the
@@ -117,9 +138,11 @@ def init_world(init_method=None, rank=None, world_size=None, device=None):
                              "device='cpu' to run the world on the CPU")
         torch.cuda.set_device(local_rank % torch.cuda.device_count())
     backend, reason = choose_backend(dev_type, world_size, local_world)
+    timeout = world_timeout()
     dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world_size)
-    _WORLD.update(backend=backend, reason=reason, device_type=dev_type)
+                            world_size=world_size, timeout=timeout)
+    _WORLD.update(backend=backend, reason=reason, device_type=dev_type,
+                  timeout=timeout)
     if not _WORLD["announced"]:
         _WORLD["announced"] = True
         print("mxnet_tpu_torch: rank %d of a world of %d over %s on %s (%s)"
@@ -266,7 +289,7 @@ class Mesh:
                           for a in self.axis_names)
             ranks = sorted(int(r) for r in
                            np.asarray(self.devices[index]).reshape(-1))
-            g = dist.new_group(ranks)
+            g = dist.new_group(ranks, timeout=_WORLD.get("timeout"))
             if self.rank in ranks:
                 mine = g
         return mine

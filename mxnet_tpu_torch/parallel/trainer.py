@@ -37,6 +37,12 @@ parameters, the optimizer state and the running stats as they were
 (`torch.where`, no host sync). `probe`, `state_dict` /
 `load_state_dict` and `memory_analysis` follow the reference.
 
+The chaos seam: every gradient gets `utils.chaos.grad_poison(t)` added
+ahead of the guard's check and norm, as in the reference's step (NaN on
+an armed `nan_step`, 1e6 on an armed `spike_step`); on a real step the
+poison is 0.0 and the add is skipped on the host. Every rank reads the
+same environment, so every rank takes the same branch.
+
 Under a mesh (`mesh=`, `data_axis=`) every rank runs the step on its
 slice of the global batch it is given (`mesh.shard_batch` over
 `data_axis`); a training-mode BatchNorm takes the global batch's
@@ -92,6 +98,7 @@ from .. import random as _random
 from ..base import MXNetError, torch_dtype
 from ..ndarray import NDArray
 from ..ops import remat as _remat
+from ..utils import chaos as _chaos
 from .collectives import (_Axis, all_gather_raw, all_reduce_flat,
                           all_reduce_raw, data_axis_scope,
                           reduce_scatter_raw)
@@ -322,6 +329,38 @@ def _nbytes(t):
     return t.numel() * t.element_size()
 
 
+class Shard:
+    """This rank's block of a tensor kept sharded over the mesh, as
+    `TrainStep.state_dict(device=True)` hands out sharded optimizer
+    state: `data` (the live block), `shape` and `dtype` of the whole
+    tensor, `index` (the block's (start, stop) in each dimension of the
+    whole), `shard` of `shards` (its place among the distinct blocks in
+    sorted index order), `holders` (the global ranks that keep the same
+    block, sorted), `spec` (the layout, as text) and `mesh_axes` ({axis:
+    size}). A checkpoint manager writes each distinct block once from
+    these, without asking the other ranks."""
+
+    __slots__ = ("data", "shape", "dtype", "index", "shard", "shards",
+                 "holders", "spec", "mesh_axes")
+
+    def __init__(self, data, shape, index, shard, shards, holders, spec,
+                 mesh_axes):
+        self.data = data
+        self.shape = tuple(int(d) for d in shape)
+        self.dtype = data.dtype
+        self.index = tuple((int(a), int(b)) for a, b in index)
+        self.shard = int(shard)
+        self.shards = int(shards)
+        self.holders = [int(r) for r in holders]
+        self.spec = spec
+        self.mesh_axes = dict(mesh_axes)
+
+    def __repr__(self):
+        return "Shard(%s of %s, block %d of %d at %s)" % (
+            tuple(self.data.shape), self.shape, self.shard, self.shards,
+            self.index)
+
+
 def _to_host(t):
     """A numpy copy of `t` (bfloat16, which numpy lacks, as float32)."""
     t = t.detach()
@@ -517,6 +556,53 @@ class TrainStep:
                 t = all_gather_raw(t, _Axis(self._mesh, entry), dim)
         return t
 
+    def _layout_spec(self, lay, ndim):
+        """A layout as a PartitionSpec of `ndim` entries."""
+        if lay[0] == "zero":
+            spec = [None] * ndim
+            spec[lay[1]] = self._data_axis
+            return P(*spec)
+        return P(*(tuple(lay[1]) + (None,) * (ndim - len(lay[1]))))
+
+    def _block_index(self, lay, shape, coords):
+        """The (start, stop) of each dimension of the block that the rank
+        at mesh coordinates `coords` keeps under a layout."""
+        mesh = self._mesh
+
+        def index(names):
+            i = 0
+            for a in mesh.axis_names:
+                if a in names:
+                    i = i * mesh.shape[a] + coords[a]
+            return i
+
+        out = []
+        for dim, entry in zip(shape, self._layout_spec(lay, len(shape))):
+            names = mesh._names(entry)
+            n = mesh.axis_size(names)
+            if n == 1:
+                out.append((0, int(dim)))
+            else:
+                size = dim // n
+                i = index(names)
+                out.append((i * size, (i + 1) * size))
+        return tuple(out)
+
+    def _shard(self, lay, t, shape):
+        """The `Shard` descriptor of this rank's block `t` of a tensor of
+        `shape` under a layout."""
+        mesh = self._mesh
+        blocks = {}
+        for pos in np.ndindex(*mesh.devices.shape):
+            coords = dict(zip(mesh.axis_names, pos))
+            blocks.setdefault(self._block_index(lay, shape, coords),
+                              []).append(int(mesh.devices[pos]))
+        mine = self._block_index(lay, shape, mesh.coords)
+        order = sorted(blocks)
+        return Shard(t, shape, mine, order.index(mine), len(order),
+                     sorted(blocks[mine]),
+                     repr(self._layout_spec(lay, len(shape))), mesh.shape)
+
     def _norm_axis(self, lay):
         """The group a layout's block norms sum over."""
         if lay is None:
@@ -709,6 +795,9 @@ class TrainStep:
                  for w, g in zip(self._grad_vals(), grads)]
         loss_val, grads, aux_upd = self._reduce(loss_val, grads, aux_upd)
         self._t += 1
+        poison = _chaos.grad_poison(self._t)
+        if poison:      # 0.0 on every real step; NaN and 1e6 are true
+            grads = [g + poison for g in grads]
         lr = self._lr()
         opt = self._opt
         guard = self._guard
@@ -842,12 +931,20 @@ class TrainStep:
         instead, which the next step updates in place: copy what you keep
         before it. Optimizer state kept sharded over the mesh comes
         gathered whole in the host form (every rank of the mesh must call
-        then), as this rank's block in the live form."""
+        then), and in the live form as a `Shard`: this rank's block with
+        where it lies in the whole tensor."""
         if self._plist is None:
             self._build()
         live = (tuple(self._grad_vals()), tuple(self._nograd_vals()),
                 tuple(tuple(s) for s in self._opt_state))
-        if not device:
+        if device:
+            live = live[:2] + (tuple(
+                tuple(self._shard(lay, v, tuple(w.shape)) if sh else v
+                      for v, sh in zip(st, shs))
+                for st, shs, lay, w in zip(live[2], self._state_sharded,
+                                           self._layouts,
+                                           self._grad_vals())),)
+        else:
             live = (tuple(_to_host(v) for v in live[0]),
                     tuple(_to_host(v) for v in live[1]),
                     tuple(tuple(_to_host(self._gather(lay, v) if sh else v)
@@ -915,6 +1012,9 @@ class TrainStep:
             for st, tm, vs, lay in zip(self._opt_state, whole,
                                        state["opt_state"], self._layouts):
                 for t, w, v in zip(st, tm, vs):
+                    if isinstance(v, Shard):   # this rank's block already
+                        t.copy_(v.data)
+                        continue
                     v = _as_tensor(v).to(device=t.device, dtype=t.dtype)
                     t.copy_(self._local(lay, v) if w.device.type == "meta"
                             else v)

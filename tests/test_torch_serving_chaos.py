@@ -94,8 +94,8 @@ def test_chaos_env_parsing_matches_reference(monkeypatch):
         chaos.active()
     chaos.reset()
     monkeypatch.delenv("MXNET_CHAOS_SERVE_POISON")
-    with pytest.raises(ValueError, match="unknown chaos fault"):
-        chaos.configure(nan_step=3)           # a training fault
+    with pytest.raises(ValueError, match="rollout"):
+        chaos.configure(serve_rollout_corrupt=(3, 0))   # a rollout fault
     assert chaos.configure(serve_poison=(0, 1)) == {
         "serve_kill": (1, 5), "serve_wedge": (0, 2, 0.5),
         "serve_exhaust": (3, 4, 7.0), "serve_poison": (0, 1)}
