@@ -434,7 +434,48 @@ Phases (any failure exits non-zero before the last line):
                 writer's write + fsync), checkpoint bytes a rank, restore
                 ms and each leg's wall time beside the card's name and
                 power limit.
-  26. the kernels line (K2's, K3a-d's and K4a-b's launches summed over
+  26. rollout and tensor-parallel serving (ROADMAP item 12's serving
+                side) at phase 4's width on K1, random weights from seed
+                26: (a) `serve(replicas=2, rollout=<dir>)` under a
+                stream of 4 clients (prompts 32-128, 16-64 new tokens)
+                while the port's CheckpointManager publishes sharded
+                steps: step 1 with one host's shard first (incomplete,
+                skipped), then whole — gated, canaried, up the default
+                ladder and promoted (the TTFT objective, the slow
+                canary's sleep and the stage window, at least 0.5 s,
+                calibrated from the healthy fleet's first tokens, so a
+                slow canary's first token lands inside the windows that
+                judge it); step 2 bit-flipped
+                by serve_rollout_corrupt and quarantined by the digest
+                probe before any canary; step 3's canary slowed by
+                serve_rollout_slow_canary and rolled back after
+                `max_bad` bad windows of its TTFT burn; step 4 rolled
+                back by an operator through POST /v1/rollout; step 5,
+                step 1's weights but for positional rows no parity
+                prompt reaches, rejected by the divergence probe. Zero
+                requests lost or failed, the fleet back at 2 replicas
+                on version 1, whose greedy tokens on the 4 pinned
+                prompts equal a fresh server's on step 1's weights.
+                (b) tp=2 and tp=4 engines over the emulated windows
+                [cuda:0] * k: every prefill and decode logit row within
+                rtol 1e-4 / atol 1e-5 of the tp=1 paged engine's over
+                64 steps of 8 requests and every greedy token equal (a
+                request's comparison ends at a near-tie), each shard's
+                pool (L, NB, bs, H/k, Dh), contiguous, on its device,
+                K1 launched layers x shards x (chunks + steps) times;
+                the int8 tp=2 engine (int8 KV + int8 weights, block 32)
+                with every shard's scales its own block's and,
+                teacher-forced, within twice the reference's own int8
+                tp=2 vs tp=1 error (REF_TP_QUANT_LOGIT_ERR); an LMServer
+                at tp=2 serving phase 4's 9 requests with phase 4's
+                tokens; tp=2 with no window falling back with the
+                reference's reason and still on K1. (c) the tp != tp
+                hop: roles prefill:1,decode:1 with the decode role at
+                tp=2, greedy tokens equal to one server's. Prints the
+                rollout's transitions and times, gate ms, K1 launches
+                and step ms at tp 1, 2 and 4 beside the card's name and
+                power limit.
+  27. the kernels line (K2's, K3a-d's and K4a-b's launches summed over
      every path that runs them, split in `launches_by_path`; K3a-d's
      sums over an Inception-v3 step under `inception_v3_step`),
      nvidia-smi's line, and the last line {"ok": true, "device": {...}}.
@@ -1382,17 +1423,35 @@ def phase_main_path(torch, np, dev, card):
     return launches, main
 
 
-def quant_logit_probe(np, serving, params, cfg, prompt, gen, dev,
-                      ref_tokens, ref_logits):
-    """Max |logit - float| of one request on a fresh quantized engine
-    (int8 KV + int8 weights), TEACHER-FORCED on the float engine's
-    tokens `ref_tokens`: before each decode step the input token is set
-    to the float engine's, so every logit row is compared at the same
-    context. Returns (max error, rows compared, argmax agreements)."""
+def quant_logit_rows(np, serving, params, cfg, prompt, gen, dev):
+    """One request's greedy tokens and logit rows on a quantized engine
+    (int8 KV + int8 weights, one device): the baseline of the tp probe."""
     eng = serving.Engine(serving.TransformerLM(params, cfg), max_batch=8,
                          block_size=QUANT_BLOCK, paged=True,
                          keep_logits=True, kv_quant=True,
                          weight_quant="int8", device=dev)
+    seq = eng.start(list(prompt), gen)
+    while not seq.done:
+        eng.decode_step([seq])
+    out = list(seq.generated), np.stack(seq.token_logits)
+    eng.release(seq)
+    eng.close()
+    return out
+
+
+def quant_logit_probe(np, serving, params, cfg, prompt, gen, dev,
+                      ref_tokens, ref_logits, tp=1):
+    """Max |logit - baseline| of one request on a fresh quantized engine
+    (int8 KV + int8 weights; with `tp` > 1 sharded over the window
+    [dev] * tp), TEACHER-FORCED on the baseline's tokens `ref_tokens`:
+    before each decode step the input token is set to the baseline's, so
+    every logit row is compared at the same context. Returns (max error,
+    rows compared, argmax agreements)."""
+    window = dict(tp=tp, devices=[dev] * tp) if tp > 1 else {}
+    eng = serving.Engine(serving.TransformerLM(params, cfg), max_batch=8,
+                         block_size=QUANT_BLOCK, paged=True,
+                         keep_logits=True, kv_quant=True,
+                         weight_quant="int8", device=dev, **window)
     seq = eng.start(list(prompt), gen)
     i = 0
     while not seq.done:
@@ -6407,13 +6466,18 @@ def fleet_work(np, rng, n, lens, gens, vocab):
 
 
 def wait_for(pred, what, timeout=FLEET_WAIT_S, poll=None):
+    """Poll `pred` until it holds; a timeout fails the check (and returns
+    False where a fault-recording check lets the phase go on)."""
     t0 = time.perf_counter()
     while not pred():
-        check(time.perf_counter() - t0 < timeout,
-              "timed out after %.0f s waiting for %s" % (timeout, what))
+        if time.perf_counter() - t0 >= timeout:
+            check(False, "timed out after %.0f s waiting for %s"
+                  % (timeout, what))
+            return False
         if poll is not None:
             poll()
         time.sleep(0.02)
+    return True
 
 
 def fleet_clients(srv, work, clients, stop=None):
@@ -7869,6 +7933,591 @@ def phase_resilience(torch, np, dev, card):
     return total, summary
 
 
+#: phase 26: ROADMAP item 12's serving side at phase 4's width on K1,
+#: random weights from seed 26 (ROLL_SEED). 26a: a live rollout on
+#: serve(replicas=2, rollout=) under a stream of ROLL_CLIENTS clients
+#: (prompts and new tokens drawn in ROLL_PROMPT / ROLL_GEN); its
+#: checkpoints come seconds apart (a training run publishes hours apart).
+#: The judge reads a canary's TTFT burn, and a first token is seen only
+#: once it lands, so the objective, the slow canary's sleep and the stage
+#: window come from the healthy fleet's own first tokens, timed before
+#: step 1 (ROLL_CALIBRATE requests): the objective ROLL_TTFT_FACTOR x
+#: their largest TTFT, the slow canary's sleep ROLL_SLOW_FACTOR x the
+#: objective an iteration (every first token it serves breaks it), and
+#: the window ROLL_WINDOW_S (MXNET_ROLLOUT_WINDOW_S) unless a slow
+#: canary's first token, placed half a second into stage 0 and taking
+#: 1 + ROLL_PROMPT[1] / chunk slow iterations, would land after the
+#: second window: then long enough for it to land by then. The SLO's
+#: burn window spans three stage windows. 26b: tp engines over the
+#: emulated windows [cuda:0] * k (TP_DEGREES) against the tp=1 paged
+#: engine, TP_PROMPTS prompts of PROMPT_LEN tokens and TP_STEPS decode
+#: steps; 26c: the tp != tp migration hop.
+ROLL_SEED = 26
+ROLL_NOISE = 0.002
+ROLL_WINDOW_S = "0.5"
+ROLL_INTERVAL_S = 0.25
+ROLL_CLIENTS = 4
+ROLL_REQUESTS = 24
+ROLL_PROMPT = (32, 128)
+ROLL_GEN = (16, 64)
+ROLL_CALIBRATE = 12
+ROLL_TTFT_FACTOR = 8.0
+ROLL_TTFT_FLOOR_S = 0.05
+ROLL_SLOW_FACTOR = 1.5
+ROLL_PINNED = 4
+ROLL_PINNED_GEN = 16
+#: the first positional row no pinned parity prompt reaches (4 prompts
+#: of at most 7 tokens plus 6 decoded)
+ROLL_UNPROBED = 32
+ROLL_WAIT_S = 120
+TP_DEGREES = (2, 4)
+TP_PROMPTS = 8
+TP_STEPS = 64
+TP_RTOL, TP_ATOL = 1e-4, 1e-5
+#: the JAX reference's own int8 tp=2 engine (int8 KV + int8 weights,
+#: block 32) against its int8 tp=1 engine, teacher-forced over GEN
+#: tokens of one PROMPT_LEN prompt at this config's width:
+#: tools/quant_logit_probe.py --impl reference --tp 2 (CPU, 2 virtual
+#: devices). 26b holds the port's int8 tp=2 engine to twice that against
+#: its int8 tp=1 engine; the shards' own scales are checked apart.
+REF_TP_QUANT_LOGIT_ERR = 0.05504
+TP_QUANT_BOUND = 2 * REF_TP_QUANT_LOGIT_ERR
+
+
+def roll_tree(np, base, step):
+    """Step `step`'s published weights: step 0's (the fleet's boot
+    weights) plus N(0, ROLL_NOISE) noise drawn from the step."""
+    rng = np.random.RandomState(ROLL_SEED * 1000 + step)
+    return {k: (v + ROLL_NOISE * rng.standard_normal(v.shape)).astype(
+        np.float32) for k, v in base.items()}
+
+
+def roll_publish(directory, step, tree, hosts=1, only=None):
+    """Publish `tree` at `step` as a sharded checkpoint of an emulated
+    pod of `hosts` writers (the port's CheckpointManager): every host
+    writes its shard file and sidecar, host 0 the global manifest last.
+    `only` writes just that host's part."""
+    from mxnet_tpu_torch.utils.recovery import CheckpointManager
+    for i in (reversed(range(hosts)) if only is None else (only,)):
+        CheckpointManager(directory, keep=0, async_save=False,
+                          sharded=True, process_index=i,
+                          process_count=hosts).save(step, tree)
+
+
+class RolloutLog:
+    """The controller's transitions and gates, timed: its `step` and
+    `_gate` are wrapped on the instance, so the watcher thread's own
+    calls are recorded."""
+
+    def __init__(self, ro):
+        self.t0 = time.perf_counter()
+        self.passes = 0
+        self.events = []
+        self.gates = []
+        self.spawned = []
+        self.judged = []
+        step, gate, spawn = ro.step, ro._gate, ro._spawn_canary
+        judge = ro.judge
+
+        def logged_step(now=None):
+            out = step(now)
+            self.passes += 1
+            if out in ("rejected", "rollback"):
+                which = ro.last_rejection["step"]
+            elif out == "promoted":
+                which = ro.last_promotion["step"]
+            else:
+                which = ro.candidate
+            if out:
+                self.events.append((round(time.perf_counter() - self.t0, 3),
+                                    out, which))
+            return out
+
+        def timed_gate(s, now):
+            t = time.perf_counter()
+            try:
+                return gate(s, now)
+            finally:
+                self.gates.append((int(s), 1e3 * (time.perf_counter() - t)))
+
+        def spawn_canary(s, model, now):
+            self.spawned.append(int(s))
+            return spawn(s, model, now)
+
+        def logged_judge():
+            ok = judge()
+            self.judged.append((round(time.perf_counter() - self.t0, 3),
+                                ro.candidate, ro.stage,
+                                round(ro.canary_burn(), 3), ok))
+            return ok
+
+        ro.step, ro._gate, ro._spawn_canary, ro.judge = (
+            logged_step, timed_gate, spawn_canary, logged_judge)
+
+    def seen(self, what, step):
+        return any(e[1] == what and e[2] == step for e in self.events)
+
+    def transitions(self, step):
+        return [e[1] for e in self.events if e[2] == step]
+
+
+def roll_pinned(srv, cfg):
+    from mxnet_tpu_torch.serving.rollout import pinned_prompts
+    return [srv.generate(p, max_new_tokens=ROLL_PINNED_GEN,
+                         timeout=ROLL_WAIT_S)
+            for p in pinned_prompts(cfg.vocab, ROLL_PINNED, cfg.max_len)]
+
+
+def roll_calibrate(srv, work):
+    """The healthy fleet's largest TTFT over ROLL_CALIBRATE requests
+    from ROLL_CLIENTS threads, and the objective (s), the slow canary's
+    sleep (s), the stage window (s) and the SLO burn window (s) derived
+    from it (the constants' comment above). A first round warms the
+    replicas' threads."""
+    fleet_clients(srv, work[:ROLL_CLIENTS], ROLL_CLIENTS)
+    _, reqs, errors, _ = fleet_clients(srv, work[:ROLL_CALIBRATE],
+                                       ROLL_CLIENTS)
+    check(not errors, "26a: the healthy fleet failed requests: %r"
+          % errors[:4])
+    healthy = max(r.t_first_token - r.t_submit for r in reqs)
+    ttft = max(ROLL_TTFT_FLOOR_S, ROLL_TTFT_FACTOR * healthy)
+    slow = ROLL_SLOW_FACTOR * ttft
+    chunks = -(-ROLL_PROMPT[1] // srv.replicas[0].engine.prefill_chunk)
+    window = max(float(ROLL_WINDOW_S), (0.5 + slow * (1 + chunks)) / 2)
+    return healthy, ttft, slow, window, math.ceil(3 * window)
+
+
+def phase_rollout(torch, np, serving, pa, cfg, base, dev, tmp, card):
+    """26a (module docstring); prints its line before its checks. Returns
+    (K1 launches, summary)."""
+    from mxnet_tpu_torch.models import params_from_numpy
+    from mxnet_tpu_torch.utils import chaos
+    rng = np.random.RandomState(ROLL_SEED)
+    work = fleet_work(np, rng, ROLL_REQUESTS, ROLL_PROMPT, ROLL_GEN,
+                      cfg.vocab)
+    kw = dict(max_batch=8, paged=True, block_size=16, token_budget=256,
+              device=dev)
+    ckpt = os.path.join(tmp, "ckpts")
+    env = {k: os.environ.get(k) for k in (
+        "MXNET_ROLLOUT_WINDOW_S", "MXNET_SLO_TTFT_MS", "MXNET_SLO_WINDOWS")}
+    os.environ["MXNET_ROLLOUT_WINDOW_S"] = ROLL_WINDOW_S
+    srv = None
+    stop = threading.Event()
+    stream = {}
+    try:
+        srv = serving.serve((params_from_numpy(base, cfg, dev), cfg),
+                            replicas=2, rollout=ckpt, **kw)
+        ro = srv.rollout
+        ro.interval_s = ROLL_INTERVAL_S
+        log = RolloutLog(ro)
+        host, port = srv.serve_http(port=0, block=False)
+        pa.paged_attention.launches = 0
+        # the objective and the windows, read by the canaries built from
+        # here on (an SLO is read when a replica's metrics are made)
+        healthy, ttft, slow, ro.window_s, burn = roll_calibrate(srv, work)
+        os.environ["MXNET_SLO_TTFT_MS"] = "%.1f" % (1e3 * ttft)
+        os.environ["MXNET_SLO_WINDOWS"] = str(burn)
+
+        def run_stream():
+            stream["out"] = fleet_clients(srv, work, ROLL_CLIENTS, stop)
+        client = threading.Thread(target=run_stream, daemon=True)
+        client.start()
+        # step 1: host 1's shard lands first; the step is incomplete and
+        # the watcher passes over it
+        roll_publish(ckpt, 1, roll_tree(np, base, 1), hosts=2, only=1)
+        seen = log.passes
+        wait_for(lambda: log.passes >= seen + 3, "3 watcher passes")
+        check(ro.state == "idle" and ro.candidate is None
+              and not ro.roster.steps(),
+              "26a: an incomplete step was judged (state %r, roster %r)"
+              % (ro.state, ro.roster.steps()))
+        roll_publish(ckpt, 1, roll_tree(np, base, 1), hosts=2, only=0)
+        wait_for(lambda: log.seen("promoted", 1), "step 1's promotion",
+                 timeout=ROLL_WAIT_S)
+        # step 2: bitrot after the publish, caught before any traffic
+        chaos.configure(serve_rollout_corrupt=(2, 0))
+        roll_publish(ckpt, 2, roll_tree(np, base, 2))
+        wait_for(lambda: log.seen("rejected", 2), "step 2's quarantine",
+                 timeout=ROLL_WAIT_S)
+        rej2 = dict(ro.last_rejection or {})
+        # step 3: a healthy-but-slow canary (it will be replica 2)
+        chaos.configure(serve_rollout_slow_canary=(2, 1, slow))
+        roll_publish(ckpt, 3, roll_tree(np, base, 3))
+        wait_for(lambda: log.seen("rollback", 3) or log.seen("promoted", 3),
+                 "step 3's verdict", timeout=ROLL_WAIT_S)
+        rej3 = dict(ro.last_rejection or {})
+        chaos.configure(serve_rollout_slow_canary=None)
+        # step 4: the operator rolls it back through POST /v1/rollout
+        roll_publish(ckpt, 4, roll_tree(np, base, 4))
+        wait_for(lambda: ro.state == "staging" and ro.candidate == 4,
+                 "step 4's canary", timeout=ROLL_WAIT_S)
+        code, body, _ = http_json(
+            "http://%s:%d/v1/rollout" % (host, port),
+            {"cmd": "rollback", "reason": "operator drill"})
+        check(code == 200 and body.get("candidate") == 4,
+              "26a: POST /v1/rollout rollback answered %r %r" % (code, body))
+        wait_for(lambda: log.seen("rollback", 4), "step 4's rollback",
+                 timeout=ROLL_WAIT_S)
+        # step 5: the serving weights with only positional rows past the
+        # pinned probes' positions changed: the digest moves, every probe
+        # output stays bit-identical, so the divergence probe rejects it
+        tree5 = dict(roll_tree(np, base, 1))
+        tree5["pos_embed"] = tree5["pos_embed"].copy()
+        tree5["pos_embed"][ROLL_UNPROBED:] += ROLL_NOISE
+        roll_publish(ckpt, 5, tree5)
+        wait_for(lambda: log.seen("rejected", 5) or 5 in log.spawned,
+                 "step 5's gate", timeout=ROLL_WAIT_S)
+        rej5 = dict(ro.last_rejection or {})
+        code, status, _ = http_json("http://%s:%d/v1/rollout" % (host, port),
+                                    {"cmd": "status"})
+        stop.set()
+        client.join(timeout=10 * FLEET_WAIT_S)
+        check(not client.is_alive(), "26a: the client stream never ended")
+        launches = pa.paged_attention.launches
+        pinned = roll_pinned(srv, cfg)
+        versions, weights = list(srv._version), srv.weights_version
+        n_reps = len(srv.replicas)
+        tok = srv.statusz()["fleet"]["tokens"]
+    finally:
+        stop.set()
+        chaos.configure(serve_rollout_corrupt=None,
+                        serve_rollout_slow_canary=None)
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        if srv is not None:
+            srv.close(timeout=FLEET_WAIT_S)
+    results, reqs, errors, wall = stream["out"]
+    # a request rehomed off a retired canary before its first token
+    # stamps that token on its replay, not on itself
+    ttfts = sorted(r.t_first_token - r.t_submit for r in reqs
+                   if r.t_first_token is not None)
+    out = {"healthy_ttft_max_ms": 1e3 * healthy,
+           "objective_ttft_ms": 1e3 * ttft, "slow_canary_sleep_s": slow,
+           "window_s": ro.window_s, "slo_burn_window_s": burn,
+           "transitions": log.events, "gate_ms": log.gates,
+           "judged": log.judged, "canaries": log.spawned,
+           "requests": len(reqs), "requests_lost_or_failed": len(errors),
+           "wall_s": wall,
+           "requests_without_own_first_token": len(reqs) - len(ttfts),
+           "ttft_p50_ms": 1e3 * ttfts[len(ttfts) // 2],
+           "ttft_p90_ms": 1e3 * ttfts[int(0.9 * (len(ttfts) - 1))],
+           "ttft_max_ms": 1e3 * ttfts[-1], "k1_launches": launches,
+           "rejections": {"2": rej2, "3": rej3, "5": rej5}}
+    print("rollout 26a (%s): %s" % (card, json.dumps(out)))
+    sys.stdout.flush()
+    check(not errors, "26a: requests lost or failed: %r" % errors[:4])
+    check(tok["failed"] == 0 and tok["submitted"] == tok["goodput"]
+          + tok["slow"] + tok["shed"] + tok["expired"] + tok["failed"],
+          "26a: token ledger %r" % tok)
+    check(n_reps == 2 and weights == 1 and versions == [1, 1],
+          "26a: fleet ends at %d replicas, versions %r, serving %r"
+          % (n_reps, versions, weights))
+    want1 = ["canary", "stage", "stage", "promoting", "promote_one",
+             "promote_one", "promoted"]
+    check(log.transitions(1) == want1,
+          "26a: step 1 went %r, expected %r" % (log.transitions(1), want1))
+    check(log.transitions(2) == ["rejected"] and 2 not in log.spawned
+          and rej2.get("step") == 2 and rej2.get("probe") == "digest",
+          "26a: step 2 went %r (spawned %r), rejection %r"
+          % (log.transitions(2), log.spawned, rej2))
+    check(log.transitions(3)[-1:] == ["rollback"]
+          and "promoting" not in log.transitions(3)
+          and rej3.get("probe") == "judge" and "%d consecutive bad "
+          "windows" % ro.max_bad in rej3.get("detail", ""),
+          "26a: step 3 went %r, rejection %r" % (log.transitions(3), rej3))
+    check(log.transitions(4)[-1:] == ["rollback"]
+          and (ro.roster.entry(4) or {}).get("reason") == "operator drill",
+          "26a: step 4 went %r, roster %r"
+          % (log.transitions(4), ro.roster.entry(4)))
+    check(log.transitions(5) == ["rejected"] and 5 not in log.spawned
+          and rej5.get("probe") == "divergence",
+          "26a: step 5 went %r (spawned %r), rejection %r"
+          % (log.transitions(5), log.spawned, rej5))
+    check(code == 200 and status.get("rejected_steps") == [2, 3, 4, 5]
+          and status.get("incumbent") == 1,
+          "26a: /v1/rollout status %r %r" % (code, status))
+    check(launches > 0, "26a: K1 never launched")
+    fresh = serving.serve((params_from_numpy(roll_tree(np, base, 1), cfg,
+                                             dev), cfg), **kw)
+    try:
+        want = roll_pinned(fresh, cfg)
+    finally:
+        fresh.close(timeout=FLEET_WAIT_S)
+    check(pinned == want, "26a: the promoted fleet's greedy tokens on the "
+          "pinned prompts differ from a fresh server on step 1's weights")
+    out["pinned_tokens_equal_fresh_server"] = True
+    return launches, out
+
+
+def tp_drive(torch, np, eng, prompts, steps):
+    """Prefill every prompt, then `steps` batched decode steps on `eng`
+    (keep_logits). Returns (greedy tokens, logit rows per request,
+    prefill chunks, decode-step ms)."""
+    seqs = [eng.start(list(p), max_new=steps + 1) for p in prompts]
+    chunks = sum(-(-len(p) // eng.prefill_chunk) for p in prompts)
+    rows = [[np.asarray(s.last_logits)] for s in seqs]
+    sync = torch.cuda.synchronize if eng.device.type == "cuda" \
+        else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.decode_step(seqs)
+        for r, s in zip(rows, seqs):
+            r.append(np.asarray(s.last_logits))
+    sync()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    toks = [list(s.generated) for s in seqs]
+    for s in seqs:
+        eng.release(s)
+    eng.close()
+    return toks, rows, chunks, ms
+
+
+def tp_compare(np, what, got, ref):
+    """tp logits `got` against the tp=1 engine's `ref` (tp_drive's
+    tokens and rows): every row within TP_RTOL / TP_ATOL and every greedy
+    token equal, a request's comparison ending at a near-tie (top-2
+    margin under MARGIN) whose pick differs. Returns (largest |error|,
+    rows compared, near-ties)."""
+    err, n, ties = 0.0, 0, 0
+    for i, (toks, rows) in enumerate(zip(*got)):
+        for t, (a, b) in enumerate(zip(rows, ref[1][i])):
+            bad = np.abs(a - b) > TP_ATOL + TP_RTOL * np.abs(b)
+            check(not bad.any(), "%s: request %d row %d: |logit - tp=1| "
+                  "%.3g over rtol %g / atol %g"
+                  % (what, i, t, float(np.abs(a - b).max()), TP_RTOL,
+                     TP_ATOL))
+            err = max(err, float(np.abs(a - b).max()))
+            n += 1
+            if toks[t] != ref[0][i][t]:
+                top2 = np.partition(b, -2)[-2:]
+                check(top2[1] - top2[0] < MARGIN,
+                      "%s: request %d token %d: %d != tp=1's %d"
+                      % (what, i, t, toks[t], ref[0][i][t]))
+                ties += 1
+                break
+    return err, n, ties
+
+
+def tp_pool_check(torch, eng, cfg, k, dev):
+    H, Dh = cfg.n_heads, cfg.d_model // cfg.n_heads
+    for name, plane in (("k", eng.cache.k), ("v", eng.cache.v)):
+        check(len(plane) == k, "26b: %d %s pool shards at tp=%d"
+              % (len(plane), name, k))
+        for t in plane:
+            check(tuple(t.shape) == (cfg.n_layers, eng.cache.num_blocks,
+                                     eng.cache.block_size, H // k, Dh)
+                  and t.device == dev and t.is_contiguous(),
+                  "26b: a tp=%d %s pool shard is %s on %s (contiguous %s)"
+                  % (k, name, tuple(t.shape), t.device, t.is_contiguous()))
+
+
+def tp_scale_check(torch, eng, cfg):
+    """Every row-parallel shard's int8 scales are its own rows' (the
+    shard's f32 block's per-column amax / 127), and each column-parallel
+    shard's are its columns'."""
+    from mxnet_tpu_torch.ops.quantization import int8_scale
+    from mxnet_tpu_torch.serving import tp as ttp
+    f32 = ttp.place_tp_params(eng.model.params_f32, cfg, eng.mesh)
+    for i in range(cfg.n_layers):
+        for name in ("wqkv", "wo", "w1", "w2"):
+            key = "layer%d_%s" % (i, name)
+            for j, sh in enumerate(eng.model.tp_params):
+                want = int8_scale(f32[j][key].float().abs().amax(0))
+                check(torch.equal(sh[key]["s"], want),
+                      "26b: shard %d's %s scales are not its own block's"
+                      % (j, key))
+
+
+def phase_tp(torch, np, serving, pa, cfg, params, dev, card):
+    """26b (module docstring). Returns (K1 float launches, K1 int8
+    launches, summary)."""
+    rng = np.random.RandomState(ROLL_SEED + 1)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab, PROMPT_LEN)]
+               for _ in range(TP_PROMPTS)]
+    ekw = dict(max_batch=8, block_size=16, paged=True, keep_logits=True,
+               device=dev)
+    out = {"card": card}
+    ref = tp_drive(torch, np, serving.Engine(
+        serving.TransformerLM(params, cfg), **ekw), prompts, TP_STEPS)
+    out["step_ms"] = {"1": ref[3]}
+    float_launches = 0
+    for k in TP_DEGREES:
+        eng = serving.Engine(serving.TransformerLM(params, cfg), tp=k,
+                             devices=[dev] * k, **ekw)
+        check(eng.tp == k, "26b: tp=%d fell back: %s" % (k, eng.tp_fallback))
+        tp_pool_check(torch, eng, cfg, k, dev)
+        pa.paged_attention.launches = 0
+        got = tp_drive(torch, np, eng, prompts, TP_STEPS)
+        launches = pa.paged_attention.launches
+        want = cfg.n_layers * k * (got[2] + TP_STEPS)
+        check(launches == want, "26b: tp=%d launched K1 %d times, expected "
+              "layers x shards x (chunks + steps) = %d x %d x (%d + %d) = %d"
+              % (k, launches, cfg.n_layers, k, got[2], TP_STEPS, want))
+        float_launches += launches
+        err, rows, ties = tp_compare(np, "26b tp=%d" % k, got[:2], ref[:2])
+        out["tp%d" % k] = {"max_abs_err_vs_tp1": err, "rows_compared": rows,
+                           "near_ties": ties, "k1_launches": launches,
+                           "tp_cache_variant": serving.tp_cache_variant(
+                               eng.mesh)}
+        out["step_ms"][str(k)] = got[3]
+    # int8 weights over an int8 pool, block 32, teacher-forced against
+    # the int8 tp=1 engine on the probe tool's weights and prompt (phase
+    # 4's, tools/quant_logit_probe.py)
+    p4 = phase4_params(np, cfg, dev)
+    rng = np.random.RandomState(1)
+    p4_prompts = [[int(t) for t in rng.randint(1, cfg.vocab, PROMPT_LEN)]
+                  for _ in range(N_REQ)]
+    base_toks, base_rows = quant_logit_rows(np, serving, p4, cfg,
+                                            p4_prompts[0], GEN, dev)
+    qeng = serving.Engine(serving.TransformerLM(p4, cfg), tp=2,
+                          devices=[dev] * 2, max_batch=8,
+                          block_size=QUANT_BLOCK, paged=True,
+                          kv_quant=True, weight_quant="int8", device=dev)
+    check(qeng.tp == 2 and qeng.kv_quant, "26b: the int8 tp engine fell "
+          "back: %s" % qeng.tp_fallback)
+    tp_pool_check(torch, qeng, cfg, 2, dev)
+    tp_scale_check(torch, qeng, cfg)
+    qeng.close()
+    pa.paged_attention.launches_int8 = 0
+    qerr, qrows, qagree = quant_logit_probe(
+        np, serving, p4, cfg, p4_prompts[0], GEN, dev, base_toks,
+        base_rows, tp=2)
+    int8_launches = pa.paged_attention.launches_int8
+    qwant = cfg.n_layers * 2 * (-(-PROMPT_LEN // (2 * QUANT_BLOCK))
+                                + GEN - 1)
+    check(int8_launches == qwant, "26b: the int8 tp engine launched K1 "
+          "%d times, expected %d" % (int8_launches, qwant))
+    check(qerr <= TP_QUANT_BOUND, "26b: int8 tp=2 is %.4g off int8 tp=1, "
+          "over twice the reference's own %.4g"
+          % (qerr, REF_TP_QUANT_LOGIT_ERR))
+    out["int8_tp2"] = {"max_abs_err_vs_int8_tp1": qerr, "rows": qrows,
+                       "argmax_equal": qagree, "bound": TP_QUANT_BOUND,
+                       "k1_int8_launches": int8_launches}
+    # the server at phase 4's config, weights and requests, tp=2
+    ref4, margins = gather_oracle(torch, np, serving, p4, cfg, p4_prompts,
+                                  GEN, dev)
+    kw = dict(max_batch=8, paged=True, block_size=16, token_budget=256,
+              tp=2, devices=[dev] * 2)
+    outs, wall, (launches, _), snap, _, eng = serve_traffic(
+        serving, pa, p4, cfg, p4_prompts, GEN, kw)
+    check(eng.tp == 2, "26b: the tp server fell back: %s" % eng.tp_fallback)
+    paths = snap["paths"]
+    want = cfg.n_layers * 2 * (paths["paged_decode_steps"]
+                               + paths["prefill_chunks"])
+    check(launches == want, "26b: the tp=2 server launched K1 %d times, "
+          "expected %d" % (launches, want))
+    float_launches += launches
+    n = compare_tokens("26b tp=2 server", outs, ref4, margins, quiet=True)
+    out["server_tp2"] = {"tokens_compared": n, "wall_s": wall,
+                         "decode_step_mean_ms": decode_step_mean_ms(snap),
+                         "k1_launches": launches}
+    # no window on this machine: tp=2 serves at tp=1, on K1
+    from mxnet_tpu_torch.serving.tp import serving_devices
+    have = len(serving_devices()) if dev.type == "cuda" else 0
+    eng = serving.Engine(serving.TransformerLM(params, cfg), tp=2,
+                         max_batch=8, block_size=16, device=dev)
+    if have < 2:
+        check(eng.tp == 1 and eng.tp_fallback
+              == "tp=2 needs 2 devices, have %d" % have,
+              "26b: tp=2 without a window: tp %d, %r"
+              % (eng.tp, eng.tp_fallback))
+    pa.paged_attention.launches = 0
+    seq = eng.start(prompts[0], max_new=4)
+    while not seq.done:
+        eng.decode_step([seq])
+    eng.release(seq)
+    eng.close()
+    fb = pa.paged_attention.launches
+    check(fb > 0 or dev.type == "cpu", "26b: the fallback never ran K1")
+    float_launches += fb
+    out["fallback"] = {"tp": eng.tp, "reason": eng.tp_fallback,
+                       "k1_launches": fb}
+    return float_launches, int8_launches, out
+
+
+def phase4_params(np, cfg, dev):
+    """Phase 4's weights (bench_params, seed 0) on `dev`."""
+    from mxnet_tpu_torch.models import params_from_numpy
+    return params_from_numpy(bench_params(np, cfg), cfg, dev)
+
+
+def phase_tp_hop(torch, np, serving, pa, cfg, dev):
+    """26c: prefill:1,decode:1 with the decode role at tp=2 on the
+    emulated window; its greedy tokens against one server's (the gather
+    oracle, as phase 4's). Returns (K1 launches, summary)."""
+    p4 = phase4_params(np, cfg, dev)
+    rng = np.random.RandomState(1)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab, PROMPT_LEN)]
+               for _ in range(4)]
+    ref, margins = gather_oracle(torch, np, serving, p4, cfg, prompts, GEN,
+                                 dev)
+    srv = serving.serve((p4, cfg), roles="prefill:1,decode:1",
+                        role_kwargs={"decode": {"tp": 2,
+                                                "devices": [dev] * 2}},
+                        max_batch=8, paged=True, block_size=16, device=dev)
+    try:
+        pre, dec = srv.replicas
+        check(pre.engine.tp == 1 and dec.engine.tp == 2,
+              "26c: replicas at tp %d / %d (%s)" % (
+                  pre.engine.tp, dec.engine.tp, dec.engine.tp_fallback))
+        pa.paged_attention.launches = 0
+        outs = [r.result(timeout=FLEET_WAIT_S) for r in
+                [srv.submit(list(p), max_new_tokens=GEN) for p in prompts]]
+        launches = pa.paged_attention.launches
+        hops = dec.metrics.migrations
+        snaps = [r.snapshot() for r in srv.replicas]
+    finally:
+        srv.close(timeout=FLEET_WAIT_S)
+    check(hops == len(prompts), "26c: %d of %d requests hopped"
+          % (hops, len(prompts)))
+    want = cfg.n_layers * sum(
+        tp * (s["paths"]["paged_decode_steps"] + s["paths"]["prefill_chunks"])
+        for tp, s in zip((1, 2), snaps))
+    check(launches == want, "26c: K1 launched %d times, expected %d"
+          % (launches, want))
+    n = compare_tokens("26c", outs, ref, margins, quiet=True)
+    return launches, {"migrations": hops, "tokens_compared": n,
+                      "k1_launches": launches}
+
+
+def phase_tp_rollout(torch, np, dev, card):
+    """Phase 26: live rollout (a), tp on an emulated window (b), the
+    tp != tp hop (c), at phase 4's width on K1 (module docstring).
+    Returns (K1 float launches, K1 int8 launches, summary)."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.models import TransformerConfig, params_from_numpy
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    cfg = TransformerConfig(dtype=torch.float32, **BENCH_CFG)
+    base = bench_params(np, cfg, seed=ROLL_SEED)
+    out = {"card": card}
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mxtt_phase26_")
+    try:
+        a, out["26a"] = phase_rollout(torch, np, serving, pa, cfg, base, dev,
+                                      tmp, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["26a"]["s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = params_from_numpy(base, cfg, dev)
+    b, b8, out["26b"] = phase_tp(torch, np, serving, pa, cfg, params, dev,
+                                 card)
+    out["26b"]["s"] = time.perf_counter() - t0
+    print("tp 26b (%s): %s" % (card, json.dumps(out["26b"])))
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    c, out["26c"] = phase_tp_hop(torch, np, serving, pa, cfg, dev)
+    out["26c"]["s"] = time.perf_counter() - t0
+    print("tp hop 26c (%s): %s" % (card, json.dumps(out["26c"])))
+    out["k1_launches"] = {"26a": a, "26b": b, "26c": c, "26b_int8": b8}
+    return a + b + c, b8, out
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7937,6 +8586,8 @@ def main():
         dist_launches, _ = phase_distributed(
             torch, np, dev, smi, r50_path["first_step_float32"]["grad_floor"])
         res_launches, _ = phase_resilience(torch, np, dev, smi)
+        tp_launches, tp_int8_launches, _ = phase_tp_rollout(
+            torch, np, dev, smi)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -7948,13 +8599,16 @@ def main():
         "source": "mxnet_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "mxnet_tpu/ops/pallas_paged.py:108",
         # the serving main path's (phase 4), the contrib op's (21b), the
-        # front door's tenants-and-priorities traffic (22a) and the
-        # multi-replica door's (23a-d)
-        "launches": launches + op_launches + fd_launches + fleet_launches,
+        # front door's tenants-and-priorities traffic (22a), the
+        # multi-replica door's (23a-d) and the rollout and tp paths'
+        # (26a-c)
+        "launches": launches + op_launches + fd_launches + fleet_launches
+        + tp_launches,
         "launches_by_path": {"serving_main_path": launches,
                              "contrib_paged_attention_op": op_launches,
                              "front_door_phase22": fd_launches,
-                             "fleet_phase23": fleet_launches},
+                             "fleet_phase23": fleet_launches,
+                             "rollout_tp_phase26": tp_launches},
         "max_abs_err": errs["float32"],
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -7969,9 +8623,13 @@ def main():
         "route": "cuda",
         "source": "mxnet_tpu_torch/ops/csrc/paged_attention.cu",
         "replaces": "mxnet_tpu/ops/pallas_paged.py:119",
-        # the quantized path's decode steps and chunks (phase 6) plus
-        # the spec+prefix path's scoring passes and chunks (phase 7)
-        "launches": int8_launches + spec_launches,
+        # the quantized path's decode steps and chunks (phase 6), the
+        # spec+prefix path's scoring passes and chunks (phase 7) and the
+        # int8 tp engine's (26b)
+        "launches": int8_launches + spec_launches + tp_int8_launches,
+        "launches_by_path": {"quant_phase6": int8_launches,
+                             "spec_prefix_phase7": spec_launches,
+                             "int8_tp_phase26": tp_int8_launches},
         "max_abs_err": int8_errs["float32"],
         "ms": top8["ms"],
         "plain_ms": top8["plain_ms"],

@@ -1,4 +1,4 @@
-"""The readings that phase 24's and phase 25's limits in chip_smoke.py sit
+"""The readings that phase 24's, 25's and 26's limits in chip_smoke.py sit
 between.
 
 chip_smoke.py's 24c holds one float32 step's change of the BatchNorm
@@ -33,13 +33,25 @@ what each run reads:
        starts only when Python runs the handler, which a rank blocked in
        a collective never does until the collective returns).
 
+  26a  the live rollout's verdicts (chip_smoke.phase_rollout), for:
+       sound; no_divergence_probe (the gate's weights digest always
+       equals the incumbent's, so the divergence probe never runs);
+       slow_canary_promoted (the judge calls every window healthy).
+  26b  the tp engines' readings (chip_smoke.phase_tp: the largest
+       |logit - tp=1| at tp=2 and 4, the int8 tp=2 engine's against
+       int8 tp=1, the checks that failed), for: sound;
+       drop_shard1_partial (both reductions of a layer leave shard 1's
+       partial out); whole_weight_row_scales (each row-parallel shard
+       quantized with the whole weight's per-column scales instead of
+       its own rows').
+
 A fault replaces one function of the port in the rank's process (25c's
 in every process of the drill, through a sitecustomize module on
 PYTHONPATH that `MXTT_PLANT` arms); no file changes. In a run with a
 fault, chip_smoke's checks record what fails instead of raising. Run
 from the repository root on a machine with one card:
 
-    python3 chip_smoke_faults.py [--phase 24|25]
+    python3 chip_smoke_faults.py [--phase 24|25|26]
 
 It prints one line a run, the card's name and power limit, and as its
 last line a JSON object of every reading. It exits 1 without a card.
@@ -62,6 +74,8 @@ READ_24E = ("int8_update_rel_err", "int8_gap")
 FAULTS_25A = ("sound", "resume_no_rng")
 FAULTS_25C = ("sound", "sound", "restore_incomplete", "elastic_no_reduce",
               "grace_after_collective")
+FAULTS_26A = ("sound", "no_divergence_probe", "slow_canary_promoted")
+FAULTS_26B = ("sound", "drop_shard1_partial", "whole_weight_row_scales")
 
 _SITECUSTOMIZE = """\
 import importlib.machinery, importlib.util, os, sys
@@ -219,6 +233,116 @@ def _phase25(torch, np, dev, card):
     return out
 
 
+def _plant26(fault):
+    """Break the rollout or the tp path in this process as `fault` names;
+    returns the function that mends it."""
+    import torch
+    from mxnet_tpu_torch.ops.quantization import int8_scale
+    from mxnet_tpu_torch.serving import rollout, tp
+    saved = [(rollout, "params_digest", rollout.params_digest),
+             (rollout.RolloutController, "judge",
+              rollout.RolloutController.judge),
+             (tp, "_reduce_add", tp._reduce_add),
+             (tp, "quantize_tp_params", tp.quantize_tp_params)]
+
+    def mend():
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+    if fault == "no_divergence_probe":
+        rollout.params_digest = lambda tree: "one digest"
+    elif fault == "slow_canary_promoted":
+        rollout.RolloutController.judge = lambda self: True
+    elif fault == "drop_shard1_partial":
+        sound = tp._reduce_add
+        tp._reduce_add = lambda x, parts, mesh: sound(
+            x, parts[:1] + parts[2:], mesh)
+    elif fault == "whole_weight_row_scales":
+        sound = tp.quantize_tp_params
+
+        def whole(shards, cfg):
+            out = sound(shards, cfg)
+            for i in range(cfg.n_layers):
+                for name in ("wo", "w2"):
+                    key = "layer%d_%s" % (i, name)
+                    dev0 = shards[0][key].device
+                    full = torch.cat([sh[key].to(dev0) for sh in shards])
+                    s = int8_scale(full.float().abs().amax(0))
+                    for j, sh in enumerate(shards):
+                        w = sh[key].float()
+                        sj = s.to(w.device)
+                        q = torch.clamp(torch.round(w / sj), -127, 127)
+                        out[j][key] = {"q": q.to(torch.int8), "s": sj}
+            return out
+        tp.quantize_tp_params = whole
+    elif fault != "sound":
+        raise ValueError("unknown fault %r" % fault)
+    return mend
+
+
+def _phase26(torch, np, dev, card):
+    """26a's verdicts and 26b's readings, sound and with each fault."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.models import TransformerConfig, params_from_numpy
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    failed = []
+
+    def record(cond, msg):
+        if not cond:
+            failed.append(msg[:400])
+    cs.check = record
+    cfg = TransformerConfig(dtype=torch.float32, **cs.BENCH_CFG)
+    base = cs.bench_params(np, cfg, seed=cs.ROLL_SEED)
+    out = {"26a": [], "26b": []}
+    for fault in FAULTS_26A:
+        del failed[:]
+        mend = _plant26(fault)
+        tmp = tempfile.mkdtemp(prefix="mxtt_faults26_")
+        t0 = time.perf_counter()
+        try:
+            _, r = cs.phase_rollout(torch, np, serving, pa, cfg, base, dev,
+                                    tmp, card)
+            verdicts = {str(s): [e[1] for e in r["transitions"]
+                                 if e[2] == s] for s in (1, 2, 3, 4, 5)}
+            extra = {"canaries": r["canaries"], "rejections": {
+                k: v.get("probe") for k, v in r["rejections"].items()}}
+        except Exception as e:  # a faulted run may end early
+            verdicts, extra = None, {"raised": "%s: %s" % (
+                type(e).__name__, str(e)[:300])}
+        finally:
+            mend()
+            shutil.rmtree(tmp, ignore_errors=True)
+        reading = dict({"fault": fault, "passed": not failed and verdicts
+                        is not None, "verdicts": verdicts,
+                        "failed_checks": list(failed)[:6],
+                        "wall_s": time.perf_counter() - t0}, **extra)
+        print("26a %s (%s): %s" % (fault, card, json.dumps(reading)))
+        sys.stdout.flush()
+        out["26a"].append(reading)
+    params = params_from_numpy(base, cfg, dev)
+    for fault in FAULTS_26B:
+        del failed[:]
+        mend = _plant26(fault)
+        t0 = time.perf_counter()
+        try:
+            _, _, r = cs.phase_tp(torch, np, serving, pa, cfg, params, dev,
+                                  card)
+        finally:
+            mend()
+        reading = {"fault": fault, "passed": not failed,
+                   "tp2_max_abs_err": r["tp2"]["max_abs_err_vs_tp1"],
+                   "tp4_max_abs_err": r["tp4"]["max_abs_err_vs_tp1"],
+                   "int8_tp2_max_abs_err":
+                       r["int8_tp2"]["max_abs_err_vs_int8_tp1"],
+                   "int8_bound": r["int8_tp2"]["bound"],
+                   "checks_failed": len(failed),
+                   "failed_checks": list(failed)[:4],
+                   "wall_s": time.perf_counter() - t0}
+        print("26b %s (%s): %s" % (fault, card, json.dumps(reading)))
+        sys.stdout.flush()
+        out["26b"].append(reading)
+    return out
+
+
 def rank_fault(fault, target, args):
     """chip_smoke.<target>(*args) on this rank with `fault` planted:
     {"result": its result, "failed_checks": the checks that failed}."""
@@ -265,9 +389,9 @@ def main():
     torch.cuda.set_device(dev)
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("24", "25"), default=None,
-                    help="one phase's faults (default: both)")
-    phases = {"24", "25"} if ap.parse_args().phase is None else \
+    ap.add_argument("--phase", choices=("24", "25", "26"), default=None,
+                    help="one phase's faults (default: all three)")
+    phases = {"24", "25", "26"} if ap.parse_args().phase is None else \
         {ap.parse_args().phase}
     card = cs.nvidia_smi()
     cs.build_kernels(_cuda)
@@ -287,6 +411,8 @@ def main():
             shutil.rmtree(tmp, ignore_errors=True)
     if "25" in phases:
         readings.update(_phase25(torch, np, dev, card))
+    if "26" in phases:
+        readings.update(_phase26(torch, np, dev, card))
     print(card)
     print(json.dumps(readings))
     return 0

@@ -13,7 +13,10 @@ ledger and SLO burn (`statusz()`, Prometheus text), and an in-process
 `/statusz`, `/metrics`, `/healthz`). `serve(replicas=N)`,
 `serve(roles="prefill:1,decode:2")` and `serve(autoscale=True)` put a
 fleet of servers behind one door (router.py: least-loaded routing,
-failover and respawn, prefill/decode migration; autoscale.py).
+failover and respawn, prefill/decode migration; autoscale.py), and
+`serve(rollout=<checkpoint dir>)` rolls newly published weights out
+through a gated canary (rollout.py). `tp=k` shards one engine over a
+window of devices (tp.py).
 
 Quickstart::
 
@@ -38,6 +41,10 @@ from .router import (ReplicatedLMServer, serving_replicas,
                      serving_respawn_max, serving_roles, replica_device,
                      NoHealthyReplicas)
 from .autoscale import Autoscaler, AutoscaleConfig, autoscale_enabled
+from .rollout import (RolloutController, RejectionRoster, rollout_dir,
+                      rollout_stages, rollout_window_s,
+                      rollout_parity_prompts)
+from .tp import serving_tp, tp_cache_variant
 from .spec import (DraftLM, self_draft, spec_decode_enabled, spec_k,
                    spec_draft_layers)
 
@@ -54,4 +61,7 @@ __all__ = [
     "ReplicatedLMServer", "serving_replicas", "serving_respawn_max",
     "serving_roles", "replica_device", "NoHealthyReplicas",
     "Autoscaler", "AutoscaleConfig", "autoscale_enabled",
+    "RolloutController", "RejectionRoster", "rollout_dir",
+    "rollout_stages", "rollout_window_s", "rollout_parity_prompts",
+    "serving_tp", "tp_cache_variant",
 ]

@@ -32,14 +32,21 @@ Options of the paged path, each read when the Engine is constructed:
 - `prefix_cache` (MXNET_PREFIX_CACHE=1): shared prompt prefixes hit
   resident refcounted blocks (prefix_cache.py), copy-on-write on
   divergence.
+- `tp`/`devices` (MXNET_SERVING_TP): tensor parallelism over a window of
+  devices driven by this one engine (tp.py): the weights and the pool
+  shard over heads, each shard runs the paged kernel over its own pool,
+  and the two reductions a layer are peer copies summed in a fixed
+  order. tp > 1 implies the paged path.
 
 A quantized engine switches PRECISION against the float oracle, within
 the reference's logit budgets; spec and the prefix cache switch speed
-only, never tokens. An option the configuration cannot take (kv_quant or
-spec without the paged path, spec without a draft, a draft with another
-vocabulary) records its reason on `kv_quant_fallback`, `spec_fallback` or
-`prefix_cache_fallback` and serves without it; on CUDA an option whose
-shapes the kernel does not take raises at construction.
+only, never tokens, and tp placement only, never logits. An option the
+configuration cannot take (kv_quant or spec without the paged path, spec
+without a draft, a draft with another vocabulary, a tp degree the heads,
+the FFN or the window cannot hold) records its reason on
+`kv_quant_fallback`, `spec_fallback`, `prefix_cache_fallback` or
+`tp_fallback` and serves without it; on CUDA an option whose shapes the
+kernel does not take raises at construction.
 
 PyTorch runs eagerly, so the engine has no compiled-step lattice to bound;
 it keeps the reference's power-of-two batch and width buckets all the
@@ -48,7 +55,8 @@ records each (kind, shape) signature it ran in `_sigs`.
 
 The engine owns the device: the pools live on it, the params are moved to
 it at construction, and every index tensor is built on it. `device=None`
-means the card; a CPU run is asked for by `device="cpu"`.
+means the card (a tp window's first device); a CPU run is asked for by
+`device="cpu"` (and a CPU window by `devices=["cpu"] * k`).
 """
 from __future__ import annotations
 
@@ -371,7 +379,9 @@ class TransformerLM:
         self.block_size = None
         self.weight_quant = None
         self.params_f32 = None    # the float weights once quantized: the
-                                  # self-draft's source
+                                  # self-draft's and tp placement's source
+        self.tp_params = None     # per-shard dicts once bound to a window
+        self.tp_mesh = None
 
     def cache_spec(self):
         """(n_layers, n_heads, head_dim, dtype) of the KV pool."""
@@ -405,6 +415,20 @@ class TransformerLM:
         self.params = {k: _to_device(v, device)
                        for k, v in self.params.items()}
 
+    def bind_tp(self, mesh):
+        """Lay the weights out over the tp window `mesh` (tp.py): k
+        per-shard dicts, head-major. With int8 weights the float
+        originals are placed and each shard quantizes its own block, so
+        a row-parallel shard's scales are its own rows'. `self.params`
+        stays the replicated single-device copy."""
+        from .tp import place_tp_params, quantize_tp_params
+        src = self.params_f32 if self.weight_quant else self.params
+        shards = place_tp_params(src, self.cfg, mesh)
+        if self.weight_quant:
+            shards = quantize_tp_params(shards, self.cfg)
+        self.tp_params = shards
+        self.tp_mesh = mesh
+
     def prefill(self, k, v, tokens, length, table_row):
         return _tf_prefill(self.params, k, v, tokens, length, table_row,
                            self.cfg, self.block_size)
@@ -431,6 +455,31 @@ class TransformerLM:
                               tables, self.cfg, self.block_size, k_scale,
                               v_scale)
 
+    # the tp steps: the same signatures over the window's per-shard pools
+    # (tuples of tensors, one per window device)
+
+    def decode_tp(self, k, v, tokens, positions, tables, k_scale=None,
+                  v_scale=None):
+        from .tp import _decode_body
+        return _decode_body(self.tp_params, self.tp_mesh, k, v, tokens,
+                            positions, tables, self.cfg, self.block_size,
+                            k_scale, v_scale)
+
+    def prefill_chunk_tp(self, k, v, tokens, q_start, length, last_idx,
+                         table_row, k_scale=None, v_scale=None):
+        from .tp import _prefill_chunk_body
+        return _prefill_chunk_body(self.tp_params, self.tp_mesh, k, v,
+                                   tokens, q_start, length, last_idx,
+                                   table_row, self.cfg, self.block_size,
+                                   k_scale, v_scale)
+
+    def spec_score_tp(self, k, v, tokens, q_starts, counts, tables,
+                      k_scale=None, v_scale=None):
+        from .tp import _spec_score_body
+        return _spec_score_body(self.tp_params, self.tp_mesh, k, v, tokens,
+                                q_starts, counts, tables, self.cfg,
+                                self.block_size, k_scale, v_scale)
+
 
 # ---------------------------------------------------------------------------
 # the engine
@@ -447,22 +496,74 @@ class Engine:
     `prefix_cache` are the options of the module docstring, each None
     for its environment default. On CUDA a paged engine whose shapes the
     kernel does not take (decode, the prefill chunk, the k+1 scoring
-    width, over the float or int8 pool) raises here, at construction,
-    naming the limit; it never switches to another path behind the
-    caller's back."""
+    width, over the float or int8 pool, per tp shard) raises here, at
+    construction, naming the limit; it never switches to another path
+    behind the caller's back.
+
+    `tp` (None: MXNET_SERVING_TP) shards the engine over the window
+    `devices` (default: every CUDA device; a device may repeat), and the
+    engine's device is the window's first. Placement flags are read at
+    construction only and frozen afterwards: assigning one of
+    `_FROZEN_FLAGS` on a live engine raises."""
+
+    #: flags the pools, the weights' placement and the step bodies derive
+    #: from, fixed at construction
+    _FROZEN_FLAGS = frozenset(
+        ("paged", "paged_requested", "prefill_chunk", "tp",
+         "tp_requested", "mesh", "prefix_cache", "spec", "spec_requested",
+         "spec_k", "draft", "kv_quant", "kv_quant_requested",
+         "weight_quant"))
 
     def __init__(self, model, max_batch=8, max_len=None, block_size=16,
                  num_blocks=None, keep_logits=False, paged=None,
-                 prefill_chunk=None, device=None, prefix_cache=None,
-                 draft=None, spec=None, spec_k=None, kv_quant=None,
-                 weight_quant=None):
+                 prefill_chunk=None, tp=None, devices=None, device=None,
+                 prefix_cache=None, draft=None, spec=None, spec_k=None,
+                 kv_quant=None, weight_quant=None):
+        from .tp import (serving_tp, tp_fallback_reason, build_tp_mesh,
+                         tp_cache_variant)
+        # tensor parallel: tp > 1 implies the paged path (the gather
+        # oracle is single-device); a config the window cannot shard
+        # serves at tp=1 with its reason on `tp_fallback`
+        tp_req = serving_tp() if tp is None else int(tp)
+        if tp_req < 1:
+            raise MXNetError("tp must be >= 1, got %d" % tp_req)
+        self.tp_requested = tp_req
+        self.tp_fallback = None
+        self.tp = 1
+        self.mesh = None
+        if tp_req > 1 and paged is False:
+            self.tp_fallback = ("paged=False pins the single-device "
+                                "gather oracle")
+            tp_req = 1
+        if devices:
+            # the window's first device is the engine's
+            first = resolve_device(devices[0])
+            if device is not None and resolve_device(device) != first:
+                raise MXNetError(
+                    "device %s is not the window's first device %s"
+                    % (device, first))
+            device = first
         self.device = resolve_device(device)
         self.model = model
         self.max_batch = max_batch
         self.max_len = int(max_len or model.max_len)
         self.keep_logits = keep_logits
         self._sigs = set()
-        self.paged = paged_enabled() if paged is None else bool(paged)
+        self.paged_requested = tp_req > 1 or (
+            paged_enabled() if paged is None else bool(paged))
+        self.paged = self.paged_requested
+        if tp_req > 1:
+            reason = tp_fallback_reason(model.cfg, self.paged, tp_req,
+                                        devices)
+            if reason is not None:
+                self.tp_fallback = reason
+            else:
+                self.mesh = build_tp_mesh(tp_req, devices)
+                self.tp = tp_req
+        if self.tp_fallback is not None:
+            telemetry.flight().record(
+                "event", "serving.tp_fallback",
+                requested=self.tp_requested, reason=self.tp_fallback)
         self.prefill_chunk = 0
         nl, nh, dh, dt = model.cache_spec()
         self._nblk = max(1, math.ceil(self.max_len / block_size))
@@ -518,10 +619,14 @@ class Engine:
             self.spec = self.spec_fallback is None
 
         if self.paged and self.device.type == "cuda":
+            # the Hopper gate; a tp shard's kernel sees the same
+            # head_dim, block and query rows over H/k heads
             pool_dt = torch.int8 if self.kv_quant else dt
             widths = [("paged=True", 1), ("paged=True", self.prefill_chunk)]
             if self.spec:
                 widths.append(("spec_k=%d" % self.spec_k, self.spec_k + 1))
+            where = (str(self.device) if self.mesh is None
+                     else tp_cache_variant(self.mesh))
             for what, tq in widths:
                 limit = paged_limit(dh, block_size, tq, dt, pool_dt)
                 if limit is not None:
@@ -529,14 +634,17 @@ class Engine:
                         "%s%s on %s: the paged-attention kernel does not "
                         "take this config: %s"
                         % (what, " kv_quant=True" if self.kv_quant else "",
-                           self.device, limit))
+                           where, limit))
         model.bind(block_size, self.device)
+        if self.mesh is not None:
+            model.bind_tp(self.mesh)
         if self.spec:
             self.draft = d.to(self.device)
         self.cache = PagedKVCache(nl, nh, dh, block_size=block_size,
                                   num_blocks=num_blocks, dtype=dt,
                                   device=self.device,
-                                  kv_dtype="int8" if self.kv_quant else None)
+                                  kv_dtype="int8" if self.kv_quant else None,
+                                  devices=self.mesh)
 
         # prefix cache: which blocks a table points at, never logits
         self.prefix_cache = None
@@ -551,12 +659,23 @@ class Engine:
                     "prefix reuse needs the chunked-prefill paged path "
                     "(MXNET_PAGED_ATTENTION=1 / Engine(paged=True)); the "
                     "gather oracle prefills whole prompts")
+        self._constructed = True
+
+    def __setattr__(self, name, value):
+        if name in self._FROZEN_FLAGS and \
+                getattr(self, "_constructed", False):
+            raise MXNetError(
+                "Engine.%s is fixed at construction (the pools, the "
+                "weights' placement and the step bodies derive from it); "
+                "build a new Engine instead of mutating a live one" % name)
+        object.__setattr__(self, name, value)
 
     def _tensor(self, arr):
         return torch.as_tensor(arr, device=self.device)
 
     def _scales(self):
-        """(k_scale, v_scale) of an int8 pool, (None, None) otherwise."""
+        """(k_scale, v_scale) of an int8 pool, (None, None) otherwise (per
+        shard tuples on a tp engine)."""
         return self.cache.k_scale, self.cache.v_scale
 
     # -- admission accounting ------------------------------------------------
@@ -636,8 +755,9 @@ class Engine:
         previous occupant's scale would make the new tokens' step too
         coarse."""
         if ids:
-            zero_block_scales(self.cache.k_scale, self.cache.v_scale,
-                              self._tensor(np.asarray(ids, np.int64)))
+            idx = self._tensor(np.asarray(ids, np.int64))
+            for _, _, ks, vs in self.cache.shards():
+                zero_block_scales(ks, vs, idx.to(ks.device))
 
     def _begin_cached(self, seq, prompt, n):
         """Prefix-cache admission: point the leading table entries at
@@ -664,12 +784,11 @@ class Engine:
         hit = len(full) * self.cache.block_size
         if tail is not None:
             src, m = tail
-            if self.kv_quant:
-                copy_block_quant(self.cache.k, self.cache.v,
-                                 self.cache.k_scale, self.cache.v_scale,
-                                 src, fresh[0])
-            else:
-                copy_block(self.cache.k, self.cache.v, src, fresh[0])
+            for k, v, ks, vs in self.cache.shards():
+                if self.kv_quant:
+                    copy_block_quant(k, v, ks, vs, src, fresh[0])
+                else:
+                    copy_block(k, v, src, fresh[0])
             pool.free([src])          # the private copy replaces the
                                       # shared block in the table
             self.prefix_cache.cow_copies += 1
@@ -706,7 +825,9 @@ class Engine:
                 w = pow2_bucket(self.cache.blocks_for(qs + C),
                                 lo=1, hi=self._nblk)
                 self._sigs.add(("prefill", (C, w)))
-                logits = self.model.prefill_chunk(
+                chunk_fn = self.model.prefill_chunk_tp if self.tp > 1 \
+                    else self.model.prefill_chunk
+                logits = chunk_fn(
                     self.cache.k, self.cache.v, self._tensor(toks), qs, L,
                     min(L - 1 - qs, C - 1),
                     self._tensor(seq.table_row[:w]), *self._scales())
@@ -793,7 +914,10 @@ class Engine:
             args = (self.cache.k, self.cache.v, self._tensor(toks),
                     self._tensor(pos), self._tensor(tabs))
             if self.paged:
-                logits = self.model.decode_paged(*args, *self._scales())
+                # one device, or sharded over the tp window
+                step_fn = self.model.decode_tp if self.tp > 1 \
+                    else self.model.decode_paged
+                logits = step_fn(*args, *self._scales())
             else:
                 logits = self.model.decode(*args)
             nxt = logits.argmax(-1).cpu().numpy()
@@ -882,7 +1006,9 @@ class Engine:
                 counts[i] = 1 + nbs[i]
                 tabs[i] = s.table_row[:w]
             self._sigs.add(("spec", (bb, w)))
-            logits = self.model.spec_score(
+            score_fn = self.model.spec_score_tp if self.tp > 1 \
+                else self.model.spec_score
+            logits = score_fn(
                 self.cache.k, self.cache.v, self._tensor(toks),
                 self._tensor(qs), self._tensor(counts), self._tensor(tabs),
                 *self._scales())                                 # (bb,C,V)

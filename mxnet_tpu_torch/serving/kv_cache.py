@@ -161,12 +161,17 @@ class PagedKVCache:
     ``k_scale``/``v_scale`` (n_layers, num_blocks, n_heads) float32 hold
     the per-(block, head) scales; otherwise the scales are None.
     `device=None` puts them on the card (raising without one); the CPU is
-    asked for by `device="cpu"`."""
+    asked for by `device="cpu"`.
+
+    With `devices` (a tensor-parallel window of k devices, serving/tp.py)
+    the pools shard over the HEAD axis: ``k``/``v`` (and the scales) are
+    tuples of k separate contiguous tensors, shard j holding heads
+    [j H/k, (j+1) H/k) of every block on devices[j]. One host free-list
+    serves them all: a block id names the same block in every shard."""
 
     def __init__(self, n_layers, n_heads, head_dim, block_size=16,
                  num_blocks=64, dtype=torch.float32, device=None,
-                 kv_dtype=None):
-        device = resolve_device(device)
+                 kv_dtype=None, devices=None):
         self.n_layers = n_layers
         self.n_heads = n_heads
         self.head_dim = head_dim
@@ -177,21 +182,45 @@ class PagedKVCache:
             raise MXNetError("kv_dtype %r is not supported (int8 or None)"
                              % (kv_dtype,))
         self.kv_dtype = "int8" if kv_dtype is not None else None
-        shape = (n_layers, num_blocks, block_size, n_heads, head_dim)
         pool_dtype = torch.int8 if self.kv_dtype else dtype
-        self.k = torch.zeros(shape, dtype=pool_dtype, device=device)
-        self.v = torch.zeros(shape, dtype=pool_dtype, device=device)
-        self.k_scale = self.v_scale = None
-        if self.kv_dtype:
-            sshape = (n_layers, num_blocks, n_heads)
-            self.k_scale = torch.zeros(sshape, dtype=torch.float32,
-                                       device=device)
-            self.v_scale = torch.zeros(sshape, dtype=torch.float32,
-                                       device=device)
+        if devices is None:
+            self.k, self.v, self.k_scale, self.v_scale = self._planes(
+                resolve_device(device), n_heads, pool_dtype)
+            return
+        if n_heads % len(devices):
+            raise MXNetError("%d heads do not shard over %d devices"
+                             % (n_heads, len(devices)))
+        planes = [self._planes(d, n_heads // len(devices), pool_dtype)
+                  for d in devices]
+        self.k, self.v, self.k_scale, self.v_scale = (
+            tuple(p[i] for p in planes) if planes[0][i] is not None
+            else None for i in range(4))
+
+    def _planes(self, device, n_heads, pool_dtype):
+        """(k, v, k_scale, v_scale) of n_heads heads on one device."""
+        shape = (self.n_layers, self.num_blocks, self.block_size, n_heads,
+                 self.head_dim)
+        k = torch.zeros(shape, dtype=pool_dtype, device=device)
+        v = torch.zeros(shape, dtype=pool_dtype, device=device)
+        if not self.kv_dtype:
+            return k, v, None, None
+        sshape = (self.n_layers, self.num_blocks, n_heads)
+        return (k, v,
+                torch.zeros(sshape, dtype=torch.float32, device=device),
+                torch.zeros(sshape, dtype=torch.float32, device=device))
 
     @property
     def quantized(self):
         return self.kv_dtype is not None
+
+    def shards(self):
+        """(k, v, k_scale, v_scale) of every head shard: one tuple on a
+        single-device pool, one per window device on a sharded one."""
+        if not isinstance(self.k, tuple):
+            return [(self.k, self.v, self.k_scale, self.v_scale)]
+        none = (None,) * len(self.k)
+        return list(zip(self.k, self.v, self.k_scale or none,
+                        self.v_scale or none))
 
     def blocks_for(self, n_tokens):
         """Blocks needed to hold n_tokens KV entries — by construction

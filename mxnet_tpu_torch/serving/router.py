@@ -40,14 +40,25 @@ submit/HTTP front:
   and the router's own (`telemetry.merged_prometheus_text`); `/statusz`
   sums the token ledgers (retired replicas' folded in) and recomputes the
   fleet burn from summed window deltas (`telemetry.slo.merge_slo`).
+* **Live weight rollout**: with a `RolloutController` attached
+  (`serve(rollout=<ckpt dir>)` / MXNET_SERVING_ROLLOUT_DIR, rollout.py)
+  the router tracks a weight VERSION per replica (`_version`), builds
+  each replica from `_models.get(version, _model)`, shifts a weighted
+  fraction of placements to the canary version mid-rollout, rebuilds
+  replicas onto a version one at a time through the drain-to-completion
+  `rollout_replace` seam, and never retires a version's last replica
+  while a rollout is in flight. A fleet with no controller attached keeps
+  its /statusz body and its exposition unchanged.
 
-Placement: replica i runs on the caller's `device` when one is given,
-else on `cuda:(i % torch.cuda.device_count())` — the counterpart of the
-reference's `parallel.mesh.replica_devices(i, tp=1)`, whose windows wrap
-modulo the device count, so on a one-card machine every replica shares
-cuda:0 and each replica's loop thread launches its own kernels there.
-Tensor parallelism (`tp > 1`) and live rollout wait for ROADMAP item 12
-(the mesh, the collectives and the checkpoint manager) and raise.
+Placement: at tp=1 replica i runs on the caller's `device` when one is
+given, else on `cuda:(i % torch.cuda.device_count())` — the counterpart
+of the reference's `parallel.mesh.replica_devices(i, tp=1)`, whose
+windows wrap modulo the device count, so on a one-card machine every
+replica shares cuda:0 and each replica's loop thread launches its own
+kernels there. At tp > 1 replica i gets the window
+`replica_devices(i, tp, devices)` of `devices` (default: every CUDA
+device; an entry may repeat, as `["cuda:0"] * 2` does to run two shards
+on one card), and its one engine drives the whole window (tp.py).
 """
 from __future__ import annotations
 
@@ -60,7 +71,7 @@ import torch
 from ..base import MXNetError
 from .. import telemetry
 from .scheduler import QueueFull
-from .server import LMServer, _HTTPFrontend, _not_ported
+from .server import LMServer, _HTTPFrontend
 
 
 def serving_replicas():
@@ -153,7 +164,9 @@ class NoHealthyReplicas(MXNetError):
 class ReplicatedLMServer(_HTTPFrontend):
     """N `LMServer` replicas behind one front door. Construct via
     `serve(model, replicas=N, ...)`; per-replica kwargs (max_batch,
-    block_size, paged, device, ...) pass through unchanged."""
+    block_size, paged, device, ...) pass through unchanged. `tp` (None:
+    MXNET_SERVING_TP) shards each replica over a window sliced from
+    `devices`."""
 
     saturated_status = 503          # a saturated FLEET, not one queue
 
@@ -176,8 +189,13 @@ class ReplicatedLMServer(_HTTPFrontend):
             role_seq = [None] * max(int(replicas), 0)
         if replicas < 1:
             raise MXNetError("replicas must be >= 1, got %r" % replicas)
-        if devices is not None or (tp is not None and int(tp) > 1):
-            raise _not_ported("tensor-parallel serving (tp=, devices=)", 12)
+        from .tp import serving_tp
+        tp_req = serving_tp() if tp is None else int(tp)
+        if tp_req > 1 and replicas > 1 and not isinstance(model, tuple):
+            raise MXNetError(
+                "replicas>1 with tp>1 needs a re-instantiable model — "
+                "pass (params, cfg), not a shared adapter (each replica "
+                "lays params out on its own device window)")
         self.retry_after_s = retry_after_s
         self.max_beat_age = float(max_beat_age)
         # supervision knobs: lives per replica, backoff between them, and
@@ -188,6 +206,20 @@ class ReplicatedLMServer(_HTTPFrontend):
         self.respawn_reset_s = float(respawn_reset_s)
         self._model = model
         self._kwargs = dict(kwargs)
+        self._tp = tp_req
+        self._devices = devices     # windows' source; None: every CUDA
+                                    # device
+        # live weight rollout: the fleet's serving checkpoint step (None
+        # = the boot weights), the version -> model map replicas build
+        # from, and the in-flight canary's traffic share, all managed by
+        # the attached RolloutController
+        self._models = {}
+        self.weights_version = None
+        self.rollout = None
+        self._rollout_weight = None
+        self._rollout_version = None
+        self._rollout_retiring = set()
+        self._rollout_ticket = 0
         self._closed = False
         self._lock = threading.Lock()
         self._rr = 0                # round-robin tie-break cursor
@@ -258,6 +290,7 @@ class ReplicatedLMServer(_HTTPFrontend):
         self.replicas = []
         self._drained = []
         self._role = []     # per-replica role label, index-aligned
+        self._version = []  # per-replica weight version, index-aligned
         # per-replica supervision state, index-aligned with `replicas`
         self._respawn_attempts = [0] * replicas
         self._respawn_next = [0.0] * replicas
@@ -273,6 +306,7 @@ class ReplicatedLMServer(_HTTPFrontend):
                 self.replicas.append(self._build_replica(i, role_seq[i]))
                 self._drained.append(False)
                 self._role.append(role_seq[i])
+                self._version.append(None)
         except BaseException:
             for rep in self.replicas:
                 rep.close(drain=False, timeout=5.0)
@@ -289,18 +323,31 @@ class ReplicatedLMServer(_HTTPFrontend):
             self.autoscaler = Autoscaler(self, config=cfg)
             self.autoscaler.start()
 
-    def _build_replica(self, i, role=None):
-        """One fresh replica on its device — the constructor, respawn and
-        scale-up share it, so a rebuilt replica is placed (and role'd)
-        exactly like the original. On disaggregated fleets per-role
-        kwargs overlay the shared ones, and a prefill replica gets the
-        router's migration hook."""
+    def _build_replica(self, i, role=None, version=None):
+        """One fresh replica on its device window — the constructor,
+        respawn, scale-up and the rollout replace seam share it, so a
+        rebuilt replica is placed (and role'd) exactly like the original.
+        `version` selects the weight version it serves: a step the
+        rollout controller registered in `_models`, or None for the
+        fleet's current model. On disaggregated fleets per-role kwargs
+        overlay the shared ones (a decode role may run another tp), and a
+        prefill replica gets the router's migration hook."""
+        from ..parallel.mesh import replica_devices
+        from .tp import serving_devices
         kw = dict(self._kwargs)
         if role is not None:
             kw.update(self._role_kwargs.get(role, {}))
-        device = replica_device(i, kw.pop("device", None))
-        rep = LMServer(self._model, replica_id=i, role=role, device=device,
-                       **kw)
+        tp = int(kw.pop("tp", self._tp))
+        devices = kw.pop("devices", self._devices)
+        device = kw.pop("device", None)
+        if tp > 1:
+            kw["devices"] = replica_devices(
+                i, tp, serving_devices() if devices is None else devices)
+        else:
+            device = replica_device(i, device)
+        model = self._models.get(version, self._model)
+        rep = LMServer(model, replica_id=i, role=role, device=device,
+                       tp=tp, **kw)
         # the death hook runs ON the dying serving thread: queued and
         # in-flight work is re-homed at once, not at the next sweep
         rep.on_death = self._on_replica_death
@@ -429,8 +476,11 @@ class ReplicatedLMServer(_HTTPFrontend):
         paths, swap atomically, retire the corpse (its engine is kept for
         the leak audit, its device K/V dropped)."""
         try:
+            # a respawned replica keeps its slot's role AND its weight
+            # version: a dead canary comes back on the candidate weights
             role = self._role[i] if i < len(self._role) else None
-            rep = self._build_replica(i, role)
+            ver = self._version[i] if i < len(self._version) else None
+            rep = self._build_replica(i, role, version=ver)
         except Exception as e:
             with self._lock:
                 self._respawning[i] = False
@@ -664,6 +714,29 @@ class ReplicatedLMServer(_HTTPFrontend):
         if role is not None and self._roles is not None:
             order.sort(key=lambda i: 0 if (
                 i < len(self._role) and self._role[i] == role) else 1)
+        # live-rollout traffic shaping: at stage weight f, ~f of
+        # placements put the canary version FIRST (a period-1/f ticket,
+        # deterministic, no RNG); the rest keep it LAST, still reachable
+        # when every incumbent is saturated. f <= 0 (a rollback draining
+        # it) excludes the canary; f >= 1 (promoting) prefers it.
+        w = self._rollout_weight
+        ver = self._rollout_version
+        if w is not None and ver is not None:
+            canary = [i for i in order if i < len(self._version)
+                      and self._version[i] == ver]
+            if canary:
+                rest = [i for i in order if i not in canary]
+                if w <= 0.0:
+                    order = rest
+                elif w >= 1.0:
+                    order = canary + rest
+                else:
+                    with self._lock:
+                        t = self._rollout_ticket
+                        self._rollout_ticket += 1
+                    period = max(1, int(round(1.0 / w)))
+                    order = (canary + rest) if t % period == 0 \
+                        else (rest + canary)
         self._h_pick.observe(time.perf_counter() - t0)
         return order
 
@@ -672,22 +745,28 @@ class ReplicatedLMServer(_HTTPFrontend):
     def replica_count(self):
         return len(self.replicas)
 
-    def scale_up(self, role=None):
+    def scale_up(self, role=None, version=None):
         """Add one replica at the tail of the fleet. The build runs
         off-lock; the append of the replica and all its index-aligned
         supervision state happens atomically. On disaggregated fleets
         `role` says WHICH specialist to add; role-less fleets ignore it.
-        Returns the new LMServer, or None when closed, raced or the build
-        failed (the Autoscaler reads None as "no action")."""
+        `version` pins the new replica's weight version (the rollout
+        controller spawns its canary so); omitted, it is the fleet's
+        serving version, so an autoscale spawn during a rollout builds an
+        incumbent, never a second canary. Returns the new LMServer, or
+        None when closed, raced or the build failed (the Autoscaler reads
+        None as "no action")."""
         if self._roles is None:
             role = None
+        if version is None:
+            version = self.weights_version
         with self._lock:
             if self._closed:
                 return None
             i = len(self.replicas)
         t0 = time.perf_counter_ns() // 1000
         try:
-            rep = self._build_replica(i, role)
+            rep = self._build_replica(i, role, version=version)
         except Exception as e:
             telemetry.flight().record(
                 "fault", "serving.scale_up_failed", replica=i,
@@ -700,6 +779,7 @@ class ReplicatedLMServer(_HTTPFrontend):
                 self.replicas.append(rep)
                 self._drained.append(False)
                 self._role.append(role)
+                self._version.append(version)
                 self._respawn_attempts.append(0)
                 self._respawn_next.append(0.0)
                 self._respawning.append(False)
@@ -719,17 +799,39 @@ class ReplicatedLMServer(_HTTPFrontend):
         return rep
 
     def scale_down(self):
-        """Retire the tail replica, drain-first: marked drained (new
-        traffic routes around it), queued and in-flight work re-homed
-        onto the survivors, then popped and closed — zero lost requests.
+        """Retire one replica, drain-first: marked drained (new traffic
+        routes around it), queued and in-flight work re-homed onto the
+        survivors, then popped and closed — zero lost requests. The
+        victim is version-aware: a rollback-pending canary goes before a
+        healthy incumbent, and while a rollout is in flight no version's
+        last replica is retired. The pop stays a TAIL pop (the
+        supervision lists are index-aligned); a non-tail victim is first
+        swapped to the tail with all its aligned state, under the lock.
         Refuses (returns None) at fleet size 1, while a respawn owns the
         slot, or when closed."""
         with self._lock:
             if self._closed or len(self.replicas) <= 1:
                 return None
-            i = len(self.replicas) - 1
+            tail = len(self.replicas) - 1
+            i = tail
+            if self._rollout_retiring:
+                for j in range(tail, -1, -1):
+                    if self._version[j] in self._rollout_retiring:
+                        i = j
+                        break
+            if self._rollout_version is not None:
+                v = self._version[i]
+                if v not in self._rollout_retiring and \
+                        sum(1 for x in self._version if x == v) <= 1:
+                    return None     # last replica of an active version
             if self._respawning[i]:
                 return None          # a rebuild owns the slot
+            if i != tail:
+                if self._respawning[tail]:
+                    return None      # nor swap under a rebuild
+                for lst in self._aligned():
+                    lst[i], lst[tail] = lst[tail], lst[i]
+                i = tail
             rep = self.replicas[i]
             self._drained[i] = True  # route new traffic around it now
         t0 = time.perf_counter_ns() // 1000
@@ -741,10 +843,7 @@ class ReplicatedLMServer(_HTTPFrontend):
             if len(self.replicas) != i + 1 \
                     or self.replicas[i] is not rep:
                 return None          # raced a shutdown/respawn swap
-            for lst in (self.replicas, self._drained, self._role,
-                        self._respawn_attempts, self._respawn_next,
-                        self._respawning, self._circuit_open,
-                        self._ok_since):
+            for lst in self._aligned():
                 lst.pop()
         # drain=True: anything that slipped in between the drain mark and
         # the pop still completes before the thread exits (or is rescued
@@ -766,17 +865,107 @@ class ReplicatedLMServer(_HTTPFrontend):
         self._refresh_role_gauges()
         return rep
 
-    # -- live weight rollout (ROADMAP item 12) -------------------------------
+    def _aligned(self):
+        """Every per-replica list kept index-aligned with `replicas`."""
+        return (self.replicas, self._drained, self._role, self._version,
+                self._respawn_attempts, self._respawn_next,
+                self._respawning, self._circuit_open, self._ok_since)
+
+    # -- live weight rollout -------------------------------------------------
+
+    def rollout_replace(self, j, version):
+        """Rebuild replica j on weight `version`: the promote (and
+        rollback-revert) seam. A PLANNED replace, unlike a respawn: the
+        old replica is marked drained and closed with drain=True, so its
+        queued and in-flight requests complete on the weights they
+        started on — zero lost requests, no cross-version replay. Then
+        the slot is rebuilt on `version` and swapped in. True on success
+        (or when the slot already serves `version`), False when raced by
+        a shutdown or respawn or when the build failed (the controller
+        retries on its next pass)."""
+        with self._lock:
+            if self._closed or j >= len(self.replicas) \
+                    or self._respawning[j]:
+                return False
+            old = self.replicas[j]
+            if self._version[j] == version:
+                return True
+            self._drained[j] = True
+        t0 = time.perf_counter_ns() // 1000
+        try:
+            old.close(drain=True, timeout=30.0)
+        except Exception:
+            pass
+        self._fold_retired(old)
+        role = self._role[j] if j < len(self._role) else None
+        try:
+            rep = self._build_replica(j, role, version=version)
+        except Exception as e:
+            telemetry.flight().record(
+                "fault", "serving.rollout_replace_failed", replica=j,
+                version=version, error="%s: %s" % (type(e).__name__, e))
+            return False
+        with self._lock:
+            if self._closed or j >= len(self.replicas) \
+                    or self.replicas[j] is not old:
+                raced = True
+            else:
+                self.replicas[j] = rep
+                self._drained[j] = False
+                self._version[j] = version
+                self._ok_since[j] = None
+                raced = False
+        if raced:
+            rep.close(drain=False, timeout=5.0)
+            return False
+        # keep the corpse for the leak audit, drop its device K/V
+        cache = old.engine.cache
+        cache.k = cache.v = None
+        cache.k_scale = cache.v_scale = None
+        self._retired_engines.append(old.engine)
+        del self._retired_engines[:-4]
+        telemetry.record_span(
+            "serving.rollout", t0, time.perf_counter_ns() // 1000 - t0,
+            category="serving", to_profiler=False, phase="replace",
+            replica=j, version=version)
+        self._g_healthy.set(len(self.replicas) - sum(self._drained))
+        return True
 
     def attach_rollout(self, directory, start=False, **cfg):
-        """Live rollout reads checkpoints through the checkpoint manager
-        of `utils/recovery.py`, which is not ported: raises."""
-        raise _not_ported("live rollout (attach_rollout)", 12)
+        """Attach a RolloutController watching `directory` for newly
+        published checkpoint steps (rollout.py). `serve()` attaches with
+        start=True (a daemon watcher thread); tests and drills attach
+        with start=False and drive `rollout.step()` themselves. Stages,
+        window and prompt-count kwargs pass through."""
+        from .rollout import RolloutController
+        if self.rollout is not None:
+            raise MXNetError("a rollout controller is already attached")
+        self.rollout = RolloutController(self, directory, **cfg)
+        if start:
+            self.rollout.start()
+        return self.rollout
 
     def rollout_command(self, cmd, step=None, reason=None):
-        """POST /v1/rollout's dispatch: raises (HTTP 400) until live
-        rollout is ported."""
-        raise _not_ported("live rollout (POST /v1/rollout %r)" % (cmd,), 12)
+        """Operator override dispatch (POST /v1/rollout, the reference's
+        tools/rollout.py CLI): promote / rollback / reject / status."""
+        if self.rollout is None:
+            raise MXNetError(
+                "no rollout controller attached (serve with "
+                "rollout=<dir> or MXNET_SERVING_ROLLOUT_DIR)")
+        if cmd == "promote":
+            return self.rollout.promote()
+        if cmd == "rollback":
+            return self.rollout.rollback(reason or "operator override")
+        if cmd == "reject":
+            if step is None:
+                raise MXNetError("rollout reject needs a step")
+            return self.rollout.reject(int(step),
+                                       reason or "operator reject")
+        if cmd == "status":
+            return self.rollout.status()
+        raise MXNetError(
+            "unknown rollout command %r (know promote, rollback, "
+            "reject, status)" % (cmd,))
 
     # -- client API ----------------------------------------------------------
 
@@ -932,6 +1121,10 @@ class ReplicatedLMServer(_HTTPFrontend):
                 r.metrics.migration_tokens for r in self.replicas)
             fleet["migration_bytes_saved"] = sum(
                 r.metrics.migration_bytes_saved for r in self.replicas)
+        if self.rollout is not None:
+            # present only with a controller attached, so a rollout-less
+            # body stays as it was
+            fleet["rollout"] = self.rollout.status()
         return {"replicas": bodies, "fleet": fleet}
 
     def prometheus_text(self):
@@ -954,6 +1147,8 @@ class ReplicatedLMServer(_HTTPFrontend):
         self._closed = True
         if self.autoscaler is not None:
             self.autoscaler.stop()
+        if self.rollout is not None:
+            self.rollout.stop()
         first_err = None
         for rep in list(self.replicas):
             try:

@@ -23,11 +23,11 @@ The server also carries the multi-replica door's hooks (router.py):
 `role` (an advisory prefill/decode label), `on_prefill_done` (the
 migration hand-off of a disaggregated fleet), `on_death` (the rescue of a
 dying loop's queued and in-flight work) and `drain_queue`. `serve()`
-builds a `ReplicatedLMServer` for `replicas > 1`, `autoscale` or `roles`.
-Tensor parallelism (`tp > 1`, `devices=`) and live rollout wait for the
-mesh, the collectives and the checkpoint manager (ROADMAP item 12), and
-the AOT executable cache for item 11: asking for any of them raises
-`MXNetError` naming the item.
+builds a `ReplicatedLMServer` for `replicas > 1`, `autoscale`, `roles` or
+`rollout` (a live weight rollout watching a checkpoint directory,
+rollout.py). `tp=`/`devices=` pass through to the Engine's
+tensor-parallel placement (tp.py). The AOT executable cache waits for
+ROADMAP item 11: asking for it raises `MXNetError` naming the item.
 """
 from __future__ import annotations
 
@@ -278,7 +278,8 @@ class LMServer(_HTTPFrontend):
     """Continuous-batching server over one Engine. Start with
     `serve(...)`; stop with `close()` (or use as a context manager).
     `device=None` serves on the card; `device="cpu"` is the only way onto
-    the CPU. `replica_id=` labels this server's metrics registry and
+    the CPU. `tp=`/`devices=` shard the engine over a window of devices
+    (tp.py). `replica_id=` labels this server's metrics registry and
     keys its chaos seams."""
 
     #: resume hops one request may spend before its fault is surfaced
@@ -294,15 +295,14 @@ class LMServer(_HTTPFrontend):
                  brownout=None, aot_cache=None, role=None, draft=None,
                  spec=None, spec_k=None, kv_quant=None, weight_quant=None,
                  device=None):
-        if tp not in (None, 1) or devices is not None:
-            raise _not_ported("tensor-parallel serving (tp=, devices=)", 12)
         if aot_cache is not None:
             raise _not_ported("the AOT executable cache (aot_cache=)", 11)
         self.engine = Engine(_resolve_model(model), max_batch=max_batch,
                              max_len=max_len, block_size=block_size,
                              num_blocks=num_blocks, keep_logits=keep_logits,
                              paged=paged, prefill_chunk=prefill_chunk,
-                             device=device, prefix_cache=prefix_cache,
+                             tp=tp, devices=devices, device=device,
+                             prefix_cache=prefix_cache,
                              draft=draft, spec=spec, spec_k=spec_k,
                              kv_quant=kv_quant, weight_quant=weight_quant)
         self.scheduler = Scheduler(max_batch=max_batch, max_queue=max_queue,
@@ -649,6 +649,9 @@ class LMServer(_HTTPFrontend):
             # exhaustion steals the free list for a few rounds
             chaos.maybe_kill_serving_loop(rid, it)
             chaos.maybe_wedge_serving_loop(rid, it)
+            # a standing per-iteration sleep on ONE replica: the
+            # healthy-but-slow canary the rollout judge must roll back
+            chaos.rollout_slow_canary(rid, it)
             self._chaos_pool_pressure(rid, it)
             admitted, expired = sched.admit(eng)
             for req in expired:
@@ -1060,23 +1063,32 @@ def serve(model, replicas=None, autoscale=None, roles=None, rollout=None,
     (autoscale.py) and always builds the replicated door, even at one
     replica, so the fleet can grow. `roles="prefill:N,decode:M"` (or
     MXNET_SERVING_ROLES) builds a disaggregated fleet of N + M replicas
-    (`replicas` is then ignored). Otherwise a single `LMServer`.
-    `rollout=` / MXNET_SERVING_ROLLOUT_DIR raises: live rollout reads
-    checkpoints through ROADMAP item 12's checkpoint manager."""
+    (`replicas` is then ignored). `rollout=<checkpoint dir>` (or
+    MXNET_SERVING_ROLLOUT_DIR) attaches a live-rollout watcher
+    (rollout.py) on a daemon thread: newly published checkpoint steps are
+    gated, canaried, judged and promoted or rolled back with zero
+    downtime; it too always builds the replicated door, so a canary has
+    somewhere to stand. Otherwise a single `LMServer`."""
     from .autoscale import autoscale_enabled
     from .router import (ReplicatedLMServer, serving_replicas,
                          serving_roles)
-    if rollout or (rollout is None
-                   and os.environ.get("MXNET_SERVING_ROLLOUT_DIR")):
-        raise _not_ported("live rollout (rollout=, "
-                          "MXNET_SERVING_ROLLOUT_DIR)", 12)
+    from .rollout import rollout_dir
     role_map = serving_roles(roles)
     scale = autoscale_enabled() if autoscale is None else autoscale
+    rdir = rollout_dir() if rollout is None else (rollout or None)
     if role_map:
-        return ReplicatedLMServer(model, roles=role_map, autoscale=scale,
-                                  **kwargs)
-    n = serving_replicas() if replicas is None else int(replicas)
-    if n > 1 or scale:
-        return ReplicatedLMServer(model, replicas=n, autoscale=scale,
-                                  **kwargs)
-    return LMServer(model, **kwargs)
+        srv = ReplicatedLMServer(model, roles=role_map, autoscale=scale,
+                                 **kwargs)
+    else:
+        n = serving_replicas() if replicas is None else int(replicas)
+        if not (n > 1 or scale or rdir):
+            return LMServer(model, **kwargs)
+        srv = ReplicatedLMServer(model, replicas=n, autoscale=scale,
+                                 **kwargs)
+    if rdir:
+        try:
+            srv.attach_rollout(rdir, start=True)
+        except BaseException:
+            srv.close(drain=False, timeout=5.0)
+            raise
+    return srv

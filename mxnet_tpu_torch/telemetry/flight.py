@@ -7,9 +7,8 @@ increments (bad steps, rollbacks, retries, engine failures), chaos fault
 injections — that costs a deque append while the process is healthy and
 dumps to disk the moment something goes wrong:
 
-  * SIGTERM / preemption notice (the reference's `PreemptionWatcher`
-    dumps before the drain starts; the port's recovery layer, which
-    carries it, is not ported yet);
+  * SIGTERM / preemption notice (`parallel.resilient.PreemptionWatcher`
+    dumps before the drain starts);
   * an unhandled serving-loop fault (`LMServer._loop`);
   * `/healthz` wedge detection (first `health()` call that observes a
     dead-or-stalled loop);

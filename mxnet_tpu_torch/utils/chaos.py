@@ -69,9 +69,26 @@ armed one (some hook sites only run under load), then latches
                                         transient exhaustion, requests
                                         queue instead of failing.
 
-The live-rollout faults (serve_rollout_corrupt, serve_rollout_slow_canary)
-belong to `serving/rollout.py`, which the port has not reached yet:
-naming one in `configure` raises.
+  MXNET_CHAOS_SERVE_ROLLOUT_CORRUPT=<step>:<file_index>
+                                        bit-flip one byte mid-file in
+                                        live-rollout candidate <step>'s
+                                        payload file #<file_index>,
+                                        AFTER its manifest published:
+                                        bitrot between publish and
+                                        canary, which the rollout
+                                        verification (or the parity
+                                        gate's digest probe) must
+                                        quarantine before any user
+                                        traffic. Exact step, latched.
+  MXNET_CHAOS_SERVE_ROLLOUT_SLOW_CANARY=<r>:<i>[:<secs>]
+                                        sleep <secs> (default 0.05) on
+                                        replica r's EVERY loop iteration
+                                        >= i: a healthy-but-slow canary
+                                        the rollout judge must roll back
+                                        on its SLO burn instead of
+                                        promoting. Unlatched like
+                                        slow_host; the first firing
+                                        records one flight event.
 """
 from __future__ import annotations
 
@@ -96,11 +113,8 @@ SPIKE_POISON = 1.0e6
 #: serving faults: value is (replica, iteration[, extra]) — parsed from
 #: "r:i[:x]" env strings or passed as tuples to configure()
 _SERVE_FAULTS = ("serve_kill", "serve_crash_loop", "serve_wedge",
-                 "serve_poison", "serve_spec_poison", "serve_exhaust")
-
-#: the reference's live-rollout faults, refused until serving/rollout.py
-#: is ported
-_ROLLOUT_FAULTS = ("serve_rollout_corrupt", "serve_rollout_slow_canary")
+                 "serve_poison", "serve_spec_poison", "serve_exhaust",
+                 "serve_rollout_corrupt", "serve_rollout_slow_canary")
 
 
 class ChaosReplicaKilled(RuntimeError):
@@ -199,11 +213,6 @@ def configure(**faults):
     _load_env()
     known = _FAULTS + _SERVE_FAULTS + _HOST_FAULTS + _HOST_STEP_FAULTS
     for name, val in faults.items():
-        if name in _ROLLOUT_FAULTS:
-            raise ValueError(
-                "chaos fault %r drives the live rollout (serving/rollout.py"
-                "), which the port has not reached yet; it comes with the "
-                "serving side of ROADMAP item 12" % name)
         if name not in known:
             raise ValueError("unknown chaos fault %r (know %s)"
                              % (name, ", ".join(known)))
@@ -418,3 +427,55 @@ def pool_exhaustion(replica, iteration):
     if cfg is None:
         return 0
     return int(cfg[2]) if len(cfg) > 2 else 20
+
+
+def maybe_rollout_corrupt(step, files):
+    """RolloutController's watcher calls this with a candidate step's
+    published payload files BEFORE verifying them: an armed
+    serve_rollout_corrupt=<step>:<file_index> bit-flips one byte in the
+    middle of files[file_index % len(files)], bitrot landing after the
+    manifest published, which the candidate verification (or the parity
+    gate's digest probe) must quarantine before any user request reaches
+    the weights. Exact-step match, latched."""
+    _load_env()
+    cfg = _conf.get("serve_rollout_corrupt")
+    if cfg is None or "serve_rollout_corrupt" in _fired:
+        return False
+    if int(step) != cfg[0] or not files:
+        return False
+    _fired.add("serve_rollout_corrupt")
+    path = files[int(cfg[1]) % len(files)]
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.seek(size // 2)
+        b = f.read(1)
+        f.seek(size // 2)
+        f.write(bytes([(b[0] ^ 0xFF) if b else 0xFF]))
+    from .. import telemetry
+    telemetry.flight().record("fault", "chaos.serve_rollout_corrupt",
+                              step=int(step),
+                              path=os.path.basename(path))
+    return True
+
+
+def rollout_slow_canary(replica, iteration):
+    """LMServer's loop calls this every iteration: an armed
+    serve_rollout_slow_canary=<r>:<i>[:<secs>] sleeps (default 0.05 s) on
+    replica r at EVERY iteration >= i: a canary whose weights are fine but
+    whose latency is not, which the rollout judge must catch through its
+    per-replica SLO burn and roll back. Unlatched (slow is a standing
+    condition); the first firing records one flight event."""
+    _load_env()
+    cfg = _conf.get("serve_rollout_slow_canary")
+    if cfg is None:
+        return False
+    if int(replica) != cfg[0] or int(iteration) < cfg[1]:
+        return False
+    if "serve_rollout_slow_canary" not in _fired:
+        _fired.add("serve_rollout_slow_canary")
+        from .. import telemetry
+        telemetry.flight().record(
+            "fault", "chaos.serve_rollout_slow_canary",
+            replica=int(replica), step=int(iteration))
+    time.sleep(cfg[2] if len(cfg) > 2 else 0.05)
+    return True

@@ -57,8 +57,12 @@ def test_training_env_parsing_matches_reference(monkeypatch):
     chaos.reset()
     assert chaos.configure(nan_step=5, slow_host=("0", 0.1)) == dict(
         chaos.active())
-    with pytest.raises(ValueError, match="rollout"):
-        chaos.configure(serve_rollout_slow_canary=(0, 1))
+    keys = ("serve_rollout_slow_canary", "serve_rollout_corrupt")
+    armed = [{k: c.configure(serve_rollout_slow_canary=(0, 1),
+                             serve_rollout_corrupt="3:1")[k] for k in keys}
+             for c in (chaos, jchaos)]
+    assert armed[0] == armed[1] == {"serve_rollout_slow_canary": (0, 1),
+                                    "serve_rollout_corrupt": (3, 1)}
     with pytest.raises(ValueError, match="unknown chaos fault"):
         chaos.configure(not_a_fault=1)
 

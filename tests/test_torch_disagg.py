@@ -6,11 +6,10 @@ Mirrors tests/test_serving_disagg.py's fourteen tests (:100-:494): the
 role parser, the migrate-flavoured resume, a role-less fleet unchanged,
 the hop's token identity and single trace row, exactly-once ledgers, the
 bytes-saved ledger of the target's prefix hits, COW-divergent prefixes,
-a hop racing the target's drain, role loss and a saturated target
-falling back to local decode, the role surfaces, the per-role autoscale
-decision and a respawn keeping its role. The reference's tp!=tp hop
-(:288) becomes the assertion that a tensor-parallel decode role raises,
-naming ROADMAP item 12. Greedy tokens identical; counters equal. Every
+the tp!=tp hop onto a tensor-parallel decode role, a hop racing the
+target's drain, role loss and a saturated target falling back to local
+decode, the role surfaces, the per-role autoscale decision and a respawn
+keeping its role. Greedy tokens identical; counters equal. Every
 `result()` and `close()` carries a timeout.
 """
 import re
@@ -275,13 +274,35 @@ def test_cow_divergent_prefix_migration(lm):
 
 
 def test_tp_decode_role_raises_naming_item_12(lm):
-    """The reference hops tp=1 -> tp=2 here (:288); tensor parallelism
-    waits for the mesh and the collectives, so the port refuses the
-    layout, closing what it built."""
-    with pytest.raises(MXNetError, match="ROADMAP item 12"):
-        disagg("port", lm, paged=True, role_kwargs={"decode": {"tp": 2}})
-    with pytest.raises(MXNetError, match="ROADMAP item 12"):
-        fleet("port", lm, replicas=2, tp=2)
+    """The reference's tp=1 -> tp=2 hop (:288): a tp=2 decode role (the
+    port's window `["cpu"] * 2`, the reference's virtual devices) takes
+    the migrated prompt and re-prefills it on its tp engine; tokens equal
+    across the packages and to one server's. A fleet of tp=2 replicas
+    serves the same tokens too."""
+    prompt, max_new = arith_prompt(3, 2, 10), 6
+    want = oracle(lm, prompt, max_new)
+
+    def run(pkg):
+        win = {"devices": ["cpu"] * 2} if pkg == "port" else {}
+        f = disagg(pkg, lm, paged=True,
+                   role_kwargs={"decode": dict(tp=2, **win)})
+        try:
+            tps = [r.engine.tp for r in f.replicas]
+            got = f.generate(list(prompt), max_new_tokens=max_new,
+                             timeout=TIMEOUT)
+            hops = f.replicas[1].metrics.migrations
+        finally:
+            f.close(timeout=TIMEOUT)
+        f = fleet(pkg, lm, replicas=2, tp=2, **win)
+        try:
+            tps += [r.engine.tp for r in f.replicas]
+            return tps, got, hops, f.generate(
+                list(prompt), max_new_tokens=max_new, timeout=TIMEOUT)
+        finally:
+            f.close(timeout=TIMEOUT)
+
+    out = both(run)
+    assert out["port"] == out["reference"] == ([1, 2, 2, 2], want, 1, want)
 
 
 def test_migration_racing_target_drain(lm):

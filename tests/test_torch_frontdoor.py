@@ -10,6 +10,7 @@ rates, never on wall clocks: no test sleeps to make a deadline pass.
 """
 import json
 import math
+import os
 import threading
 import time
 import types
@@ -511,8 +512,32 @@ def test_deadline_expired_in_queue_dropped_before_prefill(lm):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported raises, naming its ROADMAP item
+# the ROADMAP items' arguments: item 11's still raises naming its item;
+# item 12's (tp, devices, rollout) are ported and serve
 # ---------------------------------------------------------------------------
+
+
+def _item12_serves(srv, kwargs):
+    """What an item-12 argument does now that it is ported: `tp` without
+    a window falls back (no CUDA device here) and serves; `rollout`
+    builds the replicated door with a watcher on the directory."""
+    try:
+        if "rollout" in kwargs:
+            assert isinstance(srv, serving.ReplicatedLMServer)
+            assert srv.rollout is not None
+            assert srv.rollout.directory == kwargs["rollout"]
+            assert os.path.isdir(kwargs["rollout"])
+            assert srv.statusz()["fleet"]["rollout"]["state"] == "idle"
+        reps = getattr(srv, "replicas", [srv])
+        if "tp" in kwargs:
+            for rep in reps:
+                assert rep.engine.tp_requested == 2 and rep.engine.tp == 1
+                assert rep.engine.tp_fallback == \
+                    "tp=2 needs 2 devices, have 0"
+        assert len(srv.generate(PROMPTS[0], max_new_tokens=2,
+                                timeout=60)) == 2
+    finally:
+        srv.close(timeout=60)
 
 
 @pytest.mark.parametrize("kwargs,item", [
@@ -521,19 +546,38 @@ def test_deadline_expired_in_queue_dropped_before_prefill(lm):
     ({"rollout": "/nonexistent"}, "item 12"),
     ({"replicas": 2, "tp": 2}, "item 12"),
     ({"replicas": 2, "aot_cache": "/nonexistent"}, "item 11")])
-def test_unported_arguments_raise_naming_their_item(lm, kwargs, item):
+def test_unported_arguments_raise_naming_their_item(lm, tmp_path, kwargs,
+                                                    item):
+    """Item 11's argument raises naming its item. Of item 12's, a window
+    on a card this machine lacks still raises (nothing falls back to the
+    CPU unasked) and the others serve; a rollout path is taken under
+    tmp_path, so the watcher creates no directory elsewhere."""
     _, _, params, cfg = lm
-    with pytest.raises(MXNetError, match="ROADMAP %s" % item):
-        serving.serve((params, cfg), device="cpu", **kwargs)
+    if item == "item 11":
+        with pytest.raises(MXNetError, match="ROADMAP item 11"):
+            serving.serve((params, cfg), device="cpu", **kwargs)
+        return
+    if "devices" in kwargs:
+        with pytest.raises(MXNetError, match="cuda"):
+            serving.serve((params, cfg), device="cpu", **kwargs)
+        return
+    kwargs = dict(kwargs)
+    if "rollout" in kwargs:
+        kwargs["rollout"] = str(tmp_path) + kwargs["rollout"]
+    _item12_serves(serving.serve((params, cfg), device="cpu", **kwargs),
+                   kwargs)
 
 
 @pytest.mark.parametrize("var,value", [
     ("MXNET_SERVING_ROLLOUT_DIR", "/nonexistent")])
-def test_unported_env_knobs_raise(lm, monkeypatch, var, value):
+def test_unported_env_knobs_raise(lm, monkeypatch, tmp_path, var, value):
+    """MXNET_SERVING_ROLLOUT_DIR attaches a rollout watcher to the door
+    serve() builds (its path taken under tmp_path)."""
     _, _, params, cfg = lm
-    monkeypatch.setenv(var, value)
-    with pytest.raises(MXNetError, match="ROADMAP item 12"):
-        serving.serve((params, cfg), device="cpu")
+    path = str(tmp_path) + value
+    monkeypatch.setenv(var, path)
+    _item12_serves(serving.serve((params, cfg), device="cpu"),
+                   {"rollout": path})
 
 
 @pytest.mark.parametrize("kwargs,env,want", [

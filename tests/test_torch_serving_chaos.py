@@ -94,8 +94,11 @@ def test_chaos_env_parsing_matches_reference(monkeypatch):
         chaos.active()
     chaos.reset()
     monkeypatch.delenv("MXNET_CHAOS_SERVE_POISON")
-    with pytest.raises(ValueError, match="rollout"):
-        chaos.configure(serve_rollout_corrupt=(3, 0))   # a rollout fault
+    # a rollout fault arms as the reference's does, and disarms
+    assert chaos.configure(serve_rollout_corrupt=(3, 0))[
+        "serve_rollout_corrupt"] == (3, 0)
+    assert "serve_rollout_corrupt" not in chaos.configure(
+        serve_rollout_corrupt=None)
     assert chaos.configure(serve_poison=(0, 1)) == {
         "serve_kill": (1, 5), "serve_wedge": (0, 2, 0.5),
         "serve_exhaust": (3, 4, 7.0), "serve_poison": (0, 1)}

@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Teacher-forced logit error of quantized serving (int8 KV + int8
 weights) against the float engine, at chip_smoke.py phase 6's config,
-on the CPU.
+on the CPU; with `--tp K`, of the quantized engine sharded over K devices
+against the quantized engine on one (chip_smoke.py phase 26b's bound).
 
     JAX_PLATFORMS=cpu python tools/quant_logit_probe.py --impl reference
     python tools/quant_logit_probe.py --impl port
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=2 \
+        python tools/quant_logit_probe.py --impl reference --tp 2
 
 Both modes serve the same random weights (numpy seed 0, N(0, 0.02)
 matrices, unit/zero layer norms, the full-width serving config of
@@ -13,7 +16,9 @@ paged engine (block 32) generates 128 tokens; a quantized engine then
 runs the same request with each decode step's input token set to the
 float engine's, so every logit row is compared at the same context. The
 script prints the largest |logit - float| and how many rows' argmax
-agree.
+agree. With `--tp K` the baseline is the quantized engine on one device
+and the engine under test the same one at tp=K (the reference over K
+virtual CPU devices, the port over the window `["cpu"] * K`).
 
 `--impl reference` runs the JAX package's engine (its Pallas kernel in
 interpreter mode) and imports nothing of the port; `--impl port` runs
@@ -64,7 +69,7 @@ def prompt():
     return [int(t) for t in rng.randint(1, CFG["vocab"], PROMPT_LEN)]
 
 
-def run_reference():
+def run_reference(tp=1):
     import jax
     from mxnet_tpu import serving
     from mxnet_tpu.models.transformer import TransformerConfig
@@ -90,13 +95,18 @@ def run_reference():
         eng.close()
         return out
 
-    ref_tokens, ref_logits = run()
-    _, rows = run(forced=ref_tokens, kv_quant=True, weight_quant="int8")
+    quant = dict(kv_quant=True, weight_quant="int8")
+    if tp > 1:
+        ref_tokens, ref_logits = run(**quant)
+        _, rows = run(forced=ref_tokens, tp=tp, **quant)
+    else:
+        ref_tokens, ref_logits = run()
+        _, rows = run(forced=ref_tokens, **quant)
     return (float(np.abs(rows - ref_logits).max()), len(rows),
             int((rows.argmax(1) == ref_logits.argmax(1)).sum()))
 
 
-def run_port():
+def run_port(tp=1):
     import torch
     import chip_smoke as cs
     from mxnet_tpu_torch import serving
@@ -109,6 +119,11 @@ def run_port():
     same = cs.bench_params(np, cfg)
     assert all(np.array_equal(w[k], same[k]) for k in same)
     params = params_from_numpy(w, cfg, "cpu")
+    if tp > 1:
+        ref, rows = cs.quant_logit_rows(np, serving, params, cfg, prompt(),
+                                        GEN, "cpu")
+        return cs.quant_logit_probe(np, serving, params, cfg, prompt(), GEN,
+                                    "cpu", ref, rows, tp=tp)
     logits = []
     ref, _ = cs.gather_oracle(torch, np, serving, params, cfg, [prompt()],
                               GEN, "cpu", paged=True, block_size=BLOCK,
@@ -120,13 +135,18 @@ def run_port():
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--impl", choices=("reference", "port"), required=True)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="compare the quantized engine at this tp degree "
+                         "with the quantized engine at tp=1")
     args = ap.parse_args()
     sys.path.insert(0, ROOT)
     err, rows, agree = (run_reference if args.impl == "reference"
-                        else run_port)()
-    print("%s: int8 KV + int8 weights, teacher-forced, %d rows: max "
-          "|logit - float| %.5f; argmax equal on %d of %d rows"
-          % (args.impl, rows, err, agree, rows))
+                        else run_port)(args.tp)
+    base = "float" if args.tp == 1 else "int8 tp=1"
+    print("%s: int8 KV + int8 weights%s, teacher-forced, %d rows: max "
+          "|logit - %s| %.5f; argmax equal on %d of %d rows"
+          % (args.impl, "" if args.tp == 1 else " at tp=%d" % args.tp,
+             rows, base, err, agree, rows))
 
 
 if __name__ == "__main__":
