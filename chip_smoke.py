@@ -475,7 +475,37 @@ Phases (any failure exits non-zero before the last line):
                 rollout's transitions and times, gate ms, K1 launches
                 and step ms at tp 1, 2 and 4 beside the card's name and
                 power limit.
-  27. the kernels line (K2's, K3a-d's and K4a-b's launches summed over
+  27. BASELINE config 4, SSD (ROADMAP item 13), seed 27,
+                MXNET_FUSED_BN_EPILOGUE=1: (a) SSDLite at bench.py's
+                non-smoke width (20 classes, batch 32, 3 x 256 x 256,
+                4032 anchors; 1-4 boxes an image) trained through Gluon
+                with examples/train_ssd.py's loss and Adam at lr 0.005:
+                the first step's loss and gradients in float32 against
+                the flag off beside the floor (phase 9's check; targets
+                from the flag-off forward held fixed, the flag-on
+                forward's positives and loc targets identical), 2
+                warm-up and 10 timed steps (falling loss) with K3a-d
+                launched 5 times a step each (one a BatchNorm), a
+                profiled step; (b) the inference forward in float32 and
+                bfloat16 (img/s; bf16 class scores within SSD_BF16_TOL),
+                MultiBoxTarget (hard mining) and MultiBoxDetection on the
+                card at the full batch: every detection row what greedy
+                NMS gives (a vectorised oracle of the scan), each op's
+                ms; (c) examples/train_ssd.py's loop at its own size (64
+                images of 48 x 48, batch 16, 12 epochs) through
+                ImageDetIter fed decoded arrays by its read_image /
+                imdecode hooks, no OpenCV: the epoch loss falls, the
+                detections are well formed and the example's IoU lies in
+                [0, 1], K3a-d 5 a step; (d) the slice's 15 op names and
+                their aliases on the card against the port on the CPU
+                (phase 21a's check, their gradients where
+                differentiable), and gluon's CTCLoss forward and
+                backward; (e) examples/custom_op.py at its defaults with
+                its context on the card: its own check passes. Prints
+                whether OpenCV imports, step ms, img/s, peak memory, the
+                busy share, the ops' ms and errors beside their limits,
+                with the card's name and power limit.
+  28. the kernels line (K2's, K3a-d's and K4a-b's launches summed over
      every path that runs them, split in `launches_by_path`; K3a-d's
      sums over an Inception-v3 step under `inception_v3_step`),
      nvidia-smi's line, and the last line {"ok": true, "device": {...}}.
@@ -5801,15 +5831,13 @@ def phase_paged_op(torch, np, dev, card):
     return launches
 
 
-_EXAMPLE_ALIASES = ("mxnet_tpu", "mxnet_tpu.gluon")
-
-
 def load_example(fname, pkg=None):
     """examples/<fname> as a fresh module whose `import mxnet_tpu` (and
-    its gluon) resolve to `pkg` while it imports, by default
-    `mxnet_tpu_torch`: the example runs on the port unchanged, and
-    nothing of the JAX package loads (the CPU tests pass the reference
-    itself for the other side)."""
+    every submodule: `mxnet_tpu.gluon`, `mxnet_tpu.models.ssd`,
+    `mxnet_tpu.operator`, ...) resolve to `pkg` and its submodules while
+    it imports, by default `mxnet_tpu_torch`: the example runs on the
+    port unchanged, and nothing of the JAX package loads (the CPU tests
+    pass the reference itself for the other side)."""
     import importlib.util
     if pkg is None:
         import mxnet_tpu_torch as pkg
@@ -5818,11 +5846,22 @@ def load_example(fname, pkg=None):
     spec = importlib.util.spec_from_file_location(
         "%s_%s" % (fname[:-3], pkg.__name__), path)
     module = importlib.util.module_from_spec(spec)
-    saved = {k: sys.modules.get(k) for k in _EXAMPLE_ALIASES}
-    sys.modules.update({"mxnet_tpu": pkg, "mxnet_tpu.gluon": pkg.gluon})
+    prefix = pkg.__name__
+    aliases = {"mxnet_tpu" + k[len(prefix):]: m
+               for k, m in list(sys.modules.items())
+               if k == prefix or k.startswith(prefix + ".")}
+    saved = {k: sys.modules.get(k) for k in aliases}
+    before = set(sys.modules)
+    sys.modules.update(aliases)
     try:
         spec.loader.exec_module(module)
     finally:
+        if prefix != "mxnet_tpu":
+            # a submodule the package had not loaded would have been
+            # imported again under the alias: drop any such copy
+            for k in set(sys.modules) - before:
+                if k == "mxnet_tpu" or k.startswith("mxnet_tpu."):
+                    sys.modules.pop(k)
         for k, v in saved.items():
             if v is None:
                 sys.modules.pop(k, None)
@@ -8517,6 +8556,634 @@ def phase_tp_rollout(torch, np, dev, card):
     return a + b + c, b8, out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: BASELINE config 4, SSDLite on the multibox ops (ROADMAP item 13)
+# ---------------------------------------------------------------------------
+
+#: bench.py's non-smoke bench_ssd_forward width: SSDLite(num_classes=20)
+#: at batch 32 of 3 x 256 x 256 (4032 anchors: 256 / 4 = 64, then 32, 16,
+#: 8 cells a side, 3 anchors a cell); examples/train_ssd.py's loss and
+#: Adam at lr 0.005; 1-4 boxes an image; seed 27
+SSD_SEED = 27
+SSD_BATCH, SSD_IMAGE, SSD_CLASSES = 32, 256, 20
+#: the three feature maps' sides (after the stem's two pools and each
+#: block's stride 2) and their sizes, 3 anchors a cell
+SSD_MAPS = ((8, 0.2), (16, 0.4), (32, 0.7))
+SSD_MAX_BOXES = 4
+SSD_LR = 0.005
+SSD_WARMUP, SSD_STEPS = 2, 10
+SSD_FORWARD_STEPS = 20
+#: 27b: bf16 class scores against float32 (relative Frobenius)
+SSD_BF16_TOL = 5e-2
+#: 27c: examples/train_ssd.py at its own size: 64 images of 48 x 48,
+#: 2 classes, batch 16, 12 epochs
+SSD_EX_IMAGES, SSD_EX_SIZE, SSD_EX_BATCH, SSD_EX_EPOCHS = 64, 48, 16, 12
+#: 27d's sizes: a detection batch of 8 at the full 4032 anchors, the RPN
+#: on a 24 x 24 map (6912 anchors, 2000 before NMS, 300 after), CTC at
+#: T 50, N 16, C 20, L 10
+SSD_OP_DET_BATCH = 8
+SSD_OP_MEAN = (123.68, 116.28, 103.53)
+SSD_OP_STD = (58.395, 57.12, 57.375)
+
+
+def ssd_anchor_count():
+    return 3 * sum((SSD_IMAGE // f) ** 2 for f, _ in SSD_MAPS)
+
+
+def ssd_batch(np, rs, n, size, classes, max_boxes):
+    """n images uniform in [-1, 1) and their labels [n, max_boxes, 5]:
+    1..max_boxes boxes (class, x1, y1, x2, y2) an image, -1 rows after."""
+    x = rs.uniform(-1, 1, (n, 3, size, size)).astype(np.float32)
+    lab = -np.ones((n, max_boxes, 5), np.float32)
+    for i in range(n):
+        for j in range(rs.randint(1, max_boxes + 1)):
+            w, h = rs.uniform(0.1, 0.6, 2)
+            x0, y0 = rs.uniform(0, 1 - w), rs.uniform(0, 1 - h)
+            lab[i, j] = [rs.randint(classes), x0, y0, x0 + w, y0 + h]
+    return x, lab
+
+
+class SSDGrads:
+    """`loss_and_grads(x, y)` of SSDLite at fixed starting weights: one
+    recorded forward of examples/train_ssd.py's loss against targets
+    computed once, from the first flag-off training forward, and its
+    backward; then the parameters (moving statistics too) are put back.
+    Fixed targets keep a hard-negative rank that a last-bit change of the
+    class scores would move out of the comparison of the two BatchNorm
+    paths (`mining_moves` counts such moves). Lets
+    resnet_first_step_check hold the SSD step."""
+
+    def __init__(self, mx, net, ssd_loss, x, y):
+        self.mx, self.net, self.ssd_loss = mx, net, ssd_loss
+        self.params = net.collect_params()
+        self.start = {n: p.data()._data.clone()
+                      for n, p in self.params.items()}
+        self.y = y
+        self.targets = self.fresh_targets(x)
+
+    def fresh_targets(self, x):
+        mx = self.mx
+        with mx.autograd.record():
+            anchors, cls_preds, _ = self.net(mx.nd.NDArray(x))
+        targets = self.net.targets(anchors, mx.nd.NDArray(self.y), cls_preds)
+        self.restore()
+        return targets
+
+    def restore(self):
+        for n, p in self.params.items():
+            p.set_data(self.start[n].clone())
+
+    def loss_and_grads(self, x, y):
+        mx = self.mx
+        with mx.autograd.record():
+            _, cls_preds, loc_preds = self.net(mx.nd.NDArray(x))
+            loss = self.ssd_loss(cls_preds, loc_preds, *self.targets)
+        loss.backward()
+        grads = {n: p.grad()._data.clone() for n, p in self.params.items()
+                 if p.grad_req != "null"}
+        self.restore()
+        return loss._data.detach(), grads
+
+
+def nms_violations(torch, probs, det, nms_threshold, threshold=0.01):
+    """Rows of MultiBoxDetection's output `det` [N, A, 6] (clip on,
+    background 0, per-class NMS) that greedy NMS would not give: from
+    probs [N, C, A] the score order and each anchor's class, then row i
+    must be kept exactly when its class is not background, its score is
+    above threshold, and no kept row before it of its class overlaps it
+    by more than nms_threshold (IoU of the output boxes). Vectorised on
+    the card, no loop: an oracle of the op's sequential scan."""
+    from mxnet_tpu_torch.ops.contrib import _iou_corner
+    score, cls_id = probs.amax(dim=1), probs.argmax(dim=1)
+    valid = (cls_id != 0) & (score > threshold)
+    order = torch.argsort(-torch.where(valid, score, torch.zeros_like(
+        score)), dim=1, stable=True)
+    scls = torch.where(valid, cls_id - 1, -1).gather(1, order)
+    kept = det[..., 0] >= 0
+    A = det.shape[1]
+    earlier = torch.ones(A, A, dtype=torch.bool,
+                         device=det.device).tril(-1)          # j < i
+    hit = (_iou_corner(det[..., 2:], det[..., 2:]) > nms_threshold) \
+        & (scls[:, :, None] == scls[:, None, :]) & kept[:, None, :] \
+        & earlier
+    want = (scls >= 0) & ~hit.any(dim=2)
+    wrong_cls = kept & (det[..., 0] != scls)
+    return int((want != kept).sum()) + int(wrong_cls.sum())
+
+
+def ssd_train(mx, net, trainer, ssd_loss, x, y, batch):
+    """One step of examples/train_ssd.py: forward, targets, loss,
+    backward, Adam; the loss NDArray."""
+    with mx.autograd.record():
+        anchors, cls_preds, loc_preds = net(x)
+        loc_t, loc_m, cls_t = net.targets(anchors, y, cls_preds)
+        loss = ssd_loss(cls_preds, loc_preds, loc_t, loc_m, cls_t)
+    loss.backward()
+    trainer.step(batch)
+    return loss
+
+
+def phase_ssd_train(torch, np, mx, fb, dev, card, module):
+    """27a: SSDLite at bench width trained through gluon with the flag
+    on: the first step against the flag off beside the floor, warm-up and
+    timed steps with K3a-d launched once a BatchNorm a step, a profiled
+    step. Returns (the net, the batch, K3a-d launches, summary)."""
+    mx.random.seed(SSD_SEED)
+    np.random.seed(SSD_SEED)
+    net = module.SSDLite(num_classes=SSD_CLASSES)
+    net.initialize(mx.init.Xavier())
+    rs = np.random.RandomState(SSD_SEED)
+    xs, ys = ssd_batch(np, rs, SSD_BATCH, SSD_IMAGE, SSD_CLASSES,
+                       SSD_MAX_BOXES)
+    x, y = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+    net(mx.nd.NDArray(x[:1]))
+    n_bn = sum(1 for n in net.collect_params() if n.endswith("_gamma"))
+    check(n_bn == 5, "SSDLite has %d BatchNorms, not 5" % n_bn)
+    os.environ["MXNET_FUSED_BN_EPILOGUE"] = "0"
+    grads = SSDGrads(mx, net, module.ssd_loss, x, y)
+    oracle = resnet_first_step_check(torch, fb, grads, x, y, "ssdlite")
+    # the targets themselves: positives (matching alone) identical with
+    # the flag on, negatives mined from the flag-on scores counted
+    os.environ["MXNET_FUSED_BN_EPILOGUE"] = "1"
+    on = grads.fresh_targets(x)
+    off = grads.targets
+    pos_on, pos_off = on[2]._data > 0, off[2]._data > 0
+    check(torch.equal(pos_on, pos_off) and torch.equal(
+        on[1]._data, off[1]._data), "the positive anchors moved with the "
+          "BatchNorm path")
+    check(bool((on[0]._data - off[0]._data).abs().max() == 0),
+          "the loc targets moved with the BatchNorm path")
+    oracle["mining_moves"] = int((on[2]._data != off[2]._data).sum())
+    oracle["positives"] = int(pos_off.sum())
+
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": SSD_LR})
+    xn, yn = mx.nd.NDArray(x), mx.nd.NDArray(y)
+    fb.reset_launch_counts()
+    losses = [float(ssd_train(mx, net, trainer, module.ssd_loss, xn, yn,
+                              SSD_BATCH).asnumpy())
+              for _ in range(SSD_WARMUP)]
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for _ in range(SSD_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = ssd_train(mx, net, trainer, module.ssd_loss, xn, yn,
+                         SSD_BATCH)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss.asnumpy()))
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = fb.launch_counts()
+    steps = SSD_WARMUP + SSD_STEPS
+    check(launches == (5 * steps,) * 4,
+          "K3a-d launched %r times over %d SSD steps, expected 5 x %d = %d "
+          "each" % (launches, steps, steps, 5 * steps))
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "SSD losses not finite or not falling: %r" % losses)
+    prof = profile_step(torch, "ssdlite train", lambda: ssd_train(
+        mx, net, trainer, module.ssd_loss, xn, yn, SSD_BATCH)._data)
+    ms = sorted(1e3 * t for t in times)
+    mean_ms = sum(ms) / len(ms)
+    out = {"card": card, "batch": SSD_BATCH, "image": SSD_IMAGE,
+           "classes": SSD_CLASSES, "anchors": ssd_anchor_count(),
+           "steps_timed": SSD_STEPS, "step_ms_mean": mean_ms,
+           "step_ms_p50": float(np.median(ms)),
+           "img_per_s": SSD_BATCH / (mean_ms / 1e3),
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "max_memory_allocated": peak, "first_step_float32": oracle,
+           "k3_launches": dict(zip(("stats", "apply", "bwd_reduce",
+                                    "bwd_dx"), launches)),
+           "profile": prof}
+    print("ssd 27a train (%s): %s" % (card, json.dumps(out)))
+    return net, (x, y), launches, out
+
+
+def phase_ssd_infer(torch, np, mx, dev, card, module, batch):
+    """27b: a freshly initialized SSDLite's inference forward in float32
+    and bfloat16, as bench.py's bench_ssd_forward runs it (img/s, bf16
+    class scores near float32's), then MultiBoxTarget and
+    MultiBoxDetection on the card at the full batch on its predictions
+    (untrained, so most anchors are candidates and NMS has work): targets
+    with hard mining, detections well formed and every row what greedy
+    NMS gives (nms_violations), each op's ms."""
+    x, y = batch
+    xn = mx.nd.NDArray(x)
+    mx.random.seed(SSD_SEED)
+    net = module.SSDLite(num_classes=SSD_CLASSES)
+    net.initialize(mx.init.Xavier())
+    net(mx.nd.NDArray(x[:1]))
+
+    def forward_rate(model, inp):
+        for _ in range(3):
+            outs = model(inp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SSD_FORWARD_STEPS):
+            outs = model(inp)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return outs, SSD_BATCH * SSD_FORWARD_STEPS / dt
+
+    A = ssd_anchor_count()
+    (anchors, cls_preds, loc_preds), f32_rate = forward_rate(net, xn)
+    check(tuple(anchors.shape) == (1, A, 4)
+          and tuple(cls_preds.shape) == (SSD_BATCH, SSD_CLASSES + 1, A)
+          and tuple(loc_preds.shape) == (SSD_BATCH, 4 * A),
+          "SSD forward shapes %s %s %s" % (anchors.shape, cls_preds.shape,
+                                           loc_preds.shape))
+    net16 = module.SSDLite(num_classes=SSD_CLASSES)
+    net16.initialize(mx.init.Xavier())
+    net16(mx.nd.NDArray(x[:1]))
+    for p16, p in zip(net16.collect_params().values(),
+                      net.collect_params().values()):
+        p16.set_data(p.data()._data.clone())
+    net16.cast("bfloat16")
+    (_, cls16, _), bf16_rate = forward_rate(
+        net16, mx.nd.NDArray(x.to(torch.bfloat16)))
+    bf16_err = rel_frobenius(cls16._data.float(), cls_preds._data)
+    check(bool(torch.isfinite(cls16._data).all())
+          and bf16_err <= SSD_BF16_TOL,
+          "bf16 SSD class scores %.3g from float32 (> %g)"
+          % (bf16_err, SSD_BF16_TOL))
+    yn = mx.nd.NDArray(y)
+    loc_t, loc_m, cls_t = net.targets(anchors, yn, cls_preds)
+    npos = int((cls_t._data > 0).sum())
+    nneg = int((cls_t._data == 0).sum())
+    check(npos > 0 and 0 < nneg <= 3 * npos and
+          bool((loc_m._data.reshape(SSD_BATCH, -1, 4)[..., 0] > 0).eq(
+              cls_t._data > 0).all()),
+          "MultiBoxTarget: %d positives, %d mined negatives" % (npos, nneg))
+    target_ms = time_ms(torch, lambda: net.targets(anchors, yn, cls_preds),
+                        n=5, sleep=False)
+    probs = mx.nd.softmax(cls_preds, axis=1)
+    det = net.detect(cls_preds, loc_preds, anchors)
+    d = det._data
+    check(tuple(d.shape) == (SSD_BATCH, A, 6)
+          and bool(((d[..., 0] >= -1) & (d[..., 0] < SSD_CLASSES)).all())
+          and bool(((d[..., 2:] >= 0) & (d[..., 2:] <= 1)).all())
+          and bool(((d[..., 1] >= 0) & (d[..., 1] <= 1)).all()),
+          "MultiBoxDetection's rows are not well formed")
+    bad = nms_violations(torch, probs._data, d, 0.45)
+    kept = int((d[..., 0] >= 0).sum())
+    check(bad == 0 and kept > 0, "MultiBoxDetection: %d rows differ from "
+          "greedy NMS (%d kept)" % (bad, kept))
+    detect_ms = time_ms(torch, lambda: net.detect(cls_preds, loc_preds,
+                                                  anchors), n=2, sleep=False)
+    out = {"card": card, "forward_img_per_s_float32": f32_rate,
+           "forward_img_per_s_bfloat16": bf16_rate,
+           "bf16_cls_rel_frobenius": bf16_err, "bf16_tol": SSD_BF16_TOL,
+           "multibox_target_ms": target_ms, "positives": npos,
+           "mined_negatives": nneg, "multibox_detection_ms": detect_ms,
+           "detections_kept": kept,
+           "nms_rows_checked": SSD_BATCH * A}
+    print("ssd 27b inference (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
+def phase_ssd_example(torch, np, mx, fb, dev, card, module):
+    """27c: examples/train_ssd.py's loop at its own size on the card,
+    through ImageDetIter fed decoded arrays by its read_image / imdecode
+    hooks (no OpenCV) with the example's mirror and normalization and no
+    resize: the epoch loss falls, the detections are well formed and the
+    example's top-detection IoU lies in [0, 1]. Returns (K3a-d launches,
+    summary)."""
+    images, imglist = mx.test_utils.synthetic_det_images(
+        SSD_EX_IMAGES, SSD_EX_SIZE)
+
+    class ArrayDetIter(mx.image.ImageDetIter):
+        def read_image(self, fname):
+            return images[int(fname[3:7])]
+
+        def imdecode(self, s):
+            return mx.nd.array(s, ctx=mx.cpu(), dtype="uint8")
+
+    augs = [mx.image.DetHorizontalFlipAug(0.5),
+            mx.image.DetBorrowAug(mx.image.CastAug()),
+            mx.image.DetBorrowAug(mx.image.ColorNormalizeAug(
+                np.array(SSD_OP_MEAN), np.array(SSD_OP_STD)))]
+    import random
+    random.seed(SSD_SEED)         # the iterator's shuffle and mirror draws
+    it = ArrayDetIter(batch_size=SSD_EX_BATCH,
+                      data_shape=(3, SSD_EX_SIZE, SSD_EX_SIZE),
+                      imglist=imglist, shuffle=True, aug_list=augs)
+    mx.random.seed(SSD_SEED)
+    net = module.SSDLite(num_classes=2)
+    net.initialize(mx.init.Xavier())
+    trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                               {"learning_rate": SSD_LR})
+    ctx = _ctx(mx, dev)
+    fb.reset_launch_counts()
+    epochs, steps = [], 0
+    t0 = time.perf_counter()
+    for _ in range(SSD_EX_EPOCHS):
+        it.reset()
+        losses = []
+        for b in it:
+            loss = ssd_train(mx, net, trainer, module.ssd_loss,
+                             b.data[0].as_in_context(ctx),
+                             b.label[0].as_in_context(ctx), SSD_EX_BATCH)
+            losses.append(float(loss.asnumpy()))
+            steps += 1
+        epochs.append(float(np.mean(losses)))
+    secs = time.perf_counter() - t0
+    launches = fb.launch_counts()
+    check(launches == (5 * steps,) * 4, "27c: K3a-d launched %r over %d "
+          "steps, not 5 a step" % (launches, steps))
+    check(all(np.isfinite(epochs)) and epochs[-1] < epochs[0],
+          "27c: the example's epoch loss did not fall: %r" % epochs)
+    it.reset()
+    b = next(it)
+    batch = mx.io.DataBatch(data=[b.data[0].as_in_context(ctx)],
+                            label=[b.label[0].as_in_context(ctx)])
+    anchors, cls_preds, loc_preds = net(batch.data[0])
+    det = net.detect(cls_preds, loc_preds, anchors)._data
+    check(tuple(det.shape) == (SSD_EX_BATCH, anchors.shape[1], 6)
+          and bool(((det[..., 0] >= -1) & (det[..., 0] < 2)).all())
+          and bool(((det[..., 2:] >= 0) & (det[..., 2:] <= 1)).all()),
+          "27c: detections not well formed")
+    iou = module.evaluate(net, batch)
+    check(0.0 <= iou <= 1.0, "27c: top-detection IoU %r" % iou)
+    out = {"card": card, "steps": steps, "epoch_loss": epochs,
+           "top_detection_iou": iou, "seconds": secs,
+           "k3_launches": launches[0]}
+    print("ssd 27c example (%s): %s" % (card, json.dumps(out)))
+    return launches, out
+
+
+def ssd_op_cases(torch, dev):
+    """27d's cases, made on the card: (name, make, params, kind).
+    Decoded box sizes are exact (their log-space deltas 0), so a box's
+    IoU is the same float on both devices and the discrete NMS decisions
+    cannot part on an exp's last bit."""
+    g = torch.Generator().manual_seed(SSD_SEED)
+
+    def rn(*s, lo=-1.0, hi=1.0):
+        return (torch.rand(*s, generator=g) * (hi - lo) + lo).to(dev)
+
+    def corner(*lead):
+        a, b = torch.rand(*lead, 2, generator=g), torch.rand(*lead, 2,
+                                                             generator=g)
+        return torch.cat([torch.minimum(a, b), torch.maximum(a, b) + 0.02],
+                         -1).to(dev)
+
+    def anchors():
+        from mxnet_tpu_torch.ops.contrib import MultiBoxPrior
+        cells = [MultiBoxPrior(torch.zeros(1, 1, SSD_IMAGE // f,
+                                           SSD_IMAGE // f, device=dev),
+                               sizes=(z,), ratios=(1.0, 2.0, 0.5))
+                 for f, z in SSD_MAPS]
+        return torch.cat(cells, dim=1)
+
+    def labels(n):
+        lab = -torch.ones(n, SSD_MAX_BOXES, 5)
+        for i in range(n):
+            k = int(torch.randint(1, SSD_MAX_BOXES + 1, (1,), generator=g))
+            lab[i, :k, 0] = torch.randint(0, SSD_CLASSES, (k,), generator=g)
+            lab[i, :k, 1:] = corner(k).cpu() * 0.8
+        return lab.to(dev)
+
+    def det_inputs(n):
+        A = ssd_anchor_count()
+        p = torch.softmax(rn(n, SSD_CLASSES + 1, A, lo=-3, hi=3), dim=1)
+        loc = rn(n, A, 4)
+        loc[..., 2:] = 0
+        return [p, loc.reshape(n, -1), anchors()]
+
+    def nms_rows(B, n):
+        rows = torch.cat([torch.randint(0, 4, (B, n, 1), generator=g)
+                          .float().to(dev), rn(B, n, 1, lo=0, hi=1),
+                          corner(B, n) * 0.7], -1)
+        rows[:, 1::5, 1] = rows[:, 0:-1:5, 1]          # tied scores
+        return rows
+
+    def proposal_inputs():
+        A, H = 12, 24
+        d = rn(2, 4 * A, H, H, lo=-0.2, hi=0.2).reshape(2, A, 4, H, H)
+        d[:, :, 2:] = 0
+        return [rn(2, 2 * A, H, H, lo=0, hi=1), d.reshape(2, 4 * A, H, H),
+                torch.tensor([[384.0, 384.0, 1.0], [360.0, 300.0, 1.0]],
+                             device=dev)]
+
+    def ctc_inputs(blank):
+        T, N, C, L = 50, 16, 20, 10
+        lens = torch.randint(1, L + 1, (N,), generator=g)
+        lo, pad = (1, 0.0) if blank == "first" else (0, -1.0)
+        lab = torch.full((N, L), pad)
+        for i, k in enumerate(lens.tolist()):
+            lab[i, :k] = torch.randint(lo, C - 1, (k,), generator=g).float()
+        return [rn(T, N, C, lo=-2, hi=2), lab.to(dev),
+                torch.randint(30, T + 1, (N,), generator=g).float().to(dev),
+                lens.float().to(dev)]
+
+    def rois(R, N, H, W):
+        return roi_boxes(torch, g, R, N, H, W).to(dev)
+
+    def dpsroi():
+        return [rn(4, 8 * 3 * 3, 32, 32), rois(32, 4, 128, 128),
+                rn(32, 4, 3, 3, lo=-0.5, hi=0.5)]
+
+    det_n = SSD_OP_DET_BATCH
+    return [
+        ("_contrib_MultiBoxPrior", lambda: [rn(SSD_BATCH, 64, 32, 32)],
+         dict(sizes=(0.2, 0.3), ratios=(1.0, 2.0, 0.5)), "arith"),
+        ("_contrib_MultiBoxTarget",
+         lambda: [anchors(), labels(SSD_BATCH),
+                  rn(SSD_BATCH, SSD_CLASSES + 1, ssd_anchor_count(),
+                     lo=-3, hi=3)],
+         dict(overlap_threshold=0.5, negative_mining_ratio=3.0), "trans"),
+        ("_contrib_MultiBoxDetection", lambda: det_inputs(det_n),
+         dict(nms_threshold=0.45), "trans"),
+        ("_contrib_box_iou", lambda: [corner(4096), corner(1024)], {},
+         "arith"),
+        ("_contrib_box_nms", lambda: [nms_rows(8, 1000)],
+         dict(overlap_thresh=0.5, id_index=0, topk=400), "exact"),
+        ("_contrib_ctc_loss", lambda: ctc_inputs("first")[:2], {}, "trans"),
+        ("_contrib_ctc_loss", lambda: ctc_inputs("last"),
+         dict(use_data_lengths=True, use_label_lengths=True,
+              blank_label="last"), "trans"),
+        ("_contrib_count_sketch",
+         lambda: [rn(64, 1024),
+                  torch.randint(0, 256, (1024,), generator=g).float()
+                  .to(dev),
+                  (torch.randint(0, 2, (1024,), generator=g) * 2 - 1)
+                  .float().to(dev)], dict(out_dim=256), "sum"),
+        ("_contrib_fft", lambda: [rn(64, 1024)], {}, "sum"),
+        ("_contrib_ifft", lambda: [rn(64, 2048)], {}, "sum"),
+        ("_contrib_Proposal", proposal_inputs,
+         dict(rpn_pre_nms_top_n=2000, rpn_post_nms_top_n=300,
+              output_score=True), "trans"),
+        ("_contrib_MultiProposal", proposal_inputs,
+         dict(rpn_pre_nms_top_n=2000, rpn_post_nms_top_n=300), "trans"),
+        ("_contrib_DeformableConvolution",
+         lambda: [rn(8, 64, 32, 32), rn(8, 2 * 9, 32, 32, lo=-2, hi=2),
+                  rn(64, 64, 3, 3, lo=-0.1, hi=0.1), rn(64)],
+         dict(kernel=(3, 3), pad=(1, 1), num_filter=64), "trans"),
+        ("_contrib_PSROIPooling",
+         lambda: [rn(4, 8 * 3 * 3, 32, 32), rois(32, 4, 64, 64)],
+         dict(spatial_scale=0.5, output_dim=8, pooled_size=3), "trans"),
+        ("_contrib_DeformablePSROIPooling", dpsroi,
+         dict(spatial_scale=0.25, output_dim=8, group_size=3,
+              pooled_size=3, sample_per_part=4, trans_std=0.1), "trans"),
+        ("_contrib_bipartite_matching", lambda: [rn(8, 100, 200, lo=0,
+                                                    hi=1)],
+         dict(threshold=0.2), "exact"),
+    ]
+
+
+#: phase 27d's aliases: alias -> its primary name
+SSD_OP_ALIASES = {
+    "MultiBoxPrior": "_contrib_MultiBoxPrior",
+    "MultiBoxTarget": "_contrib_MultiBoxTarget",
+    "MultiBoxDetection": "_contrib_MultiBoxDetection",
+    "_contrib_nms": "_contrib_box_nms", "ctc_loss": "_contrib_ctc_loss",
+    "CTCLoss": "_contrib_ctc_loss", "_contrib_CTCLoss": "_contrib_ctc_loss",
+    "Proposal": "_contrib_Proposal", "MultiProposal": "_contrib_MultiProposal",
+    "DeformableConvolution": "_contrib_DeformableConvolution",
+    "PSROIPooling": "_contrib_PSROIPooling",
+    "DeformablePSROIPooling": "_contrib_DeformablePSROIPooling"}
+
+
+def phase_ssd_ops(torch, np, mx, dev, card):
+    """27d: the 15 names of ops/contrib.py this slice ports (and once
+    each, their aliases) on the card, through mx.nd.<name> on NDArrays of
+    the card, held against the same call on the CPU (item2_one), and
+    where the op is differentiable its gradients; then gluon's CTCLoss
+    forward and backward on both. Prints each largest error beside its
+    limit and the card's ms."""
+    from mxnet_tpu_torch.ops import registry
+    rows, first = [], {}
+    for i, (name, make, params, kind) in enumerate(ssd_op_cases(torch,
+                                                                 dev)):
+        first.setdefault(name, (make, params, kind))
+        t0 = time.perf_counter()
+        inputs = make()
+        err, gerr, ms, tol, gtol = item2_one(
+            torch, mx, registry, name, inputs, params, kind, dev, 2700 + i,
+            grads=True)
+        row = {"name": name, "max_err": err, "tol": tol, "card_ms": ms,
+               "wall_s": time.perf_counter() - t0}
+        if registry.get(name).differentiable:
+            row.update(max_grad_err=gerr, grad_tol=gtol)
+        rows.append(row)
+    for alias, op in SSD_OP_ALIASES.items():
+        make, params, kind = first[op]
+        err, _, ms, tol, _ = item2_one(torch, mx, registry, alias, make(),
+                                       params, kind, dev, 0, grads=False)
+        rows.append({"name": alias, "max_err": err, "tol": tol,
+                     "card_ms": ms})
+    # gluon's CTCLoss (blank last, NTC) forward and backward
+    g = torch.Generator().manual_seed(SSD_SEED)
+    pred = torch.rand(16, 50, 20, generator=g) * 4 - 2
+    label = torch.randint(0, 19, (16, 10), generator=g).float()
+    label[:, 7:] = -1
+    res = {}
+    for where, ctx in (("card", _ctx(mx, dev)), ("cpu", mx.cpu())):
+        p = mx.nd.array(pred.numpy(), ctx=ctx)
+        p.attach_grad()
+        with mx.autograd.record():
+            loss = mx.gluon.loss.CTCLoss()(p, mx.nd.array(label.numpy(),
+                                                          ctx=ctx))
+        loss.backward()
+        res[where] = (loss._data.detach(), p.grad._data)
+    tol = ITEM2_TOL["trans"]
+    err = item2_err(torch, res["card"][0], res["cpu"][0])
+    gerr = item2_err(torch, res["card"][1], res["cpu"][1])
+    check(err <= tol and gerr <= tol, "gluon CTCLoss on the card against "
+          "the CPU: loss %.3g, grad %.3g (tol %g)" % (err, gerr, tol))
+    rows.append({"name": "gluon.loss.CTCLoss", "max_err": err, "tol": tol,
+                 "max_grad_err": gerr, "grad_tol": tol})
+    for r in rows:
+        print("ssd op 27d %-32s max err %.3g (tol %g)%s%s" % (
+            r["name"], r["max_err"], r["tol"],
+            ", grad %.3g (tol %g)" % (r["max_grad_err"], r["grad_tol"])
+            if r.get("max_grad_err") is not None else "",
+            ", card %.3f ms" % r["card_ms"] if "card_ms" in r else ""))
+    out = {"card": card, "cases": len(rows), "rows": rows}
+    print("ssd ops 27d (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
+class _OnCard:
+    """A package whose `cpu()` is the card: runs an example that builds
+    its Module with `context=mx.cpu()` on the card unchanged."""
+
+    def __init__(self, pkg, dev):
+        self._pkg, self._dev = pkg, dev
+
+    def __getattr__(self, name):
+        return getattr(self._pkg, name)
+
+    def cpu(self, device_id=0):
+        return self._pkg.gpu(self._dev.index or 0)
+
+
+def phase_custom_example(torch, np, mx, dev, card):
+    """27e: examples/custom_op.py at its defaults (the NumpySoftmax head
+    through Module, 2 epochs of the synthetic MNIST) with its context on
+    the card: main() returns 0 (validation accuracy >= 0.9)."""
+    module = load_example("custom_op.py")
+    check(module.operator is mx.operator, "the example did not load the "
+          "port's operator module")
+    module.mx = _OnCard(mx, dev)
+    np.random.seed(SSD_SEED)
+    mx.random.seed(SSD_SEED)
+    argv = sys.argv
+    sys.argv = ["custom_op.py"]
+    t0 = time.perf_counter()
+    try:
+        rc = module.main()
+    finally:
+        sys.argv = argv
+    torch.cuda.synchronize()
+    check(rc == 0, "examples/custom_op.py failed its own check on the "
+          "card (rc %s)" % rc)
+    out = {"card": card, "rc": rc, "seconds": time.perf_counter() - t0}
+    print("custom op example 27e (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
+def phase_ssd(torch, np, dev, card):
+    """Phase 27 (module docstring): SSDLite at bench width (27a-b), the
+    example's loop through ImageDetIter (27c), the slice's ops on the card
+    against the CPU (27d), the custom-op example (27e). Returns ({path:
+    K3a-d launches}, summary)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    module = load_example("train_ssd.py")
+    check(module.SSDLite is mx.models.SSDLite, "the example did not load "
+          "the port's SSDLite")
+    try:
+        import cv2
+        cv2_found = cv2.__version__
+    except ImportError:
+        cv2_found = None
+    print("ssd 27: cv2 importable on this machine: %s" % (
+        "yes (%s)" % cv2_found if cv2_found else "no"))
+    prior = os.environ.get("MXNET_FUSED_BN_EPILOGUE")
+    out = {"card": card, "cv2": cv2_found}
+    t0 = time.perf_counter()
+    try:
+        with mx.gpu(dev.index or 0):
+            net, batch, a_launches, out["27a"] = phase_ssd_train(
+                torch, np, mx, fb, dev, card, module)
+            out["27b"] = phase_ssd_infer(torch, np, mx, dev, card, module,
+                                         batch)
+            del net, batch
+            c_launches, out["27c"] = phase_ssd_example(torch, np, mx, fb,
+                                                       dev, card, module)
+            out["27d"] = phase_ssd_ops(torch, np, mx, dev, card)
+            out["27e"] = phase_custom_example(torch, np, mx, dev, card)
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_BN_EPILOGUE", None)
+        else:
+            os.environ["MXNET_FUSED_BN_EPILOGUE"] = prior
+    out["s"] = time.perf_counter() - t0
+    print("ssd phase 27 (%s): %.1f s" % (card, out["s"]))
+    return {"ssdlite_phase27a": a_launches,
+            "ssd_example_phase27c": c_launches}, out
+
 
 def main():
     import torch
@@ -8588,6 +9255,7 @@ def main():
         res_launches, _ = phase_resilience(torch, np, dev, smi)
         tp_launches, tp_int8_launches, _ = phase_tp_rollout(
             torch, np, dev, smi)
+        ssd_launches, _ = phase_ssd(torch, np, dev, smi)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -8677,7 +9345,7 @@ def main():
         "resnet50_remat_io": remat_launches["io"],
         "resnet50_guard": guard_k3,
         "resnet50_mesh_dp2_zero1_rank0": dist_launches["k3"]},
-        **zoo_launches), inc_totals)
+        **zoo_launches, **ssd_launches), inc_totals)
     kernels += rnn_kernel_rows(rnn_errs, rnn_rows, {
         "word_lm_trainstep": lm_launches,
         "word_lm_gluon_hybridized": lmh_launches,

@@ -61,6 +61,8 @@ from . import metric
 from . import kvstore
 from . import kvstore as kv
 from . import io
+from . import recordio
+from . import image
 from . import gluon
 from . import model
 from .model import FeedForward
@@ -78,6 +80,8 @@ from . import profiler
 from . import utils
 from . import visualization
 from . import contrib
+from . import operator
+from .operator import CustomOp, CustomOpProp
 
 __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "autograd", "initializer", "init",
@@ -87,4 +91,5 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "model", "FeedForward", "symbol_doc", "module", "mod",
            "callback", "executor_manager", "monitor", "mon", "rnn",
            "models", "test_utils", "profiler", "utils", "visualization",
-           "contrib"]
+           "contrib", "recordio", "image", "operator", "CustomOp",
+           "CustomOpProp"]

@@ -1,7 +1,9 @@
 """Datasets (port of `mxnet_tpu/gluon/data/dataset.py`): Dataset with
-`filter`, `transform` and `transform_first`, SimpleDataset and
-ArrayDataset."""
+`filter`, `transform` and `transform_first`, SimpleDataset, ArrayDataset
+and RecordFileDataset."""
 from __future__ import annotations
+
+import os
 
 from ...ndarray import NDArray
 
@@ -83,3 +85,19 @@ class ArrayDataset(Dataset):
 
     def __len__(self):
         return self._length
+
+
+class RecordFileDataset(Dataset):
+    """The raw records of a RecordIO file, by position, through the
+    `.idx` file beside it."""
+
+    def __init__(self, filename):
+        from ... import recordio
+        idx_file = os.path.splitext(filename)[0] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

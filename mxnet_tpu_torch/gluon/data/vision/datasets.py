@@ -1,12 +1,13 @@
 """Vision datasets (port of `mxnet_tpu/gluon/data/vision/datasets.py`):
-MNIST, FashionMNIST, CIFAR10 and CIFAR100.
+MNIST, FashionMNIST, CIFAR10 and CIFAR100, ImageRecordDataset and
+ImageFolderDataset.
 
 Nothing is downloaded: a dataset reads its standard files under `root`
 when they are there, and otherwise builds the reference's hermetic
 synthetic set from the same seeds, value for value. Samples are host
-(CPU) NDArrays of uint8 HWC images with int32 labels.
-ImageRecordDataset and ImageFolderDataset wait for `image` and
-`recordio` (ROADMAP.md, queue 1).
+(CPU) NDArrays of uint8 HWC images with int32 labels. ImageRecordDataset
+(a RecordIO pack) and ImageFolderDataset (one subfolder a class) decode
+with `image.imdecode`, which needs OpenCV.
 """
 from __future__ import annotations
 
@@ -154,3 +155,66 @@ class CIFAR100(CIFAR10):
             self._data, self._label = _synthetic(
                 5000 if self._train else 1000, (32, 32, 3),
                 self._num_classes, seed=46 if self._train else 47)
+
+
+class ImageRecordDataset(Dataset):
+    """(decoded image, header label) of each record of a RecordIO
+    pack."""
+
+    def __init__(self, filename, flag=1, transform=None):
+        from ..dataset import RecordFileDataset
+        self._record = RecordFileDataset(filename)
+        self._flag = flag
+        self._transform = transform
+
+    def __len__(self):
+        return len(self._record)
+
+    def __getitem__(self, idx):
+        from .... import image, recordio
+        header, img = recordio.unpack(self._record[idx])
+        img = image.imdecode(img, flag=self._flag)
+        label = header.label
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+
+class ImageFolderDataset(Dataset):
+    """(decoded image, class index) of the .jpg / .jpeg / .png files
+    under root, one subfolder a class in sorted order (`synsets`)."""
+
+    def __init__(self, root, flag=1, transform=None):
+        self._root = os.path.expanduser(root)
+        self._flag = flag
+        self._transform = transform
+        self._exts = [".jpg", ".jpeg", ".png"]
+        self._list_images(self._root)
+
+    def _list_images(self, root):
+        self.synsets = []
+        self.items = []
+        for folder in sorted(os.listdir(root)):
+            path = os.path.join(root, folder)
+            if not os.path.isdir(path):
+                continue
+            label = len(self.synsets)
+            self.synsets.append(folder)
+            for filename in sorted(os.listdir(path)):
+                filename = os.path.join(path, filename)
+                ext = os.path.splitext(filename)[1]
+                if ext.lower() not in self._exts:
+                    continue
+                self.items.append((filename, label))
+
+    def __getitem__(self, idx):
+        from .... import image
+        with open(self.items[idx][0], "rb") as f:
+            img = image.imdecode(f.read(), flag=self._flag)
+        label = self.items[idx][1]
+        if self._transform is not None:
+            return self._transform(img, label)
+        return img, label
+
+    def __len__(self):
+        return len(self.items)

@@ -1,12 +1,12 @@
 """Gluon losses (port of `mxnet_tpu/gluon/loss.py`): Loss, L2Loss, L1Loss,
 SigmoidBinaryCrossEntropyLoss, SoftmaxCrossEntropyLoss, KLDivLoss,
-HuberLoss, HingeLoss, SquaredHingeLoss, LogisticLoss, TripletLoss and
-PoissonNLLLoss, with the reference's shared scale-and-reduce pipeline:
+CTCLoss, HuberLoss, HingeLoss, SquaredHingeLoss, LogisticLoss,
+TripletLoss and PoissonNLLLoss, with the reference's shared scale-and-reduce pipeline:
 each elementwise loss is a `_residual` of the prediction and the label
 reshaped like it, weighted by `weight` and `sample_weight` and averaged
 over every axis but `batch_axis`. The binary cross-entropy on logits is
-softplus(z) - z * y, as the reference's. CTCLoss waits for the CTC op
-(ROADMAP.md, item 13).
+softplus(z) - z * y, as the reference's. CTCLoss runs the CTC op with
+the blank last, one loss a sequence.
 """
 from __future__ import annotations
 
@@ -135,6 +135,36 @@ class KLDivLoss(Loss):
             else F.log_softmax(pred, axis=self._axis)
         div = label * (F.log(label + 1e-12) - logp)
         return self._finish(F, div, sample_weight)
+
+
+class CTCLoss(Loss):
+    """Connectionist temporal classification, blank = the last class:
+    pred in `layout` NTC or TNC, label in `label_layout` NT or TN padded
+    with -1, optional pred_lengths / label_lengths; [N] losses."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None,
+                 **kwargs):
+        if layout not in ("NTC", "TNC"):
+            raise ValueError("layout must be NTC or TNC, got %r" % layout)
+        if label_layout not in ("NT", "TN"):
+            raise ValueError("label_layout must be NT or TN, got %r"
+                             % label_layout)
+        self._layout = layout
+        self._label_layout = label_layout
+        super().__init__(weight, label_layout.find("N"), **kwargs)
+
+    def hybrid_forward(self, F, pred, label, pred_lengths=None,
+                       label_lengths=None, sample_weight=None):
+        # the op takes time-major activations and batch-major labels
+        if self._layout == "NTC":
+            pred = F.swapaxes(pred, dim1=0, dim2=1)
+        if self._label_layout == "TN":
+            label = F.swapaxes(label, dim1=0, dim2=1)
+        per_seq = F.CTCLoss(pred, label, pred_lengths, label_lengths,
+                            use_data_lengths=pred_lengths is not None,
+                            use_label_lengths=label_lengths is not None,
+                            blank_label="last")
+        return _scaled(F, per_seq, self._weight, sample_weight)
 
 
 class HuberLoss(_MatchedLoss):

@@ -13,7 +13,8 @@ format (utils/legacy.py). The optimizer update ops (`sgd_update`,
 `linalg_*` ops without their prefix), `nd.contrib` (every `_contrib_*`
 op under its short name, `quadratic`, `rand_zipfian` and `foreach`) and
 `nd.op` (this namespace again) are the reference's. Not ported yet:
-sparse arrays (ROADMAP.md, queue 1).
+sparse arrays (ROADMAP.md, queue 1). `nd.Custom` runs a registered
+Python op (`operator.invoke`).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from ..base import torch_dtype as _torch_dtype
 from ..context import current_context
 from ..base import MXNetError as _MXNetError
 from ..ops import contrib as _ops_contrib  # noqa: F401  (registers ops)
+from ..ops import custom as _ops_custom  # noqa: F401
 from ..ops import nn as _ops_nn  # noqa: F401
 from ..ops import optimizer_ops as _ops_optimizer
 from ..ops import random_ops as _ops_random  # noqa: F401
@@ -67,6 +69,13 @@ def _make_update_op(opname, state_pos):
 
 for _uname, _upos in _ops_optimizer.UPDATE_OP_STATES.items():
     globals()[_uname] = _make_update_op(_uname, _upos)
+
+
+def Custom(*data, **kwargs):
+    """Run a registered custom op (operator.invoke): auxiliary states
+    are zeros each call, as in the reference's imperative path."""
+    from .. import operator as _operator
+    return _operator.Custom(*data, **kwargs)
 
 
 def _device(ctx):

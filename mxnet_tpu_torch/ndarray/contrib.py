@@ -1,7 +1,6 @@
 """mx.nd.contrib (port of `mxnet_tpu/ndarray/contrib.py`): every
-registered `_contrib_*` op under its name without the prefix, plus
-`quadratic`, `rand_zipfian` and `foreach`. `CTCLoss` comes with the
-`ctc_loss` op (ROADMAP.md, queue 1)."""
+registered `_contrib_*` op under its name without the prefix, `CTCLoss`
+(the `ctc_loss` op), plus `quadratic`, `rand_zipfian` and `foreach`."""
 import math as _math
 
 from ..ops import registry as _registry
@@ -18,6 +17,7 @@ for _opname in _registry.list_ops():
     if _opname.startswith("_contrib_"):
         globals()[_opname[len("_contrib_"):]] = _make(_opname)
 del _opname
+CTCLoss = ctc_loss  # noqa: F821  (made by the loop above)
 quadratic = _make("quadratic")
 
 

@@ -43,6 +43,7 @@ from .. import autograd as _autograd
 from .. import name as _name_mod
 from ..base import MXNetError, NotImplementedForSymbol, torch_dtype
 from ..ops import contrib as _ops_contrib  # noqa: F401  (registers ops)
+from ..ops import custom as _ops_custom
 from ..ops import nn as _ops_nn  # noqa: F401
 from ..ops import optimizer_ops as _ops_optimizer  # noqa: F401
 from ..ops import random_ops as _ops_random  # noqa: F401
@@ -99,7 +100,16 @@ def _static_num_outputs(opdef, kwargs):
         return 2 if kwargs.get("get_prob") else 1
     if name == "topk":
         return 2 if kwargs.get("ret_typ") == "both" else 1
+    if name == "Custom":
+        return len(_custom_prop(kwargs).list_outputs())
     return opdef.num_outputs if opdef.num_outputs > 1 else 1
+
+
+def _custom_prop(kwargs):
+    """The CustomOpProp a Custom node's parameters make."""
+    return _ops_custom.make_prop(kwargs["op_type"], {
+        k: v for k, v in kwargs.items()
+        if k != "op_type" and not isinstance(v, Symbol)})
 
 
 # tensor-input names of the ops that create their parameter variables when
@@ -799,6 +809,10 @@ def create(op_name, *args, name=None, attr=None, **kwargs):
     _bind_positional_params(opdef, args, kwargs)
 
     names = _OP_INPUT_NAMES.get(opdef.name)
+    if opdef.name == "Custom":
+        # inputs bind to the prop's declared arguments, whatever the
+        # order of the keywords
+        names = (tuple(_custom_prop(kwargs).list_arguments()), ())
     if names is not None:
         input_names, aux_names = names
         want = list(input_names)

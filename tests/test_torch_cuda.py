@@ -1820,3 +1820,112 @@ def test_probe_is_bit_identical_with_cudnn_convolutions(dev):
     first = step.probe(x, y, seed=1)
     assert all(step.probe(x, y, seed=1) == first for _ in range(3))
     assert torch.backends.cudnn.deterministic == prior
+
+
+# ---------------------------------------------------------------------------
+# BASELINE config 4 (SSD): the multibox and other contrib ops, SSDLite's
+# step through K3a-d, custom ops on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", range(16))
+def test_ssd_slice_ops_on_the_card_match_the_cpu(dev, case, monkeypatch):
+    """Each of chip_smoke.py phase 27d's cases (the slice's 15 op names)
+    at a quarter of its batch: the card's output, and its gradients where
+    the op is differentiable, within the phase's limit of the CPU's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import registry
+    monkeypatch.setattr(cs, "SSD_BATCH", 8)
+    monkeypatch.setattr(cs, "SSD_OP_DET_BATCH", 2)
+    cases = cs.ssd_op_cases(torch, dev)
+    assert len(cases) == 16
+    name, make, params, kind = cases[case]
+    err, gerr, _, tol, gtol = cs.item2_one(
+        torch, mx, registry, name, make(), params, kind, dev, case,
+        grads=True)
+    assert err <= tol and gerr <= gtol, (name, err, gerr)
+
+
+def test_multibox_detection_on_the_card_is_greedy_nms(dev):
+    import mxnet_tpu_torch as mx
+    g = torch.Generator().manual_seed(0)
+    A = cs.ssd_anchor_count()
+    probs = torch.softmax(torch.randn(4, 21, A, generator=g) * 3, 1).to(dev)
+    loc = (torch.randn(4, 4 * A, generator=g) * 0.5).to(dev)
+    anchors = cs.ssd_op_cases(torch, dev)[2][1]()[2]
+    det = mx.nd.contrib.MultiBoxDetection(
+        mx.nd.NDArray(probs), mx.nd.NDArray(loc), mx.nd.NDArray(anchors),
+        nms_threshold=0.45)._data
+    assert det.device == dev and det.shape == (4, A, 6)
+    assert cs.nms_violations(torch, probs, det, 0.45) == 0
+    assert int((det[..., 0] >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("flag", ["1", "0"])
+def test_ssd_step_on_the_card_launches_k3_once_a_batchnorm(dev, flag,
+                                                            monkeypatch):
+    """One examples/train_ssd.py step of SSDLite (batch 4, 64 x 64) on the
+    card: K3a-d 5 times each with the flag on, none with it off, and the
+    loss within 1e-4 of the same step on the CPU from the same weights."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.models import gluon_params_from_numpy
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    monkeypatch.setenv("MXNET_FUSED_BN_EPILOGUE", flag)
+    module = cs.load_example("train_ssd.py")
+    x, y = cs.ssd_batch(np, np.random.RandomState(0), 4, 64, 3, 4)
+    losses, arrays = {}, None
+    for where in ("cpu", "card"):
+        ctx = mx.cpu() if where == "cpu" else mx.gpu(0)
+        with ctx:
+            with mx.name.NameManager():
+                net = module.SSDLite(num_classes=3)
+            net.initialize(mx.init.Xavier())
+            net(mx.nd.array(x[:1]))
+            if arrays is None:
+                arrays = {n: p.data().asnumpy()
+                          for n, p in net.collect_params().items()}
+            gluon_params_from_numpy(net, arrays)
+            trainer = mx.gluon.Trainer(net.collect_params(), "adam",
+                                       {"learning_rate": 0.005})
+            n0 = fb.launch_counts()
+            loss = cs.ssd_train(mx, net, trainer, module.ssd_loss,
+                                mx.nd.array(x), mx.nd.array(y), 4)
+            losses[where] = float(loss.asnumpy())
+            n1 = fb.launch_counts()
+    want = 5 if flag == "1" else 0
+    assert tuple(b - a for a, b in zip(n0, n1)) == (want,) * 4
+    assert losses["card"] == pytest.approx(losses["cpu"], rel=1e-4)
+
+
+def test_custom_op_on_the_card_keeps_its_arrays_there(dev):
+    """nd.Custom and a bound sym.Custom on card arrays: the op's inputs,
+    outputs and gradients all on the card."""
+    import mxnet_tpu_torch as mx
+    seen = []
+
+    class Scale(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            seen.append((in_data[0].context, mx.current_context()))
+            self.assign(out_data[0], req[0], in_data[0] * 3)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], out_grad[0] * 3)
+
+    @mx.operator.register("_card_test_scale")
+    class ScaleProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Scale()
+
+    x = mx.nd.array(np.arange(6, dtype=np.float32).reshape(2, 3),
+                    ctx=mx.gpu(0))
+    x.attach_grad()
+    with mx.autograd.record():
+        y = mx.nd.Custom(x, op_type="_card_test_scale")
+    y.backward()
+    assert y._data.device == dev and x.grad._data.device == dev
+    np.testing.assert_allclose(x.grad.asnumpy(), np.full((2, 3), 3.0))
+    s = mx.sym.Custom(mx.sym.Variable("data"), op_type="_card_test_scale")
+    exe = s.simple_bind(mx.gpu(0), data=(2, 3))
+    out = exe.forward(is_train=True, data=x)[0]
+    assert out._data.device == dev
+    assert all(c.device_type == "gpu" for pair in seen for c in pair)

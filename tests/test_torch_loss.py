@@ -2,8 +2,9 @@
 the JAX reference on the CPU, mirroring tests/test_loss.py: L1Loss,
 SigmoidBinaryCrossEntropyLoss (from logits and from sigmoid), KLDivLoss
 (from log-probabilities and from logits), HuberLoss, HingeLoss,
-SquaredHingeLoss, LogisticLoss (signed and binary labels), TripletLoss
-and PoissonNLLLoss (from log-rates, from rates, with Stirling's term),
+SquaredHingeLoss, LogisticLoss (signed and binary labels), TripletLoss,
+PoissonNLLLoss (from log-rates, from rates, with Stirling's term) and
+CTCLoss (both layouts, with and without lengths),
 each with and without a constructor `weight`, a `sample_weight` and
 another `batch_axis`. Each case runs the same numpy inputs through both
 packages: the loss and the gradient of its sum with respect to the
@@ -174,6 +175,50 @@ def test_poisson_full_finite_at_zero_targets():
             mx.nd.array(pred), mx.nd.array(target)).asnumpy(), **_TOL)
 
 
-def test_ctc_loss_not_exported_yet():
-    """CTCLoss waits for the CTC op (ROADMAP.md, item 13)."""
-    assert not hasattr(tmx.gluon.loss, "CTCLoss")
+@pytest.mark.parametrize("layout,label_layout,lengths,weighted", [
+    ("NTC", "NT", False, False), ("TNC", "TN", True, True),
+    ("NTC", "TN", True, False), ("TNC", "NT", False, False)])
+def test_ctc_loss_not_exported_yet(layout, label_layout, lengths, weighted):
+    """CTCLoss (blank last, -1 padding) in both layouts, with and without
+    lengths, a weight and a sample_weight: the per-sequence losses and the
+    gradient of their sum against the reference's, and hybridized against
+    eager. (Named when the port had no CTC op; it now holds the port's
+    CTCLoss to the reference.)"""
+    T, N, C = 10, 3, 5
+    rs = np.random.RandomState(11)
+    pred = rs.randn(N, T, C).astype(np.float32)
+    label = -np.ones((N, 4), np.float32)
+    for i, k in enumerate((4, 2, 3)):
+        label[i, :k] = rs.randint(0, C - 1, k)
+    if layout == "TNC":
+        pred = pred.transpose(1, 0, 2).copy()
+    if label_layout == "TN":
+        label = label.T.copy()
+    extra = [np.array([10, 7, 8], np.float32),
+             np.array([4, 2, 3], np.float32)] if lengths else []
+    sw = rs.uniform(0, 2, (N,)).astype(np.float32) if weighted else None
+
+    def run(pkg, hybridize=False):
+        loss = pkg.gluon.loss.CTCLoss(layout=layout,
+                                      label_layout=label_layout,
+                                      weight=0.5 if weighted else None)
+        if hybridize:
+            loss.hybridize()
+        x = pkg.nd.array(pred)
+        x.attach_grad()
+        args = [pkg.nd.array(a) for a in [label] + extra]
+        if sw is not None:       # positional: after the two lengths
+            args.append(pkg.nd.array(sw))
+        with pkg.autograd.record():
+            out = loss(x, *args)
+        out.backward()
+        return out.asnumpy(), x.grad.asnumpy()
+
+    want, want_g = run(mx)
+    got, got_g = run(tmx)
+    assert got.shape == (N,)
+    np.testing.assert_allclose(got, want, **_TOL)
+    np.testing.assert_allclose(got_g, want_g, **_TOL)
+    hyb, hyb_g = run(tmx, hybridize=True)
+    np.testing.assert_allclose(hyb, got, **_TOL)
+    np.testing.assert_allclose(hyb_g, got_g, **_TOL)

@@ -15,7 +15,8 @@ and keeps the example's (1, 1, 1, 1); the net's outputs have one shape in
 both.
 
 The coverage test pins what is left of the reference's op registry: the
-29 names (and their aliases) ROADMAP item 13 keeps; and no module of
+13 names (and their aliases) of ops/quantization.py and ops/sparse.py
+that ROADMAP item 13 keeps; and no module of
 `mxnet_tpu_torch` imports jax or `mxnet_tpu`. Mirrors
 tests/test_contrib.py::test_rand_zipfian_nd_and_sym.
 
@@ -48,20 +49,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 #: the reference's registered names (aliases included) that ROADMAP item
-#: 13 keeps: 15 of ops/contrib.py, 7 of ops/quantization.py, 6 of
-#: ops/sparse.py and Custom, with their aliases
+#: 13 keeps: the 7 of ops/quantization.py and the 6 of ops/sparse.py,
+#: with their aliases
 ITEM_13 = {
-    # ops/contrib.py
-    "_contrib_MultiBoxPrior", "MultiBoxPrior", "_contrib_MultiBoxTarget",
-    "MultiBoxTarget", "_contrib_MultiBoxDetection", "MultiBoxDetection",
-    "_contrib_box_iou", "_contrib_box_nms", "_contrib_nms",
-    "_contrib_ctc_loss", "ctc_loss", "CTCLoss", "_contrib_CTCLoss",
-    "_contrib_count_sketch", "_contrib_fft", "_contrib_ifft",
-    "_contrib_Proposal", "Proposal", "_contrib_MultiProposal",
-    "MultiProposal", "_contrib_DeformableConvolution",
-    "DeformableConvolution", "_contrib_PSROIPooling", "PSROIPooling",
-    "_contrib_DeformablePSROIPooling", "DeformablePSROIPooling",
-    "_contrib_bipartite_matching",
     # ops/quantization.py
     "_contrib_quantize", "quantize", "_contrib_dequantize", "dequantize",
     "_contrib_requantize", "requantize",
@@ -72,8 +62,6 @@ ITEM_13 = {
     # ops/sparse.py
     "_rsp_to_dense", "_dense_to_rsp", "_csr_to_dense", "sparse_retain",
     "_sparse_retain", "_csr_dot_dense", "_rsp_dot_dense",
-    # ops/custom.py
-    "Custom",
 }
 
 
@@ -101,7 +89,7 @@ def test_op_coverage_leaves_item_13():
     assert missing == ITEM_13, (sorted(missing - ITEM_13),
                                 sorted(ITEM_13 - missing))
     primary = {ref_registry.OPS[n].name for n in missing}
-    assert len(primary) == 29
+    assert len(primary) == 13
     assert not set(port_registry.OPS) - set(ref_registry.OPS)
 
 
@@ -161,14 +149,15 @@ def test_nd_contrib_names():
     ref = _public(mx.nd.contrib)
     port = _public(tmx.nd.contrib)
     kept = {n[len("_contrib_"):] for n in ITEM_13
-            if n.startswith("_contrib_")} | {"CTCLoss"}
+            if n.startswith("_contrib_")}
     assert port == ref - kept - {"NDArray"}, sorted(port ^ (ref - kept))
     for n in ("AdaptiveAvgPooling2D", "BilinearResize2D", "div_sqrt_dim",
-              "PagedAttention", "quadratic", "rand_zipfian", "foreach"):
+              "PagedAttention", "quadratic", "rand_zipfian", "foreach",
+              "MultiBoxPrior", "box_nms", "ctc_loss", "CTCLoss"):
         assert n in port
     assert tmx.contrib.ndarray.PagedAttention is \
         tmx.nd.contrib.PagedAttention
-    assert not hasattr(tmx.nd.contrib, "CTCLoss")
+    assert tmx.nd.contrib.CTCLoss is tmx.nd.contrib.ctc_loss
 
 
 def test_nd_op_is_the_flat_namespace():

@@ -179,16 +179,18 @@ def test_json_attribute_values_round_trip(value):
 
 
 def test_json_of_an_op_the_port_lacks_names_it():
-    # _contrib_box_iou waits for ROADMAP item 13
+    # _contrib_quantize waits for ROADMAP item 13
     def make(sym):
-        return sym._contrib_box_iou(sym.Variable("lhs"), sym.Variable("rhs"),
-                                    name="iou")
+        return sym._contrib_quantize(sym.Variable("data"),
+                                     sym.Variable("min_range"),
+                                     sym.Variable("max_range"), name="q")
     text = make(mx.sym).tojson()
-    with pytest.raises(MXNetError, match="'_contrib_box_iou'"):
+    with pytest.raises(MXNetError, match="'_contrib_quantize'"):
         tmx.sym.load_json(text)
-    with pytest.raises(MXNetError, match="'_contrib_box_iou'"):
-        tmx.sym.create("_contrib_box_iou", tmx.sym.Variable("lhs"),
-                       tmx.sym.Variable("rhs"))
+    with pytest.raises(MXNetError, match="'_contrib_quantize'"):
+        tmx.sym.create("_contrib_quantize", tmx.sym.Variable("data"),
+                       tmx.sym.Variable("min_range"),
+                       tmx.sym.Variable("max_range"))
 
 
 def test_attribute_scope_and_multipliers_match_reference():
