@@ -505,7 +505,47 @@ Phases (any failure exits non-zero before the last line):
                 whether OpenCV imports, step ms, img/s, peak memory, the
                 busy share, the ops' ms and errors beside their limits,
                 with the card's name and power limit.
-  28. the kernels line (K2's, K3a-d's and K4a-b's launches summed over
+  28. BASELINE config 5 and int8 quantization (the rest of ROADMAP
+                item 13), seed 28; runs none of the kernels line's
+                kernels: (a) SparseLinear at bench.py's non-smoke
+                bench_sparse_linear width (batch 512, 2,000,000
+                features, 60 stored values a row, SGD at lr 0.1) on a
+                CSR batch built as CSR: the first step against the port
+                on the CPU (loss, touched rows and updated rows within
+                SPARSE_TOL, every other row bit-equal), the transposed
+                product's run-to-run spread (0: segment sums without
+                atomics), 1 warm-up and 15 timed steps, the syncs of a
+                step (PyTorch's sync debug mode), peak memory above the
+                phase's start under SPARSE_PEAK_LIMIT (the dense batch
+                would be 4.1 GB), a profiled step; (b) the same model
+                through kv.create("local") (row-sparse push, the store's
+                optimizer, pull) against no store, bit-equal weights
+                after 3 steps, row_sparse_pull of the batch's rows equal
+                to the weight's, lazy Adam against the CPU; (c) the
+                factorization machine (8 factors) at that width, 5 steps
+                with a falling loss; (d) examples/sparse_linear_
+                classification.py at its defaults on the card (its
+                accuracy against the CPU's), LibSVMIter over a file of
+                4096 lines at the example's width, whole (its batches
+                trained as CSR on the card) and in 2 parts; (e) the
+                dist_sync row-sparse init / push / row_sparse_pull of
+                two ranks over gloo on cuda:0 against the one-process
+                sum, run inside phase 24d's launch; (f) resnet50_v1
+                quantized as bench_resnet50_int8_infer does it (Gluon
+                export, model.load_checkpoint, quantize_model with
+                calib "none": 53 int8 convolutions and the int8 FC),
+                bound with grad_req "null": 2 warm-up and 20 timed
+                forwards at batch 256 of 224 x 224 beside the float
+                executor's, top-1 agreement and the largest relative
+                logit error against the float net, each layer's int32
+                accumulators against the CPU fed the card's own int8
+                inputs on 2 images (within Q_INT32_TOL), peak memory;
+                (g) examples/quantize_int8.py at its defaults with its
+                context on the card (its own check: rc 0); (h) the 13
+                names and their aliases on the card against the port on
+                the CPU (integer outputs exact), each error beside its
+                limit and the card's ms.
+  29. the kernels line (K2's, K3a-d's and K4a-b's launches summed over
      every path that runs them, split in `launches_by_path`; K3a-d's
      sums over an Inception-v3 step under `inception_v3_step`),
      nvidia-smi's line, and the last line {"ok": true, "device": {...}}.
@@ -7705,22 +7745,33 @@ def phase_distributed(torch, np, dev, card, r50_floor):
                                                           ulp_floor))
         _print_ranks("distributed 24c", c, card, list(c[0]))
 
-        # 24d: tools/launch.py and the port's dist LeNet worker
+        # 24d: tools/launch.py and the port's dist kvstore flows (dense,
+        # row-sparse init / push / row_sparse_pull against the
+        # one-process sum (phase 28e), 2-bit, the server-side optimizer)
+        # and dist LeNet worker
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, os.path.join(TOOLS, "launch.py"), "-n",
              str(DIST_WORLD), "--launcher", "local", sys.executable,
              os.path.join(TESTS, "test_torch_dist_kvstore.py"), "--check",
-             "lenet", "--device", device, "--compress"],
+             "kvstore", "--check", "lenet", "--device", device,
+             "--compress"],
             capture_output=True, text=True, timeout=600)
         wall_d = time.perf_counter() - t0
         check(proc.returncode == 0 and
-              proc.stdout.count("DIST_LENET_OK") == DIST_WORLD,
-              "24d: tools/launch.py dist LeNet rc %d:\n%s\n%s"
+              proc.stdout.count("DIST_LENET_OK") == DIST_WORLD and
+              proc.stdout.count("DIST_KVSTORE_OK") == DIST_WORLD,
+              "24d: tools/launch.py dist kvstore + LeNet rc %d:\n%s\n%s"
               % (proc.returncode, proc.stdout[-3000:], proc.stderr[-3000:]))
-        print("distributed 24d (%s): tools/launch.py -n %d dist_sync 2-bit "
-              "LeNet in %.1f s: %s" % (card, DIST_WORLD, wall_d,
-                                       proc.stdout.strip()))
+        print("distributed 24d (%s): tools/launch.py -n %d dist_sync "
+              "kvstore flows (row-sparse included) and 2-bit LeNet in "
+              "%.1f s: %s" % (card, DIST_WORLD, wall_d,
+                              proc.stdout.strip()))
+        summary["24d_kvstore"] = {
+            "ranks": DIST_WORLD, "wall_s_with_lenet": wall_d,
+            "row_sparse_sum_equal_to_one_process": True,
+            "lines": [ln for ln in proc.stdout.splitlines()
+                      if "DIST_KVSTORE_OK" in ln]}
 
         lm_path = prep_24e(torch, mx, dev, tmp)
         free()
@@ -9185,6 +9236,610 @@ def phase_ssd(torch, np, dev, card):
             "ssd_example_phase27c": c_launches}, out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: BASELINE config 5 (sparse linear, FM) and int8 post-training
+# quantization (the rest of ROADMAP item 13)
+# ---------------------------------------------------------------------------
+
+#: bench.py's non-smoke bench_sparse_linear width: batch 512, 2,000,000
+#: features, 60 stored values a row (30,720 a batch; columns drawn with
+#: repeats, as the bench draws them), 2 classes, SGD at lr 0.1; seed 28
+SPARSE_SEED = 28
+SPARSE_BATCH, SPARSE_FEATURES, SPARSE_NNZ_ROW = 512, 2000000, 60
+SPARSE_LR = 0.1
+SPARSE_WARMUP, SPARSE_STEPS, SPARSE_STORE_STEPS = 1, 15, 3
+#: 28a: the step's peak device memory above the phase's start: the dense
+#: batch alone would be 512 x 2,000,000 x 4 B = 4.1 GB
+SPARSE_PEAK_LIMIT = 1 << 30
+#: 28a-c: card against the port on the CPU (float32 segment sums in
+#: another order: relative to the largest value, as phase 21a's "sum")
+SPARSE_TOL = 1e-5
+#: 28c: the factorization machine on the same data, 8 factors
+FM_FACTORS, FM_STEPS = 8, 5
+#: 28d: LibSVMIter over a file the phase writes at
+#: examples/sparse_linear_classification.py's width (1000 features,
+#: density 0.05, batch 64)
+SPARSE_EX_LINES, SPARSE_EX_FEATURES = 4096, 1000
+SPARSE_EX_DENSITY, SPARSE_EX_BATCH = 0.05, 64
+#: 28f: bench.py's non-smoke bench_resnet50_int8_infer: resnet50_v1
+#: exported from Gluon, model.load_checkpoint, quantize_model with
+#: calib_mode "none", batch 256 of 3 x 224 x 224, 2 warm-up and 20 timed
+#: forwards; the int32 accumulators against the port's CPU path on 2
+#: images
+Q_BATCH, Q_IMAGE, Q_WARMUP, Q_STEPS, Q_CPU_IMAGES = 256, 224, 2, 20, 2
+#: 28f: largest |int32 accumulator on the card - on the CPU| of one layer
+#: over the same int8 inputs (the quantized convolution computes in
+#: float32, exact while each partial sum stays below 2^24; cuDNN may pick
+#: another algorithm than the CPU's)
+Q_INT32_TOL = 0
+#: 28h: the 13 names on the card against the CPU
+Q_OP_TOL = {"exact": 0.0, "sum": 1e-5}
+
+
+def count_syncs(torch, fn):
+    """(fn(), the device-to-host synchronisations it made, the source
+    lines that made them): PyTorch's sync debug mode warns at each one."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = ["%s:%d" % (os.path.relpath(w.filename), w.lineno)
+             for w in caught if "synchroniz" in str(w.message)]
+    return out, len(where), where
+
+
+def sparse_batch(np, mx, ctx):
+    """bench_sparse_linear's CSR batch and random labels, built as CSR
+    (never dense) on `ctx`."""
+    n, d, nnz_row = SPARSE_BATCH, SPARSE_FEATURES, SPARSE_NNZ_ROW
+    rs = np.random.RandomState(SPARSE_SEED)
+    cols = rs.randint(0, d, n * nnz_row).astype(np.int32)
+    indptr = np.arange(0, n * nnz_row + 1, nnz_row).astype(np.int32)
+    vals = rs.rand(n * nnz_row).astype(np.float32)
+    y = (rs.rand(n) > 0.5).astype(np.float32)
+    return (mx.nd.sparse.CSRNDArray(vals, cols, indptr, (n, d), ctx=ctx),
+            mx.nd.array(y, ctx=ctx))
+
+
+def rows_err(torch, got, want, rows):
+    """item2_err over the given rows of two weights (card and CPU)."""
+    return item2_err(torch, got.index_select(0, rows.to(got.device)).cpu(),
+                     want.index_select(0, rows.cpu()))
+
+
+def phase_sparse_linear(torch, np, mx, dev, card):
+    """28a: SparseLinear at bench width on the card: the first step
+    against the port on the CPU (loss, touched rows, updated rows; every
+    other row bit-equal), the transposed product's spread over two runs,
+    1 warm-up and 15 timed steps, syncs a step, peak memory above the
+    phase's start, a profiled step."""
+    ctx = _ctx(mx, dev)
+    with mx.cpu():
+        xc, yc = sparse_batch(np, mx, mx.cpu())
+        cpu = mx.models.SparseLinear(SPARSE_FEATURES, 2,
+                                     learning_rate=SPARSE_LR)
+        cpu_loss = cpu.step(xc, yc)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with ctx:
+        x, y = sparse_batch(np, mx, ctx)
+        model = mx.models.SparseLinear(SPARSE_FEATURES, 2,
+                                       learning_rate=SPARSE_LR)
+    w0 = model.weight._data.clone()
+    touched = mx.nd.sparse.touched_rows(x)
+    check(torch.equal(touched.cpu(), mx.nd.sparse.touched_rows(xc)),
+          "28a: the touched rows differ from the CPU's")
+    loss0 = model.step(x, y)
+    rows = touched.long()
+    untouched = torch.ones(SPARSE_FEATURES, dtype=torch.bool, device=dev)
+    untouched[rows] = False
+    w1 = model.weight._data
+    loss_err = abs(loss0 - cpu_loss) / abs(cpu_loss)
+    w_err = rows_err(torch, w1, cpu.weight._data, rows)
+    check(loss_err <= SPARSE_TOL and w_err <= SPARSE_TOL,
+          "28a: the first step on the card against the CPU: loss %.3g, "
+          "updated rows %.3g (tol %g)" % (loss_err, w_err, SPARSE_TOL))
+    check(torch.equal(w1[untouched], w0[untouched]),
+          "28a: a row the batch does not touch moved")
+    # the transposed product (the weight gradient) twice: its segment
+    # sums run without atomics, so the spread must be 0
+    g = torch.randn(SPARSE_BATCH, 2, device=dev)
+    a = mx.nd.sparse.dot(x, mx.nd.NDArray(g), transpose_a=True)._data
+    b = mx.nd.sparse.dot(x, mx.nd.NDArray(g), transpose_a=True)._data
+    spread = float((a - b).abs().max())
+    check(spread == 0.0, "28a: csr^T . dense differs run to run by %g"
+          % spread)
+    del a, b
+    losses = [loss0] + [model.step(x, y) for _ in range(SPARSE_WARMUP)]
+    times = []
+    for _ in range(SPARSE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(model.step(x, y))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    loss, syncs, sync_lines = count_syncs(torch, lambda: model.step(x, y))
+    losses.append(loss)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "28a: losses not finite or not falling: %r" % losses)
+    check(peak - base < SPARSE_PEAK_LIMIT,
+          "28a: the sparse step's peak memory %d B above the phase's start "
+          "passes %d B" % (peak - base, SPARSE_PEAK_LIMIT))
+    prof = profile_step(torch, "sparse linear 28a", lambda: torch.tensor(
+        model.step(x, y)))
+    ms = sorted(1e3 * t for t in times)
+    mean_ms = sum(ms) / len(ms)
+    out = {"card": card, "batch": SPARSE_BATCH,
+           "features": SPARSE_FEATURES, "nnz": SPARSE_BATCH * SPARSE_NNZ_ROW,
+           "touched_rows": int(rows.numel()), "steps_timed": SPARSE_STEPS,
+           "step_ms_mean": mean_ms, "step_ms_p50": float(np.median(ms)),
+           "samples_per_s": SPARSE_BATCH / (mean_ms / 1e3),
+           "syncs_per_step": syncs, "sync_lines": sync_lines,
+           "loss_first": losses[0],
+           "loss_last": losses[-1], "first_step_loss_rel_err": loss_err,
+           "first_step_rows_err": w_err, "csrT_dot_run_to_run": spread,
+           "peak_bytes": peak, "peak_bytes_above_start": peak - base,
+           "dense_batch_bytes": SPARSE_BATCH * SPARSE_FEATURES * 4,
+           "profile": prof}
+    print("sparse linear 28a (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
+def phase_sparse_store(torch, np, mx, dev, card):
+    """28b: the same model through kv.create("local") (row-sparse push,
+    the store's optimizer, pull) against no store, 3 steps, equal
+    weights; row_sparse_pull of the batch's rows against the weight;
+    lazy Adam on the card against the CPU."""
+    ctx = _ctx(mx, dev)
+    with ctx:
+        x, y = sparse_batch(np, mx, ctx)
+        kv_model = mx.models.SparseLinear(
+            SPARSE_FEATURES, 2, kvstore=mx.kv.create("local"),
+            learning_rate=SPARSE_LR)
+        plain = mx.models.SparseLinear(SPARSE_FEATURES, 2,
+                                       learning_rate=SPARSE_LR)
+    for _ in range(SPARSE_STORE_STEPS):
+        kv_model.step(x, y)
+        plain.step(x, y)
+    diff = float((kv_model.weight._data - plain.weight._data).abs().max())
+    check(diff == 0.0, "28b: the store's weights differ from the plain "
+          "model's by %g" % diff)
+    rows = mx.nd.sparse.touched_rows(x)
+    pulled = kv_model.row_sparse_pull(mx.nd.NDArray(rows))
+    check(torch.equal(pulled._indices, rows) and torch.equal(
+        pulled._values, kv_model.weight._data[rows.long()]),
+        "28b: row_sparse_pull's rows differ from the weight's")
+    adam = {}
+    for where, c in (("card", ctx), ("cpu", mx.cpu())):
+        with c:
+            xa, ya = sparse_batch(np, mx, c)
+            m = mx.models.SparseLinear(SPARSE_FEATURES, 2, optimizer="adam",
+                                       learning_rate=0.01)
+            for _ in range(2):
+                m.step(xa, ya)
+            adam[where] = m.weight._data
+    adam_err = rows_err(torch, adam["card"], adam["cpu"], rows.long())
+    check(adam_err <= SPARSE_TOL, "28b: lazy Adam on the card against the "
+          "CPU: %.3g > %g" % (adam_err, SPARSE_TOL))
+    out = {"card": card, "store_vs_plain_max_diff": diff,
+           "pulled_rows": int(rows.numel()), "lazy_adam_rows_err": adam_err}
+    print("sparse store 28b (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
+def phase_fm(torch, np, mx, dev, card):
+    """28c: the factorization machine at bench width, 8 factors: 5 steps
+    on one batch, step ms, a falling loss."""
+    ctx = _ctx(mx, dev)
+    with ctx:
+        x, y = sparse_batch(np, mx, ctx)
+        fm = mx.models.FactorizationMachine(SPARSE_FEATURES, FM_FACTORS,
+                                            learning_rate=SPARSE_LR,
+                                            seed=SPARSE_SEED)
+    losses, times = [], []
+    for _ in range(FM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(fm.step(x, y))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          "28c: FM losses not finite or not falling: %r" % losses)
+    ms = [1e3 * t for t in times]
+    out = {"card": card, "factors": FM_FACTORS, "steps": FM_STEPS,
+           "step_ms": ms, "step_ms_after_first": float(np.mean(ms[1:])),
+           "losses": losses}
+    print("factorization machine 28c (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
+def run_example(module, argv):
+    """module.main() under `argv`, its stdout captured: (rc, text)."""
+    import contextlib
+    import io
+    saved = sys.argv
+    sys.argv = argv
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = module.main()
+    finally:
+        sys.argv = saved
+    return rc, buf.getvalue()
+
+
+def write_libsvm(np, path, lines, features, density, seed):
+    """A LibSVM file of `lines` rows at `density`, labels from a planted
+    weight."""
+    rs = np.random.RandomState(seed)
+    w = rs.uniform(-1, 1, features)
+    with open(path, "w") as f:
+        for _ in range(lines):
+            cols = np.nonzero(rs.rand(features) < density)[0]
+            vals = rs.uniform(-1, 1, cols.size)
+            f.write("%d %s\n" % (int(vals @ w[cols] > 0), " ".join(
+                "%d:%.6f" % kv for kv in zip(cols, vals))))
+
+
+def phase_sparse_example(torch, np, mx, dev, card):
+    """28d: examples/sparse_linear_classification.py at its defaults on
+    the card (its printed figures against the port on the CPU), then
+    LibSVMIter over a file of 4096 lines at the example's width, whole
+    and in 2 parts, its batches trained as CSR on the card."""
+    module = load_example("sparse_linear_classification.py")
+    check(module.mx.models.SparseLinear is mx.models.SparseLinear,
+          "the example did not load the port's SparseLinear")
+    with mx.cpu():
+        rc_cpu, text_cpu = run_example(module, ["x"])
+    module.mx = _OnCard(mx, dev)
+    t0 = time.perf_counter()
+    with _ctx(mx, dev):
+        rc, text = run_example(module, ["x"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    acc = float(text.strip().splitlines()[-1].split()[-1])
+    acc_cpu = float(text_cpu.strip().splitlines()[-1].split()[-1])
+    check(abs(acc - acc_cpu) <= 0.02, "28d: the example's accuracy on the "
+          "card %.3f against %.3f on the CPU" % (acc, acc_cpu))
+    tmp = tempfile.mkdtemp(prefix="mxtt_phase28_")
+    try:
+        path = os.path.join(tmp, "data.libsvm")
+        write_libsvm(np, path, SPARSE_EX_LINES, SPARSE_EX_FEATURES,
+                     SPARSE_EX_DENSITY, SPARSE_SEED)
+        parts = [sum(1 for _ in mx.io.LibSVMIter(
+            path, (SPARSE_EX_FEATURES,), batch_size=SPARSE_EX_BATCH,
+            num_parts=2, part_index=i)) for i in range(2)]
+        check(parts == [SPARSE_EX_LINES // 2 // SPARSE_EX_BATCH] * 2,
+              "28d: LibSVMIter parts gave %r batches" % parts)
+        it = mx.io.LibSVMIter(path, (SPARSE_EX_FEATURES,),
+                              batch_size=SPARSE_EX_BATCH)
+        ctx = _ctx(mx, dev)
+        with ctx:
+            model = mx.models.SparseLinear(SPARSE_EX_FEATURES, 2,
+                                           learning_rate=0.5)
+        losses = []
+        t1 = time.perf_counter()
+        for batch in it:
+            xb = batch.data[0].as_in_context(ctx).tostype("csr")
+            losses.append(model.step(xb, batch.label[0].as_in_context(ctx)))
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(len(losses) == SPARSE_EX_LINES // SPARSE_EX_BATCH and
+          np.mean(losses[-8:]) < np.mean(losses[:8]),
+          "28d: LibSVMIter training: %d batches, losses %r"
+          % (len(losses), losses[::8]))
+    out = {"card": card, "example_rc": rc, "example_accuracy": acc,
+           "example_accuracy_cpu": acc_cpu, "example_s": wall,
+           "example_lines": text.strip().splitlines(),
+           "libsvm_batches": len(losses), "libsvm_parts_batches": parts,
+           "libsvm_samples_per_s": SPARSE_EX_LINES / loop_s,
+           "libsvm_loss_first8": float(np.mean(losses[:8])),
+           "libsvm_loss_last8": float(np.mean(losses[-8:]))}
+    print("sparse example 28d (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
+def quantized_layers(qsym):
+    """The quantized FullyConnected / Convolution nodes of a graph."""
+    return [n for n in qsym._topo() if n.op is not None and n.op.name in (
+        "_contrib_quantized_conv", "_contrib_quantized_fully_connected")]
+
+
+def int32_against_cpu(torch, mx, qsym, qargs, qaux, x, dev):
+    """Each quantized layer's int32 accumulator on the card against the
+    same layer on the CPU fed the card's own int8 inputs and ranges:
+    (largest |difference|, layers differing, largest |accumulator|)."""
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.symbol import Symbol
+    layers = quantized_layers(qsym)
+    outs = []
+    for n in layers:
+        outs += list(n.inputs) + [(n, 0)]
+    group = Symbol(outs)
+    ctx = _ctx(mx, dev)
+    args = {k: v for k, v in qargs.items()
+            if k in group.list_arguments()}
+    exe = group.bind(ctx, args=dict(args, data=mx.nd.NDArray(x)),
+                     aux_states={k: qaux[k] for k in
+                                 group.list_auxiliary_states()},
+                     grad_req="null")
+    vals = [o._data for o in exe.forward(is_train=False)]
+    worst, differing, largest, at = 0, 0, 0, 0
+    for n in layers:
+        k = len(n.inputs)
+        ins, card_acc = vals[at:at + k], vals[at + k]
+        at += k + 1
+        want = registry.get(n.op.name).fn(*[t.cpu() for t in ins],
+                                          **n.kwargs)[0]
+        d = int((card_acc.cpu().long() - want.long()).abs().max())
+        worst = max(worst, d)
+        differing += d > 0
+        largest = max(largest, int(want.long().abs().max()))
+    return worst, differing, largest, len(layers)
+
+
+def phase_quantized_resnet(torch, np, mx, dev, card):
+    """28f: ResNet-50 v1 quantized as bench_resnet50_int8_infer does it
+    (Gluon export, model.load_checkpoint, quantize_model calib "none")
+    and bound with grad_req "null": 2 warm-up and 20 timed forwards at
+    batch 256 beside the float executor's; top-1 agreement and the
+    largest relative logit error against the float net; each layer's
+    int32 accumulators against the CPU on 2 images; peak memory."""
+    from mxnet_tpu_torch.contrib.quantization import quantize_model
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    ctx = _ctx(mx, dev)
+    mx.random.seed(SPARSE_SEED)
+    tmp = tempfile.mkdtemp(prefix="mxtt_phase28f_")
+    try:
+        with ctx:
+            net = vision.resnet50_v1()
+            net.initialize(mx.init.Xavier())
+            net(mx.nd.zeros((1, 3, Q_IMAGE, Q_IMAGE)))
+            net.export(os.path.join(tmp, "r50"))
+            sym, args, aux = mx.model.load_checkpoint(
+                os.path.join(tmp, "r50"), 0)
+        del net
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    qsym, qargs, qaux = quantize_model(sym, args, aux, ctx=ctx)
+    quantize_s = time.perf_counter() - t0
+    layers = quantized_layers(qsym)
+    n_conv = sum(n.op.name == "_contrib_quantized_conv" for n in layers)
+    check((n_conv, len(layers) - n_conv) == (53, 1),
+          "28f: %d int8 convolutions and %d int8 FC, not 53 and 1"
+          % (n_conv, len(layers) - n_conv))
+    rs = np.random.RandomState(SPARSE_SEED)
+    x = torch.from_numpy(rs.uniform(-1, 1, (Q_BATCH, 3, Q_IMAGE, Q_IMAGE))
+                         .astype(np.float32)).to(dev)
+    res = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for what, s, a in (("float32", sym, args), ("int8", qsym, qargs)):
+        exe = s.bind(ctx, args=dict(a, data=mx.nd.NDArray(x)),
+                     aux_states=dict(qaux if what == "int8" else aux),
+                     grad_req="null")
+        for _ in range(Q_WARMUP):
+            exe.forward(is_train=False)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(Q_STEPS):
+            exe.forward(is_train=False)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t1) / Q_STEPS
+        res[what] = {"ms": 1e3 * sec, "img_per_s": Q_BATCH / sec,
+                     "logits": exe.outputs[0]._data.float(),
+                     "profile": profile_step(
+                         torch, "%s resnet50 forward 28f" % what,
+                         lambda: exe.forward(is_train=False)[0]._data
+                         .float().sum())}
+        del exe
+    peak = torch.cuda.max_memory_allocated(dev)
+    f, q = res["float32"].pop("logits"), res["int8"].pop("logits")
+    check(bool(torch.isfinite(q).all()), "28f: int8 logits not finite")
+    agree = float((f.argmax(1) == q.argmax(1)).float().mean())
+    rel = float((q - f).abs().max()) / max(float(f.abs().max()), 1e-30)
+    worst, differing, largest, n_layers = int32_against_cpu(
+        torch, mx, qsym, qargs, qaux, x[:Q_CPU_IMAGES], dev)
+    check(worst <= Q_INT32_TOL, "28f: an int32 accumulator on the card "
+          "differs from the CPU's by %d (limit %d; %d of %d layers differ)"
+          % (worst, Q_INT32_TOL, differing, n_layers))
+    out = {"card": card, "batch": Q_BATCH, "image": Q_IMAGE,
+           "int8_layers": {"conv": n_conv, "fc": len(layers) - n_conv},
+           "quantize_model_s": quantize_s, "forwards_timed": Q_STEPS,
+           "float32": res["float32"], "int8": res["int8"],
+           "top1_agreement": agree, "max_rel_logit_err": rel,
+           "int32_max_abs_diff_vs_cpu": worst,
+           "int32_layers_differing": differing,
+           "int32_largest_abs_acc": largest, "int32_limit": Q_INT32_TOL,
+           "peak_bytes": peak}
+    print("quantized resnet50 28f (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
+def phase_quantize_example(torch, np, mx, dev, card):
+    """28g: examples/quantize_int8.py at its defaults with its context on
+    the card: rc 0 (int8 within 5 points of fp32), both accuracies."""
+    module = load_example("quantize_int8.py")
+    module.mx = _OnCard(mx, dev)
+    np.random.seed(SPARSE_SEED)
+    mx.random.seed(SPARSE_SEED)
+    t0 = time.perf_counter()
+    rc, text = run_example(module, ["quantize_int8.py"])
+    torch.cuda.synchronize()
+    check(rc == 0, "examples/quantize_int8.py failed its own check on the "
+          "card (rc %s): %s" % (rc, text))
+    out = {"card": card, "rc": rc, "seconds": time.perf_counter() - t0,
+           "lines": text.strip().splitlines()}
+    print("quantize example 28g (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
+def item13_op_cases(torch, dev):
+    """(name, inputs made on the card, params, kind) at the phase's
+    sizes: the sparse ops at 28a's batch, the quantized ops at a ResNet
+    layer's shapes (batch 2), the FC at ResNet-50's head and at
+    num_hidden 10."""
+    g = torch.Generator(device=dev).manual_seed(SPARSE_SEED)
+    nnz = SPARSE_BATCH * SPARSE_NNZ_ROW
+
+    def r(v):
+        return torch.tensor(float(v), device=dev)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def un(*shape):
+        return torch.rand(shape, generator=g, device=dev) * 2 - 1
+    indptr = torch.arange(0, nnz + 1, SPARSE_NNZ_ROW, device=dev,
+                          dtype=torch.int32)
+    cols = torch.randint(0, SPARSE_FEATURES, (nnz,), generator=g,
+                         device=dev, dtype=torch.int32)
+    vals = torch.rand(nnz, generator=g, device=dev)
+    ids = torch.unique(cols)[:4096].int()
+    rows = un(ids.numel(), 8)
+    csr = [indptr, cols, vals]
+    big = dict(num_rows=SPARSE_BATCH, num_cols=SPARSE_FEATURES)
+    return [
+        ("_rsp_to_dense", [ids, rows], dict(num_rows=SPARSE_FEATURES),
+         "exact"),
+        ("_dense_to_rsp", [un(4096, 8)], {}, "exact"),
+        ("_csr_to_dense", [indptr[:65], cols[:64 * 60], vals[:64 * 60]],
+         dict(num_rows=64, num_cols=SPARSE_FEATURES), "sum"),
+        ("sparse_retain", [ids, rows, ids[::3]], {}, "exact"),
+        ("_csr_dot_dense", csr + [un(SPARSE_FEATURES, 2)], big, "sum"),
+        ("_csr_dot_dense", csr + [un(SPARSE_BATCH, 2)],
+         dict(big, transpose_lhs=True), "sum"),
+        ("_rsp_dot_dense", [ids, rows, un(8, 16)], {}, "sum"),
+        ("_contrib_quantize", [un(2, 256, 56, 56) * 3, r(-2.5), r(3.0)],
+         {}, "exact"),
+        ("_contrib_dequantize", [i8(2, 256, 56, 56), r(-2.5), r(3.0)], {},
+         "exact"),
+        ("_contrib_requantize",
+         [torch.randint(-40000, 40000, (256, 1000), generator=g,
+                        device=dev, dtype=torch.int32), r(-3), r(3)], {},
+         "exact"),
+        ("_contrib_quantized_fully_connected",
+         [i8(256, 2048), i8(1000, 2048), r(-1), r(1), r(-0.2), r(0.2),
+          i8(1000), r(-0.1), r(0.1)], dict(num_hidden=1000), "exact"),
+        ("_contrib_quantized_fully_connected",
+         [i8(64, 36), i8(10, 36), r(-1), r(1), r(-0.2), r(0.2)],
+         dict(num_hidden=10, no_bias=True), "exact"),
+        ("_contrib_quantized_conv",
+         [i8(2, 64, 56, 56), i8(64, 64, 3, 3), r(-1), r(1), r(-0.2),
+          r(0.2)], dict(kernel=(3, 3), pad=(1, 1), num_filter=64,
+                        no_bias=True), "exact"),
+        ("_contrib_quantized_pooling", [i8(32, 64, 112, 112), r(-1), r(1)],
+         dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="max"),
+         "exact"),
+        ("_contrib_quantized_flatten", [i8(256, 2048, 1, 1), r(-1), r(1)],
+         {}, "exact"),
+    ]
+
+
+#: phase 28h's aliases: alias -> its primary name
+ITEM13_ALIASES = {
+    "_sparse_retain": "sparse_retain", "quantize": "_contrib_quantize",
+    "dequantize": "_contrib_dequantize",
+    "requantize": "_contrib_requantize",
+    "quantized_fully_connected": "_contrib_quantized_fully_connected",
+    "quantized_conv": "_contrib_quantized_conv",
+    "quantized_pooling": "_contrib_quantized_pooling",
+    "quantized_flatten": "_contrib_quantized_flatten"}
+
+
+def item13_one(torch, mx, name, card_in, params, tol):
+    """One op through mx.nd.<name> on the card and on the CPU: (largest
+    error, the card's ms). Integer outputs count their largest
+    |difference|; float ones item2_err."""
+    fn = getattr(mx.nd, name)
+    with mx.cpu():
+        want = fn(*[mx.nd.NDArray(t.cpu()) for t in card_in], **params)
+    card_nds = [mx.nd.NDArray(t) for t in card_in]
+    got = fn(*card_nds, **params)
+    want = [w._data for w in (want if isinstance(want, tuple) else (want,))]
+    got = [o._data for o in (got if isinstance(got, tuple) else (got,))]
+    check(len(got) == len(want) and all(
+        o.dtype == w.dtype and o.shape == w.shape and o.device ==
+        card_in[0].device for o, w in zip(got, want)),
+        "%s: the card's outputs differ in number, dtype, shape or device"
+        % name)
+    err = 0.0
+    for o, w in zip(got, want):
+        if o.is_floating_point():
+            err = max(err, item2_err(torch, o, w))
+        else:
+            err = max(err, float((o.cpu().long() - w.long()).abs().max())
+                      if w.numel() else 0.0)
+    check(err <= tol, "%s on the card against the CPU (%s): %.3g > %g"
+          % (name, {k: v for k, v in params.items()}, err, tol))
+    ms = time_ms(torch, lambda: fn(*card_nds, **params), n=5, sleep=False)
+    return err, ms
+
+
+def phase_item13_ops(torch, np, mx, dev, card):
+    """28h: the 13 names this slice ports (and once each, their aliases)
+    on the card against the port on the CPU, each largest error beside
+    its limit and the card's ms."""
+    rows, first = [], {}
+    for name, card_in, params, kind in item13_op_cases(torch, dev):
+        first.setdefault(name, (card_in, params, kind))
+        err, ms = item13_one(torch, mx, name, card_in, params,
+                             Q_OP_TOL[kind])
+        rows.append({"name": name, "max_err": err, "tol": Q_OP_TOL[kind],
+                     "card_ms": ms})
+    for alias, op in ITEM13_ALIASES.items():
+        card_in, params, kind = first[op]
+        err, ms = item13_one(torch, mx, alias, card_in, params,
+                             Q_OP_TOL[kind])
+        rows.append({"name": alias, "max_err": err, "tol": Q_OP_TOL[kind],
+                     "card_ms": ms})
+    for r in rows:
+        print("item 13 op 28h %-36s max err %.3g (tol %g), card %.3f ms"
+              % (r["name"], r["max_err"], r["tol"], r["card_ms"]))
+    out = {"card": card, "cases": len(rows),
+           "names": len({ITEM13_ALIASES.get(r["name"], r["name"])
+                         for r in rows}), "rows": rows}
+    print("item 13 ops 28h (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
+def phase_sparse_quant(torch, np, dev, card, dist_summary):
+    """Phase 28 (module docstring): sparse linear at bench width (28a),
+    through the store (28b), the FM (28c), the sparse example and
+    LibSVMIter (28d), phase 24d's row-sparse world (28e), quantized
+    ResNet-50 at bench width (28f), the quantization example (28g), the
+    slice's ops (28h). Runs no kernel of the kernels line. Returns its
+    summary."""
+    import mxnet_tpu_torch as mx
+    out = {"card": card}
+    t0 = time.perf_counter()
+    out["28a"] = phase_sparse_linear(torch, np, mx, dev, card)
+    out["28b"] = phase_sparse_store(torch, np, mx, dev, card)
+    out["28c"] = phase_fm(torch, np, mx, dev, card)
+    torch.cuda.empty_cache()
+    out["28d"] = phase_sparse_example(torch, np, mx, dev, card)
+    out["28e"] = dist_summary.get("24d_kvstore")
+    print("sparse world 28e (%s, folded into 24d's launch): %s"
+          % (card, json.dumps(out["28e"])))
+    out["28f"] = phase_quantized_resnet(torch, np, mx, dev, card)
+    torch.cuda.empty_cache()
+    out["28g"] = phase_quantize_example(torch, np, mx, dev, card)
+    out["28h"] = phase_item13_ops(torch, np, mx, dev, card)
+    out["s"] = time.perf_counter() - t0
+    print("sparse + int8 phase 28 (%s): %.1f s" % (card, out["s"]))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9250,12 +9905,13 @@ def main():
         phase_stochastic_depth(torch, np, dev, smi)
         fd_launches, _ = phase_front_door(torch, np, dev, smi)
         fleet_launches, _ = phase_fleet(torch, np, dev, smi)
-        dist_launches, _ = phase_distributed(
+        dist_launches, dist_summary = phase_distributed(
             torch, np, dev, smi, r50_path["first_step_float32"]["grad_floor"])
         res_launches, _ = phase_resilience(torch, np, dev, smi)
         tp_launches, tp_int8_launches, _ = phase_tp_rollout(
             torch, np, dev, smi)
         ssd_launches, _ = phase_ssd(torch, np, dev, smi)
+        phase_sparse_quant(torch, np, dev, smi, dist_summary)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1

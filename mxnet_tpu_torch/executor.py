@@ -14,7 +14,11 @@ the graph again in training mode first, as the reference's re-trace does,
 leaving the aux states alone. An inference `forward` runs under
 `torch.no_grad()`. BatchNorm's moving statistics are updated
 functionally after a training forward (Symbol._eval). Creation nodes
-(`sym.zeros`, ...) make their tensors on the executor's device.
+(`sym.zeros`, ...) make their tensors on the executor's device. `bind`
+shares the caller's argument and aux arrays, as the reference's does;
+an array on another device than the executor's (a host batch from an
+iterator, say) is copied to the executor's device into an array of the
+executor's own, where the reference's runtime places it itself.
 """
 from __future__ import annotations
 
@@ -56,6 +60,11 @@ class Executor:
             self.aux_dict = {n: aux_states[n] for n in aux_names}
         else:
             self.aux_dict = dict(zip(aux_names, aux_states))
+        dev = self._ctx.torch_device()
+        for d in (self.arg_dict, self.aux_dict):
+            for n, a in d.items():
+                if isinstance(a, NDArray) and a._data.device != dev:
+                    d[n] = NDArray(a._data.detach().to(dev), ctx=self._ctx)
         self._grad_req = _grad_req_map(grad_req, arg_names)
         for n, req in self._grad_req.items():
             if req not in ("write", "add", "null"):

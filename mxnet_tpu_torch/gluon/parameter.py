@@ -6,8 +6,10 @@ states, and lr_mult / wd_mult.
 One buffer per parameter, on the context it was initialized on.
 `ParameterDict.save` / `load` write and read the reference's container
 (utils/serialization.py), so a file either package saved loads in the
-other. `Constant` is a parameter fixed at its value. Not ported yet:
-row_sparse data and reset_ctx (ROADMAP.md, queue 1).
+other. `Constant` is a parameter fixed at its value. `stype` and
+`grad_stype` are kept, as the reference's: the value and its gradient
+are dense buffers, and `row_sparse_data` gives the value's rows as a
+RowSparseNDArray. Not ported yet: reset_ctx (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ class Parameter:
         self.init = init
         self.allow_deferred_init = allow_deferred_init
         self._differentiable = differentiable
+        self._stype = stype
+        self._grad_stype = grad_stype
         self._is_aux = False
         self._data = None
         self._grad = None
@@ -184,6 +188,13 @@ class Parameter:
     def zero_grad(self):
         if self._grad is not None:
             self._grad._data = torch.zeros_like(self._grad._data)
+
+    def row_sparse_data(self, row_id):
+        """The rows `row_id` of the value, as a RowSparseNDArray (rows
+        the value holds as zeros come back as zero rows)."""
+        from ..ndarray.sparse import RowSparseNDArray
+        self._check_initialized()
+        return RowSparseNDArray.from_dense(self._data).retain(row_id)
 
     def cast(self, dtype):
         self.dtype = dtype

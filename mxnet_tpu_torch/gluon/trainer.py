@@ -80,6 +80,19 @@ class Trainer:
             self._kvstore.set_gradient_compression(self._compression_params)
         self._kv_initialized = True
 
+    def _row_sparse_pull(self, parameter, out, row_id):
+        """The rows `row_id` of `parameter` from the store into `out`
+        (its key initialized from the parameter's value first); nothing
+        without a store."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        idx = self._params.index(parameter)
+        if self._kvstore is not None:
+            key = "param_%d" % idx
+            if key not in self._kvstore._store:
+                self._kvstore.init(key, parameter.data())
+            self._kvstore.row_sparse_pull(key, out=out, row_ids=row_id)
+
     def step(self, batch_size, ignore_stale_grad=False):
         """allreduce + update, the gradients rescaled by 1 / batch_size."""
         if not self._kv_initialized:

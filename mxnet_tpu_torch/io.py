@@ -7,9 +7,11 @@ moves them to its device, as `Module.forward` does when it feeds the
 executor's arrays, unless it wraps the iterator in `DevicePrefetchIter`,
 which stages the next batches on the card while the current step runs.
 `NDArrayIter` shuffles with numpy's global generator, as the reference
-does, so one `np.random.seed` gives both packages the same order. Not
-ported yet: LibSVMIter (slice 6, with CSR arrays) and the image record
-iterators (ROADMAP.md, queue 1).
+does, so one `np.random.seed` gives both packages the same order. A CSR
+data source (a `CSRNDArray`) is kept as a host scipy CSR matrix and each batch densifies only its own rows, as the
+reference's `_take` does. `LibSVMIter` reads a LibSVM text file into
+such a source (its `num_parts` / `part_index` take every num_parts-th
+line). Not ported yet: the image record iterators (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 
 from .context import cpu
 from .ndarray import NDArray
+from .ndarray.sparse import CSRNDArray
 
 
 def _host(arr):
@@ -127,6 +130,11 @@ class NDArrayIter(DataIter):
                                default_name=data_name)
         self.label = _init_data(label, allow_empty=True,
                                 default_name=label_name)
+        if (_has_sparse(self.data) or _has_sparse(self.label)) and \
+                last_batch_handle != "discard":
+            raise NotImplementedError(
+                "sparse (CSR) inputs cannot be padded or rolled over; "
+                "construct NDArrayIter with last_batch_handle='discard'")
         self.idx = np.arange(self.data[0][1].shape[0])
         if shuffle:
             np.random.shuffle(self.idx)
@@ -167,8 +175,8 @@ class NDArrayIter(DataIter):
             # the tail not yet emitted leads the next epoch: gather it
             # before a reshuffle reorders idx
             tail = self.idx[self.cursor:self.num_data]
-            self._cache_data = [arr[tail] for _, arr in self.data]
-            self._cache_label = [arr[tail] for _, arr in self.label]
+            self._cache_data = [_take(arr, tail) for _, arr in self.data]
+            self._cache_label = [_take(arr, tail) for _, arr in self.label]
         else:
             self._cache_data = None
             self._cache_label = None
@@ -203,11 +211,12 @@ class NDArrayIter(DataIter):
         pad = self.getpad()
         out = []
         for i, (_, arr) in enumerate(data_source):
-            batch = arr[s]
+            batch = _take(arr, s)
             if self.cursor < 0 and cache:
                 batch = np.concatenate([cache[i], batch])
             if pad and self.last_batch_handle == "pad":
-                batch = np.concatenate([batch, arr[self.idx[:pad]]])
+                batch = np.concatenate([batch,
+                                        _take(arr, self.idx[:pad])])
             out.append(_host(batch))
         return out
 
@@ -224,14 +233,25 @@ class NDArrayIter(DataIter):
         return 0
 
 
+def _has_sparse(data):
+    return any(not isinstance(v, np.ndarray) for _, v in data)
+
+
+def _take(arr, s):
+    """Rows `s` of a source as a numpy array (a CSR source's densified)."""
+    if isinstance(arr, np.ndarray):
+        return arr[s]
+    return arr[s].toarray()
+
+
 def _init_data(data, allow_empty, default_name):
-    """[(name, numpy array)] of an iterator's data argument (float64 and
-    int64 narrowed to float32 and int32, as the reference's NDArrays
-    are)."""
+    """[(name, numpy array or host CSR matrix)] of an iterator's data
+    argument (float64 and int64 narrowed to float32 and int32, as the
+    reference's NDArrays are)."""
     assert data is not None or allow_empty
     if data is None:
         data = []
-    if isinstance(data, (np.ndarray, NDArray)):
+    if isinstance(data, (np.ndarray, NDArray, CSRNDArray)):
         data = [data]
     if isinstance(data, list):
         if not allow_empty:
@@ -248,6 +268,9 @@ def _init_data(data, allow_empty, default_name):
             "list of arrays, or a {name: array} dict" % type(data).__name__)
     out = []
     for k, v in data.items():
+        if isinstance(v, CSRNDArray):
+            out.append((k, v.asscipy()))
+            continue
         v = v.asnumpy() if isinstance(v, NDArray) else np.asarray(v)
         if v.dtype in (np.float64, np.int64):
             v = v.astype(np.float32 if v.dtype == np.float64 else np.int32)
@@ -436,6 +459,46 @@ class MNISTIter(DataIter):
         self._inner = NDArrayIter(data, lab, batch_size=batch_size,
                                   shuffle=shuffle,
                                   last_batch_handle="discard")
+        self.provide_data = self._inner.provide_data
+        self.provide_label = self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        return self._inner.next()
+
+
+class LibSVMIter(DataIter):
+    """Batches of a LibSVM text file (parity: LibSVMIter,
+    src/io/iter_libsvm.cc): `label index:value ...` a line, the features
+    a CSR source of `prod(data_shape)` columns, every num_parts-th line
+    from part_index, the last partial batch discarded. Batches are dense
+    host NDArrays, as the reference's are."""
+
+    def __init__(self, data_libsvm, data_shape, label_shape=(1,),
+                 batch_size=1, num_parts=1, part_index=0, **kwargs):
+        super().__init__(batch_size)
+        ncol = int(np.prod(data_shape))
+        with open(data_libsvm) as f:
+            lines = f.readlines()[part_index::num_parts]
+        labels, indptr, indices, values = [], [0], [], []
+        for line in lines:
+            parts = line.strip().split()
+            labels.append(float(parts[0]))
+            for kv in parts[1:]:
+                k, v = kv.split(":")
+                indices.append(int(k))
+                values.append(float(v))
+            indptr.append(len(indices))
+        csr = CSRNDArray(np.asarray(values, dtype=np.float32),
+                         np.asarray(indices, dtype=np.int64),
+                         np.asarray(indptr, dtype=np.int64),
+                         (len(labels), ncol), ctx=cpu())
+        self._inner = NDArrayIter(
+            {"data": csr},
+            {"softmax_label": np.asarray(labels, dtype=np.float32)},
+            batch_size=batch_size, last_batch_handle="discard")
         self.provide_data = self._inner.provide_data
         self.provide_label = self._inner.provide_label
 

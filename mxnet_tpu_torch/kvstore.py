@@ -26,8 +26,20 @@ which updates the stored weight; `pull` copies the stored value out.
 
 2-bit gradient compression (`set_gradient_compression({"type": "2bit",
 "threshold": t})`) quantizes each pushed value with error feedback before
-the sum (the reference's _TwoBitCompressor). Row-sparse values
-(`row_sparse_pull`) wait for the sparse NDArray of ROADMAP item 13.
+the sum (the reference's _TwoBitCompressor); row-sparse values are sent
+as they are.
+
+Row-sparse values (`ndarray.sparse.RowSparseNDArray`): a list of them
+pushed at once is summed without densifying (`merge_rowsparse`); without
+an optimizer a row-sparse push merges into the stored value, with one
+the optimizer updates the stored weight lazily over the pushed rows.
+`row_sparse_pull` gathers only the asked rows of the stored value. The
+world stores sum a row-sparse push over the ranks by gathering every
+rank's (ids, rows), padded to the largest count, and summing duplicate
+ids in rank order (no float atomics, the same bits on every rank and
+run); rows whose sum is zero drop out, as the reference's densify and
+compact drops them. `init` broadcasts rank 0's row-sparse value, its row
+count first.
 """
 from __future__ import annotations
 
@@ -36,6 +48,7 @@ import pickle
 
 from .base import MXNetError
 from .ndarray import NDArray
+from .ndarray.sparse import RowSparseNDArray, merge_rowsparse
 from . import optimizer as opt
 
 _LOCAL_TYPES = ("local", "local_update_cpu", "local_allreduce_cpu",
@@ -89,9 +102,12 @@ class KVStore:
 
     @staticmethod
     def _aggregate(vlist):
-        """The sum of a per-device list of values."""
+        """The sum of a per-device list of values (row-sparse ones merged,
+        never densified)."""
         if not isinstance(vlist, (list, tuple)):
             return vlist
+        if isinstance(vlist[0], RowSparseNDArray):
+            return vlist[0] if len(vlist) == 1 else merge_rowsparse(vlist)
         out = vlist[0]._data
         for v in vlist[1:]:
             out = out + v._data.to(out.device)
@@ -103,34 +119,80 @@ class KVStore:
 
     def init(self, key, value):
         for k, v in zip(*self._key_list(key, value)):
-            if k not in self._store:
+            if k in self._store:
+                continue
+            if isinstance(v, RowSparseNDArray):
+                self._store[k] = v
+            else:
                 self._store[k] = NDArray(v._data.detach().clone(),
                                          ctx=v.context)
 
     def push(self, key, value, priority=0):
         for k, v in zip(*self._key_list(key, value)):
             agg = self._aggregate(v)
-            if self._compressor is not None:
+            sparse = isinstance(agg, RowSparseNDArray)
+            if self._compressor is not None and not sparse:
                 agg = NDArray(self._compressor.compress(k, agg._data),
                               ctx=agg.context)
             agg = self._reduce_global(agg)
             stored = self._store[k]
             if self._updater is not None:
                 self._updater(k, agg, stored)
+            elif isinstance(stored, RowSparseNDArray) and sparse:
+                self._store[k] = merge_rowsparse([stored, agg])
+            elif isinstance(stored, RowSparseNDArray) or sparse:
+                dense = stored.todense()._data \
+                    if isinstance(stored, RowSparseNDArray) else stored._data
+                add = agg.todense()._data if sparse else agg._data
+                self._store[k] = RowSparseNDArray.from_dense(
+                    NDArray(dense + add.to(dense.device)))
             else:
                 stored._data = stored._data + agg._data.to(
                     stored._data.device)
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         for k, o in zip(*self._key_list(key, out)):
-            src = self._store[k]._data
+            stored = self._store[k]
+            src = stored.todense()._data \
+                if isinstance(stored, RowSparseNDArray) else stored._data
             for oo in (o if isinstance(o, (list, tuple)) else [o]):
                 oo._data = src.to(oo._data.device)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        raise MXNetError("row_sparse_pull needs the row-sparse NDArray, "
-                         "which comes with ROADMAP item 13 (sparse "
-                         "storage)")
+        """Only the rows `row_ids` of the stored value: into `out` (a
+        RowSparseNDArray takes the rows, a dense NDArray the densified
+        result), else returned."""
+        if row_ids is None:
+            raise MXNetError("row_sparse_pull requires row_ids")
+        if out is None and isinstance(key, (list, tuple)):
+            keys, outs = list(key), [None] * len(key)
+        else:
+            keys, outs = self._key_list(key, out)
+        if isinstance(row_ids, NDArray):
+            row_ids = [row_ids] * len(keys)
+        results = []
+        for k, o, rid in zip(keys, outs, row_ids):
+            stored = self._store[k]
+            rsp = stored if isinstance(stored, RowSparseNDArray) else \
+                RowSparseNDArray.from_dense(stored)
+            if o is None:
+                results.append(rsp.retain(rid))
+                continue
+            olist = o if isinstance(o, (list, tuple)) else [o]
+            rids = rid if isinstance(rid, (list, tuple)) \
+                else [rid] * len(olist)
+            for oo, rr in zip(olist, rids):
+                ret = rsp.retain(rr)
+                if isinstance(oo, RowSparseNDArray):
+                    dev = oo._values.device
+                    oo._indices = ret._indices.to(dev)
+                    oo._values = ret._values.to(dev)
+                else:
+                    oo._data = ret.todense()._data.to(oo._data.device)
+            results.append(o)
+        if out is None:
+            return results if isinstance(key, (list, tuple)) \
+                else results[0]
 
     def set_optimizer(self, optimizer):
         """Run the optimizer inside the store. The optimizer is copied
@@ -187,6 +249,31 @@ def _multihost_psum(tensors):
     return all_reduce_flat(tensors, world, _bigarray_bound())
 
 
+def _multihost_rsp_sum(rsp, ax):
+    """The sum of a row-sparse value over the group `ax`: every rank's
+    (ids, rows), padded to the largest count (one gather of the counts
+    first), gathered; the pads dropped; duplicate ids summed in rank
+    order; rows whose sum is zero dropped."""
+    import torch
+    from .parallel.collectives import all_gather_raw
+    idx, vals = rsp._indices, rsp._values
+    cols = tuple(vals.shape[1:])
+    counts = all_gather_raw(idx.new_full((1,), idx.shape[0]), ax)
+    kmax = int(counts.max())
+    pad = kmax - idx.shape[0]
+    idx_p = torch.cat([idx, idx.new_full((pad,), -1)])
+    vals_p = torch.cat([vals, vals.new_zeros((pad,) + cols)])
+    gi = all_gather_raw(idx_p, ax)
+    gv = all_gather_raw(vals_p, ax).reshape((-1,) + cols)
+    keep = gi >= 0
+    merged = merge_rowsparse([RowSparseNDArray(gi[keep], gv[keep],
+                                               rsp.shape, ctx=rsp.context)])
+    nz = (merged._values.reshape(merged._values.shape[0], -1) != 0) \
+        .any(dim=1)
+    return RowSparseNDArray(merged._indices[nz], merged._values[nz],
+                            rsp.shape, ctx=rsp.context)
+
+
 class KVStoreWorld(KVStore):
     """'tpu' / 'nccl' and the dist_* types: every push summed over the
     torch.distributed world."""
@@ -214,16 +301,35 @@ class KVStoreWorld(KVStore):
         return dist.is_initialized()
 
     def init(self, key, value):
-        """Rank 0's value wins."""
+        """Rank 0's value wins (a row-sparse one: its row count, then its
+        ids and rows)."""
         keys, values = self._key_list(key, value)
         if self._up():
             from .parallel.collectives import broadcast_raw
             ax = self._axis()
-            values = [NDArray(broadcast_raw(v._data, ax), ctx=v.context)
+            values = [self._broadcast_rsp(v, ax)
+                      if isinstance(v, RowSparseNDArray)
+                      else NDArray(broadcast_raw(v._data, ax), ctx=v.context)
                       for v in values]
         super().init(keys, values)
 
+    @staticmethod
+    def _broadcast_rsp(v, ax):
+        from .parallel.collectives import broadcast_raw
+        idx, vals = v._indices, v._values
+        n0 = int(broadcast_raw(idx.new_full((1,), idx.shape[0]), ax)[0])
+        if ax.index != 0:
+            idx = idx.new_zeros((n0,))
+            vals = vals.new_zeros((n0,) + tuple(vals.shape[1:]))
+        return RowSparseNDArray(broadcast_raw(idx, ax),
+                                broadcast_raw(vals, ax), v.shape,
+                                ctx=v.context)
+
     def _reduce_global(self, value):
+        if isinstance(value, RowSparseNDArray):
+            if not self._up() or self.num_workers <= 1:
+                return value
+            return _multihost_rsp_sum(value, self._axis())
         return NDArray(_multihost_psum([value._data])[0], ctx=value.context)
 
     def barrier(self):

@@ -23,15 +23,18 @@ import torch as _torch
 
 from ..base import torch_dtype as _torch_dtype
 from ..context import current_context
-from ..base import MXNetError as _MXNetError
 from ..ops import contrib as _ops_contrib  # noqa: F401  (registers ops)
 from ..ops import custom as _ops_custom  # noqa: F401
 from ..ops import nn as _ops_nn  # noqa: F401
 from ..ops import optimizer_ops as _ops_optimizer
+from ..ops import quantization as _ops_quantization  # noqa: F401
 from ..ops import random_ops as _ops_random  # noqa: F401
+from ..ops import sparse as _ops_sparse  # noqa: F401
 from ..ops import registry as _registry
 from ..ops import tensor as _ops_tensor  # noqa: F401
 from .ndarray import NDArray, _apply_op, make_nd_func
+from . import sparse
+from .sparse import BaseSparseNDArray, CSRNDArray, RowSparseNDArray
 
 for _name in list(_registry.OPS):
     globals()[_name] = make_nd_func(_registry.OPS[_name])
@@ -45,13 +48,14 @@ def _make_update_op(opname, state_pos):
 
     def update_op(*args, **kwargs):
         out = kwargs.pop("out", None)
-        for a in args:
-            stype = getattr(a, "stype", "default")
-            if stype != "default":
-                raise _MXNetError(
-                    "%s: a %s input is not ported yet: sparse arrays and "
-                    "their lazy updates come with slice 6 of the port"
-                    % (opname, stype))
+        for a in list(args) + list(kwargs.values()):
+            if isinstance(a, BaseSparseNDArray):
+                # the reference's op multiplies the sparse object by a
+                # float and fails with this TypeError
+                raise TypeError(
+                    "%s takes dense arrays, got a %s argument (densify it "
+                    "with .tostype('default'); an optimizer's update "
+                    "takes row_sparse gradients)" % (opname, a.stype))
         res = _apply_op(opdef, args, kwargs)
         res = res if isinstance(res, tuple) else (res,)
         for pos, new_state in zip(state_pos, res[1:]):
@@ -94,7 +98,14 @@ def _shape(shape):
     return (int(shape),) if _np.isscalar(shape) else tuple(shape)
 
 
-def zeros(shape, ctx=None, dtype=None, **kwargs):
+def cast_storage(data, stype="default"):
+    """data in storage type `stype` ("default", "row_sparse", "csr")."""
+    return data.tostype(stype)
+
+
+def zeros(shape, ctx=None, dtype=None, stype=None, **kwargs):
+    if stype and stype != "default":
+        return sparse.zeros(stype, shape, ctx=ctx, dtype=dtype)
     return NDArray(_torch.zeros(_shape(shape), dtype=_torch_dtype(dtype),
                                 device=_device(ctx)), ctx=ctx)
 

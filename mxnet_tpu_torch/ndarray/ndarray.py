@@ -10,7 +10,7 @@ across rebinding.
 
 torch runs eagerly, so the reference's per-op jit cache and dependency
 engine have no counterpart: `wait_to_read` synchronises the device.
-Not ported yet: sparse storage types (`tostype`).
+`tostype` converts to the sparse arrays of `ndarray/sparse.py`.
 """
 from __future__ import annotations
 
@@ -162,8 +162,26 @@ class NDArray:
         from . import Cast
         return Cast(self, dtype=dtype)
 
+    @property
+    def stype(self):
+        return "default"
+
+    def tostype(self, stype):
+        """This array in storage type `stype`: itself for "default", else
+        a RowSparseNDArray or CSRNDArray of its nonzero rows or entries."""
+        if stype == "default":
+            return self
+        from . import sparse as _sp
+        if stype == "row_sparse":
+            return _sp.RowSparseNDArray.from_dense(self)
+        if stype == "csr":
+            return _sp.CSRNDArray.from_dense(self)
+        raise ValueError("unknown stype %s" % stype)
+
     # -- autograd -----------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
+        """Mark this array for gradients; the gradient is dense whatever
+        `stype` asks, as the reference's."""
         grad = NDArray(torch.zeros_like(self._data.detach()), ctx=self._ctx)
         autograd.mark_variables([self], [grad], grad_req)
 

@@ -20,8 +20,11 @@ optimizer_rules.py.
 
 `_sparse_adagrad_update` (alias `adagrad_update`) is its dense form: a
 row whose gradient is zero keeps its weight either way, so one body
-serves both storage types. Its row_sparse front end comes with slice 6
-of the port (sparse arrays), as do the other ops' `lazy_update` paths.
+serves both storage types. The `mx.nd` wrappers take dense arrays only:
+a row_sparse argument raises TypeError there, as it does in the
+reference, whose ops multiply it by a float. Row-sparse gradients and
+the lazy updates over their rows go through the optimizer classes
+(optimizer.py).
 """
 from __future__ import annotations
 

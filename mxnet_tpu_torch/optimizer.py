@@ -9,19 +9,24 @@ attributes of a Symbol's arguments, and `multi_precision=True` keeps a
 float32 master copy of each float16 or bfloat16 weight (the reference's
 covers float16 only; bfloat16 is this port's training dtype too).
 
-Row_sparse gradients and the lazy updates over their rows come with
-slice 6 of the port (sparse arrays): a gradient whose `stype` is not
-"default" raises MXNetError.
+A row_sparse gradient (`ndarray.sparse.RowSparseNDArray`) updates only
+its stored rows under SGD and Adam with `lazy_update` (the default):
+each reads, updates and writes back the weight's and the state's rows
+at the gradient's ids, which are sorted and unique, so the row writes
+are well defined; every other row stays as it was, bit for bit. Every
+other optimizer, and these two with `lazy_update=False`, densifies the
+gradient and takes its dense rule.
 """
 from __future__ import annotations
 
+import math
 import pickle
 
 import numpy as np
 import torch
 
 from . import optimizer_rules as _rules
-from .base import MXNetError
+from .ndarray.sparse import RowSparseNDArray
 
 
 class Optimizer:
@@ -127,17 +132,25 @@ class Optimizer:
             wd *= self.wd_mult.get(self.idx2name[index], 1.0)
         return wd
 
-    def _preprocess_grad(self, grad):
-        stype = getattr(grad, "stype", "default")
-        if stype != "default":
-            raise MXNetError(
-                "%s: a %s gradient is not ported yet: sparse arrays and "
-                "their lazy updates come with slice 6 of the port"
-                % (type(self).__name__, stype))
-        g = grad._data * self.rescale_grad
+    def _rescale_clip(self, g):
+        g = g * self.rescale_grad
         if self.clip_gradient is not None:
             g = torch.clamp(g, -self.clip_gradient, self.clip_gradient)
         return g
+
+    def _preprocess_grad(self, grad):
+        """The dense gradient, rescaled and clipped; a row_sparse one is
+        densified first."""
+        if isinstance(grad, RowSparseNDArray):
+            return self._rescale_clip(grad.todense()._data)
+        return self._rescale_clip(grad._data)
+
+    def _sparse_rows(self, grad):
+        """(row ids as int64, the stored rows rescaled and clipped) of a
+        row_sparse gradient, else None."""
+        if isinstance(grad, RowSparseNDArray):
+            return grad._indices.long(), self._rescale_clip(grad._values)
+        return None
 
     # -- the pure rule -------------------------------------------------------
     rule_name = None  # subclasses set their optimizer_rules key
@@ -171,8 +184,12 @@ class Optimizer:
         if self._master(weight):
             from .ndarray import NDArray
             master, st = state
-            self.update(index, master,
-                        NDArray(grad._data.float(), ctx=grad.context), st)
+            if isinstance(grad, RowSparseNDArray):
+                g32 = RowSparseNDArray(grad._indices, grad._values.float(),
+                                       grad.shape, ctx=grad.context)
+            else:
+                g32 = NDArray(grad._data.float(), ctx=grad.context)
+            self.update(index, master, g32, st)
             weight._data = master._data.to(weight._data.dtype)
         else:
             self.update(index, weight, grad, state)
@@ -251,14 +268,34 @@ class _TupleStateOptimizer(Optimizer):
 
 @register
 class SGD(_MomentumOptimizer):
-    """SGD with momentum (parity: optimizer.py SGD; dense updates)."""
+    """SGD with momentum (parity: optimizer.py SGD), lazy over a
+    row_sparse gradient's rows."""
 
     rule_name = "sgd"
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
-        self.lazy_update = lazy_update  # row_sparse grads: slice 6
+        self.lazy_update = lazy_update
+
+    def update(self, index, weight, grad, state):
+        sparse = self._sparse_rows(grad)
+        if sparse is None or not self.lazy_update:
+            return super().update(index, weight, grad, state)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        rows, g = sparse
+        with torch.no_grad():
+            w = weight._data.detach()
+            g = g + wd * w.index_select(0, rows)
+            if state is not None:
+                m_rows = self.momentum * state._data.index_select(0, rows) \
+                    - lr * g
+                state._data = state._data.index_copy(0, rows, m_rows)
+                new_w = w.index_add(0, rows, m_rows.to(w.dtype))
+            else:
+                new_w = w.index_add(0, rows, (-lr * g).to(w.dtype))
+        weight._data = new_w
 
 
 @register
@@ -382,8 +419,8 @@ class ccSGD(SGD):
 
 @register
 class Adam(_TupleStateOptimizer):
-    """Adam (parity: optimizer.py Adam; dense updates); state (mean,
-    var)."""
+    """Adam (parity: optimizer.py Adam), lazy over a row_sparse
+    gradient's rows; state (mean, var)."""
 
     rule_name = "adam"
 
@@ -391,11 +428,35 @@ class Adam(_TupleStateOptimizer):
                  epsilon=1e-8, lazy_update=True, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
         self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
-        self.lazy_update = lazy_update  # row_sparse grads: slice 6
+        self.lazy_update = lazy_update
 
     def rule_hyper(self):
         return {"beta1": self.beta1, "beta2": self.beta2,
                 "epsilon": self.epsilon}
+
+    def update(self, index, weight, grad, state):
+        sparse = self._sparse_rows(grad)
+        if sparse is None or not self.lazy_update:
+            return super().update(index, weight, grad, state)
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        lr_t = lr * math.sqrt(1.0 - self.beta2 ** t) / \
+            (1.0 - self.beta1 ** t)
+        mean, var = state
+        rows, g = sparse
+        with torch.no_grad():
+            w = weight._data.detach()
+            g = g + wd * w.index_select(0, rows)
+            m_r = self.beta1 * mean._data.index_select(0, rows) \
+                + (1 - self.beta1) * g
+            v_r = self.beta2 * var._data.index_select(0, rows) \
+                + (1 - self.beta2) * torch.square(g)
+            mean._data = mean._data.index_copy(0, rows, m_r)
+            var._data = var._data.index_copy(0, rows, v_r)
+            upd = lr_t * m_r / (torch.sqrt(v_r) + self.epsilon)
+            new_w = w.index_add(0, rows, (-upd).to(w.dtype))
+        weight._data = new_w
 
 
 @register

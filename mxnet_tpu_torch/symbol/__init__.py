@@ -46,7 +46,9 @@ from ..ops import contrib as _ops_contrib  # noqa: F401  (registers ops)
 from ..ops import custom as _ops_custom
 from ..ops import nn as _ops_nn  # noqa: F401
 from ..ops import optimizer_ops as _ops_optimizer  # noqa: F401
+from ..ops import quantization as _ops_quantization  # noqa: F401
 from ..ops import random_ops as _ops_random  # noqa: F401
+from ..ops import sparse as _ops_sparse  # noqa: F401
 from ..ops import registry as _registry
 from ..ops import tensor as _ops_tensor  # noqa: F401
 from ..ops.nn import rnn_param_size

@@ -1,6 +1,9 @@
 """Test helpers (the share of `mxnet_tpu/test_utils.py` that BASELINE
-configs 1 and 4 use): the hermetic synthetic MNIST and its iterators, and
-the synthetic detection dataset."""
+configs 1, 4 and 5 use): the hermetic synthetic MNIST and its iterators,
+the synthetic detection dataset, and the random sparse arrays
+(`rand_ndarray`, `rand_sparse_ndarray`, `create_sparse_array[_zd]`,
+`shuffle_csr_column_indices`), drawn from numpy's global generator as
+the reference's are, so one seed gives both packages the same arrays."""
 from __future__ import annotations
 
 import os
@@ -75,3 +78,94 @@ def make_synthetic_det_dataset(path, num_images=40, size=48, num_classes=2,
         cv2.imwrite(os.path.join(path, fname),
                     cv2.cvtColor(img, cv2.COLOR_RGB2BGR))
     return imglist
+
+
+def _to_np(a):
+    return a.asnumpy() if hasattr(a, "asnumpy") else np.asarray(a)
+
+
+def rand_ndarray(shape, stype="default", density=None, dtype=None,
+                 distribution=None):
+    """A random array in [-1, 1): dense, or row_sparse with a share
+    `density` (0.5 by default) of its rows kept, or csr with that share
+    of rows and of entries kept."""
+    from .ndarray import NDArray
+    from .ndarray.sparse import CSRNDArray, RowSparseNDArray
+    density = density if density is not None else 0.5
+    dtype = dtype or np.float32
+    if stype == "default":
+        return NDArray(np.random.uniform(-1, 1, shape).astype(dtype))
+    dense = np.random.uniform(-1, 1, shape).astype(dtype)
+    mask = np.random.rand(shape[0]) < density
+    dense[~mask] = 0
+    if stype == "row_sparse":
+        return RowSparseNDArray.from_dense(NDArray(dense))
+    if stype == "csr":
+        flat_mask = np.random.rand(*shape) < density
+        dense = np.where(flat_mask, dense, 0)
+        return CSRNDArray.from_dense(NDArray(dense))
+    raise ValueError(stype)
+
+
+def rand_sparse_ndarray(shape, stype, density=None, dtype=None):
+    """(`rand_ndarray(shape, stype, ...)`, its stored ids)."""
+    arr = rand_ndarray(shape, stype, density, dtype)
+    return arr, getattr(arr, "_indices", None)
+
+
+def shuffle_csr_column_indices(csr):
+    """The csr with each row's (column, value) pairs in a shuffled order
+    (a fixture of unsorted columns)."""
+    from .ndarray.sparse import CSRNDArray
+    indices = csr._indices.cpu().numpy().copy()
+    indptr = csr._indptr.cpu().numpy()
+    for i in range(len(indptr) - 1):
+        seg = indices[indptr[i]:indptr[i + 1]]
+        np.random.shuffle(seg)
+        indices[indptr[i]:indptr[i + 1]] = seg
+    return CSRNDArray(csr._values, indices, csr._indptr, csr.shape,
+                      ctx=csr.context)
+
+
+def create_sparse_array(shape, stype, data_init=None, rsp_indices=None,
+                        dtype=None, modifier_func=None, density=0.5,
+                        shuffle_csr_indices=False):
+    """A random sparse array; `rsp_indices` pins which rows a row_sparse
+    one holds (values from np.random.randn), `data_init` sets every
+    nonzero value, `modifier_func` maps every value."""
+    from . import ndarray as nd
+    from .ndarray.sparse import RowSparseNDArray
+    if rsp_indices is not None:
+        if stype != "row_sparse":
+            raise ValueError("rsp_indices only applies to row_sparse")
+        idx = np.sort(np.asarray(rsp_indices).astype(np.int32))
+        vals = np.random.randn(len(idx), *shape[1:]).astype(
+            np.dtype(dtype) if dtype else np.float32)
+        arr = RowSparseNDArray(idx, vals, shape)
+    else:
+        arr = rand_ndarray(shape, stype=stype, density=density,
+                           dtype=dtype)
+    if data_init is not None:
+        d = _to_np(arr)
+        d[d != 0] = data_init
+        arr = nd.array(d).tostype(stype)
+    if modifier_func is not None:
+        d = np.vectorize(modifier_func)(_to_np(arr))
+        arr = nd.array(d).tostype(stype)
+    if stype == "csr" and shuffle_csr_indices:
+        arr = shuffle_csr_column_indices(arr)
+    return arr
+
+
+def create_sparse_array_zd(shape, stype, density, data_init=None,
+                           rsp_indices=None, dtype=None,
+                           modifier_func=None, shuffle_csr_indices=False):
+    """`create_sparse_array`, or an all-zero array at density 0."""
+    if density == 0:
+        from .ndarray import sparse as _sp
+        return _sp.zeros(stype, shape, dtype=dtype)
+    return create_sparse_array(shape, stype, data_init=data_init,
+                               rsp_indices=rsp_indices, dtype=dtype,
+                               modifier_func=modifier_func,
+                               density=density,
+                               shuffle_csr_indices=shuffle_csr_indices)

@@ -16,9 +16,8 @@ Layout (little-endian, dmlc::Stream conventions):
     raw data, raw aux data*nad
   shape := u32 ndim, i64*ndim        (V1 same; V0: magic IS ndim, u32 dims)
 
-Dense records load (V0, V1, V2). A sparse V2 record (row_sparse or csr)
-raises: the port has no sparse arrays yet (ROADMAP.md, slice 6), where
-the reference densifies them.
+Dense records load (V0, V1, V2); a sparse V2 record (row_sparse or
+csr) loads densified, as the reference's `_read_one` densifies it.
 """
 from __future__ import annotations
 
@@ -26,7 +25,6 @@ import struct
 
 import numpy as np
 
-from ..base import MXNetError
 
 LIST_MAGIC = 0x112
 V2_MAGIC = 0xF993FAC9
@@ -37,9 +35,10 @@ _DTYPES = {0: np.float32, 1: np.float64, 2: np.float16, 3: np.uint8,
            4: np.int32, 5: np.int8, 6: np.int64}
 _FLAGS = {np.dtype(v): k for k, v in _DTYPES.items()}
 
-# NDArrayStorageType (include/mxnet/ndarray.h:61-66)
-_STYPE_DEFAULT = 0
-_STYPE_NAMES = {1: "row_sparse", 2: "csr"}
+# NDArrayStorageType (include/mxnet/ndarray.h:61-66); aux counts:
+# row_sparse carries its row-id vector, csr its indptr and indices
+_STYPE_DEFAULT, _STYPE_ROW_SPARSE, _STYPE_CSR = 0, 1, 2
+_NUM_AUX = {_STYPE_DEFAULT: 0, _STYPE_ROW_SPARSE: 1, _STYPE_CSR: 2}
 
 
 class _Reader:
@@ -86,11 +85,11 @@ def _read_one(r):
     magic = r.unpack("I")
     if magic == V2_MAGIC:
         stype = r.unpack("i")
-        if stype != _STYPE_DEFAULT:
-            raise MXNetError(
-                "legacy NDArray file holds a %s array: sparse storage is "
-                "not ported yet (ROADMAP.md, slice 6)"
-                % _STYPE_NAMES.get(stype, "storage type %d" % stype))
+        nad = _NUM_AUX.get(stype)
+        if nad is None:
+            raise IOError("unknown storage type %d" % stype)
+        if nad:
+            return _read_sparse(r, stype, nad)
         shape = _read_shape(r)
     elif magic == V1_MAGIC:
         shape = _read_shape(r)
@@ -106,6 +105,29 @@ def _read_one(r):
     r.unpack("ii")  # context (dev_type, dev_id): placement is the caller's
     type_flag = r.unpack("i")
     return _read_array_data(r, shape, type_flag)
+
+
+def _read_sparse(r, stype, nad):
+    """The rest of a sparse V2 record, densified (None when empty)."""
+    sshape = _read_shape(r)
+    shape = _read_shape(r)
+    if not shape:
+        return None
+    r.unpack("ii")  # context
+    type_flag = r.unpack("i")
+    aux = [(r.unpack("i"), _read_shape(r)) for _ in range(nad)]
+    data = _read_array_data(r, sshape, type_flag)
+    aux_data = [_read_array_data(r, ash, at) for at, ash in aux]
+    dense = np.zeros(shape, data.dtype)
+    if stype == _STYPE_ROW_SPARSE:
+        dense[aux_data[0].astype(np.int64)] = data
+        return dense
+    indptr = aux_data[0].astype(np.int64)
+    indices = aux_data[1].astype(np.int64)
+    for row in range(shape[0]):
+        lo, hi = indptr[row], indptr[row + 1]
+        dense[row, indices[lo:hi]] = data[lo:hi]
+    return dense
 
 
 def is_legacy_ndarray_file(src):

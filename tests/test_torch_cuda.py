@@ -1929,3 +1929,105 @@ def test_custom_op_on_the_card_keeps_its_arrays_there(dev):
     out = exe.forward(is_train=True, data=x)[0]
     assert out._data.device == dev
     assert all(c.device_type == "gpu" for pair in seen for c in pair)
+
+
+# ---------------------------------------------------------------------------
+# sparse storage and int8 quantization (ROADMAP item 13's last half)
+# ---------------------------------------------------------------------------
+
+
+def test_sparse_ops_on_card_match_cpu_and_repeat(dev):
+    """csr . dense in both forms and merge_rowsparse on the card: equal to
+    the CPU within 1e-5 and the same bits run after run (segment sums,
+    no float atomics); every output on the card."""
+    from mxnet_tpu_torch.ndarray import sparse
+    import mxnet_tpu_torch as mx
+    rs = np.random.RandomState(0)
+    n, d, k = 64, 5000, 20
+    cols = rs.randint(0, d, n * k).astype(np.int32)
+    indptr = np.arange(0, n * k + 1, k).astype(np.int32)
+    vals = rs.rand(n * k).astype(np.float32)
+    rhs = rs.randn(d, 3).astype(np.float32)
+    g = rs.randn(n, 3).astype(np.float32)
+    parts = [(np.sort(rs.choice(d, 50, False)),
+              rs.randn(50, 3).astype(np.float32)) for _ in range(3)]
+    out = {}
+    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        x = sparse.CSRNDArray(vals, cols, indptr, (n, d), ctx=ctx)
+        rsp = [sparse.RowSparseNDArray(i, v, (d, 3), ctx=ctx)
+               for i, v in parts]
+
+        def run():
+            m = sparse.merge_rowsparse(rsp)
+            return (sparse.dot(x, mx.nd.array(rhs, ctx=ctx))._data,
+                    sparse.dot(x, mx.nd.array(g, ctx=ctx),
+                               transpose_a=True)._data,
+                    m._indices, m._values)
+        out[where] = run()
+        if where == "card":
+            assert all(t.device == dev for t in out[where])
+            assert all(torch.equal(a, b) for a, b in zip(run(),
+                                                         out[where]))
+    for c, h in zip(out["card"], out["cpu"]):
+        if c.is_floating_point():
+            np.testing.assert_allclose(c.cpu().numpy(), h.numpy(),
+                                       rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(c.cpu(), h)
+
+
+def test_quantized_fc_pads_to_the_int_mm_rule(dev):
+    """torch._int_mm wants inner and output extents that are multiples
+    of 8: the quantized FullyConnected zero-pads any user shape (exact in
+    int32) and slices, equal to the CPU's int32 product."""
+    from mxnet_tpu_torch.ops import quantization as q
+    g = torch.Generator().manual_seed(0)
+    for rows, inner, out in ((5, 36, 10), (33, 12, 7), (64, 2048, 1000)):
+        x = torch.randint(-127, 128, (rows, inner), generator=g,
+                          dtype=torch.int8)
+        w = torch.randint(-127, 128, (out, inner), generator=g,
+                          dtype=torch.int8)
+        r = torch.tensor(1.0)
+        want = q.quantized_fully_connected(x, w, -r, r, -r, r,
+                                           num_hidden=out, no_bias=True)[0]
+        rd = r.to(dev)
+        got = q.quantized_fully_connected(x.to(dev), w.to(dev), -rd, rd,
+                                          -rd, rd, num_hidden=out,
+                                          no_bias=True)[0]
+        assert got.device == dev and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), want)
+
+
+def test_quantize_divides_truly_on_card(dev):
+    """quantize's scale is 127 / amax divided truly: the card's int8
+    values equal the CPU's, at values on a rounding boundary too."""
+    from mxnet_tpu_torch.ops import quantization as q
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(1 << 16, generator=g) * 6 - 3
+    amax = torch.tensor(2.9)
+    x[:254] = torch.arange(-127, 127).float() * 2.9 / 127 + 0.5 * 2.9 / 127
+    want = q.quantize(x, -amax, amax)[0]
+    got = q.quantize(x.to(dev), (-amax).to(dev), amax.to(dev))[0]
+    assert torch.equal(got.cpu(), want)
+
+
+def test_lazy_sgd_and_adam_on_card_match_cpu(dev):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ndarray import sparse
+    rs = np.random.RandomState(2)
+    w0 = rs.randn(100, 4).astype(np.float32)
+    rows = np.array([3, 7, 42, 99], np.int32)
+    vals = rs.randn(4, 4).astype(np.float32)
+    for name, kw in (("sgd", dict(momentum=0.9, wd=0.01)), ("adam", {})):
+        res = {}
+        for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            w = mx.nd.array(w0, ctx=ctx)
+            up = mx.optimizer.get_updater(mx.optimizer.create(name, **kw))
+            for _ in range(3):
+                up(0, sparse.RowSparseNDArray(rows, vals, (100, 4),
+                                              ctx=ctx), w)
+            res[where] = w.asnumpy()
+        np.testing.assert_allclose(res["card"], res["cpu"], rtol=1e-5,
+                                   atol=1e-6)
+        keep = np.setdiff1d(np.arange(100), rows)
+        np.testing.assert_array_equal(res["card"][keep], w0[keep])

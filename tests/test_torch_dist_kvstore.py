@@ -12,8 +12,8 @@ tests/dist_sync_kvstore.py (dense keys, one crossing
 MXNET_KVSTORE_BIGARRAY_BOUND so its sum is chunked, 2-bit compression,
 the server-side optimizer, the combined nightly-scale flow with a
 cross-rank bit-identity digest), asserting the same globally reduced
-values, plus rank 0's value winning `init`; row-sparse pulls raise
-naming ROADMAP item 13. `--check lenet` is tests/dist_lenet.py's
+values, plus rank 0's value winning `init`, and a row-sparse init /
+push / row_sparse_pull held to the one-process sum. `--check lenet` is tests/dist_lenet.py's
 data-parallel MLP on rank-partitioned synthetic MNIST through
 `gluon.Trainer(kvstore=dist_sync)` (with `--compress`, 2-bit compression
 at threshold 0.005: each send moves a weight by at most lr x 0.005, a
@@ -57,15 +57,51 @@ def check_dense(mx, kv, rank, nworker, ctx):
     np.testing.assert_array_equal(out.asnumpy(), np.full(3, 7.0))
 
 
-def check_row_sparse_raises(mx, kv, ctx):
-    from mxnet_tpu_torch.base import MXNetError
-    try:
-        kv.row_sparse_pull("3", out=_nd(mx, np.zeros((50, 50)), ctx),
-                           row_ids=_nd(mx, [0, 1], ctx))
-    except MXNetError as e:
-        assert "ROADMAP item 13" in str(e), e
-    else:
-        raise AssertionError("row_sparse_pull did not raise")
+def check_row_sparse_raises(mx, kv, rank, nworker, ctx):
+    """Row-sparse init / push / row_sparse_pull over the world, held to
+    the one-process sum: rank 0's row-sparse value wins init; each rank
+    pushes rows of its own (some shared, one summing to zero across the
+    ranks, which drops out); the store holds the sum of every rank's
+    rows, the same bits on every rank. (The name is kept from before
+    sparse arrays, when the pull raised.)"""
+    import torch
+    from mxnet_tpu_torch.ndarray import sparse
+    shape = (40, 3)
+    rs = np.random.RandomState(7)
+    rows = [np.sort(rs.choice(np.arange(1, 40), 6, replace=False))
+            for _ in range(nworker)]
+    vals = [rs.randn(6, 3).astype(np.float32) for _ in range(nworker)]
+    rows[0][0] = rows[-1][0] = 0
+    vals[-1][0] = -vals[0][0]  # row 0 sums to zero over the ranks
+    init = sparse.RowSparseNDArray(rows[rank], vals[rank] * (rank + 1),
+                                   shape, ctx=ctx)
+    kv.init("rsp_init", init)
+    got = kv.row_sparse_pull("rsp_init", row_ids=_nd(mx, np.arange(40), ctx))
+    np.testing.assert_array_equal(got.indices.asnumpy(),
+                                  np.arange(40))
+    want = np.zeros(shape, np.float32)
+    want[rows[0]] = vals[0]
+    np.testing.assert_array_equal(got.asnumpy(), want)
+    kv.init("rsp_w", _nd(mx, np.zeros(shape), ctx))
+    kv.push("rsp_w", sparse.RowSparseNDArray(rows[rank], vals[rank], shape,
+                                         ctx=ctx))
+    local = sparse.merge_rowsparse([
+        sparse.RowSparseNDArray(r, v, shape, ctx=mx.cpu())
+        for r, v in zip(rows, vals)]).asnumpy()
+    out = _nd(mx, np.zeros(shape), ctx)
+    kv.pull("rsp_w", out=out)
+    np.testing.assert_allclose(out.asnumpy(), local, rtol=1e-6, atol=1e-7)
+    assert not out.asnumpy()[rows[0][0]].any()
+    pulled = sparse.zeros("row_sparse", shape, ctx=ctx)
+    ids = np.array([rows[0][1], rows[-1][2], 39])
+    kv.row_sparse_pull("rsp_w", out=pulled, row_ids=_nd(mx, ids, ctx))
+    np.testing.assert_array_equal(pulled.asnumpy()[ids], out.asnumpy()[ids])
+    # the sum is the same bits on every rank
+    from mxnet_tpu_torch.parallel.collectives import _Axis, all_gather_raw
+    every = all_gather_raw(out._data[None], _Axis(kv._mesh, "world"), 0)
+    for r in range(1, nworker):
+        assert torch.equal(every[r], every[0]), r
+    kv.barrier()
 
 
 def check_compressed(mx, kv, rank, nworker, ctx):
@@ -190,7 +226,7 @@ def main(argv):
     info = world_info()
     if "kvstore" in args.check:
         check_dense(mx, kv, rank, nworker, ctx)
-        check_row_sparse_raises(mx, kv, ctx)
+        check_row_sparse_raises(mx, kv, rank, nworker, ctx)
         check_compressed(mx, kv, rank, nworker, ctx)
         check_server_side_optimizer(mx, kv, rank, nworker, ctx)
         check_combined(mx, kv, rank, nworker, ctx)

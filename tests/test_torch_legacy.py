@@ -136,21 +136,61 @@ def test_load_from_bytes_and_onto_a_context(tmp_path):
     assert not legacy.is_legacy_ndarray_file(npz)
 
 
+def _rsp_record(vals, idx, shape):
+    rec = struct.pack("<Ii", legacy.V2_MAGIC, 1)
+    rec += _pack_shape(vals.shape) + _pack_shape(shape)
+    rec += struct.pack("<iii", 1, 0, legacy._FLAGS[vals.dtype])
+    rec += struct.pack("<i", 6) + _pack_shape(idx.shape)
+    return rec + vals.tobytes() + idx.tobytes()
+
+
+def _csr_record(vals, indptr, indices, shape):
+    rec = struct.pack("<Ii", legacy.V2_MAGIC, 2)
+    rec += _pack_shape(vals.shape) + _pack_shape(shape)
+    rec += struct.pack("<iii", 1, 0, legacy._FLAGS[vals.dtype])
+    rec += struct.pack("<i", 6) + _pack_shape(indptr.shape)
+    rec += struct.pack("<i", 6) + _pack_shape(indices.shape)
+    return rec + vals.tobytes() + indptr.tobytes() + indices.tobytes()
+
+
 def test_row_sparse_record_raises_not_ported(tmp_path):
-    """The reference densifies a row_sparse record (its
-    tests/test_legacy.py); the port has no sparse arrays and says so."""
+    """A row_sparse record loads densified, as the reference's (its
+    tests/test_legacy.py). (The name is kept from before sparse arrays,
+    when the port raised.)"""
     vals = np.array([[1, 2, 3], [4, 5, 6]], np.float32)
     idx = np.array([0, 4], np.int64)
-    rec = struct.pack("<Ii", legacy.V2_MAGIC, 1)
-    rec += _pack_shape(vals.shape) + _pack_shape((5, 3))
-    rec += struct.pack("<iii", 1, 0, 0)
-    rec += struct.pack("<i", 6) + _pack_shape(idx.shape)
-    rec += vals.tobytes() + idx.tobytes()
     path = tmp_path / "rsp.params"
-    path.write_bytes(_pack_file([rec], ["w"]))
-    assert mx.nd.load(str(path))["w"].shape == (5, 3)
-    with pytest.raises(MXNetError, match="row_sparse.*not ported"):
-        tmx.nd.load(str(path))
+    path.write_bytes(_pack_file([_rsp_record(vals, idx, (5, 3))], ["w"]))
+    want = mx.nd.load(str(path))["w"].asnumpy()
+    got = tmx.nd.load(str(path))["w"]
+    assert got.shape == (5, 3) and got.dtype == np.float32
+    np.testing.assert_array_equal(got.asnumpy(), want)
+    np.testing.assert_array_equal(got.asnumpy()[[0, 4]], vals)
+
+
+def test_sparse_records_load_densified(tmp_path):
+    """A file of row_sparse, csr (with an empty row) and dense records:
+    every array equal to the reference's load, in order."""
+    rng = np.random.RandomState(4)
+    dense = rng.rand(4, 6).astype(np.float32)
+    dense[rng.rand(4, 6) > 0.4] = 0
+    dense[2] = 0
+    indptr = np.concatenate([[0], np.cumsum((dense != 0).sum(1))])
+    indices = np.nonzero(dense)[1].astype(np.int64)
+    recs = [_csr_record(dense[dense != 0], indptr.astype(np.int64), indices,
+                        dense.shape),
+            _rsp_record(rng.randn(3, 2).astype(np.float64),
+                        np.array([1, 2, 6], np.int64), (7, 2)),
+            _v1(np.arange(6, dtype=np.int32).reshape(2, 3))]
+    path = tmp_path / "mixed.params"
+    path.write_bytes(_pack_file(recs, ["c", "r", "d"]))
+    want = mx.nd.load(str(path))
+    got = tmx.nd.load(str(path))
+    assert list(got) == list(want) == ["c", "r", "d"]
+    for k in want:
+        np.testing.assert_array_equal(got[k].asnumpy(), want[k].asnumpy())
+        assert got[k].dtype == want[k].dtype
+    np.testing.assert_array_equal(got["c"].asnumpy(), dense)
 
 
 def test_truncated_file_raises(tmp_path):

@@ -287,7 +287,8 @@ def test_kvstore_local_push_pull_and_optimizer():
 def test_kvstore_distributed_types_raise_naming_slice_5(kind):
     """The distributed types are stores now (distributed training): with
     no world and no launcher variables, a world of one worker, as the
-    reference's; only row-sparse pulls still raise, naming item 13."""
+    reference's, whose row-sparse pull gathers the asked rows. (The name
+    is kept from the slice that made them stores.)"""
     kv = tmx.kv.create(kind)
     assert kv.type == kind and kv.rank == 0 and kv.num_workers == 1
     kv.init(3, tmx.nd.ones((2, 2)))
@@ -295,8 +296,12 @@ def test_kvstore_distributed_types_raise_naming_slice_5(kind):
     out = tmx.nd.zeros((2, 2))
     kv.pull(3, out=out)
     np.testing.assert_array_equal(out.asnumpy(), np.full((2, 2), 3.0))
-    with pytest.raises(MXNetError, match="ROADMAP item 13"):
-        kv.row_sparse_pull(3, out=out, row_ids=tmx.nd.array([0]))
+    kv.row_sparse_pull(3, out=out, row_ids=tmx.nd.array([1]))
+    np.testing.assert_array_equal(out.asnumpy(), [[0, 0], [3, 3]])
+    rsp = tmx.nd.sparse.zeros("row_sparse", (2, 2))
+    kv.row_sparse_pull(3, out=rsp, row_ids=tmx.nd.array([0]))
+    np.testing.assert_array_equal(rsp.indices.asnumpy(), [0])
+    np.testing.assert_array_equal(rsp.data.asnumpy(), [[3, 3]])
 
 
 # ---------------------------------------------------------------------------

@@ -14,10 +14,10 @@ positional scalars, so its traced gate is `()`; the port binds them (F9)
 and keeps the example's (1, 1, 1, 1); the net's outputs have one shape in
 both.
 
-The coverage test pins what is left of the reference's op registry: the
-13 names (and their aliases) of ops/quantization.py and ops/sparse.py
-that ROADMAP item 13 keeps; and no module of
-`mxnet_tpu_torch` imports jax or `mxnet_tpu`. Mirrors
+The coverage tests pin the op registry: every name of the reference's
+(aliases included) is the port's, the 13 of ops/quantization.py and
+ops/sparse.py among them; and no module of `mxnet_tpu_torch` imports jax
+or `mxnet_tpu`. Mirrors
 tests/test_contrib.py::test_rand_zipfian_nd_and_sym.
 
 Tolerances: 1e-6 (the same arithmetic) unless a line says otherwise.
@@ -49,8 +49,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = dict(rtol=1e-6, atol=1e-6)
 
 #: the reference's registered names (aliases included) that ROADMAP item
-#: 13 keeps: the 7 of ops/quantization.py and the 6 of ops/sparse.py,
-#: with their aliases
+#: 13 ported last: the 7 of ops/quantization.py and the 6 of
+#: ops/sparse.py, with their aliases
 ITEM_13 = {
     # ops/quantization.py
     "_contrib_quantize", "quantize", "_contrib_dequantize", "dequantize",
@@ -80,17 +80,33 @@ def _ref_scope():
 # ---------------------------------------------------------------------------
 
 
-def test_op_coverage_leaves_item_13():
+def _ref_ops():
     import mxnet_tpu.ops.contrib  # noqa: F401  (registers the ops)
     import mxnet_tpu.ops.custom  # noqa: F401
     import mxnet_tpu.ops.quantization  # noqa: F401
     import mxnet_tpu.ops.sparse  # noqa: F401
-    missing = set(ref_registry.OPS) - set(port_registry.OPS)
-    assert missing == ITEM_13, (sorted(missing - ITEM_13),
-                                sorted(ITEM_13 - missing))
-    primary = {ref_registry.OPS[n].name for n in missing}
-    assert len(primary) == 13
-    assert not set(port_registry.OPS) - set(ref_registry.OPS)
+    return ref_registry.OPS
+
+
+def test_op_coverage_leaves_item_13():
+    """Item 13's last 13 names (quantization and sparse storage) are in
+    the port's registry, each under the reference's primary name."""
+    ref_ops = _ref_ops()
+    assert ITEM_13 <= set(port_registry.OPS), \
+        sorted(ITEM_13 - set(port_registry.OPS))
+    for n in ITEM_13:
+        assert port_registry.OPS[n].name == ref_ops[n].name, n
+    assert len({ref_ops[n].name for n in ITEM_13}) == 13
+
+
+def test_op_coverage_complete():
+    """The port registers every name of the reference's 294 ops and
+    their aliases, and none of its own."""
+    ref_ops = _ref_ops()
+    assert set(ref_ops) == set(port_registry.OPS), (
+        sorted(set(ref_ops) - set(port_registry.OPS)),
+        sorted(set(port_registry.OPS) - set(ref_ops)))
+    assert len(ref_registry.list_ops()) == 294
 
 
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(jax|mxnet_tpu)(?:\.|\s|$)",
@@ -148,12 +164,11 @@ def _public(ns):
 def test_nd_contrib_names():
     ref = _public(mx.nd.contrib)
     port = _public(tmx.nd.contrib)
-    kept = {n[len("_contrib_"):] for n in ITEM_13
-            if n.startswith("_contrib_")}
-    assert port == ref - kept - {"NDArray"}, sorted(port ^ (ref - kept))
+    assert port == ref - {"NDArray"}, sorted(port ^ ref)
     for n in ("AdaptiveAvgPooling2D", "BilinearResize2D", "div_sqrt_dim",
               "PagedAttention", "quadratic", "rand_zipfian", "foreach",
-              "MultiBoxPrior", "box_nms", "ctc_loss", "CTCLoss"):
+              "MultiBoxPrior", "box_nms", "ctc_loss", "CTCLoss",
+              "quantize", "dequantize", "quantized_conv"):
         assert n in port
     assert tmx.contrib.ndarray.PagedAttention is \
         tmx.nd.contrib.PagedAttention
@@ -379,11 +394,10 @@ def test_symbol_operator(expr):
 def test_sym_namespaces_names():
     for n in _LINALG_NAMES:
         assert hasattr(tmx.sym.linalg, n)
-    kept = {n[len("_contrib_"):] for n in ITEM_13
-            if n.startswith("_contrib_")}
-    assert _public(tmx.sym.contrib) == _public(mx.sym.contrib) - kept
+    assert _public(tmx.sym.contrib) == _public(mx.sym.contrib)
     for n in ("AdaptiveAvgPooling2D", "BilinearResize2D", "div_sqrt_dim",
-              "PagedAttention", "quadratic", "rand_zipfian"):
+              "PagedAttention", "quadratic", "rand_zipfian", "quantize",
+              "quantized_fully_connected"):
         assert hasattr(tmx.sym.contrib, n) and hasattr(mx.sym.contrib, n)
         assert getattr(tmx.contrib.symbol, n) is getattr(tmx.sym.contrib, n)
 
