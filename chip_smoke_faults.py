@@ -1,5 +1,5 @@
-"""The readings that phase 24's, 25's and 26's limits in chip_smoke.py sit
-between.
+"""The readings that phase 24's, 25's, 26's and 29's limits in
+chip_smoke.py sit between.
 
 chip_smoke.py's 24c holds one float32 step's change of the BatchNorm
 running statistics to the single process's (DIST_BN_STATS_TOL), and its
@@ -45,13 +45,22 @@ what each run reads:
        quantized with the whole weight's per-column scales instead of
        its own rows').
 
+  29b  the exported word LM's largest logit error over the largest
+       |logit| against the eager net with the flag off (the replay here,
+       the fresh process's on the card and the CPU), for: sound (twice);
+       wh_bf16 (K4a given wh rounded to bfloat16); reverse_flipped (K4a
+       scanning each layer in the other direction); fresh_cpu_wh_bf16
+       (the fresh process's plain scan on the CPU given wh rounded to
+       bfloat16).
+
 A fault replaces one function of the port in the rank's process (25c's
-in every process of the drill, through a sitecustomize module on
-PYTHONPATH that `MXTT_PLANT` arms); no file changes. In a run with a
+in every process of the drill, 29b's fresh_cpu_wh_bf16 in the fresh
+process, through a sitecustomize module on PYTHONPATH that `MXTT_PLANT`
+arms); no file changes. In a run with a
 fault, chip_smoke's checks record what fails instead of raising. Run
 from the repository root on a machine with one card:
 
-    python3 chip_smoke_faults.py [--phase 24|25|26]
+    python3 chip_smoke_faults.py [--phase 24|25|26|29]
 
 It prints one line a run, the card's name and power limit, and as its
 last line a JSON object of every reading. It exits 1 without a card.
@@ -76,6 +85,8 @@ FAULTS_25C = ("sound", "sound", "restore_incomplete", "elastic_no_reduce",
               "grace_after_collective")
 FAULTS_26A = ("sound", "no_divergence_probe", "slow_canary_promoted")
 FAULTS_26B = ("sound", "drop_shard1_partial", "whole_weight_row_scales")
+FAULTS_29B = ("sound", "sound", "wh_bf16", "reverse_flipped",
+              "fresh_cpu_wh_bf16")
 
 _SITECUSTOMIZE = """\
 import importlib.machinery, importlib.util, os, sys
@@ -116,7 +127,19 @@ def _plant(fault):
 
 
 def plant_worker(fault):
-    """Break the port in a drill process as `fault` names (25c)."""
+    """Break the port in a drill process (25c) or 29b's fresh process as
+    `fault` names."""
+    if fault == "fresh_cpu_wh_bf16":
+        import torch
+        from mxnet_tpu_torch.ops import fused_rnn
+        sound = fused_rnn.rnn_fwd_plain
+
+        def rounded(mode, px, h0, c0, wh, *args, **kwargs):
+            return sound(mode, px, h0, c0,
+                         wh.to(torch.bfloat16).to(wh.dtype), *args,
+                         **kwargs)
+        fused_rnn.rnn_fwd_plain = rounded
+        return
     from mxnet_tpu_torch.parallel import trainer
     from mxnet_tpu_torch.utils import recovery
     if fault == "restore_incomplete":
@@ -374,6 +397,78 @@ def _runs(target, faults, args, keys, card, device="cuda"):
     return out
 
 
+def _phase29(torch, np, dev, card):
+    """29b's readings (the exported word LM's largest logit error over the
+    largest |logit| against the eager net with the flag off: the replay in
+    this process, the fresh process's on the card and on the CPU), sound
+    and with each fault planted into K4a's wrapper in this process (the
+    fresh process stays sound): wh_bf16 (the recurrent weight rounded to
+    bf16 before the launch, a dtype slip), reverse_flipped (each layer
+    scanned in the other direction); and fresh_cpu_wh_bf16, planted in
+    the fresh process only (its plain scan on the CPU given wh rounded
+    to bf16)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.ops import fused_rnn
+    failed = []
+
+    def record(cond, msg):
+        if not cond:
+            failed.append(msg[:400])
+    cs.check = record
+    sound = fused_rnn.rnn_fwd
+
+    def planted(transform):
+        """K4a's wrapper with its arguments transformed; the wrapper counts
+        through its global name, so the counts pass through to it."""
+        def faulty(mode, px, h0, c0, wh, reverse=False):
+            faulty.launches = sound.launches
+            faulty.design_launches = sound.design_launches
+            try:
+                return sound(*transform(mode, px, h0, c0, wh, reverse))
+            finally:
+                sound.launches = faulty.launches
+        return faulty
+    site = tempfile.mkdtemp(prefix="mxtt_site_")
+    with open(os.path.join(site, "sitecustomize.py"), "w") as f:
+        f.write(_SITECUSTOMIZE)
+    here = os.path.dirname(os.path.abspath(__file__))
+    planted_env = {"MXTT_PLANT": "fresh_cpu_wh_bf16",
+                   "PYTHONPATH": os.pathsep.join([site, here] + [p for p in [
+                       os.environ.get("PYTHONPATH")] if p])}
+    prior_env = {k: os.environ.get(k) for k in planted_env}
+    out = []
+    for fault in FAULTS_29B:
+        del failed[:]
+        if fault == "fresh_cpu_wh_bf16":
+            os.environ.update(planted_env)
+        if fault == "wh_bf16":
+            fused_rnn.rnn_fwd = planted(lambda m, px, h0, c0, wh, r: (
+                m, px, h0, c0, wh.to(torch.bfloat16).to(wh.dtype), r))
+        elif fault == "reverse_flipped":
+            fused_rnn.rnn_fwd = planted(lambda m, px, h0, c0, wh, r: (
+                m, px, h0, c0, wh, not r))
+        tmp = tempfile.mkdtemp(prefix="mxtt_faults29_")
+        try:
+            with mx.gpu(dev.index or 0):
+                _, main = cs.phase_deploy_word_lm(torch, np, mx, dev, card,
+                                                  tmp)
+        finally:
+            fused_rnn.rnn_fwd = sound
+            shutil.rmtree(tmp, ignore_errors=True)
+            for k, v in prior_env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        row = {"fault": fault, **main["logit_err_over_max"],
+               "limit": cs.LM_EXPORT_RTOL,
+               "cpu_limit": cs.LM_EXPORT_CPU_RTOL, "failed": list(failed)}
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    shutil.rmtree(site, ignore_errors=True)
+    return {"29b": out}
+
+
 def main():
     import numpy as np
     import torch
@@ -389,10 +484,10 @@ def main():
     torch.cuda.set_device(dev)
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("24", "25", "26"), default=None,
-                    help="one phase's faults (default: all three)")
-    phases = {"24", "25", "26"} if ap.parse_args().phase is None else \
-        {ap.parse_args().phase}
+    ap.add_argument("--phase", choices=("24", "25", "26", "29"),
+                    default=None, help="one phase's faults (default: all)")
+    phases = {"24", "25", "26", "29"} if ap.parse_args().phase is None \
+        else {ap.parse_args().phase}
     card = cs.nvidia_smi()
     cs.build_kernels(_cuda)
     readings = {"card": card}
@@ -413,6 +508,8 @@ def main():
         readings.update(_phase25(torch, np, dev, card))
     if "26" in phases:
         readings.update(_phase26(torch, np, dev, card))
+    if "29" in phases:
+        readings.update(_phase29(torch, np, dev, card))
     print(card)
     print(json.dumps(readings))
     return 0

@@ -36,8 +36,14 @@ paged-attention kernel from the op registry; and distributed training
 on torch.distributed, one process a rank (`parallel`: the mesh, the
 collectives, ring attention, GPipe, `TrainStep`'s mesh options; the
 transformer's dp / tp / sp / ep step; the `tpu` / `nccl` / `dist_*`
-kvstores, `gluon.Trainer(kvstore=)`, `Module(mesh=)`).
+kvstores, `gluon.Trainer(kvstore=)`, `Module(mesh=)`); and deployment
+(`predict`: `Predictor`, `export_model` / `load_exported` on
+torch.export, whose graphs keep the fused-RNN forward as the op
+`mxnet_tpu_torch::rnn_fwd`; `rtc.CudaModule`, user CUDA kernels compiled
+by NVRTC; `plugin.TorchBlock`; `torch`; `contrib.onnx`; `engine`,
+`libinfo`, `log`, `misc`).
 """
+from .libinfo import __version__  # single-sourced version
 from .base import MXNetError, resolve_device
 from .context import Context, cpu, current_context, gpu, num_gpus
 from . import autograd
@@ -82,6 +88,14 @@ from . import visualization
 from . import contrib
 from . import operator
 from .operator import CustomOp, CustomOpProp
+from . import engine
+from . import libinfo
+from . import log
+from . import misc
+from . import plugin
+from . import rtc
+from . import predict
+from .predict import Predictor
 
 __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "current_context", "num_gpus", "autograd", "initializer", "init",
@@ -92,4 +106,5 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "callback", "executor_manager", "monitor", "mon", "rnn",
            "models", "test_utils", "profiler", "utils", "visualization",
            "contrib", "recordio", "image", "operator", "CustomOp",
-           "CustomOpProp"]
+           "CustomOpProp", "engine", "libinfo", "log", "misc", "plugin",
+           "rtc", "predict", "Predictor", "__version__"]

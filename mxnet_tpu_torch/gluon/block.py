@@ -433,7 +433,10 @@ def _run_graph(graph, values, train):
     """(outputs, aux updates) of `graph` on {name: tensor}, torch's grad
     mode on while autograd records; begin states the values lack are
     zeros (aux variables an op fills at its data's shape)."""
-    with torch.set_grad_enabled(autograd.is_recording()):
+    grad = autograd.is_recording()
+    if grad == torch.is_grad_enabled():
+        return graph._eval(values, train=train, zero_missing_aux=True)
+    with torch.set_grad_enabled(grad):
         return graph._eval(values, train=train, zero_missing_aux=True)
 
 

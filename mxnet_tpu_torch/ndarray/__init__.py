@@ -145,8 +145,8 @@ def eye(N, M=0, k=0, ctx=None, dtype=None):
 
 def waitall():
     """Block until all launched work completes (parity: mx.nd.waitall)."""
-    if _torch.cuda.is_available() and _torch.cuda.is_initialized():
-        _torch.cuda.synchronize()
+    from .. import engine
+    engine.wait_all()
 
 
 def save(fname, data):

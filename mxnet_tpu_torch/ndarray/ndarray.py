@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import autograd
+from .. import engine as _engine
 from ..base import NARROW, MXNetError, numpy_dtype, torch_dtype
 from ..context import Context, context_of, current_context
 
@@ -426,9 +427,16 @@ def _apply_op(opdef, args, kwargs):
             else current_context()
     if getattr(opdef, "creation", False):
         kwargs["device"] = ctx.torch_device()
-    with torch.set_grad_enabled(autograd.is_recording()
-                                and opdef.differentiable):
+    grad = autograd.is_recording() and opdef.differentiable
+    if grad == torch.is_grad_enabled():
         res = opdef.fn(*args, **kwargs)
+    else:
+        # a grad-mode switch only where it changes the mode: a graph that
+        # torch.export traces then holds no grad-mode region an op
+        with torch.set_grad_enabled(grad):
+            res = opdef.fn(*args, **kwargs)
+    if _engine.NAIVE:
+        _engine.sync_outputs(res)
     if isinstance(res, (tuple, list)):
         return tuple(NDArray(r, ctx=ctx) for r in res)
     out_nd = NDArray(res, ctx=ctx)

@@ -116,6 +116,21 @@ def library(source):
     return lib
 
 
+def refuse_export(kernel):
+    """Raise while `torch.export` traces: this kernel launches through
+    ctypes, which cannot take the tracer's fake tensors, and its plain
+    version would stand in for it in the exported graph without a word.
+    Only K4a, a torch.library op (`mxnet_tpu_torch::rnn_fwd`), stays in an
+    exported graph; K1-K3 sit on no path that `predict.export_model`
+    takes, so a graph that reaches one is refused here, naming it."""
+    import torch
+    if torch.compiler.is_exporting():
+        raise MXNetError(
+            "export: the graph reaches %s, a kernel launched through "
+            "ctypes that an exported program cannot hold (only the fused "
+            "RNN forward, K4a, is an exportable op)" % kernel)
+
+
 def check(lib, err, what):
     """Raise when a C entry returned a CUDA error."""
     if err != 0:

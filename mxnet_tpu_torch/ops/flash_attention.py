@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..base import MXNetError
+from ._cuda import refuse_export as _refuse_export
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -176,6 +177,7 @@ def flash_attention_fwd(q, k, v, scale, causal):
     `flash_fwd_plain`. CUDA tensors launch the kernel (counted in
     `flash_attention_fwd.launches`) or raise; CPU tensors take
     `flash_fwd_plain`."""
+    _refuse_export("K2 (flash_attention forward)")
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale, causal)

@@ -40,6 +40,7 @@ import os
 import torch
 
 from ..base import MXNetError
+from ._cuda import refuse_export as _refuse_export
 from . import remat as _remat
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -264,6 +265,7 @@ def bn_stats(x3):
     """K3a: (mean, var) float32 [C] of an [N, C, S] x, as `bn_stats_plain`.
     CUDA tensors launch the kernel (counted in `bn_stats.launches`) or
     raise; CPU tensors take `bn_stats_plain`."""
+    _refuse_export("K3a (fused_bn stats)")
     if x3.device.type == "cpu":
         return bn_stats_plain(x3)
     what = "fused_bn stats"
@@ -286,6 +288,7 @@ def bn_apply(x3, scale, offset, res3=None, relu=False):
     """K3b: y = [relu](x * scale + offset [+ residual]) as
     `bn_apply_plain`. CUDA tensors launch the kernel (counted in
     `bn_apply.launches`) or raise; CPU tensors take `bn_apply_plain`."""
+    _refuse_export("K3b (fused_bn apply)")
     if x3.device.type == "cpu":
         return bn_apply_plain(x3, scale, offset, res3, relu)
     what = "fused_bn apply"

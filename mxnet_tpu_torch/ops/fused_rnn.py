@@ -30,8 +30,10 @@ there, each runs its plain PyTorch version (`rnn_fwd_plain`,
 points step by step; the CPU tests hold it to the reference's kernels in
 interpret mode and `chip_smoke.py` holds the kernels to it on the card.
 
-`fused_scan_layer` wires them into a `torch.autograd.Function` per mode
-family, as the reference's custom VJP does. `MXNET_FUSED_RNN=1` (read at
+`fused_scan_layer` calls K4a as the op `mxnet_tpu_torch::rnn_fwd`
+(`rnn_fwd_op`, registered with torch.library), whose registered autograd
+runs K4b, as the reference's custom VJP does; `torch.export` keeps the op
+as one node of the graph it traces. `MXNET_FUSED_RNN=1` (read at
 every call) or `RNN(..., fused=True)` routes `ops/nn.py::_scan_layer`
 here for lstm, rnn_relu and rnn_tanh; gru keeps the composite scan, as in
 the reference, where the fused kernels have no gru mode by design (its
@@ -564,7 +566,7 @@ def reset_launch_counts():
 
 
 # ---------------------------------------------------------------------------
-# the autograd Functions
+# helpers of the backward
 # ---------------------------------------------------------------------------
 
 
@@ -586,47 +588,104 @@ def _cotangent(g, like):
     return g.to(like.dtype).contiguous()
 
 
-class _FusedLSTM(torch.autograd.Function):
-    """Forward K4a, backward K4b. Saves (px, h0, c0, wh, ys, cs), as the
-    reference's custom VJP does; backward replays the gates from them."""
+# ---------------------------------------------------------------------------
+# K4a as a torch.library custom op, with K4b as its registered backward
+# ---------------------------------------------------------------------------
 
-    @staticmethod
-    def forward(ctx, px, h0, c0, wh, reverse):
-        ys, cs, hT, cT = rnn_fwd("lstm", px, h0, c0, wh, reverse)
+
+def _no_state(like):
+    """The empty tensor that stands for cs / cT outside lstm (a custom
+    op's outputs are tensors, never None)."""
+    return like.new_empty((0,))
+
+
+#: the op's library; `Library.impl` registers the kernels with the
+#: dispatcher as they are (`torch.library.custom_op` wraps each in a
+#: dynamo guard whose first call imports torch._dynamo, seconds of every
+#: worker process's start)
+_LIB = torch.library.Library("mxnet_tpu_torch", "DEF")
+_LIB.define("rnn_fwd(str mode, Tensor px, Tensor h0, Tensor? c0, Tensor wh, "
+            "bool reverse) -> (Tensor, Tensor, Tensor, Tensor)")
+
+
+def _rnn_fwd_impl(mode, px, h0, c0, wh, reverse):
+    """K4a as the op `mxnet_tpu_torch::rnn_fwd`: (ys, cs, hT, cT), cs and
+    cT empty outside lstm. On CUDA tensors it launches K4a through
+    `rnn_fwd` (counted there); on CPU tensors it runs `rnn_fwd_plain`.
+    Being an op of torch's dispatcher, it stays one node of a graph that
+    `torch.export` traces (whose fake tensors a ctypes launch cannot
+    take), so an exported word LM replays through K4a on the card."""
+    ys, cs, hT, cT = rnn_fwd(mode, px, h0, c0, wh, reverse)
+    if mode != "lstm":
+        cs, cT = _no_state(ys), _no_state(hT)
+    return ys, cs, hT, cT
+
+
+_LIB.impl("rnn_fwd", _rnn_fwd_impl, "CPU")
+_LIB.impl("rnn_fwd", _rnn_fwd_impl, "CUDA")
+rnn_fwd_op = torch.ops.mxnet_tpu_torch.rnn_fwd.default
+
+
+@torch.library.register_fake("mxnet_tpu_torch::rnn_fwd", lib=_LIB)
+def _rnn_fwd_fake(mode, px, h0, c0, wh, reverse):
+    """The outputs' shapes and dtypes, the saved cs and ys included: ys
+    and cs [T, N, H], hT and cT [N, H], all in px's dtype. It also serves
+    "meta" tensors (a Symbol's shape inference, which tries batch sizes
+    until the graph checks out), so it raises where the inputs' shapes
+    disagree, as the plain version's products would."""
+    T, N = px.shape[0], px.shape[1]
+    H = wh.shape[1]
+    GH = _GATES[mode] * H
+    want = {"px": (T, N, GH), "h0": (N, H), "wh": (GH, H)}
+    got = {"px": px, "h0": h0, "wh": wh}
+    if mode == "lstm":
+        want["c0"], got["c0"] = (N, H), c0
+    for name, shape in want.items():
+        if tuple(got[name].shape) != shape:
+            raise MXNetError("fused_rnn forward: %s is %s, expected %s"
+                             % (name, tuple(got[name].shape), shape))
+    ys = px.new_empty((T, N, H))
+    hT = px.new_empty((N, H))
+    if mode == "lstm":
+        return ys, px.new_empty((T, N, H)), hT, px.new_empty((N, H))
+    return ys, _no_state(px), hT, _no_state(px)
+
+
+def _rnn_setup_context(ctx, inputs, output):
+    """Saves (px, h0, c0, wh, ys, cs) for lstm and (h0, wh, ys) for the
+    simple modes, as the reference's custom VJP does; the backward replays
+    the gates from them."""
+    mode, px, h0, c0, wh, reverse = inputs
+    ys, cs = output[0], output[1]
+    ctx.mode, ctx.reverse = mode, reverse
+    if mode == "lstm":
         ctx.save_for_backward(px, h0, c0, wh, ys, cs)
-        ctx.reverse = reverse
-        return ys, hT, cT
+    else:
+        ctx.save_for_backward(h0, wh, ys)
 
-    @staticmethod
-    def backward(ctx, dys, dhT, dcT):
+
+def _rnn_backward(ctx, dys, dcs, dhT, dcT):
+    """K4b through `rnn_bwd`: (dpx, dh0, dc0, dwh) for the op's inputs.
+    The saved cs is an output only so that the backward can read it: its
+    cotangent `dcs` is not used."""
+    if ctx.mode == "lstm":
         px, h0, c0, wh, ys, cs = ctx.saved_tensors
         hprev = _shift_prev(h0, ys, ctx.reverse)
         cprev = _shift_prev(c0, cs, ctx.reverse)
         dpx, dh0, dc0, dwh = rnn_bwd(
             "lstm", px, None, hprev, cprev, cs, wh, _cotangent(dys, ys),
             _cotangent(dhT, h0), _cotangent(dcT, c0), ctx.reverse)
-        return dpx, dh0, dc0, dwh.to(wh.dtype), None
-
-
-class _FusedSimple(torch.autograd.Function):
-    """rnn_relu / rnn_tanh: forward K4a, backward K4b (no gate recompute:
-    the derivative comes from the rounded ys). Saves (h0, wh, ys)."""
-
-    @staticmethod
-    def forward(ctx, px, h0, wh, mode, reverse):
-        ys, _, hT, _ = rnn_fwd(mode, px, h0, None, wh, reverse)
-        ctx.save_for_backward(h0, wh, ys)
-        ctx.mode, ctx.reverse = mode, reverse
-        return ys, hT
-
-    @staticmethod
-    def backward(ctx, dys, dhT):
+    else:
         h0, wh, ys = ctx.saved_tensors
         hprev = _shift_prev(h0, ys, ctx.reverse)
-        dpx, dh0, _, dwh = rnn_bwd(
+        dpx, dh0, dc0, dwh = rnn_bwd(
             ctx.mode, None, ys, hprev, None, None, wh, _cotangent(dys, ys),
             _cotangent(dhT, h0), None, ctx.reverse)
-        return dpx, dh0, dwh.to(wh.dtype), None, None
+    return None, dpx, dh0, dc0, dwh.to(wh.dtype), None
+
+
+torch.library.register_autograd("mxnet_tpu_torch::rnn_fwd", _rnn_backward,
+                                setup_context=_rnn_setup_context, lib=_LIB)
 
 
 # ---------------------------------------------------------------------------
@@ -742,8 +801,8 @@ def fused_scan_layer(mode, pxs, h0, c0, wh, reverse=False):
     limit = fused_rnn_limit(mode, T, N, H, *dtypes)
     if limit is not None:
         raise MXNetError("fused_scan_layer: %s" % limit)
-    pxs, h0, wh = pxs.contiguous(), h0.contiguous(), wh.contiguous()
-    if mode == "lstm":
-        return _FusedLSTM.apply(pxs, h0, c0.contiguous(), wh, bool(reverse))
-    ys, hT = _FusedSimple.apply(pxs, h0, wh, mode, bool(reverse))
-    return ys, hT, c0
+    lstm = mode == "lstm"
+    ys, _, hT, cT = rnn_fwd_op(mode, pxs.contiguous(), h0.contiguous(),
+                               c0.contiguous() if lstm else None,
+                               wh.contiguous(), bool(reverse))
+    return ys, hT, (cT if lstm else c0)

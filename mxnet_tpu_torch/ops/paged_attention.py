@@ -27,6 +27,7 @@ import threading
 import torch
 
 from ..base import MXNetError
+from ._cuda import refuse_export as _refuse_export
 
 #: dynamic shared memory one thread block may use on Hopper (227 KB)
 _SMEM_LIMIT = 232448
@@ -224,6 +225,7 @@ def paged_attention(q, k_pool, v_pool, tables, q_start, block_size,
     or `paged_attention.launches_int8` over an int8 pool) or raise; CPU
     tensors take `paged_attention_plain`. Every tensor must be contiguous
     and on q's device."""
+    _refuse_export("K1 (paged_attention)")
     _check(q, k_pool, v_pool, tables, q_start, block_size, k_scale,
            v_scale)
     B, Tq, H, Dh = q.shape

@@ -801,11 +801,23 @@ def _bind_positional_params(opdef, args, kwargs):
         kwargs[params[i].name] = a
 
 
+#: the broadcasting arithmetic ops that the reference registers apart from
+#: their elemwise twins, so that their nodes are named after the
+#: broadcast_* name (broadcast_sub0, not elemwise_sub0); the port's
+#: registry makes them aliases of one op
+_BROADCAST_NAMES = frozenset(
+    "broadcast_" + n for n in (
+        "add", "plus", "sub", "minus", "mul", "div", "power", "maximum",
+        "minimum", "equal", "not_equal", "greater", "greater_equal",
+        "lesser", "lesser_equal"))
+
+
 def create(op_name, *args, name=None, attr=None, **kwargs):
     """An op node over the Symbol arguments; parameter inputs the caller
     omits become variables named `<name>_<input>`."""
     opdef = _opdef(op_name)
-    name = _name_mod.current().get(name, opdef.name.lower().lstrip("_"))
+    hint = op_name if op_name in _BROADCAST_NAMES else opdef.name
+    name = _name_mod.current().get(name, hint.lower().lstrip("_"))
     attr = _attr_mod.current().get(attr)
     inputs = [a._outputs[0] for a in args if isinstance(a, Symbol)]
     _bind_positional_params(opdef, args, kwargs)

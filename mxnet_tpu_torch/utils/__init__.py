@@ -1,10 +1,28 @@
 """Host-side helpers of the port (`serialization`, `legacy`, `chaos`)
 and the two small utilities of `mxnet_tpu/utils/__init__.py` the serving
-front door uses: `retry` and `makedirs`."""
+front door uses: `retry` and `makedirs`; and `atomic_publish`, which
+`predict.export_model` writes its artifact through."""
+import contextlib
+import os
+import threading
+
+
+@contextlib.contextmanager
+def atomic_publish(path):
+    """Write-to-temp + atomic-rename publish (the port's copy of
+    `mxnet_tpu/aot/cache.py::atomic_publish`): yields the temp path to
+    write, renames it over `path` on success and removes it on failure,
+    so a reader never sees a half-written file."""
+    tmp = "%s.tmp.%d.%x" % (path, os.getpid(), threading.get_ident())
+    try:
+        yield tmp
+        os.replace(tmp, path)
+    finally:
+        with contextlib.suppress(OSError):
+            os.remove(tmp)
 
 
 def makedirs(d):
-    import os
     os.makedirs(d, exist_ok=True)
 
 

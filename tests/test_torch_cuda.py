@@ -2031,3 +2031,34 @@ def test_lazy_sgd_and_adam_on_card_match_cpu(dev):
                                    atol=1e-6)
         keep = np.setdiff1d(np.arange(100), rows)
         np.testing.assert_array_equal(res["card"][keep], w0[keep])
+
+
+def test_exported_word_lm_replays_k4a_across_devices(dev, tmp_path,
+                                                     monkeypatch):
+    """A word LM exported on the CPU with MXNET_FUSED_RNN=1 and loaded on
+    the card: its zero begin states and parameters move with it, and one
+    replay launches K4a once a layer (K4b none), within 1e-5 of the CPU's
+    logits (the plain version there)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import predict
+    from mxnet_tpu_torch.ops import fused_rnn
+    monkeypatch.setenv("MXNET_FUSED_RNN", "1")
+    with mx.cpu():
+        net = mx.gluon.nn.HybridSequential()
+        with net.name_scope():
+            net.add(mx.gluon.nn.Embedding(20, 8))
+            net.add(mx.gluon.rnn.LSTM(16, layout="NTC", num_layers=2))
+            net.add(mx.gluon.nn.Dense(20, flatten=False))
+        net.initialize(mx.init.Xavier())
+        tok = np.random.RandomState(0).randint(0, 20, (2, 6)).astype(
+            np.float32)
+        want = net(mx.nd.array(tok)).asnumpy()
+        art = str(tmp_path / "lm.mxtpu")
+        predict.export_model(net, [("data", (2, 6))], art)
+    served = predict.load_exported(art, ctx=mx.gpu(0))
+    fused_rnn.reset_launch_counts()
+    got = served.forward(data=tok)[0]
+    torch.cuda.synchronize()
+    assert got._data.device == dev
+    assert fused_rnn.launch_counts() == (2, 0)
+    np.testing.assert_allclose(got.asnumpy(), want, rtol=1e-5, atol=1e-5)

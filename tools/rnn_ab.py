@@ -16,11 +16,12 @@ shapes of chip_smoke.RNN_SHAPES (plus N 33) in bfloat16:
 
 With --train, chip_smoke.py's phase 11 (the word LM through TrainStep)
 then runs from each tree in a process of its own, in turns (base, this,
-this, base): each run's bf16 step times, K4 launches and the profiled
-step's device time. tools/rnn_design_sweep.py compares this tree's
-designs with each other.
+this, base; --turns N repeats that block N times): each run's bf16 step
+times, K4 launches and the profiled step's device time. --train-only
+runs just that (for trees whose kernels are the same).
+tools/rnn_design_sweep.py compares this tree's designs with each other.
 
-    python tools/rnn_ab.py BASE_DIR [--train]  # NVIDIA GPU, repo root
+    python tools/rnn_ab.py BASE_DIR [--train | --train-only] [--turns N]
 
 BASE_DIR is another checkout (e.g. `git archive <commit> | tar -x -C
 <dir>` into a directory .gitignore lists). A base tree whose
@@ -155,11 +156,20 @@ def compare(torch, fr, trees, dev, card):
 def main():
     import torch
     args = sys.argv[1:]
+    turns = 1
+    if "--turns" in args:
+        i = args.index("--turns")
+        turns = int(args[i + 1])
+        del args[i:i + 2]
     flags = set(args[1:])
-    if not args or not flags <= {"--train"} \
+    if not args or not flags <= {"--train", "--train-only"} \
             or not torch.cuda.is_available():
         print(__doc__, file=sys.stderr)
         return 1
+    if "--train-only" in flags:
+        train = train_in_turns(args[0], turns)
+        print(json.dumps({"rows": [train]}))
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     from mxnet_tpu_torch.ops import _cuda
     from mxnet_tpu_torch.ops import fused_rnn as fr
@@ -174,7 +184,7 @@ def main():
     card = cs.nvidia_smi()
     rows = compare(torch, fr, trees, dev, card)
     if "--train" in flags:
-        train = train_in_turns(args[0])
+        train = train_in_turns(args[0], turns)
         print(json.dumps(train))
         rows.append(train)
     print(json.dumps({"rows": rows}))
@@ -194,13 +204,14 @@ print("AB_TRAIN " + json.dumps(main))
 _PROFILE = "word_lm train profile: "
 
 
-def train_in_turns(base_dir):
+def train_in_turns(base_dir, turns=1):
     """Phase 11 from the base tree and from this one, each in a process of
-    its own, in turns (base, this, this, base): each run's bf16 step times
-    (flag on and off), K4 launches and the profiled step's device time."""
+    its own, in turns (base, this, this, base, `turns` times): each run's
+    bf16 step times (flag on and off), K4 launches and the profiled
+    step's device time."""
     runs = {"base": [], "this": []}
     for name, root in (("base", base_dir), ("this", ROOT), ("this", ROOT),
-                       ("base", base_dir)):
+                       ("base", base_dir)) * turns:
         r = subprocess.run([sys.executable, "-c", _TRAIN], cwd=root,
                            capture_output=True, text=True)
         out = r.stdout.splitlines()
@@ -220,7 +231,7 @@ def train_in_turns(base_dir):
             "host_ms_profiled": busy.get("host_ms_profiled"),
             "kernels_us": busy.get("kernels_us")})
     return {"what": "phase 11 word-LM bf16 step, in turns base, this, "
-            "this, base", **runs}
+            "this, base (%d times)" % turns, **runs}
 
 
 if __name__ == "__main__":
