@@ -579,17 +579,40 @@ Phases (any failure exits non-zero before the last line):
                 (e) tests/test_onnx.py:125's residual block,
                 hand-encoded through the port's wire codec, imported
                 and run on the card against the CPU.
-  30. the kernels line (K2's, K3a-d's, K4a-b's and K5's launches summed
+  30. the C++ deployment half (ROADMAP item 14 (a)), seed 30: (a) the
+                C++ tree (mxnet_tpu_torch/cpp_package/) built with g++
+                against torch's libraries and fused_rnn.cu's library, its
+                seconds, and its rnn_design against fused_rnn.rnn_design
+                at CPP_DESIGN_CASES (both designs), asked in a process
+                that imports neither torch nor the port; (b) phase 29b's
+                word LM compiled for the card by predict.compile_for_cpp
+                (AOTInductor) and run by mxtpu_predict: the C++ op
+                `mxnet_tpu_torch::rnn_fwd` launching K4a LM_LAYERS times
+                a forward, logits within LM_EXPORT_RTOL of the Python
+                replay, C++ ms a forward beside it; then the Gluon LeNet
+                at batch 100 through libmxtpu_predict.so's C API
+                (C_API_CLIENT, ctypes in a fresh process), within
+                EXPORT_RTOL, with its -1 returns; (c) export_train_step
+                of get_mlp's MLP (batch 100, SGD lr 0.1 momentum 0.9) and
+                50 steps of mxtpu_train on the card, falling, the first 5
+                losses within CPP_TRAIN_RTOL of TrainStep fed the same
+                LCG batches; (d) the native runtime where it builds
+                (engine order, 10,000 records each way), else that
+                finding and every native object raising; ImageRecordIter
+                over 512 JPEGs at (3, 224, 224), batch 256, onto the card,
+                with img/s.
+  31. the kernels line (K2's, K3a-d's, K4a-b's and K5's launches summed
      over every path that runs them, split in `launches_by_path`; K3a-d's
      sums over an Inception-v3 step under `inception_v3_step`; K4a's
-     through phase 29b's exported replay), nvidia-smi's line, and the
-     last line {"ok": true, "device": {...}}.
+     through phase 29b's exported replay and phase 30b's C++ op),
+     nvidia-smi's line, and the last line {"ok": true, "device": {...}}.
 
 Parity settings: TF32 is off for matmuls and cuDNN, so float32 products
 run in full float32 (the reference suite forces highest matmul
 precision). Imports nothing of JAX or of the JAX package. Each phase
 prints `phase time: <function> <s> s (<s> s since the start)` as it ends.
 """
+import concurrent.futures
 import json
 import math
 import os
@@ -10583,6 +10606,529 @@ def phase_deploy(torch, np, dev, card):
     return lm_launches, rtc_rows, out
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the C++ deployment half (ROADMAP item 14 (a)): the C++ tree on
+# libtorch, K4a as a C++ op inside an AOTInductor package, the C predict
+# API, export_train_step driven by mxtpu_train, the native runtime
+# ---------------------------------------------------------------------------
+
+CPP_SEED = 30
+#: 30a: the C++ rnn_design against fused_rnn.rnn_design: the word LM's
+#: layer in both dtypes, then layers that take the cluster design (several
+#: waves, the largest H) and the streaming one (tiny layers, past the
+#: cluster limit, H 1024)
+CPP_DESIGN_CASES = (
+    ("lstm", LM_BATCH, LM_HIDDEN, "float32"),
+    ("lstm", LM_BATCH, LM_HIDDEN, "bfloat16"),
+    ("lstm", 300, 256, "bfloat16"), ("rnn_tanh", 300, 128, "float32"),
+    ("lstm", 33, 128, "bfloat16"), ("rnn_relu", 64, 512, "float32"),
+    ("lstm", 8, 16, "float32"), ("rnn_tanh", 4, 64, "bfloat16"),
+    ("lstm", LM_BATCH, 272, "float32"), ("rnn_relu", 7, 1024, "float32"))
+#: 30b: C++ forwards timed (after one), and the LeNet batch through the
+#: C API
+CPP_TIMED, CPP_LENET_BATCH = 20, 100
+#: 30c: BASELINE config 1's MLP (models/lenet.py get_mlp: 784 -> 128 relu
+#: -> 64 relu -> 10) at batch 100, SGD lr 0.1 momentum 0.9, CPP_STEPS
+#: steps in C++; the first CPP_HELD losses held to TrainStep's within
+#: CPP_TRAIN_RTOL (relative)
+CPP_MLP_BATCH, CPP_STEPS, CPP_HELD, CPP_TRAIN_LR = 100, 50, 5, 0.1
+CPP_TRAIN_RTOL = 1e-5
+#: 30d: NativeEngine tasks, RecWriter -> RecReader records, and the
+#: ImageRecordIter pack: JPEGs of CPP_IMG_SIDE at data_shape (3, 224, 224),
+#: batch 256
+CPP_ENGINE_TASKS, CPP_RECORDS = 200, 10000
+CPP_JPEGS, CPP_IMG_SIDE, CPP_IMG_BATCH = 512, 256, 256
+
+#: run in a fresh process by phase 30a (argv: libmxtpu_torch_ops.so, JSON
+#: cases [mode code, N, H, dtype code]): the C++ rnn_design of each, asked
+#: through ctypes with nothing of torch or the port imported
+CPP_DESIGN_QUERY = r"""
+import ctypes, json, sys
+lib = ctypes.CDLL(sys.argv[1])
+lib.mxtpu_rnn_design.argtypes = [ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+    ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
+lib.mxtpu_rnn_last_error.restype = ctypes.c_char_p
+out = []
+for mode, N, H, dtype in json.loads(sys.argv[2]):
+    P, rows, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_longlong()
+    if lib.mxtpu_rnn_design(dtype, mode, N, H, ctypes.byref(P),
+                            ctypes.byref(rows), ctypes.byref(blocks)) != 0:
+        sys.exit("mxtpu_rnn_design failed: %s"
+                 % lib.mxtpu_rnn_last_error().decode())
+    out.append([P.value, rows.value, blocks.value])
+print(json.dumps({"designs": out,
+                  "modules": sorted(m for m in sys.modules
+                                    if m.startswith(("torch", "mxnet")))}))
+"""
+
+#: run in a fresh process by phase 30b and the CPU tests (argv:
+#: libmxtpu_predict.so, artifact, device, raw float32 input, output path,
+#: timed forwards): the C API's calls in the reference's order, through
+#: ctypes with nothing of torch or the port imported; a bad size and a bad
+#: index must return -1 with a message; prints one JSON line
+C_API_CLIENT = r"""
+import ctypes, json, sys, time
+lib_path, art, device, x_path, out_path, timed = sys.argv[1:7]
+lib = ctypes.CDLL(lib_path)
+lib.MXTPUPredGetLastError.restype = ctypes.c_char_p
+H, I64P = ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64)
+
+def ok(rc, what):
+    if rc != 0:
+        sys.exit("%s failed: %s"
+                 % (what, lib.MXTPUPredGetLastError().decode()))
+
+def shape(fn, h, i):
+    data, nd, dt = I64P(), ctypes.c_int(), ctypes.c_char_p()
+    ok(fn(h, i, ctypes.byref(data), ctypes.byref(nd), ctypes.byref(dt)),
+       "shape")
+    return [data[k] for k in range(nd.value)], dt.value.decode()
+
+h = H()
+ok(lib.MXTPUPredCreate(art.encode(), device.encode(), None, 0,
+                       ctypes.byref(h)), "MXTPUPredCreate")
+plat = ctypes.c_char_p()
+ok(lib.MXTPUPredGetPlatform(h, ctypes.byref(plat)), "platform")
+n_in, n_out = ctypes.c_int(), ctypes.c_int()
+ok(lib.MXTPUPredGetInputCount(h, ctypes.byref(n_in)), "inputs")
+ok(lib.MXTPUPredGetOutputCount(h, ctypes.byref(n_out)), "outputs")
+ishape, idt = shape(lib.MXTPUPredGetInputShape, h, 0)
+oshape, odt = shape(lib.MXTPUPredGetOutputShape, h, 0)
+n = 1
+for d in ishape:
+    n *= d
+raw = open(x_path, "rb").read()
+x = (ctypes.c_float * n).from_buffer_copy(raw)
+errors = {}
+for what, call in (
+        ("short_input", lambda: lib.MXTPUPredSetInput(
+            h, 0, x, ctypes.c_uint64(n - 1))),
+        ("input_index", lambda: lib.MXTPUPredSetInput(
+            h, n_in.value, x, ctypes.c_uint64(n))),
+        ("forward_before_input", lambda: lib.MXTPUPredForward(h))):
+    rc = call()
+    errors[what] = [rc, lib.MXTPUPredGetLastError().decode()]
+ok(lib.MXTPUPredSetInput(h, 0, x, ctypes.c_uint64(n)), "MXTPUPredSetInput")
+ok(lib.MXTPUPredForward(h), "MXTPUPredForward")
+m = 1
+for d in oshape:
+    m *= d
+y = (ctypes.c_float * m)()
+rc = lib.MXTPUPredGetOutput(h, 0, y, ctypes.c_uint64(m + 1))
+errors["output_size"] = [rc, lib.MXTPUPredGetLastError().decode()]
+ok(lib.MXTPUPredGetOutput(h, 0, y, ctypes.c_uint64(m)), "MXTPUPredGetOutput")
+open(out_path, "wb").write(bytes(y))
+times = []
+for _ in range(int(timed)):
+    t0 = time.perf_counter()
+    ok(lib.MXTPUPredForward(h), "MXTPUPredForward")
+    ok(lib.MXTPUPredGetOutput(h, 0, y, ctypes.c_uint64(m)), "GetOutput")
+    times.append(time.perf_counter() - t0)
+ok(lib.MXTPUPredFree(h), "MXTPUPredFree")
+print(json.dumps({"platform": plat.value.decode(), "inputs": n_in.value,
+                  "outputs": n_out.value, "input_shape": ishape,
+                  "input_dtype": idt, "output_shape": oshape,
+                  "output_dtype": odt, "errors": errors,
+                  "forward_ms": 1e3 * sum(times) / max(1, len(times)),
+                  "modules": sorted(m for m in sys.modules
+                                    if m.startswith(("torch", "mxnet")))}))
+"""
+
+
+def run_cpp(argv, what, timeout=300):
+    """Run one of the C++ tree's binaries or clients; its stdout. Fails the
+    phase with its stderr when it exits non-zero."""
+    proc = subprocess.run(argv, capture_output=True, text=True,
+                          timeout=timeout)
+    check(proc.returncode == 0, "%s failed (rc %d): %s"
+          % (what, proc.returncode, (proc.stderr or proc.stdout)[-3000:]))
+    return proc.stdout
+
+
+def cpp_line(stdout, prefix):
+    """The first number after `prefix` on its line of a C++ binary's
+    output."""
+    for line in stdout.splitlines():
+        if line.startswith(prefix):
+            return float(line[len(prefix):].split()[0].rstrip(","))
+    raise SmokeFailure("no %r line in: %s" % (prefix, stdout[-2000:]))
+
+
+def cpp_counts(stdout):
+    """(the C++ op's calls, K4a's launches) of an --verbose run."""
+    for line in stdout.splitlines():
+        m = re.match(r"rnn_fwd calls: (\d+), K4a launches: (\d+)", line)
+        if m:
+            return int(m.group(1)), int(m.group(2))
+    raise SmokeFailure("no rnn_fwd counts in: %s" % stdout[-2000:])
+
+
+def cpp_build_timed():
+    """(the C++ tree built for the card, its seconds)."""
+    from mxnet_tpu_torch import cpp_package
+    t0 = time.perf_counter()
+    tree = cpp_package.build("cuda")
+    return tree, time.perf_counter() - t0
+
+
+def phase_cpp_build(torch, np, dev, card, built=None):
+    """30a: the C++ tree built for the card (its seconds; `built` is
+    `cpp_build_timed()`'s result when the caller built it), and the C++
+    rnn_design against fused_rnn.rnn_design at CPP_DESIGN_CASES, asked in
+    a fresh process that imports neither torch nor the port."""
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    tree, build_s = built or cpp_build_timed()
+    cases = [(fr._MODE_CODE[m], N, H, fr._DTYPE_CODE[getattr(torch, d)])
+             for m, N, H, d in CPP_DESIGN_CASES]
+    got = json.loads(run_cpp([sys.executable, "-c", CPP_DESIGN_QUERY,
+                              tree.ops_lib, json.dumps(cases)],
+                             "30a C++ rnn_design").strip().splitlines()[-1])
+    check(got["modules"] == [], "30a design query imported %r"
+          % got["modules"])
+    rows = []
+    with torch.cuda.device(dev):
+        for (m, N, H, d), cpp in zip(CPP_DESIGN_CASES, got["designs"]):
+            py = fr.rnn_design(m, N, H, getattr(torch, d))
+            rows.append({"mode": m, "N": N, "H": H, "dtype": d,
+                         "design": py.name, "python": [py.P, py.rows,
+                                                       py.blocks],
+                         "cpp": cpp})
+            check([py.P, py.rows, py.blocks] == cpp, "30a: rnn_design of "
+                  "%s N=%d H=%d %s: Python %r, C++ %r"
+                  % (m, N, H, d, (py.P, py.rows, py.blocks), cpp))
+    names = {r["design"] for r in rows}
+    check(names == {"cluster", "stream"}, "30a: the cases took %r" % names)
+    out = {"card": card, "build_s": build_s, "dir": tree.dir,
+           "designs": rows}
+    print("cpp 30a build and rnn_design (%s): %s" % (card, json.dumps(out)))
+    return tree, out
+
+
+def cpp_lm_artifact(torch, np, mx, dev, tmp):
+    """30b's word LM (phase 29b's export, MXNET_FUSED_RNN=1) compiled for
+    the card by compile_for_cpp: (its input as numpy, the artifact, export
+    seconds, compile seconds)."""
+    from mxnet_tpu_torch import predict
+    prior = os.environ.get("MXNET_FUSED_RNN")
+    try:
+        os.environ["MXNET_FUSED_RNN"] = "1"
+        _, x_np, art, export_s = lm_export(torch, np, mx, dev, tmp)
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_RNN", None)
+        else:
+            os.environ["MXNET_FUSED_RNN"] = prior
+    t0 = time.perf_counter()
+    predict.compile_for_cpp(art, ctx=mx.gpu(dev.index or 0))
+    return x_np, art, export_s, time.perf_counter() - t0
+
+
+def cpp_lenet_artifact(np, mx, dev, tmp):
+    """30b's Gluon LeNet (Xavier weights, seed CPP_SEED) exported and
+    compiled for the card: (its input, the artifact, compile seconds)."""
+    from mxnet_tpu_torch import predict
+    ctx = mx.gpu(dev.index or 0)
+    mx.random.seed(CPP_SEED)
+    with mx.name.NameManager():
+        lenet = mx.models.LeNet()
+    lenet.initialize(mx.init.Xavier(), ctx=ctx)
+    shape = (CPP_LENET_BATCH, 1, 28, 28)
+    xl = np.random.RandomState(CPP_SEED).standard_normal(shape).astype(
+        np.float32)
+    lenet(mx.nd.array(xl))
+    lart = os.path.join(tmp, "lenet.mxtpu")
+    predict.export_model(lenet, [("data", shape)], lart)
+    t0 = time.perf_counter()
+    predict.compile_for_cpp(lart, ctx=ctx)
+    return xl, lart, time.perf_counter() - t0
+
+
+def phase_cpp_predict(torch, np, mx, tree, dev, card, tmp, lm_art=None):
+    """30b: the word LM at phase 11's width (`cpp_lm_artifact`, or
+    `lm_art` when the caller made it) run by mxtpu_predict: logits within
+    LM_EXPORT_RTOL of the Python load_exported replay, the C++ op called
+    and K4a launched LM_LAYERS times a forward, C++ ms a forward beside
+    the replay's; then phase 13's Gluon LeNet at batch CPP_LENET_BATCH
+    (`cpp_lenet_artifact`) through libmxtpu_predict.so's C API
+    (C_API_CLIENT) against its replay within EXPORT_RTOL, with the C
+    API's error returns. Returns (K4a's launches in the C++ forward, the
+    summary)."""
+    from mxnet_tpu_torch import predict
+    ctx = mx.gpu(dev.index or 0)
+    x_np, art, export_s, compile_s = lm_art or cpp_lm_artifact(
+        torch, np, mx, dev, tmp)
+    served = predict.load_exported(art, ctx=ctx)
+    x = mx.nd.array(x_np)
+    want = served.forward(data=x)[0]._data.float().cpu().numpy()
+    replay_ms = deploy_forward_ms(torch, lambda: served.forward(data=x))
+    x_path, out_dir = os.path.join(tmp, "lm_x.bin"), os.path.join(tmp, "lm")
+    os.makedirs(out_dir, exist_ok=True)
+    x_np.astype(np.float32).tofile(x_path)
+    t0 = time.perf_counter()
+    stdout = run_cpp([tree.mxtpu_predict, art, "--device", str(dev),
+                      "--input", "0=" + x_path, "--output-dir", out_dir,
+                      "--repeat", str(CPP_TIMED), "--verbose"],
+                     "30b mxtpu_predict")
+    proc_s = time.perf_counter() - t0
+    calls, launches = cpp_counts(stdout)
+    check((calls, launches) == (LM_LAYERS, LM_LAYERS), "30b: the C++ "
+          "forward called the op %d times and launched K4a %d times, "
+          "expected %d" % (calls, launches, LM_LAYERS))
+    got = np.fromfile(os.path.join(out_dir, "out0.bin"),
+                      np.float32).reshape(want.shape)
+    lm_err_cpp = lm_err(np, got, want)
+    check(lm_err_cpp <= LM_EXPORT_RTOL, "30b: C++ logits off by %.3g of "
+          "the largest |logit| (> %g)" % (lm_err_cpp, LM_EXPORT_RTOL))
+    lm = {"model": "RNNModel lstm", "vocab": LM_VOCAB, "hidden": LM_HIDDEN,
+          "layers": LM_LAYERS, "bptt": LM_BPTT, "batch": LM_BATCH,
+          "export_s": export_s, "compile_for_cpp_s": compile_s,
+          "op_calls": calls, "k4a_launches": launches,
+          "logit_err_over_max": lm_err_cpp, "limit": LM_EXPORT_RTOL,
+          "cpp_forward_ms": cpp_line(stdout, "forward ms:"),
+          "python_replay_ms": replay_ms, "cpp_process_s": proc_s,
+          "artifact_bytes": os.path.getsize(art)}
+    xl, lart, lcompile_s = cpp_lenet_artifact(np, mx, dev, tmp)
+    shape = xl.shape
+    lserved = predict.load_exported(lart, ctx=ctx)
+    lwant = lserved.forward(data=mx.nd.array(xl))[0]._data.cpu().numpy()
+    lreplay_ms = deploy_forward_ms(
+        torch, lambda: lserved.forward(data=mx.nd.array(xl))[0].asnumpy())
+    xl_path, yl_path = (os.path.join(tmp, n) for n in ("lx.bin", "ly.bin"))
+    xl.tofile(xl_path)
+    capi = json.loads(run_cpp(
+        [sys.executable, "-c", C_API_CLIENT, tree.predict_lib, lart,
+         str(dev), xl_path, yl_path, str(CPP_TIMED)],
+        "30b C API client").strip().splitlines()[-1])
+    check(capi["platform"] == "gpu" and capi["modules"] == [] and
+          capi["input_shape"] == list(shape) and
+          capi["output_shape"] == [CPP_LENET_BATCH, 10],
+          "30b C API: %r" % capi)
+    check(all(rc == -1 and msg for rc, msg in capi["errors"].values()),
+          "30b C API error returns: %r" % capi["errors"])
+    lgot = np.fromfile(yl_path, np.float32).reshape(lwant.shape)
+    lerr = lm_err(np, lgot, lwant)
+    check(lerr <= EXPORT_RTOL, "30b: C API LeNet logits off by %.3g of the "
+          "largest |logit| (> %g)" % (lerr, EXPORT_RTOL))
+    out = {"card": card, "word_lm": lm,
+           "lenet_c_api": {"batch": CPP_LENET_BATCH,
+                           "compile_for_cpp_s": lcompile_s,
+                           "logit_err_over_max": lerr, "limit": EXPORT_RTOL,
+                           "c_api_forward_ms": capi["forward_ms"],
+                           "python_replay_ms": lreplay_ms,
+                           "errors": {k: v[1] for k, v in
+                                      capi["errors"].items()}}}
+    print("cpp 30b predict (%s): %s" % (card, json.dumps(out)))
+    return launches, out
+
+
+def cpp_mlp(mx, ctx):
+    """BASELINE config 1's MLP (get_mlp's widths) as a Gluon net."""
+    net = mx.gluon.nn.HybridSequential()
+    net.add(mx.gluon.nn.Dense(128, in_units=784, activation="relu"))
+    net.add(mx.gluon.nn.Dense(64, in_units=128, activation="relu"))
+    net.add(mx.gluon.nn.Dense(10, in_units=64))
+    net.initialize(mx.init.Xavier(), ctx=ctx)
+    return net
+
+
+def cpp_mlp_step(mx, ctx):
+    """30c's TrainStep: the MLP (seed CPP_SEED), SGD lr CPP_TRAIN_LR,
+    momentum 0.9; the same weights in any process."""
+    from mxnet_tpu_torch.parallel.trainer import TrainStep
+    mx.random.seed(CPP_SEED)
+    with mx.name.NameManager():
+        net = cpp_mlp(mx, ctx)
+    return TrainStep(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+                     {"learning_rate": CPP_TRAIN_LR, "momentum": 0.9})
+
+
+def cpp_mlp_artifact(mx, dev, tmp):
+    """30c's TrainStep written by export_train_step for the card, before
+    any step: (the artifact, export seconds)."""
+    from mxnet_tpu_torch import cpp_package, predict
+    step = cpp_mlp_step(mx, mx.gpu(dev.index or 0))
+    x0, y0 = cpp_package.lcg_batch(1, (CPP_MLP_BATCH, 784),
+                                   (CPP_MLP_BATCH,), "int32", 10)
+    art = os.path.join(tmp, "mlp_train.mxtpu")
+    t0 = time.perf_counter()
+    predict.export_train_step(step, x0, y0, art)
+    return art, time.perf_counter() - t0
+
+
+def phase_cpp_train(torch, np, mx, tree, dev, card, tmp):
+    """30c: the MLP's export_train_step artifact (`cpp_mlp_artifact`), its
+    initial state the step's weights (bit for bit) and zero momenta,
+    CPP_STEPS steps of mxtpu_train (falling), its first CPP_HELD losses
+    within CPP_TRAIN_RTOL of TrainStep fed the same LCG batches from the
+    same state; C++ step ms beside TrainStep's."""
+    import zipfile
+    from mxnet_tpu_torch import cpp_package
+    ctx = mx.gpu(dev.index or 0)
+    art, export_s = cpp_mlp_artifact(mx, dev, tmp)
+    step = cpp_mlp_step(mx, ctx)
+    xs, ys = (CPP_MLP_BATCH, 784), (CPP_MLP_BATCH,)
+    params = [p.data()._data.detach().cpu().numpy()
+              for p in step._net.collect_params().values()]
+    with zipfile.ZipFile(art) as z:
+        state = [z.read("state/%d.bin" % i) for i in range(2 * len(params))]
+    check([w.tobytes() for w in params] + [bytes(w.nbytes) for w in params]
+          == state, "30c: the artifact's initial state is not the step's "
+          "weights and zero momenta")
+    stdout = run_cpp([tree.mxtpu_train, art, "--device", str(dev),
+                      "--steps", str(CPP_STEPS), "--lr", str(CPP_TRAIN_LR),
+                      "--num-classes", "10", "--expect-decreasing"],
+                     "30c mxtpu_train")
+    cpp_losses = [float(m.group(1)) for m in re.finditer(
+        r"step +\d+  loss (\S+)", stdout)]
+    check(len(cpp_losses) == CPP_STEPS, "30c: %d loss lines"
+          % len(cpp_losses))
+    py_losses, times = [], []
+    for t in range(1, CPP_HELD + 1):
+        x, y = cpp_package.lcg_batch(t, xs, ys, "int32", 10)
+        xb, yb = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx,
+                                                      dtype="int32")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        py_losses.append(float(step(xb, yb)))
+        times.append(time.perf_counter() - t0)
+    errs = [abs(a - b) / abs(b) for a, b in zip(cpp_losses, py_losses)]
+    worst = max(errs) if errs else math.inf
+    check(worst <= CPP_TRAIN_RTOL, "30c: C++ losses %r against "
+          "TrainStep's %r (relative %.3g > %g)"
+          % (cpp_losses[:CPP_HELD], py_losses, worst, CPP_TRAIN_RTOL))
+    check(cpp_losses[-1:] < cpp_losses[:1], "30c: the loss did not fall")
+    out = {"card": card, "model": "get_mlp 784-128-64-10",
+           "batch": CPP_MLP_BATCH, "optimizer": "sgd lr 0.1 momentum 0.9",
+           "export_train_step_s": export_s, "steps": CPP_STEPS,
+           "losses_first": cpp_losses[:CPP_HELD],
+           "trainstep_losses": py_losses, "max_rel_err": worst,
+           "limit": CPP_TRAIN_RTOL,
+           "loss_last": cpp_losses[-1] if cpp_losses else None,
+           "cpp_step_ms": cpp_line(stdout, "step ms:"),
+           "trainstep_step_ms": 1e3 * sum(times[1:]) / (len(times) - 1)}
+    print("cpp 30c train (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
+def write_jpeg_rec(np, mx, path, n, side, seed):
+    """A RecordIO pack (and its .idx) of n JPEGs of side x side that PIL
+    encodes, labels i % 10."""
+    import io as pyio
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    w = mx.recordio.MXIndexedRecordIO(os.path.splitext(path)[0] + ".idx",
+                                      path, "w")
+    for i in range(n):
+        arr = rng.randint(0, 255, (side, side, 3)).astype(np.uint8)
+        buf = pyio.BytesIO()
+        Image.fromarray(arr).save(buf, format="JPEG", quality=90)
+        w.write_idx(i, mx.recordio.pack(
+            mx.recordio.IRHeader(0, float(i % 10), i, 0), buf.getvalue()))
+    w.close()
+
+
+def phase_cpp_native(torch, np, mx, dev, card, tmp):
+    """30d: the native runtime. Where it built: NativeEngine's ordering,
+    a RecWriter -> RecReader round trip of CPP_RECORDS records read back by
+    the port's recordio too, and ImageRecordIter's native route over
+    CPP_JPEGS JPEGs into batches on the card, with img/s. Where it did
+    not (a host without libjpeg's headers), that finding on a line of its
+    own, every native object raising, and ImageRecordIter over the same
+    pack by its Python route, on the card, with img/s."""
+    from mxnet_tpu_torch import native
+    from mxnet_tpu_torch.base import MXNetError
+    out = {"card": card, "native_built": native.available()}
+    rec = os.path.join(tmp, "jpegs.rec")
+    write_jpeg_rec(np, mx, rec, CPP_JPEGS, CPP_IMG_SIDE, CPP_SEED)
+    if out["native_built"]:
+        eng = native.NativeEngine(8)
+        var = eng.new_var()
+        seq = []
+        for i in range(CPP_ENGINE_TASKS):
+            eng.push(lambda i=i: seq.append(i), write_vars=[var])
+        eng.wait_all()
+        eng.close()
+        check(seq == list(range(CPP_ENGINE_TASKS)), "30d: a write chain "
+              "ran out of order")
+        path = os.path.join(tmp, "n.rec")
+        w = native.RecWriter(path)
+        for i in range(CPP_RECORDS):
+            w.write(b"record-%06d" % i)
+        w.close()
+        r = native.RecReader(path)
+        back = [r.read() for _ in range(CPP_RECORDS)]
+        check(r.read() is None and back == [b"record-%06d" % i for i in
+                                            range(CPP_RECORDS)],
+              "30d: the native round trip lost records")
+        r.close()
+        pr = mx.recordio.MXRecordIO(path, "r")
+        check(pr.read() == b"record-000000", "30d: recordio.py cannot read "
+              "the native pack")
+        pr.close()
+        out["engine_tasks"], out["records"] = CPP_ENGINE_TASKS, CPP_RECORDS
+    else:
+        why = (native.build_error() or "").strip().splitlines()
+        print("native runtime (30d, %s): not built on this host: %s"
+              % (card, next((ln for ln in why if "error" in ln),
+                            why[0] if why else "?")))
+        for make in (lambda: native.NativeEngine(2),
+                     lambda: native.RecReader(rec)):
+            try:
+                make()
+            except MXNetError:
+                continue
+            raise SmokeFailure("30d: a native object was made without the "
+                               "library")
+    ctx = mx.gpu(dev.index or 0)
+    it = mx.io.ImageRecordIter(path_imgrec=rec, batch_size=CPP_IMG_BATCH,
+                               data_shape=(3, 224, 224), ctx=ctx)
+    route = type(it.iters[0]).__name__
+    t0 = time.perf_counter()
+    n = 0
+    for batch in it:
+        d = batch.data[0]._data
+        check(d.device == dev and tuple(d.shape) == (CPP_IMG_BATCH, 3, 224,
+                                                     224),
+              "30d: a batch of %s on %s" % (tuple(d.shape), d.device))
+        n += CPP_IMG_BATCH - batch.pad
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    it.close()
+    check(n == CPP_JPEGS, "30d: %d images of %d" % (n, CPP_JPEGS))
+    out["image_record_iter"] = {"route": route, "images": n,
+                                "image_side": CPP_IMG_SIDE,
+                                "data_shape": [3, 224, 224],
+                                "batch": CPP_IMG_BATCH, "s": secs,
+                                "img_per_s": n / secs}
+    print("cpp 30d native (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
+def phase_cpp(torch, np, dev, card):
+    """Phase 30 (module docstring): the C++ tree and its rnn_design (30a),
+    mxtpu_predict and the C API (30b), mxtpu_train (30c), the native
+    runtime (30d). Returns (30b's K4a launches from C++, the summary)."""
+    import mxnet_tpu_torch as mx
+    out = {"card": card}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, mx.gpu(dev.index or 0):
+        # g++ builds the tree in its own processes while this one exports
+        # and compiles the word LM
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            built = pool.submit(cpp_build_timed)
+            lm_art = cpp_lm_artifact(torch, np, mx, dev, tmp)
+            built = built.result()
+        tree, out["30a"] = phase_cpp_build(torch, np, dev, card, built)
+        launches, out["30b"] = phase_cpp_predict(torch, np, mx, tree, dev,
+                                                 card, tmp, lm_art)
+        out["30c"] = phase_cpp_train(torch, np, mx, tree, dev, card, tmp)
+        out["30d"] = phase_cpp_native(torch, np, mx, dev, card, tmp)
+    out["s"] = time.perf_counter() - t0
+    print("C++ deployment phase 30 (%s): %.1f s" % (card, out["s"]))
+    return launches, out
+
+
 class PhaseClock:
     """Runs one of main()'s phases and prints its wall seconds and the
     run's so far when it ends: the run's limit is shared by all of them,
@@ -10678,6 +11224,7 @@ def main():
         run(phase_sparse_quant, torch, np, dev, smi, dist_summary)
         export_launches, rtc_rows, _ = run(phase_deploy, torch, np, dev,
                                            smi)
+        cpp_launches, _ = run(phase_cpp, torch, np, dev, smi)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -10777,7 +11324,8 @@ def main():
         "word_lm_probe_resume": resume_k4,
         "word_lm_mesh_dp2_f32_and_int8_rank0": dist_launches["k4"],
         "word_lm_resilience_phase25": res_launches,
-        "word_lm_exported_phase29b": export_launches})
+        "word_lm_exported_phase29b": export_launches,
+        "rnn_fwd_via_cpp_phase30b": (cpp_launches, 0)})
     kernels += rtc_rows
     print(json.dumps({"kernels": kernels}))
     print(smi)

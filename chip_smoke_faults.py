@@ -1,4 +1,4 @@
-"""The readings that phase 24's, 25's, 26's and 29's limits in
+"""The readings that phase 24's, 25's, 26's, 29's and 30's limits in
 chip_smoke.py sit between.
 
 chip_smoke.py's 24c holds one float32 step's change of the BatchNorm
@@ -53,6 +53,15 @@ what each run reads:
        (the fresh process's plain scan on the CPU given wh rounded to
        bfloat16).
 
+  30   the C++ half's checks (chip_smoke.phase_cpp_build, _predict and
+       _train), for: sound; k4a_wrong_design (the C++ rnn_design takes
+       the layout with the most rows a cluster where Python takes the
+       fewest); wh_perturbed (the C++ op hands K4a wh scaled by
+       1 + 1e-3); state_off_by_one (export_train_step's state/<i>.bin
+       each written one slot late, the last first). The two C++ faults
+       build a copy of cpp_package/'s sources, changed, in a temporary
+       directory.
+
 A fault replaces one function of the port in the rank's process (25c's
 in every process of the drill, 29b's fresh_cpu_wh_bf16 in the fresh
 process, through a sitecustomize module on PYTHONPATH that `MXTT_PLANT`
@@ -60,7 +69,7 @@ arms); no file changes. In a run with a
 fault, chip_smoke's checks record what fails instead of raising. Run
 from the repository root on a machine with one card:
 
-    python3 chip_smoke_faults.py [--phase 24|25|26|29]
+    python3 chip_smoke_faults.py [--phase 24|25|26|29|30]
 
 It prints one line a run, the card's name and power limit, and as its
 last line a JSON object of every reading. It exits 1 without a card.
@@ -87,6 +96,19 @@ FAULTS_26A = ("sound", "no_divergence_probe", "slow_canary_promoted")
 FAULTS_26B = ("sound", "drop_shard1_partial", "whole_weight_row_scales")
 FAULTS_29B = ("sound", "sound", "wh_bf16", "reverse_flipped",
               "fresh_cpu_wh_bf16")
+FAULTS_30 = ("sound", "k4a_wrong_design", "wh_perturbed", "state_off_by_one")
+#: the C++ faults: (the source changed, the text replaced, its stand-in)
+_CPP_FAULTS = {
+    "k4a_wrong_design": (
+        "src/rnn_op.cc",
+        "std::make_tuple(ceil_div(clusters, n), R, -P)",
+        "std::make_tuple(ceil_div(clusters, n), -R, -P)"),
+    "wh_perturbed": (
+        "src/rnn_op.cc",
+        "const Design d = rnn_design(mc, N, static_cast<int>(H), dtype);",
+        "const Design d = rnn_design(mc, N, static_cast<int>(H), dtype);\n"
+        "  const at::Tensor whp = (wh * 1.001).contiguous();"),
+}
 
 _SITECUSTOMIZE = """\
 import importlib.machinery, importlib.util, os, sys
@@ -469,6 +491,98 @@ def _phase29(torch, np, dev, card):
     return {"29b": out}
 
 
+def _cpp_variant(fault):
+    """The C++ tree built from a copy of cpp_package/'s sources with
+    `fault`'s change, in a temporary directory: its `Build`."""
+    from mxnet_tpu_torch import cpp_package as cp
+    rel, old, new = _CPP_FAULTS[fault]
+    work = tempfile.mkdtemp(prefix="mxtt_cpp_%s_" % fault)
+    src = os.path.join(work, "src_tree")
+    shutil.copytree(cp.HERE, src,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    with open(os.path.join(src, rel)) as f:
+        text = f.read()
+    if fault == "wh_perturbed":
+        text = text.replace("wh.data_ptr(), ys.data_ptr()",
+                            "whp.data_ptr(), ys.data_ptr()")
+    assert old in text, (fault, old)
+    with open(os.path.join(src, rel), "w") as f:
+        f.write(text.replace(old, new))
+    includes, lib_dir, libs = cp._torch_paths(True)
+    out = os.path.join(work, "build")
+    os.makedirs(out)
+    cp._compile_tree(out, True, cp._flags(True, includes), lib_dir, libs,
+                     src_dir=src)
+    return cp.Build(out, "cuda", *(os.path.join(out, p)
+                                   for p in cp._PRODUCTS)), work
+
+
+def _phase30(torch, np, dev, card):
+    """Phase 30's readings (30a's designs that differ, 30b's logit error
+    and K4a launches, 30c's largest relative loss error, the checks that
+    failed), sound and with each fault planted: two into a copy of the
+    C++ sources (k4a_wrong_design, wh_perturbed), one into
+    export_train_step's artifact (state_off_by_one)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import cpp_package, predict
+    failed = []
+
+    def record(cond, msg):
+        if not cond:
+            failed.append(msg[:400])
+    cs.check = record
+    sound_build, sound_publish = cpp_package.build, predict._publish_zip
+
+    def off_by_one(path, entries):
+        """state/<i>.bin written one slot late (the last first)."""
+        names = sorted((n for n in entries if n.startswith("state/")),
+                       key=lambda n: int(n[6:-4]))
+        blobs = [entries[n] for n in names]
+        entries.update(zip(names, blobs[-1:] + blobs[:-1]))
+        return sound_publish(path, entries)
+    out = []
+    for fault in FAULTS_30:
+        del failed[:]
+        work = None
+        if fault in _CPP_FAULTS:
+            tree, work = _cpp_variant(fault)
+            cpp_package.build = lambda device="cuda", _t=tree: _t
+        elif fault == "state_off_by_one":
+            predict._publish_zip = off_by_one
+        tmp = tempfile.mkdtemp(prefix="mxtt_faults30_")
+        row = {"fault": fault}
+        try:
+            with mx.gpu(dev.index or 0):
+                tree, a = cs.phase_cpp_build(torch, np, dev, card)
+                row["designs_differing"] = [
+                    d for d in a["designs"] if d["python"] != d["cpp"]]
+                try:
+                    _, b = cs.phase_cpp_predict(torch, np, mx, tree, dev,
+                                                card, tmp)
+                    row["30b_logit_err"] = b["word_lm"]["logit_err_over_max"]
+                    row["30b_k4a_launches"] = b["word_lm"]["k4a_launches"]
+                except Exception as e:  # a planted fault's way to fail
+                    failed.append(("30b raised: %r" % (e,))[:400])
+                try:
+                    c = cs.phase_cpp_train(torch, np, mx, tree, dev, card,
+                                           tmp)
+                    row["30c_max_rel_err"] = c["max_rel_err"]
+                except Exception as e:  # a planted fault's way to fail
+                    failed.append(("30c raised: %r" % (e,))[:400])
+        finally:
+            cpp_package.build, predict._publish_zip = sound_build, \
+                sound_publish
+            shutil.rmtree(tmp, ignore_errors=True)
+            if work:
+                shutil.rmtree(work, ignore_errors=True)
+        row.update({"limits": {"30b": cs.LM_EXPORT_RTOL,
+                               "30c": cs.CPP_TRAIN_RTOL},
+                    "failed": list(failed)})
+        print(json.dumps(row), flush=True)
+        out.append(row)
+    return {"30": out}
+
+
 def main():
     import numpy as np
     import torch
@@ -484,9 +598,9 @@ def main():
     torch.cuda.set_device(dev)
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phase", choices=("24", "25", "26", "29"),
+    ap.add_argument("--phase", choices=("24", "25", "26", "29", "30"),
                     default=None, help="one phase's faults (default: all)")
-    phases = {"24", "25", "26", "29"} if ap.parse_args().phase is None \
+    phases = {"24", "25", "26", "29", "30"} if ap.parse_args().phase is None \
         else {ap.parse_args().phase}
     card = cs.nvidia_smi()
     cs.build_kernels(_cuda)
@@ -510,6 +624,8 @@ def main():
         readings.update(_phase26(torch, np, dev, card))
     if "29" in phases:
         readings.update(_phase29(torch, np, dev, card))
+    if "30" in phases:
+        readings.update(_phase30(torch, np, dev, card))
     print(card)
     print(json.dumps(readings))
     return 0

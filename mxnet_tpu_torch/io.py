@@ -1,6 +1,7 @@
 """Data iterators (port of `mxnet_tpu/io.py`): DataDesc, DataBatch,
-DataIter, NDArrayIter, ResizeIter, PrefetchingIter, MNISTIter, CSVIter
-and DevicePrefetchIter.
+DataIter, NDArrayIter, ResizeIter, PrefetchingIter, MNISTIter, CSVIter,
+LibSVMIter, DevicePrefetchIter and the image record iterators
+(NativeImageRecordIter, ImageRecordIter, the MXDataIter alias).
 
 Iterators yield batches in host memory (CPU NDArrays): the consumer
 moves them to its device, as `Module.forward` does when it feeds the
@@ -11,7 +12,16 @@ does, so one `np.random.seed` gives both packages the same order. A CSR
 data source (a `CSRNDArray`) is kept as a host scipy CSR matrix and each batch densifies only its own rows, as the
 reference's `_take` does. `LibSVMIter` reads a LibSVM text file into
 such a source (its `num_parts` / `part_index` take every num_parts-th
-line). Not ported yet: the image record iterators (ROADMAP.md, queue 1).
+line).
+
+The image record iterators are the exception to host batches: their
+batches are NDArrays on the context asked for, the card by default. The
+native route decodes each batch in C++ threads (`native/`, built at first
+use) into a pinned host buffer and copies it to the card from there.
+`ImageRecordIter` takes the reference's route: native for an RGB
+`data_shape`, one part and label width 1 where the native library built,
+otherwise the port's `image.ImageIter` over RecordIO (which needs the
+pack's `.idx`), wrapped in `PrefetchingIter` either way.
 """
 from __future__ import annotations
 
@@ -540,6 +550,140 @@ class CSVIter(DataIter):
 
     def next(self):
         return self._inner.next()
+
+
+class NativeImageRecordIter(DataIter):
+    """The C++ image pipeline (the registered ImageRecordIter, parity:
+    src/io/iter_image_recordio_2.cc): parallel JPEG decode, augment and
+    batch in native threads (`native.NativeImageIter`), each batch decoded
+    into a pinned host buffer and copied to `ctx` (the card by default).
+    Raises when the native library did not build."""
+
+    def __init__(self, path_imgrec, batch_size, data_shape, shuffle=False,
+                 preprocess_threads=0, rand_crop=False, rand_mirror=False,
+                 seed=0, label_name="softmax_label", ctx=None):
+        super().__init__(batch_size)
+        from . import native
+        from .context import current_context
+        self._data_shape = tuple(data_shape)
+        self._label_name = label_name
+        self._device = (ctx or current_context()).torch_device()
+        self._it = native.NativeImageIter(
+            path_imgrec, batch_size, self._data_shape, shuffle=shuffle,
+            num_threads=preprocess_threads, rand_crop=rand_crop,
+            rand_mirror=rand_mirror, seed=seed)
+        card = self._device.type == "cuda"
+        self._host = torch.empty((batch_size,) + self._data_shape,
+                                 dtype=torch.float32, pin_memory=card)
+        self._copied = torch.cuda.Event() if card else None
+
+    @property
+    def provide_data(self):
+        return [DataDesc("data", (self.batch_size,) + self._data_shape)]
+
+    @property
+    def provide_label(self):
+        return [DataDesc(self._label_name, (self.batch_size,))]
+
+    def reset(self):
+        self._it.reset()
+
+    def next(self):
+        if self._copied is not None:
+            self._copied.synchronize()  # the last copy out of the buffer
+        out = self._it.next_batch(out=self._host.numpy())
+        if out is None:
+            raise StopIteration
+        _, label, n = out
+        if self._copied is None:
+            data = self._host.clone()
+        else:
+            data = self._host.to(self._device, non_blocking=True)
+            self._copied.record()
+        label = torch.from_numpy(label).to(self._device)
+        return DataBatch(data=[NDArray(data)], label=[NDArray(label)],
+                         pad=self.batch_size - n,
+                         provide_data=self.provide_data,
+                         provide_label=self.provide_label)
+
+
+class _OnContext(DataIter):
+    """Another iterator's batches with their arrays moved to `ctx`."""
+
+    def __init__(self, inner, ctx):
+        super().__init__(inner.batch_size)
+        self._inner = inner
+        self._ctx = ctx
+
+    @property
+    def provide_data(self):
+        return self._inner.provide_data
+
+    @property
+    def provide_label(self):
+        return self._inner.provide_label
+
+    def reset(self):
+        self._inner.reset()
+
+    def next(self):
+        b = self._inner.next()
+        return DataBatch(
+            data=[a.as_in_context(self._ctx) for a in b.data],
+            label=[a.as_in_context(self._ctx) for a in b.label or []],
+            pad=b.pad, index=b.index, provide_data=self.provide_data,
+            provide_label=self.provide_label)
+
+
+def ImageRecordIter(**kwargs):
+    """The reference's flagship image pipeline, by its routing rule
+    (mxnet_tpu/io.py ImageRecordIter): `NativeImageRecordIter` for an RGB
+    `data_shape` of a `path_imgrec`, one part and label width 1 when the
+    native library built (`native.available()`) and `force_python` is not
+    set; otherwise `image.ImageIter` over the pack. Wrapped in
+    `PrefetchingIter` unless `prefetch=False`. Batches are NDArrays on
+    `ctx` (the card by default)."""
+    from . import native
+    from .context import current_context
+    ctx = kwargs.get("ctx") or current_context()
+    shape = tuple(kwargs.get("data_shape") or ())
+    native_ok = (kwargs.get("path_imgrec")
+                 and not kwargs.get("force_python", False)
+                 and int(kwargs.get("num_parts", 1)) == 1
+                 and int(kwargs.get("label_width", 1)) == 1
+                 and len(shape) == 3 and shape[0] == 3
+                 and native.available())
+    if native_ok:
+        it = NativeImageRecordIter(
+            path_imgrec=kwargs["path_imgrec"],
+            batch_size=kwargs.get("batch_size", 1), data_shape=shape,
+            shuffle=bool(kwargs.get("shuffle", False)),
+            preprocess_threads=int(kwargs.get("preprocess_threads", 0)),
+            rand_crop=bool(kwargs.get("rand_crop", False)),
+            rand_mirror=bool(kwargs.get("rand_mirror", False)),
+            seed=int(kwargs.get("seed", 0)),
+            label_name=kwargs.get("label_name", "softmax_label"), ctx=ctx)
+    else:
+        from .image import ImageIter
+        it = _OnContext(ImageIter(
+            batch_size=kwargs.get("batch_size", 1),
+            data_shape=kwargs.get("data_shape"),
+            path_imgrec=kwargs.get("path_imgrec"),
+            path_imglist=kwargs.get("path_imglist"),
+            path_root=kwargs.get("path_root"),
+            shuffle=bool(kwargs.get("shuffle", False)),
+            part_index=int(kwargs.get("part_index", 0)),
+            num_parts=int(kwargs.get("num_parts", 1)),
+            label_width=int(kwargs.get("label_width", 1)),
+            rand_crop=bool(kwargs.get("rand_crop", False)),
+            rand_mirror=bool(kwargs.get("rand_mirror", False))), ctx)
+    if kwargs.get("prefetch", True):
+        return PrefetchingIter(it)
+    return it
+
+
+#: parity alias: the reference's C-backed iterators are Python classes here
+MXDataIter = DataIter
 
 
 class DevicePrefetchIter(DataIter):

@@ -10,6 +10,7 @@ two sources build at once when two threads ask for them.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -116,19 +117,38 @@ def library(source):
     return lib
 
 
-def refuse_export(kernel):
-    """Raise while `torch.export` traces: this kernel launches through
-    ctypes, which cannot take the tracer's fake tensors, and its plain
-    version would stand in for it in the exported graph without a word.
-    Only K4a, a torch.library op (`mxnet_tpu_torch::rnn_fwd`), stays in an
-    exported graph; K1-K3 sit on no path that `predict.export_model`
-    takes, so a graph that reaches one is refused here, naming it."""
+#: set while `predict.export_train_step` traces a step with make_fx, which
+#: torch.compiler.is_exporting() does not report
+_TRACING = threading.local()
+
+
+@contextlib.contextmanager
+def tracing_step():
+    """Within the block `refuse_export` refuses as under torch.export."""
+    prev = getattr(_TRACING, "on", False)
+    _TRACING.on = True
+    try:
+        yield
+    finally:
+        _TRACING.on = prev
+
+
+def refuse_export(kernel, hint=""):
+    """Raise while `torch.export` traces (or `tracing_step` is on): this
+    kernel launches through ctypes, which cannot take the tracer's fake
+    tensors, and its plain version would stand in for it in the exported
+    graph without a word. Only K4a, a torch.library op
+    (`mxnet_tpu_torch::rnn_fwd`), stays in an exported graph; K1-K3 sit on
+    no path that `predict.export_model` takes, and K4b (the op's backward)
+    on none that `export_train_step` can hold, so a graph that reaches one
+    is refused here, naming it (and `hint`, what to export instead)."""
     import torch
-    if torch.compiler.is_exporting():
+    if torch.compiler.is_exporting() or getattr(_TRACING, "on", False):
         raise MXNetError(
             "export: the graph reaches %s, a kernel launched through "
             "ctypes that an exported program cannot hold (only the fused "
-            "RNN forward, K4a, is an exportable op)" % kernel)
+            "RNN forward, K4a, is an exportable op)%s"
+            % (kernel, "; " + hint if hint else ""))
 
 
 def check(lib, err, what):

@@ -56,6 +56,7 @@ import os
 import torch
 
 from ..base import MXNetError
+from ._cuda import refuse_export as _refuse_export
 
 _GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4}
 _MODE_CODE = {"lstm": 0, "rnn_relu": 1, "rnn_tanh": 2}
@@ -473,7 +474,10 @@ def rnn_bwd(mode, px, ys, hprev, cprev, cs, wh, dys, dhT, dcT,
     """K4b: (dpx, dh0, dc0, dwh) as `rnn_bwd_plain`. CUDA tensors launch
     the scan kernel and the dWh kernel (counted once, in
     `rnn_bwd.launches`) or raise; CPU and "meta" tensors take
-    `rnn_bwd_plain`."""
+    `rnn_bwd_plain`. Refused while a step is traced for export: the
+    exported graph cannot hold it."""
+    _refuse_export("K4b (fused_rnn backward)", "export the step with "
+                   "MXNET_FUSED_RNN=0, which runs the composite scan")
     if hprev.device.type in _PLAIN_DEVICES:
         return rnn_bwd_plain(mode, px, ys, hprev, cprev, cs, wh, dys, dhT,
                              dcT, reverse)

@@ -65,6 +65,12 @@ def _zeros(w):
     return torch.zeros_like(w)
 
 
+def _sqrt(v):
+    """math.sqrt of a number; torch.sqrt of a 0-d tensor, which is what a
+    traced step's lr and t are (predict.export_train_step)."""
+    return torch.sqrt(v) if isinstance(v, torch.Tensor) else math.sqrt(v)
+
+
 def _sgd_init(w, h):
     return (_zeros(w),) if h.get("momentum", 0.0) else ()
 
@@ -164,7 +170,7 @@ def _sgld_apply(w, g, state, lr, wd, t, h, key=None):
         key = _random.generator(w.device)
     g = g + wd * w
     noise = torch.randn(w.shape, generator=key, dtype=w.dtype,
-                        device=w.device) * math.sqrt(lr)
+                        device=w.device) * _sqrt(lr)
     return w - lr / 2 * g + noise, state
 
 
@@ -181,7 +187,7 @@ def _adam_apply(w, g, state, lr, wd, t, h, key=None):
     m, v = state
     m = b1 * m + (1 - b1) * g
     v = b2 * v + (1 - b2) * torch.square(g)
-    lr_t = lr * math.sqrt(1 - b2 ** t) / (1 - b1 ** t)
+    lr_t = lr * _sqrt(1 - b2 ** t) / (1 - b1 ** t)
     return w - lr_t * m / (torch.sqrt(v) + eps), (m, v)
 
 

@@ -25,11 +25,21 @@ graph that reaches one raises, naming it. The reference's
 `introspect.compile_region` around the export has no counterpart here yet
 (ROADMAP item 11). Every entry point runs on the card unless the caller
 asks for the CPU (`ctx=mx.cpu()`, or inside `with mx.cpu():`).
+
+The C++ side (`cpp_package/`) runs AOTInductor packages:
+`compile_for_cpp` adds one for a device to an artifact, and
+`export_train_step` writes a `TrainStep` as the reference's training
+artifact with the package of the step's device.
 """
 from __future__ import annotations
 
+import functools
 import io
 import json
+import os
+import shutil
+import subprocess
+import tempfile
 import zipfile
 
 import numpy as np
@@ -377,14 +387,9 @@ def export_model(model, input_shapes, path, params=None,
             "format": 1}
     sig = [_sig_line("in", x) for x in examples]
     sig += [_sig_line("out", o) for o in _program_outputs(ep)]
-    # an atomic-rename publish: a reader, or a serving fleet booting off
-    # this artifact, never sees a half-written zip
-    from .utils import atomic_publish
-    with atomic_publish(str(path)) as tmp:
-        with zipfile.ZipFile(tmp, "w") as z:
-            z.writestr("meta.json", json.dumps(meta))
-            z.writestr("model.pt2", buf.getvalue())
-            z.writestr("signature.txt", "\n".join(sig) + "\n")
+    _publish_zip(path, {"meta.json": json.dumps(meta).encode(),
+                        "model.pt2": buf.getvalue(),
+                        "signature.txt": ("\n".join(sig) + "\n").encode()})
     return path
 
 
@@ -465,3 +470,240 @@ def load_exported(path, ctx=None):
     program = torch.export.load(io.BytesIO(blob))
     program = torch.export.passes.move_to_device_pass(program, device)
     return ExportedPredictor(program, meta, device)
+
+
+# ---------------------------------------------------------------------------
+# the C++ side (cpp_package/): AOTInductor packages and training artifacts
+# ---------------------------------------------------------------------------
+
+
+def _device_kind(device):
+    """The artifact's package name of a torch device: "cuda" or "cpu"."""
+    return "cuda" if torch.device(device).type == "cuda" else "cpu"
+
+
+@functools.lru_cache(maxsize=None)
+def _inductor_cxx():
+    """A C++ compiler for Inductor's AOT build: the first of $CXX, g++ on
+    the PATH, /usr/bin/g++ and c++ that builds a shared object with
+    -fopenmp (the package's wrapper is built so; a compiler without
+    libgomp's spec file fails there), asked once a process."""
+    tried = []
+    for cxx in (os.environ.get("CXX"), shutil.which("g++"), "/usr/bin/g++",
+                shutil.which("c++")):
+        if not cxx or cxx in tried or not os.path.exists(cxx):
+            continue
+        tried.append(cxx)
+        with tempfile.TemporaryDirectory() as d:
+            p = subprocess.run(
+                [cxx, "-fopenmp", "-shared", "-fPIC", "-x", "c++", "-",
+                 "-o", os.path.join(d, "t.so")],
+                input="int f() { return 0; }\n", capture_output=True,
+                text=True)
+        if p.returncode == 0:
+            return cxx
+    raise MXNetError("no C++ compiler builds with -fopenmp (tried %s); "
+                     "AOTInductor needs one" % (tried,))
+
+
+def _aoti_package(program, device):
+    """The bytes of the AOTInductor package of `program` (an
+    ExportedProgram on `device`), compiled with float32 products in
+    float32 (the port's parity rule). For the card, Inductor's probe of
+    the host's CPU vector ISAs is skipped (its host wrapper then builds
+    without vector flags): each ISA, and each extension of one (bf16,
+    VNNI, AMX), is a compile and a fresh Python process that loads it,
+    which cost 20-40 s of a process's first compile on the card's host
+    (tools/aoti_compile_probe.py; H100 80GB HBM3, 700 W). A CPU package keeps the probe, whose
+    pick its kernels are compiled for."""
+    import contextlib
+    from unittest import mock
+    import torch._inductor
+    import torch._inductor.cpu_vec_isa as vec_isa
+    from .ops import fused_rnn  # noqa: F401 — K4a's op and its fake
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    no_probe = (mock.patch.object(vec_isa, "valid_vec_isa_list", list)
+                if torch.device(device).type == "cuda"
+                else contextlib.nullcontext())
+    with tempfile.TemporaryDirectory() as d:
+        pkg = os.path.join(d, "model.pt2")
+        try:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            with torch._inductor.config.patch(
+                    {"cpp.cxx": (_inductor_cxx(),)}), no_probe:
+                torch._inductor.aoti_compile_and_package(
+                    program, package_path=pkg)
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+        with open(pkg, "rb") as f:
+            return f.read()
+
+
+def _publish_zip(path, entries):
+    """Write {name: bytes} as the STORE-only zip at `path` (the C++
+    reader takes no compressed entry) by an atomic-rename publish: a
+    reader, or a serving fleet booting off the artifact, never sees a
+    half-written zip."""
+    from .utils import atomic_publish
+    with atomic_publish(str(path)) as tmp:
+        with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED) as z:
+            for name, data in entries.items():
+                z.writestr(name, data)
+
+
+def compile_for_cpp(path, ctx=None):
+    """Compile the artifact at `path` (from `export_model` or
+    `export_train_step`) for the C++ predictor on `ctx`'s device (the
+    card by default): its `model.pt2` moved to the device and compiled by
+    AOTInductor into `aoti/<cuda|cpu>.pt2`, which is added to the zip (a
+    package of that kind already there is replaced) and named in
+    `meta.json`'s "aoti". Returns `path`.
+
+    The counterpart of the reference's C++ `PJRT_Client_Compile`, moved
+    to Python because Inductor compiles there; `export_model` itself
+    compiles nothing. A graph holding K4a keeps it as the op
+    `mxnet_tpu_torch::rnn_fwd`, which the C++ side's
+    `libmxtpu_torch_ops.so` serves."""
+    import torch.export.passes
+    from .ops import fused_rnn  # noqa: F401 — registers rnn_fwd's op
+    device = _context(ctx).torch_device()
+    kind = _device_kind(device)
+    with zipfile.ZipFile(path) as z:
+        entries = {n: z.read(n) for n in z.namelist()}
+    program = torch.export.load(io.BytesIO(entries["model.pt2"]))
+    program = torch.export.passes.move_to_device_pass(program, device)
+    entries["aoti/%s.pt2" % kind] = _aoti_package(program, device)
+    meta = json.loads(entries["meta.json"])
+    meta.setdefault("aoti", {})[kind] = {"torch": torch.__version__}
+    entries["meta.json"] = json.dumps(meta).encode()
+    _publish_zip(path, entries)
+    return path
+
+
+def export_train_step(step, example_x, example_y, path):
+    """Write a built `TrainStep` as a training artifact that the C++
+    trainer (`mxtpu_train`) runs with no Python: the reference's contract
+    (mxnet_tpu/predict.py export_train_step).
+
+    The step (the training-mode forward and loss, the gradients of every
+    parameter whose grad_req is not "null", the optimizer's rule, the
+    running stats the forward wrote) is a pure function of its state,
+    traced by make_fx (torch.export alone cannot trace through
+    torch.autograd.grad), exported by torch.export and compiled by
+    AOTInductor for the step's device. Inputs are [state..., x, y, seed,
+    lr, t], outputs [loss, state...] (output 1+i feeds input i of the next
+    step); the state is the gradient parameters, the others, then each
+    optimizer state in parameter order. The graph's stochastic ops draw
+    from the device's default generator, which `mxtpu_train` seeds with
+    `seed` before each step; `seed` is not read inside the graph.
+
+    The artifact: `signature.txt`, `train.txt` ("n_state K"),
+    `state/<i>.bin` (the state's current values, raw little-endian),
+    `meta.json` ("train": n_state, n_grad, n_nograd, n_opt), `model.pt2`
+    and `aoti/<cuda|cpu>.pt2`. Raises for a mesh step, as the reference
+    does, and when the step reaches a kernel that an exported graph
+    cannot hold (K1-K3, K4b), naming it: export a BatchNorm net with
+    MXNET_FUSED_BN_EPILOGUE=0, an RNN with MXNET_FUSED_RNN=0. Remat changes
+    memory, not values, and is not traced; the guard's flag is not part
+    of the contract."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    from . import autograd
+    from . import random as _random
+    from .ops import _cuda
+    from .parallel.functional import swap_param_buffers
+    if step._mesh is not None:
+        raise MXNetError("export_train_step: mesh-sharded TrainSteps are "
+                         "not exportable to the single-device C++ trainer; "
+                         "build the TrainStep without a mesh")
+    if step._plist is None:
+        step._build()
+    plist, mask = step._plist, step._grad_mask
+    opt = step._opt
+    lens = [len(s) for s in step._opt_state]
+    gvals, nvals = step._grad_vals(), step._nograd_vals()
+    n_g, n_n, n_o = len(gvals), len(nvals), sum(lens)
+    n_state = n_g + n_n + n_o
+    dev = plist[0]._data._data.device
+    cdtype = step._compute_dtype
+    mixed = cdtype != torch.float32
+
+    def compute(t):
+        return t.to(cdtype) if mixed and t.is_floating_point() else t
+
+    def pure(*flat):
+        state, (x, y, _seed, lr, t) = flat[:n_state], flat[n_state:]
+        g_in, n_in = state[:n_g], state[n_g:n_g + n_n]
+        o_in = state[n_g + n_n:]
+        leaves = [w.detach().requires_grad_(True) for w in g_in]
+        merged, gi, ni = [], iter(leaves), iter(n_in)
+        for m in mask:
+            merged.append(compute(next(gi) if m else next(ni)))
+        with swap_param_buffers(plist, merged) as injected, \
+                autograd._RecordingStateScope(True, True), \
+                torch.enable_grad(), _random.default_generator_scope():
+            out = step._net.forward(NDArray(compute(x)))
+            if mixed:
+                out = NDArray(out._data.float())
+            loss = torch.mean(step._loss(out, NDArray(y))._data.float())
+            wrote = {i: p._data._data_buf for i, p in enumerate(plist)
+                     if p._data._data_buf is not injected[i]}
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        new_g, new_o, k = [], [], 0
+        for i, (w, g) in enumerate(zip(g_in, grads)):
+            g = torch.zeros_like(w) if g is None else g
+            g = g.to(w.dtype) * opt.rescale_grad
+            if opt.clip_gradient is not None:
+                g = torch.clamp(g, -opt.clip_gradient, opt.clip_gradient)
+            w2, s2 = step._apply_rule(
+                w, g, tuple(o_in[k:k + lens[i]]), lr * step._lr_mults[i],
+                opt.wd * step._wd_mults[i], t, step._hyper)
+            k += lens[i]
+            new_g.append(w2.detach())
+            new_o.extend(s2)
+        new_n, ni = [], iter(n_in)
+        for i, m in enumerate(mask):
+            if not m:
+                v = next(ni)
+                new_n.append(wrote[i].detach().to(v.dtype) if i in wrote
+                             else v)
+        outs = [loss.detach()] + new_g + new_n + list(new_o)
+        # a state passed through unchanged is a copy, not the input
+        return tuple(o.clone() if any(o is s for s in state) else o
+                     for o in outs)
+
+    def as_tensor(v):
+        return (v._data if isinstance(v, NDArray)
+                else torch.as_tensor(np.asarray(v))).detach().to(dev)
+
+    state0 = [v.detach().clone() for v in gvals + nvals] + \
+        [v.detach().clone() for s in step._opt_state for v in s]
+    example = state0 + [as_tensor(example_x), as_tensor(example_y),
+                        torch.tensor(0, dtype=torch.int32, device=dev),
+                        torch.tensor(float(step._lr()), device=dev),
+                        torch.tensor(1, dtype=torch.int32, device=dev)]
+    with _cuda.tracing_step():
+        gm = make_fx(pure, tracing_mode="fake")(*example)
+    program = torch.export.export(gm, tuple(example), strict=False)
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    sig = [_sig_line("in", v) for v in example]
+    sig += [_sig_line("out", o) for o in _program_outputs(program)]
+    kind = _device_kind(dev)
+    meta = {"format": 1,
+            "train": {"n_state": n_state, "n_grad": n_g, "n_nograd": n_n,
+                      "n_opt": n_o},
+            "aoti": {kind: {"torch": torch.__version__}}}
+    entries = {"meta.json": json.dumps(meta).encode(),
+               "model.pt2": buf.getvalue(),
+               "signature.txt": ("\n".join(sig) + "\n").encode(),
+               "train.txt": b"n_state %d\n" % n_state}
+    for i, v in enumerate(state0):
+        entries["state/%d.bin" % i] = v.cpu().contiguous().numpy().tobytes() \
+            if v.dtype != torch.bfloat16 else \
+            v.cpu().contiguous().view(torch.int16).numpy().tobytes()
+    entries["aoti/%s.pt2" % kind] = _aoti_package(program, dev)
+    _publish_zip(path, entries)
+    return path

@@ -46,10 +46,18 @@ def _key(device):
     return device, str(device)
 
 
+#: `generator_scope`'s value under which every device's draws come from
+#: torch's default generator of the device (`generator()` returns None)
+_DEFAULT = object()
+
+
 def generator(device="cpu"):
-    """The generator that stochastic ops on `device` draw from."""
+    """The generator that stochastic ops on `device` draw from; None (torch's
+    default generator of the device) inside `default_generator_scope`."""
     device, key = _key(device)
     ov = _STATE.override
+    if ov is _DEFAULT:
+        return None
     if ov is not None and _key(ov.device)[1] == key:
         return ov
     g = _STATE.generators.get(key)
@@ -104,6 +112,14 @@ def generator_scope(gen):
         yield gen
     finally:
         _STATE.override = prev
+
+
+def default_generator_scope():
+    """Within the scope, stochastic ops draw from torch's default generator
+    of their device, passing no generator: a traced step then holds no
+    Generator object, and whoever runs it seeds the default generator
+    (predict.export_train_step)."""
+    return generator_scope(_DEFAULT)
 
 
 def snapshot():
