@@ -143,8 +143,11 @@ Phases (any failure exits non-zero before the last line):
                 after each Convolution) through Module at batch 100,
                 float32, MXNET_FUSED_BN_EPILOGUE=1: the first step's
                 outputs, gradients and moving statistics flag on against
-                flag off; 5 steps with K3a-d launched 2 x 5 times each,
-                none in score; a profiled step.
+                flag off; test_utils.check_consistency over [cpu,
+                gpu(0)] at batch CONSIST_BN_BATCH, outputs and gradients
+                within its tol 1e-3, K3a-d launched twice each on the
+                card; 5 steps with K3a-d launched 2 x 5 times each, none
+                in score; a profiled step.
   13. Gluon path — SKILL.md drive flow 2: LeNet on gluon.data's MNIST
                 (ToTensor, DataLoader batch 100, shuffle, 2 worker
                 threads, pinned batches) with gluon.Trainer sgd lr 0.1
@@ -278,7 +281,11 @@ Phases (any failure exits non-zero before the last line):
                 224, 224)) against the same call on the CPU, and its
                 gradients where it has them, within ITEM2_TOL; gelqf and
                 syevd by reconstruction and up to each row's sign; per
-                family the count, the largest error and the card ms.
+                family the count, the largest error and the card ms;
+                then test_utils.check_consistency over [cpu, gpu(0)] of
+                sym.RNN lstm at the word LM's layer, MXNET_FUSED_RNN=1,
+                outputs and gradients within tol 1e-3, K4a-b launched
+                LM_LAYERS times each on the card.
                 (b) K1 through nd.contrib.PagedAttention with
                 MXNET_PAGED_ATTENTION=1 (decode B 8, a 32-row chunk;
                 float32 and bfloat16) and a bound sym.contrib.
@@ -425,9 +432,9 @@ Phases (any failure exits non-zero before the last line):
                 host cordoned and the pod finishing at 2 hosts equal to
                 the undisturbed run, a truncated step demoted by the
                 audit before restore, and an SDC digest flip naming the
-                armed host. (b) and (c) run at the same time, sharing
-                the card; (d) runs alone after them, since its
-                straggler flag reads step times. (b)-(d) launch K4a-b
+                armed host. (b), (c) and (d) run at the same time,
+                sharing the card ((d)'s legs in one campaign, after one
+                clean reference run). (b)-(d) launch K4a-b
                 once a layer for each step and SDC probe their
                 finishing workers ran. Prints the
                 save latency (the caller's host copy against the
@@ -592,7 +599,11 @@ Phases (any failure exits non-zero before the last line):
                 replay, C++ ms a forward beside it; then the Gluon LeNet
                 at batch 100 through libmxtpu_predict.so's C API
                 (C_API_CLIENT, ctypes in a fresh process), within
-                EXPORT_RTOL, with its -1 returns; (c) export_train_step
+                EXPORT_RTOL, with its -1 returns; then phase 29a's
+                ResNet-50 artifact (kept from phase 29) compiled for the
+                card after the word LM, run by mxtpu_predict (--repeat
+                CPP_R50_TIMED) and one batch through the C API, logits
+                within EXPORT_RTOL of the Python replay; (c) export_train_step
                 of get_mlp's MLP (batch 100, SGD lr 0.1 momentum 0.9) and
                 50 steps of mxtpu_train on the card, falling, the first 5
                 losses within CPP_TRAIN_RTOL of TrainStep fed the same
@@ -800,6 +811,20 @@ BN_NET_STEPS = 5
 #: gradients (tests/test_torch_fused_bn.py's tolerance for the BatchNorm
 #: ops' float32 gradients), and the moving statistics
 BN_NET_TOL = 1e-4
+#: test_utils.check_consistency over [cpu, gpu(0)] at its default tol
+#: (1e-3, relative and absolute): phase 12b's bn_convnet at batch
+#: CONSIST_BN_BATCH, MXNET_FUSED_BN_EPILOGUE=1 (each BatchNorm node
+#: launches each K3 kernel once on the card: K3a-b in the forward, K3c-d
+#: in the backward), and phase 21a's sym.RNN lstm at the word LM's layer,
+#: MXNET_FUSED_RNN=1 (K4a and K4b once a layer); the CPU side runs the
+#: plain versions
+CONSIST_BN_BATCH = 8
+#: check_consistency's scale (the parameters' and inputs' normal draws):
+#: at 1.0 the word LM's LSTM is chaotic and bn_convnet's logits reach
+#: ~20, so a one-ulp change of every input moves the LSTM's outputs by
+#: 1000x the tolerance and bn_convnet's gradients by 1.73x; at 0.1 by
+#: 0.11x (gradients) and 0.017x (tools/consistency_probe.py, on the CPU)
+CONSIST_SCALE = 0.1
 
 
 #: phases 16-16b: Inception-v3 through Gluon at its published width (1000
@@ -3298,13 +3323,47 @@ def grad_violation(torch, a, b, rtol, atol):
     return float(((a - b).abs() / (atol + rtol * b.abs())).max())
 
 
+def consistency_check(torch, mx, dev, what, sym, shapes, counts, want,
+                      cudnn=True):
+    """test_utils.check_consistency of `sym` over [cpu, gpu(dev)] at
+    `shapes` and CONSIST_SCALE (grad_req "write": outputs and gradients
+    held at tol 1e-3), with cuDNN on or off; `counts()` reads the path's
+    launch counters, which must move by `want` (the card's launches; the
+    CPU's plain versions launch nothing). Prints and returns the largest
+    violations (fractions of the tolerance), the launches and the
+    seconds."""
+    from mxnet_tpu_torch import test_utils as tu
+    ctx_list = [dict(shapes, ctx=mx.cpu()),
+                dict(shapes, ctx=mx.gpu(dev.index or 0))]
+    errors = {}
+    n0 = counts()
+    t0 = time.perf_counter()
+    with torch.backends.cudnn.flags(enabled=cudnn):
+        tu.check_consistency(sym, ctx_list, scale=CONSIST_SCALE,
+                             errors=errors)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = tuple(b - a for a, b in zip(n0, counts()))
+    out = {"shapes": {k: list(v) for k, v in shapes.items()},
+           "scale": CONSIST_SCALE, "tol": 1e-3, "cudnn": cudnn,
+           "worst_fraction_of_tol": errors,
+           "launches": launched, "expected_launches": want, "wall_s": wall}
+    print("check_consistency %s cpu vs %s: %s" % (what, dev,
+                                                 json.dumps(out)))
+    check(launched == want or dev.type == "cpu",
+          "check_consistency %s: the card launched %r, expected %r"
+          % (what, launched, want))
+    return out
+
+
 def phase_executor_bn(torch, np, dev, card):
     """The executor's BatchNorm on K3a-d: bn_convnet bound through Module
     at batch 100, float32, MXNET_FUSED_BN_EPILOGUE=1. The first step's
     outputs, every gradient and the moving statistics, flag on against
     flag off; then BN_NET_STEPS timed steps, each K3 kernel launched
     twice a step (two BatchNorm nodes, one forward and one backward
-    each), and none in score; a profiled step."""
+    each), and none in score; a profiled step. Before the timed steps,
+    check_consistency over [cpu, gpu(0)] at batch CONSIST_BN_BATCH."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import fused_bn as fb
     prior = os.environ.get("MXNET_FUSED_BN_EPILOGUE")
@@ -3379,8 +3438,18 @@ def phase_executor_bn(torch, np, dev, card):
             check(v <= 1.0, "bn_convnet first step flag on vs off: %s off "
                   "by %.3g of the tolerance" % (what, v))
 
-        # the timed steps with the flag on, launches counted
+        # check_consistency over [cpu, gpu(0)] with the flag on, the
+        # convolutions without cuDNN as above (on an H100 80GB HBM3 at
+        # 700 W its algorithms moved this net's outputs by 10.8x the
+        # tolerance at scale 1.0, where a one-ulp change of the inputs
+        # moves them by 0.018x on the CPU)
         os.environ["MXNET_FUSED_BN_EPILOGUE"] = "1"
+        consistency = consistency_check(
+            torch, mx, dev, "bn_convnet", bn_convnet(mx.sym),
+            {"data": (CONSIST_BN_BATCH, 1, 28, 28)}, fb.launch_counts,
+            (2,) * 4, cudnn=False)
+
+        # the timed steps with the flag on, launches counted
         mod.set_params(args0, aux0)
         train.reset()
         batches = [b for _, b in zip(range(BN_NET_STEPS), train)]
@@ -3414,7 +3483,8 @@ def phase_executor_bn(torch, np, dev, card):
             "first_step_cudnn_conv_grad_rel_frobenius": cudnn_worst,
             "k3_launches": dict(zip(("stats", "apply", "bwd_reduce",
                                      "bwd_dx"), launches)),
-            "val_acc_after_steps": acc, "profile": prof}
+            "val_acc_after_steps": acc, "profile": prof,
+            "check_consistency": consistency}
     print("executor BatchNorm path (phase 12b): " + json.dumps(main))
     return launches, main
 
@@ -5732,7 +5802,7 @@ def phase_item2_ops(torch, np, dev, card):
     against the CPU's, within ITEM2_TOL; gelqf and syevd by
     reconstruction and against the CPU up to each row's sign. Prints,
     per family, the count, the largest error and the card ms (time_ms)
-    of its calls."""
+    of its calls. Then check_consistency of sym.RNN (consistency_rnn)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch.ops import registry
     families, first_case, names, walls, card_ms = {}, {}, set(), [], {}
@@ -5792,7 +5862,32 @@ def phase_item2_ops(torch, np, dev, card):
                  f["max_grad_err"], f["grad_tol"], f["card_ms"],
                  f["wall_s"], card))
     print("item 2 ops (phase 21a): " + json.dumps(out))
+    out["check_consistency_rnn"] = consistency_rnn(torch, mx, dev)
     return out
+
+
+def consistency_rnn(torch, mx, dev):
+    """check_consistency over [cpu, gpu(0)] of sym.RNN lstm at the word
+    LM's layer (LM_BPTT x LM_BATCH x LM_EMBED in, LM_HIDDEN units,
+    LM_LAYERS layers), MXNET_FUSED_RNN=1: K4a and K4b launched once a
+    layer on the card."""
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    prior = os.environ.get("MXNET_FUSED_RNN")
+    os.environ["MXNET_FUSED_RNN"] = "1"
+    try:
+        with mx.name.NameManager():
+            rnn = mx.sym.RNN(mx.sym.Variable("data"), mode="lstm",
+                             state_size=LM_HIDDEN, num_layers=LM_LAYERS,
+                             name="lstm")
+        return consistency_check(
+            torch, mx, dev, "sym.RNN lstm", rnn,
+            {"data": (LM_BPTT, LM_BATCH, LM_EMBED)}, fr.launch_counts,
+            (LM_LAYERS, LM_LAYERS))
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_RNN", None)
+        else:
+            os.environ["MXNET_FUSED_RNN"] = prior
 
 
 def item2_one(torch, mx, registry, name, card_in, params, kind, dev, seed,
@@ -7895,8 +7990,10 @@ RES_DROPOUT, RES_LR = 0.5, 0.001
 #: healthy hosts must still be training when the slow one's windows
 #: arrive), and the seconds any one drill may take
 RES_DRILL_STEPS, RES_SUP_STEPS, RES_DRILL_TIMEOUT = 12, 48, 600
-#: 25d's straggler sleeps this long a step: several times a healthy
-#: host's step (25d's leg A runs alone, after the other drills)
+#: 25d's straggler sleeps this long a step: 33 times a healthy host's
+#: unloaded step (0.0149 s on an H100 80GB HBM3 at 700 W, phase 25's
+#: A_straggler_flags), so its ratio to the pod's median stays past the
+#: factor of 3 with the other drills running beside it
 RES_SLOW_S = 0.5
 
 
@@ -8041,23 +8138,6 @@ def res_supervised(dev, legs):
     return stats, wall, out
 
 
-def res_merge(runs):
-    """25d's res_supervised runs as one (DRILL_STATS, wall seconds,
-    stdout): every leg's seconds, the K4a-b launches, the launches called
-    for and the workers summed over the runs, and each run's DRILL_STATS
-    and wall seconds whole under "runs"."""
-    stats = {"legs_s": {}, "runs": [], "workers": 0,
-             "k4_launches": [0, 0], "k4_expected": [0, 0]}
-    for st, wall, _ in runs:
-        stats["legs_s"].update(st["legs_s"])
-        stats["runs"].append(dict(st, wall_s=wall))
-        stats["workers"] += st["workers"]
-        for key in ("k4_launches", "k4_expected"):
-            stats[key] = [x + y for x, y in zip(stats[key], st[key])]
-    return (stats, sum(r[1] for r in runs),
-            "".join(r[2] for r in runs))
-
-
 def phase_resilience(torch, np, dev, card):
     """Phase 25 (module docstring). Returns the K4a-b launches of the
     phase's paths and a summary."""
@@ -8074,11 +8154,12 @@ def phase_resilience(torch, np, dev, card):
         launches["25a"] = tuple(summary["25a"]["k4_launches"])
         print("resilience 25a (%s): %s" % (card, json.dumps(summary["25a"])))
         sys.stdout.flush()
-        # 25b, 25c and 25d's legs B and C share nothing but the card:
-        # run them at once (their leg times then include each other's
-        # load; 25a's save and restore times above are the phase's
-        # unloaded readings). Leg A's straggler flag reads step times,
-        # so it runs alone after them
+        # 25b, 25c and 25d's campaign share nothing but the card: run
+        # them at once (their leg times then include each other's load;
+        # 25a's save and restore times above are the phase's unloaded
+        # readings). Leg A's straggler flag compares the slow host's
+        # step times with the pod's median, a healthy host's, so the
+        # load slows both sides of the ratio and flags no healthy host
         from concurrent.futures import ThreadPoolExecutor
         with ThreadPoolExecutor(3) as pool:
             b = pool.submit(res_drill, "25b", dev, [
@@ -8086,10 +8167,9 @@ def phase_resilience(torch, np, dev, card):
                 "--save-every", str(RES_SAVE_EVERY),
                 "--dropout", str(RES_DROPOUT)])
             c = pool.submit(res_pod_drill, dev)
-            d = pool.submit(res_supervised, dev, "B,C")
-            runs = {"25b": b.result(), "25c": c.result()}
-            bc = d.result()
-        runs["25d"] = res_merge([bc, res_supervised(dev, "A")])
+            d = pool.submit(res_supervised, dev, "A,B,C")
+            runs = {"25b": b.result(), "25c": c.result(),
+                    "25d": d.result()}
         for leg, what in (("25b", "drill"), ("25c", "pod drill"),
                           ("25d", "supervised")):
             stats, wall, _ = runs[leg]
@@ -10046,14 +10126,16 @@ def max_rel(torch, got, want):
     return float((got - want).abs().max() / want.abs().max())
 
 
-def phase_deploy_resnet(torch, np, mx, dev, card, tmp):
+def phase_deploy_resnet(torch, np, mx, dev, card, tmp, keep=None):
     """29a: resnet50_v1 (1000 classes, random Xavier weights from seed 29)
     exported with predict.export_model on the card and replayed with
     load_exported; a Predictor built from the net's own export
     (phase 14b's route: symbol JSON + params); both held to the net's
     eval logits within EXPORT_RTOL of the largest |logit|;
     batch_predict over DEPLOY_SAMPLES single images; img/s of each route
-    beside the eager and the hybridized net."""
+    beside the eager and the hybridized net. With `keep` (a directory)
+    the artifact, its input and the replay's logits are copied there for
+    phase 30b, whose paths and export seconds `out["carry"]` gives."""
     from mxnet_tpu_torch import predict
     from mxnet_tpu_torch.gluon.model_zoo import vision
     ctx = mx.gpu(dev.index or 0)
@@ -10125,6 +10207,15 @@ def phase_deploy_resnet(torch, np, mx, dev, card, tmp):
            "img_per_s": {k: DEPLOY_BATCH / (v / 1e3)
                          for k, v in ms.items()}}
     print("deploy 29a resnet50 artifact (%s): %s" % (card, json.dumps(out)))
+    if keep is not None:
+        carry = {"art": os.path.join(keep, "resnet50.mxtpu"),
+                 "x": os.path.join(keep, "x.npy"),
+                 "replay": os.path.join(keep, "replay.npy"),
+                 "export_s": export_s, "replay_ms": ms["artifact"]}
+        shutil.copyfile(art, carry["art"])
+        np.save(carry["x"], x_np)
+        np.save(carry["replay"], got_art.float().cpu().numpy())
+        out["carry"] = carry
     return out
 
 
@@ -10584,16 +10675,18 @@ def phase_onnx(torch, np, mx, dev, card, tmp):
     return out
 
 
-def phase_deploy(torch, np, dev, card):
+def phase_deploy(torch, np, dev, card, keep=None):
     """Phase 29 (module docstring): ResNet-50 served from an artifact
-    (29a), the word LM exported through K4a (29b), user kernels through
-    rtc (29c, K5), TorchBlock (29d), ONNX import (29e). Returns (29b's K4a
-    and K4b launches, 29c's kernels-line rows, the summary)."""
+    (29a; kept in `keep` for phase 30b when given), the word LM exported
+    through K4a (29b), user kernels through rtc (29c, K5), TorchBlock
+    (29d), ONNX import (29e). Returns (29b's K4a and K4b launches, 29c's
+    kernels-line rows, the summary)."""
     import mxnet_tpu_torch as mx
     out = {"card": card}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, mx.gpu(dev.index or 0):
-        out["29a"] = phase_deploy_resnet(torch, np, mx, dev, card, tmp)
+        out["29a"] = phase_deploy_resnet(torch, np, mx, dev, card, tmp,
+                                         keep)
         torch.cuda.empty_cache()
         lm_launches, out["29b"] = phase_deploy_word_lm(torch, np, mx, dev,
                                                        card, tmp)
@@ -10627,6 +10720,8 @@ CPP_DESIGN_CASES = (
 #: 30b: C++ forwards timed (after one), and the LeNet batch through the
 #: C API
 CPP_TIMED, CPP_LENET_BATCH = 20, 100
+#: 30b's ResNet-50 (phase 29a's artifact): C++ forwards timed (after one)
+CPP_R50_TIMED = 10
 #: 30c: BASELINE config 1's MLP (models/lenet.py get_mlp: 784 -> 128 relu
 #: -> 64 relu -> 10) at batch 100, SGD lr 0.1 momentum 0.9, CPP_STEPS
 #: steps in C++; the first CPP_HELD losses held to TrainStep's within
@@ -10922,6 +11017,62 @@ def phase_cpp_predict(torch, np, mx, tree, dev, card, tmp, lm_art=None):
     return launches, out
 
 
+def cpp_r50_compile(mx, dev, r50):
+    """Phase 29a's ResNet-50 artifact (`r50["art"]`) compiled for the
+    card by compile_for_cpp; its seconds."""
+    from mxnet_tpu_torch import predict
+    t0 = time.perf_counter()
+    predict.compile_for_cpp(r50["art"], ctx=mx.gpu(dev.index or 0))
+    return time.perf_counter() - t0
+
+
+def phase_cpp_resnet(np, tree, dev, card, tmp, r50, compile_s):
+    """30b's ResNet-50: phase 29a's artifact (resnet50_v1 at its published
+    widths, batch DEPLOY_BATCH of 224 x 224, float32, Xavier weights from
+    DEPLOY_SEED) as compiled by `cpp_r50_compile`, run by mxtpu_predict
+    (--repeat CPP_R50_TIMED), then one batch through the C API
+    (C_API_CLIENT); both held to the Python replay of the artifact within
+    EXPORT_RTOL of the largest |logit|. Prints and returns the export and
+    compile seconds, the C++ and replay ms a forward and the errors."""
+    want = np.load(r50["replay"])
+    x_path = os.path.join(tmp, "r50_x.bin")
+    np.load(r50["x"]).astype(np.float32).tofile(x_path)
+    out_dir = os.path.join(tmp, "r50")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    stdout = run_cpp([tree.mxtpu_predict, r50["art"], "--device", str(dev),
+                      "--input", "0=" + x_path, "--output-dir", out_dir,
+                      "--repeat", str(CPP_R50_TIMED)],
+                     "30b mxtpu_predict resnet50")
+    proc_s = time.perf_counter() - t0
+    got = np.fromfile(os.path.join(out_dir, "out0.bin"),
+                      np.float32).reshape(want.shape)
+    err = lm_err(np, got, want)
+    check(err <= EXPORT_RTOL, "30b: C++ ResNet-50 logits off by %.3g of "
+          "the largest |logit| (> %g)" % (err, EXPORT_RTOL))
+    y_path = os.path.join(tmp, "r50_y.bin")
+    capi = json.loads(run_cpp(
+        [sys.executable, "-c", C_API_CLIENT, tree.predict_lib, r50["art"],
+         str(dev), x_path, y_path, "0"],
+        "30b C API client resnet50").strip().splitlines()[-1])
+    check(capi["platform"] == "gpu" and capi["modules"] == [] and
+          capi["output_shape"] == list(want.shape),
+          "30b C API resnet50: %r" % capi)
+    cerr = lm_err(np, np.fromfile(y_path, np.float32).reshape(want.shape),
+                  want)
+    check(cerr <= EXPORT_RTOL, "30b: C API ResNet-50 logits off by %.3g of "
+          "the largest |logit| (> %g)" % (cerr, EXPORT_RTOL))
+    out = {"card": card, "model": "resnet50_v1", "batch": DEPLOY_BATCH,
+           "image": R50_IMAGE, "dtype": "float32",
+           "export_s": r50["export_s"], "compile_for_cpp_s": compile_s,
+           "cpp_forward_ms": cpp_line(stdout, "forward ms:"),
+           "python_replay_ms": r50["replay_ms"], "cpp_process_s": proc_s,
+           "logit_err_over_max": err, "c_api_logit_err_over_max": cerr,
+           "limit": EXPORT_RTOL}
+    print("cpp 30b resnet50 (%s): %s" % (card, json.dumps(out)))
+    return out
+
+
 def cpp_mlp(mx, ctx):
     """BASELINE config 1's MLP (get_mlp's widths) as a Gluon net."""
     net = mx.gluon.nn.HybridSequential()
@@ -11105,10 +11256,11 @@ def phase_cpp_native(torch, np, mx, dev, card, tmp):
     return out
 
 
-def phase_cpp(torch, np, dev, card):
+def phase_cpp(torch, np, dev, card, r50=None):
     """Phase 30 (module docstring): the C++ tree and its rnn_design (30a),
-    mxtpu_predict and the C API (30b), mxtpu_train (30c), the native
-    runtime (30d). Returns (30b's K4a launches from C++, the summary)."""
+    mxtpu_predict and the C API (30b; with `r50`, phase 29a's kept
+    ResNet-50 too), mxtpu_train (30c), the native runtime (30d). Returns
+    (30b's K4a launches from C++, the summary)."""
     import mxnet_tpu_torch as mx
     out = {"card": card}
     t0 = time.perf_counter()
@@ -11118,10 +11270,14 @@ def phase_cpp(torch, np, dev, card):
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
             built = pool.submit(cpp_build_timed)
             lm_art = cpp_lm_artifact(torch, np, mx, dev, tmp)
+            r50_s = cpp_r50_compile(mx, dev, r50) if r50 else None
             built = built.result()
         tree, out["30a"] = phase_cpp_build(torch, np, dev, card, built)
         launches, out["30b"] = phase_cpp_predict(torch, np, mx, tree, dev,
                                                  card, tmp, lm_art)
+        if r50:
+            out["30b"]["resnet50"] = phase_cpp_resnet(np, tree, dev, card,
+                                                      tmp, r50, r50_s)
         out["30c"] = phase_cpp_train(torch, np, mx, tree, dev, card, tmp)
         out["30d"] = phase_cpp_native(torch, np, mx, dev, card, tmp)
     out["s"] = time.perf_counter() - t0
@@ -11183,7 +11339,8 @@ def main():
         rnn_errs, rnn_rows = run(phase_kernels_rnn, torch, np, dev, smi)
         lm_launches, lm_path = run(phase_word_lm, torch, np, dev, smi)
         run(phase_module, torch, np, dev, smi)
-        exec_launches, _ = run(phase_executor_bn, torch, np, dev, smi)
+        exec_launches, exec_path = run(phase_executor_bn, torch, np, dev,
+                                       smi)
         run(phase_gluon_lenet, torch, np, dev, smi)
         g50_net, g50_batch, g50_launches, _ = run(
             phase_gluon_resnet, torch, np, dev, smi)
@@ -11208,7 +11365,7 @@ def main():
         guard_k3, resume_k4, _ = run(phase_guard_probe_resume, torch, np,
                                      dev, smi)
         run(phase_data, torch, np, dev, smi)
-        run(phase_item2_ops, torch, np, dev, smi)
+        item2 = run(phase_item2_ops, torch, np, dev, smi)
         op_launches = run(phase_paged_op, torch, np, dev, smi)
         run(phase_nce_example, torch, np, dev, smi)
         run(phase_stochastic_depth, torch, np, dev, smi)
@@ -11222,9 +11379,15 @@ def main():
                                                dev, smi)
         ssd_launches, _ = run(phase_ssd, torch, np, dev, smi)
         run(phase_sparse_quant, torch, np, dev, smi, dist_summary)
-        export_launches, rtc_rows, _ = run(phase_deploy, torch, np, dev,
-                                           smi)
-        cpp_launches, _ = run(phase_cpp, torch, np, dev, smi)
+        # phase 29a's ResNet-50 artifact is kept for phase 30b
+        keep = tempfile.mkdtemp(prefix="mxtt_r50_")
+        try:
+            export_launches, rtc_rows, deploy = run(phase_deploy, torch, np,
+                                                    dev, smi, keep)
+            cpp_launches, _ = run(phase_cpp, torch, np, dev, smi,
+                                  deploy["29a"]["carry"])
+        finally:
+            shutil.rmtree(keep, ignore_errors=True)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
@@ -11313,7 +11476,9 @@ def main():
         "resnet50_remat_full": remat_launches["full"],
         "resnet50_remat_io": remat_launches["io"],
         "resnet50_guard": guard_k3,
-        "resnet50_mesh_dp2_zero1_rank0": dist_launches["k3"]},
+        "resnet50_mesh_dp2_zero1_rank0": dist_launches["k3"],
+        "check_consistency_bn_convnet_phase12b":
+            exec_path["check_consistency"]["launches"]},
         **zoo_launches, **ssd_launches), inc_totals)
     kernels += rnn_kernel_rows(rnn_errs, rnn_rows, {
         "word_lm_trainstep": lm_launches,
@@ -11325,7 +11490,9 @@ def main():
         "word_lm_mesh_dp2_f32_and_int8_rank0": dist_launches["k4"],
         "word_lm_resilience_phase25": res_launches,
         "word_lm_exported_phase29b": export_launches,
-        "rnn_fwd_via_cpp_phase30b": (cpp_launches, 0)})
+        "rnn_fwd_via_cpp_phase30b": (cpp_launches, 0),
+        "check_consistency_sym_rnn_phase21a":
+            item2["check_consistency_rnn"]["launches"]})
     kernels += rtc_rows
     print(json.dumps({"kernels": kernels}))
     print(smi)

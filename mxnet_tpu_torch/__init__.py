@@ -41,7 +41,10 @@ kvstores, `gluon.Trainer(kvstore=)`, `Module(mesh=)`); and deployment
 torch.export, whose graphs keep the fused-RNN forward as the op
 `mxnet_tpu_torch::rnn_fwd`; `rtc.CudaModule`, user CUDA kernels compiled
 by NVRTC; `plugin.TorchBlock`; `torch`; `contrib.onnx`; `engine`,
-`libinfo`, `log`, `misc`).
+`libinfo`, `log`, `misc`); and the C++ deployment half (`cpp_package`,
+`predict.compile_for_cpp`, `native`); and the tooling (`test_utils` with
+`check_consistency`, `viz`, `contrib.text` / `tensorboard` / `autograd`
+/ `io`, `notebook`, `ndarray_doc`).
 """
 from .libinfo import __version__  # single-sourced version
 from .base import MXNetError, resolve_device
@@ -85,6 +88,9 @@ from . import test_utils
 from . import profiler
 from . import utils
 from . import visualization
+from . import visualization as viz
+from .visualization import print_summary
+from . import ndarray_doc
 from . import contrib
 from . import operator
 from .operator import CustomOp, CustomOpProp
@@ -105,6 +111,7 @@ __all__ = ["MXNetError", "resolve_device", "Context", "cpu", "gpu",
            "model", "FeedForward", "symbol_doc", "module", "mod",
            "callback", "executor_manager", "monitor", "mon", "rnn",
            "models", "test_utils", "profiler", "utils", "visualization",
+           "viz", "print_summary", "ndarray_doc",
            "contrib", "recordio", "image", "operator", "CustomOp",
            "CustomOpProp", "engine", "libinfo", "log", "misc", "plugin",
            "rtc", "predict", "Predictor", "__version__"]

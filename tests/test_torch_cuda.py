@@ -2062,3 +2062,60 @@ def test_exported_word_lm_replays_k4a_across_devices(dev, tmp_path,
     assert got._data.device == dev
     assert fused_rnn.launch_counts() == (2, 0)
     np.testing.assert_allclose(got.asnumpy(), want, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# test_utils.check_consistency over [cpu, gpu(0)] (chip_smoke.py phases 12b
+# and 21a at small sizes)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["bn_convnet", "sym_rnn_lstm"])
+def test_check_consistency_cpu_vs_card_launches_k3_and_k4(dev, case):
+    """One Symbol bound on the CPU and on the card at chip_smoke's
+    CONSIST_SCALE (the convolutions without cuDNN): outputs and gradients
+    within check_consistency's tol (1e-3); the card launches each K3
+    kernel once a BatchNorm node, or K4a and K4b once a layer, and the
+    CPU's plain versions launch nothing."""
+    import os
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch import test_utils as tu
+    from mxnet_tpu_torch.ops import fused_bn as fb
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    if case == "bn_convnet":
+        flag, counts, want = "MXNET_FUSED_BN_EPILOGUE", fb.launch_counts, \
+            (2,) * 4
+        with tmx.name.NameManager():
+            sym = cs.bn_convnet(tmx.sym)
+        shapes = {"data": (4, 1, 28, 28)}
+    else:
+        flag, counts, want = "MXNET_FUSED_RNN", fr.launch_counts, (2, 2)
+        with tmx.name.NameManager():
+            sym = tmx.sym.RNN(tmx.sym.Variable("data"), mode="lstm",
+                              state_size=64, num_layers=2, name="lstm")
+        shapes = {"data": (7, 5, 16)}
+    prior = os.environ.get(flag)
+    os.environ[flag] = "1"
+    try:
+        ctxs = [dict(shapes, ctx=tmx.cpu()),
+                dict(shapes, ctx=tmx.gpu(dev.index or 0))]
+        errors = {}
+        n0 = counts()
+        with torch.backends.cudnn.flags(enabled=False):
+            outs = tu.check_consistency(sym, ctxs, scale=cs.CONSIST_SCALE,
+                                        errors=errors)
+        torch.cuda.synchronize()
+        launched = tuple(b - a for a, b in zip(n0, counts()))
+        # the CPU alone launches nothing
+        n1 = counts()
+        tu.check_consistency(sym, [ctxs[0], ctxs[0]],
+                             scale=cs.CONSIST_SCALE)
+        assert counts() == n1
+    finally:
+        if prior is None:
+            os.environ.pop(flag, None)
+        else:
+            os.environ[flag] = prior
+    assert launched == want
+    assert errors["outputs"] <= 1.0 and errors["grads"] <= 1.0
+    assert len(outs) == 2 and all(np.isfinite(o).all() for o in outs[1])

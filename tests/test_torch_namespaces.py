@@ -123,17 +123,93 @@ def test_port_imports_neither_jax_nor_the_reference():
                 with open(path) as fh:
                     if _IMPORT.search(fh.read()):
                         offenders.append(os.path.relpath(path, ROOT))
-    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
-        if _IMPORT.search(fh.read()):
-            offenders.append("chip_smoke.py")
+    for script in ("chip_smoke.py", "chip_smoke_faults.py"):
+        with open(os.path.join(ROOT, script)) as fh:
+            if _IMPORT.search(fh.read()):
+                offenders.append(script)
     assert not offenders
     code = ("import sys, mxnet_tpu_torch as m; m.nd.contrib; m.sym.random;"
-            " m.contrib.symbol; print(sorted(k for k in sys.modules if "
+            " m.contrib.symbol; m.contrib.text; m.viz; m.test_utils;"
+            " import mxnet_tpu_torch.notebook.callback;"
+            " print(sorted(k for k in sys.modules if "
             "k.split('.')[0] in ('jax', 'mxnet_tpu')))")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+#: the reference's .py files with no port file at the same path: item
+#: 11's three, still to port, and five covered under other names (the
+#: Pallas kernels' Hopper counterparts under ops/csrc/ with their
+#: wrappers, and IntervalSampler in gluon/data/sampler.py)
+UNPORTED = {"telemetry/introspect.py", "aot/__init__.py", "aot/cache.py"}
+COVERED_ELSEWHERE = {"ops/pallas_paged.py", "ops/pallas_attention.py",
+                     "ops/pallas_fused.py", "ops/pallas_rnn.py",
+                     "gluon/contrib/data/sampler.py"}
+
+
+def _py_files(pkg):
+    root = os.path.join(ROOT, pkg)
+    return {os.path.relpath(os.path.join(d, f), root)
+            for d, _, files in os.walk(root) for f in files
+            if f.endswith(".py")}
+
+
+def test_module_coverage_leaves_item_11_only():
+    missing = _py_files("mxnet_tpu") - _py_files("mxnet_tpu_torch")
+    assert missing == UNPORTED | COVERED_ELSEWHERE, (
+        sorted(missing - UNPORTED - COVERED_ELSEWHERE),
+        sorted(UNPORTED | COVERED_ELSEWHERE - missing))
+    assert hasattr(tmx.gluon.data.sampler, "IntervalSampler")
+
+
+def _public_names(relpath):
+    """The top-level public names a reference file defines (functions,
+    classes, assignments, and in a package's __init__ what it imports
+    from its own submodules)."""
+    import ast
+    with open(os.path.join(ROOT, "mxnet_tpu", relpath)) as fh:
+        tree = ast.parse(fh.read())
+    names = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+        elif isinstance(node, ast.ImportFrom) and node.level > 0 \
+                and relpath.endswith("__init__.py"):
+            names.update(a.asname or a.name for a in node.names)
+    return sorted(n for n in names if not n.startswith("_"))
+
+
+TOOLING_FILES = ("test_utils.py", "visualization.py", "ndarray_doc.py",
+                 "contrib/__init__.py", "contrib/autograd.py",
+                 "contrib/io.py", "contrib/tensorboard.py",
+                 "contrib/text/__init__.py", "contrib/text/vocab.py",
+                 "contrib/text/utils.py", "contrib/text/embedding.py",
+                 "notebook/__init__.py", "notebook/callback.py")
+
+
+@pytest.mark.parametrize("relpath", TOOLING_FILES)
+def test_tooling_public_names_are_ported(relpath):
+    import importlib
+    mod = relpath[:-3].replace("/", ".")
+    if mod.endswith(".__init__"):
+        mod = mod[:-len(".__init__")]
+    port = importlib.import_module("mxnet_tpu_torch." + mod)
+    names = _public_names(relpath)
+    assert names
+    assert [n for n in names if not hasattr(port, n)] == []
+
+
+def test_top_level_tooling_names_match_the_reference():
+    for name in ("viz", "print_summary", "ndarray_doc", "test_utils",
+                 "visualization", "contrib"):
+        assert hasattr(mx, name) and hasattr(tmx, name), name
+    assert tmx.viz is tmx.visualization
+    assert len(_public_names("test_utils.py")) == 53
 
 
 # ---------------------------------------------------------------------------

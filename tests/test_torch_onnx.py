@@ -33,7 +33,11 @@ _TOL = dict(rtol=1e-5, atol=1e-6)
 
 @pytest.fixture(autouse=True)
 def _on_cpu():
-    with tmx.cpu():
+    # both importers name their nodes from the current NameManager's
+    # counters: fresh ones keep the compared names independent of what
+    # other tests in the process built (tests/test_onnx.py imports the
+    # same models into the reference alone)
+    with tmx.cpu(), mx.name.NameManager(), tmx.name.NameManager():
         yield
 
 
