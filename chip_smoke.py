@@ -332,8 +332,7 @@ Phases (any failure exits non-zero before the last line):
                 tokens against the gather oracle, every replica serving,
                 K1 launches = n_layers x (decode steps + prefill chunks)
                 over the replicas; the same traffic through one LMServer
-                in turns (fleet, single, fleet, single: tokens/s, TTFT
-                p50); 60 POSTs at once over queues of 2 get 200s with
+                after it (FLEET_TURNS: tokens/s, TTFT p50); 60 POSTs at once over queues of 2 get 200s with
                 oracle tokens and 503s with Retry-After; (b)
                 tools/chaos_serve.py's five faults in sequence under a
                 client stream (replica 1 wedged, drained and restored;
@@ -601,7 +600,8 @@ Phases (any failure exits non-zero before the last line):
                 (C_API_CLIENT, ctypes in a fresh process), within
                 EXPORT_RTOL, with its -1 returns; then phase 29a's
                 ResNet-50 artifact (kept from phase 29) compiled for the
-                card after the word LM, run by mxtpu_predict (--repeat
+                card in a process of its own (R50_COMPILE) beside the
+                word LM's compile, run by mxtpu_predict (--repeat
                 CPP_R50_TIMED) and one batch through the C API, logits
                 within EXPORT_RTOL of the Python replay; (c) export_train_step
                 of get_mlp's MLP (batch 100, SGD lr 0.1 momentum 0.9) and
@@ -612,11 +612,40 @@ Phases (any failure exits non-zero before the last line):
                 finding and every native object raising; ImageRecordIter
                 over 512 JPEGs at (3, 224, 224), batch 256, onto the card,
                 with img/s.
-  31. the kernels line (K2's, K3a-d's, K4a-b's and K5's launches summed
+  31. the compile watchdog and the AOT cache (ROADMAP item 11), seed 31;
+                main() configures the AOT cache to a temporary directory
+                before the build, so every compile of the run flows
+                through it: (a) the watchdog's record of the run per
+                site (the nvcc builds kernels.*, predict.export,
+                predict.compile_for_cpp, rtc.compile_cubin,
+                cpp_package.build, the steps' first runs): compiles,
+                seconds, duplicates, warm loads; (b) phase 11's word LM
+                (bench width, float32, MXNET_FUSED_RNN=1) through
+                serve(net, vocab=, max_len=WATCH_MAX_LEN,
+                time_major=True) (BlockLM), WATCH_PROMPTS prompts of
+                WATCH_PROMPT_LEN and WATCH_GEN new tokens: greedy tokens
+                equal to a plain flag-off loop's (or split at a near-tie,
+                the logits within LM_EXPORT_RTOL), K4a LM_LAYERS times a
+                full forward, serving.step_full's first runs carrying
+                their signature diffs; (c) a batch-major twin on the same
+                weights exported at batch WATCH_EXPORT_BATCH with the flag
+                on and served from its .mxtpu (ExportedLM): BlockLM's
+                tokens, K4a LM_LAYERS times a replay; (d) a fresh process
+                with MXNET_AOT_CACHE_DIR on the run's cache (WARM_CACHE):
+                an Engine(aot_cache=) over (b)'s weights serves a prompt
+                with warm loads and zero nvcc builds, compile_for_cpp of
+                30b's artifact with its package taken out runs zero
+                AOTInductor compiles (the package's sha256 30b's), and
+                mxtpu_predict on it gives logits bit-equal to 30b's, K4a
+                through the C++ op; (e) a word-LM TrainStep on the card
+                refused by MXNET_HBM_BUDGET_GB=1e-9 with its parameters
+                unchanged, then admitted once the budget is lifted.
+  32. the kernels line (K2's, K3a-d's, K4a-b's and K5's launches summed
      over every path that runs them, split in `launches_by_path`; K3a-d's
      sums over an Inception-v3 step under `inception_v3_step`; K4a's
-     through phase 29b's exported replay and phase 30b's C++ op),
-     nvidia-smi's line, and the last line {"ok": true, "device": {...}}.
+     through phase 29b's exported replay, phase 30b's C++ op and phase
+     31's adapters, warm process and C++ op), nvidia-smi's line, and the
+     last line {"ok": true, "device": {...}}.
 
 Parity settings: TF32 is off for matmuls and cuDNN, so float32 products
 run in full float32 (the reference suite forces highest matmul
@@ -6662,6 +6691,9 @@ def phase_front_door(torch, np, dev, card):
 #: from seed 23; the rehearsal on the CPU shrinks them with BENCH_CFG.
 FLEET_REPLICAS = 3
 FLEET_REQUESTS = 24
+#: 23a's runs of the traffic, in order (one pair, for the run's time
+#: limit: a second pair in turns added ~35 s)
+FLEET_TURNS = ("fleet", "single")
 FLEET_CLIENTS = 6
 FLEET_PROMPT = (32, 256)
 FLEET_GEN = (16, 128)
@@ -6856,13 +6888,13 @@ def fleet_burst(serving, params, cfg, work, idx, ref, margins, kw):
 
 def fleet_routing(serving, pa, params, cfg, work, idx, ref, margins, kw):
     """23a: FLEET_REQUESTS mixed-length requests from FLEET_CLIENTS
-    threads through serve(replicas=3), in turns with one LMServer on the
-    same traffic (fleet, single, fleet, single); the first fleet run's
+    threads through serve(replicas=3), then one LMServer on the same
+    traffic (FLEET_TURNS); the first fleet run's
     tokens against the oracle, every replica serving, K1's launches equal
     to n_layers x (decode steps + prefill chunks) over the replicas; then
     the burst past capacity. Returns (K1 launches, numbers)."""
     runs, launches = {"fleet": [], "single": []}, None
-    for turn in ("fleet", "single", "fleet", "single"):
+    for turn in FLEET_TURNS:
         n = FLEET_REPLICAS if turn == "fleet" else 1
         results, nums, lch, snaps, devices = fleet_run(
             serving, pa, params, cfg, work, kw, n)
@@ -11017,13 +11049,41 @@ def phase_cpp_predict(torch, np, mx, tree, dev, card, tmp, lm_art=None):
     return launches, out
 
 
-def cpp_r50_compile(mx, dev, r50):
-    """Phase 29a's ResNet-50 artifact (`r50["art"]`) compiled for the
-    card by compile_for_cpp; its seconds."""
-    from mxnet_tpu_torch import predict
-    t0 = time.perf_counter()
-    predict.compile_for_cpp(r50["art"], ctx=mx.gpu(dev.index or 0))
-    return time.perf_counter() - t0
+#: phase 29a's ResNet-50 artifact compiled for the card by compile_for_cpp
+#: in a process of its own (argv: artifact, device index), beside 30a's
+#: g++ tree and 30b's word LM; prints the compile's seconds
+R50_COMPILE = r"""
+import sys, time
+import torch
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import predict
+t0 = time.perf_counter()
+predict.compile_for_cpp(sys.argv[1], ctx=mx.gpu(int(sys.argv[2])))
+print(time.perf_counter() - t0)
+"""
+
+
+def cpp_r50_compile(dev, r50):
+    """Start R50_COMPILE on `r50["art"]` (through the run's AOT cache when
+    one is configured); returns the process, which `cpp_r50_wait`
+    reads."""
+    from mxnet_tpu_torch import aot
+    env = dict(os.environ)
+    if aot.cache_dir():
+        env["MXNET_AOT_CACHE_DIR"] = aot.cache_dir()
+    return subprocess.Popen(
+        [sys.executable, "-c", R50_COMPILE, r50["art"], str(dev.index or 0)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def cpp_r50_wait(proc):
+    """The compile's seconds from R50_COMPILE's process; fails the phase
+    when it did."""
+    out, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0, "30b: ResNet-50's compile_for_cpp failed "
+          "(rc %d): %s" % (proc.returncode, err[-3000:]))
+    return float(out.strip().splitlines()[-1])
 
 
 def phase_cpp_resnet(np, tree, dev, card, tmp, r50, compile_s):
@@ -11256,25 +11316,42 @@ def phase_cpp_native(torch, np, mx, dev, card, tmp):
     return out
 
 
-def phase_cpp(torch, np, dev, card, r50=None):
+def phase_cpp(torch, np, dev, card, r50=None, keep=None):
     """Phase 30 (module docstring): the C++ tree and its rnn_design (30a),
     mxtpu_predict and the C API (30b; with `r50`, phase 29a's kept
     ResNet-50 too), mxtpu_train (30c), the native runtime (30d). Returns
-    (30b's K4a launches from C++, the summary)."""
+    (30b's K4a launches from C++, the summary). With `keep` (a directory)
+    30b's word-LM artifact, its input and its C++ logits are copied there
+    for phase 31, named in the summary's "carry" with mxtpu_predict."""
     import mxnet_tpu_torch as mx
     out = {"card": card}
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, mx.gpu(dev.index or 0):
-        # g++ builds the tree in its own processes while this one exports
-        # and compiles the word LM
-        with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            built = pool.submit(cpp_build_timed)
-            lm_art = cpp_lm_artifact(torch, np, mx, dev, tmp)
-            r50_s = cpp_r50_compile(mx, dev, r50) if r50 else None
-            built = built.result()
+        # g++ builds the tree in its own processes, and a process of its
+        # own compiles ResNet-50, while this one exports and compiles the
+        # word LM
+        proc = cpp_r50_compile(dev, r50) if r50 else None
+        try:
+            with concurrent.futures.ThreadPoolExecutor(1) as pool:
+                built = pool.submit(cpp_build_timed)
+                lm_art = cpp_lm_artifact(torch, np, mx, dev, tmp)
+                r50_s = cpp_r50_wait(proc) if r50 else None
+                built = built.result()
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
         tree, out["30a"] = phase_cpp_build(torch, np, dev, card, built)
         launches, out["30b"] = phase_cpp_predict(torch, np, mx, tree, dev,
                                                  card, tmp, lm_art)
+        if keep:
+            out["carry"] = {"mxtpu_predict": tree.mxtpu_predict}
+            for k, src in (("art", lm_art[1]),
+                           ("x", os.path.join(tmp, "lm_x.bin")),
+                           ("y", os.path.join(tmp, "lm", "out0.bin"))):
+                out["carry"][k] = os.path.join(keep, "30b_" + os.path.
+                                               basename(src))
+                shutil.copy(src, out["carry"][k])
         if r50:
             out["30b"]["resnet50"] = phase_cpp_resnet(np, tree, dev, card,
                                                       tmp, r50, r50_s)
@@ -11284,6 +11361,393 @@ def phase_cpp(torch, np, dev, card, r50=None):
     print("C++ deployment phase 30 (%s): %.1f s" % (card, out["s"]))
     return launches, out
 
+
+# ---------------------------------------------------------------------------
+# phase 31: the compile watchdog and the AOT cache (ROADMAP item 11), and
+# the full-forward serving adapters on K4a
+# ---------------------------------------------------------------------------
+
+WATCH_SEED = 31
+#: 31b-c: prompts of the word LM's vocabulary, their lengths, new tokens
+WATCH_PROMPTS, WATCH_PROMPT_LEN, WATCH_GEN = 4, 12, 12
+WATCH_MAX_LEN = 32
+#: 31c's exported batch: the decode batch of WATCH_PROMPTS runs in chunks
+WATCH_EXPORT_BATCH = 2
+
+#: 31d, a fresh process on the run's cache: the BlockLM engine over 31b's
+#: weights with `aot_cache=`, then compile_for_cpp of 30b's artifact with
+#: its package taken out, then mxtpu_predict on it (K4a as the C++ op).
+#: Prints one JSON line.
+WARM_CACHE = r"""
+import json, os, subprocess, sys, time, zipfile
+t0 = time.perf_counter()
+import torch
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import aot, predict, serving
+from mxnet_tpu_torch.ops import fused_rnn
+from mxnet_tpu_torch.telemetry import introspect
+cfg, params, cache, bare, tool, x_path, out_dir = sys.argv[1:8]
+cfg = json.loads(cfg)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+os.environ["MXNET_FUSED_RNN"] = "1"
+out = {"import_s": time.perf_counter() - t0}
+ctx = mx.gpu(0) if cfg["device"].startswith("cuda") else mx.cpu()
+with ctx:
+    with mx.name.NameManager():
+        net = mx.models.RNNModel(
+            mode="lstm", vocab_size=cfg["vocab"], num_embed=cfg["embed"],
+            num_hidden=cfg["hidden"], num_layers=cfg["layers"], dropout=0.0)
+    net.load_params(params, ctx=ctx)
+    eng = serving.Engine(serving.BlockLM(net, cfg["vocab"], cfg["max_len"],
+                                         time_major=True),
+                         max_batch=1, aot_cache=cache)
+    n0 = fused_rnn.launch_counts()[0]
+    seq = eng.start(cfg["prompt"], max_new=cfg["gen"])
+    while not seq.done:
+        eng.decode_step([seq])
+    out["tokens"] = list(seq.generated)
+    out["k4a"] = fused_rnn.launch_counts()[0] - n0
+    out["warm_loads"] = eng.warm_loads
+    out["first_runs"] = eng.prefill_compilations + eng.decode_compilations
+    t1 = time.perf_counter()
+    predict.compile_for_cpp(bare, ctx=ctx)
+    out["compile_for_cpp_s"] = time.perf_counter() - t1
+with zipfile.ZipFile(bare) as z:
+    pkg = z.read("aoti/%s.pt2" % cfg["device"].split(":")[0])
+out["package_sha256"] = __import__("hashlib").sha256(pkg).hexdigest()
+wd = introspect.watchdog()
+out["sites"] = {n: {"compiles": s.compiles, "cache_hits": s.cache_hits}
+                for n, s in wd.sites().items()}
+p = subprocess.run([tool, bare, "--device", cfg["device"], "--input",
+                    "0=" + x_path, "--output-dir", out_dir, "--verbose"],
+                   capture_output=True, text=True, timeout=300)
+out["mxtpu_predict_rc"] = p.returncode
+out["mxtpu_predict_stdout"] = p.stdout[-4000:]
+out["mxtpu_predict_stderr"] = p.stderr[-2000:]
+out["s"] = time.perf_counter() - t0
+print(json.dumps(out))
+"""
+
+
+def watch_record():
+    """(a) The watchdog's record of the run so far, per site: compiles
+    (builds, exports, AOTInductor, NVRTC, g++, and the framework steps'
+    first runs), their seconds, first runs of a seen signature
+    (duplicates) and warm loads."""
+    from mxnet_tpu_torch.telemetry import introspect
+    return {name: {"compiles": s.compiles, "seconds": round(s.seconds, 3),
+                   "duplicates": s.duplicates, "warm_loads": s.cache_hits}
+            for name, s in sorted(introspect.watchdog().sites().items())}
+
+
+def watch_plain_greedy(torch, np, mx, net, prompt, gen):
+    """Greedy tokens of `net` (time-major) with MXNET_FUSED_RNN=0, one
+    full forward a token, and each step's float32 logits."""
+    from mxnet_tpu_torch import autograd
+    prior = os.environ.get("MXNET_FUSED_RNN")
+    os.environ["MXNET_FUSED_RNN"] = "0"
+    toks, rows = list(prompt), []
+    try:
+        with autograd.pause(train_mode=False), torch.no_grad():
+            for _ in range(gen):
+                x = mx.nd.array(np.asarray(toks, np.float32)[:, None])
+                logits = net(x)._data[-1].float()
+                rows.append(logits)
+                toks.append(int(logits.argmax()))
+    finally:
+        if prior is None:
+            os.environ.pop("MXNET_FUSED_RNN", None)
+        else:
+            os.environ["MXNET_FUSED_RNN"] = prior
+    return toks[len(prompt):], rows
+
+
+def watch_tokens_agree(torch, np, what, got, want, rows, adapter,
+                       prompt):
+    """`got` equals the plain loop's `want`, or they split at a near-tie:
+    the flag-on logits at the split within LM_EXPORT_RTOL of the plain
+    ones, whose top-2 margin is under twice their distance."""
+    if got == want:
+        return None
+    i = next(j for j, (a, b) in enumerate(zip(got, want)) if a != b)
+    hist = list(prompt) + want[:i]
+    on = adapter.step_full(np.asarray([hist]), np.asarray([len(hist)]))[0]
+    off = rows[i]
+    err = float((on - off).abs().max() / off.abs().max())
+    top2 = torch.topk(off, 2).values
+    margin = float(top2[0] - top2[1])
+    check(err <= LM_EXPORT_RTOL and margin <= 2 * float((on - off).abs()
+                                                         .max()),
+          "%s: tokens split from the plain loop at step %d (err %.3g, "
+          "margin %.3g)" % (what, i, err, margin))
+    return {"split_at": i, "err": err, "margin": margin}
+
+
+def watch_batch_major(mx):
+    """31c's exported LM: (N, T) token ids -> (N, T, V) logits over a
+    time-major RNNModel at phase 11's width (the Block subclass is made
+    here: it needs the port imported)."""
+    class BatchMajor(mx.gluon.Block):
+        def __init__(self):
+            super().__init__(prefix="wbm_")
+            with self.name_scope():
+                self.lm = mx.models.RNNModel(
+                    mode="lstm", vocab_size=LM_VOCAB, num_embed=LM_EMBED,
+                    num_hidden=LM_HIDDEN, num_layers=LM_LAYERS, dropout=0.0)
+
+        def forward(self, x):
+            N, T = x.shape
+            out = self.lm(x.T)
+            return out.reshape((T, N, -1)).transpose((1, 0, 2))
+
+    with mx.name.NameManager():
+        return BatchMajor()
+
+
+def watch_serve(serving, fr, model, prompts, wrap, **kw):
+    """Serve `prompts` through `serving.serve(model, ...)`, counting K4a's
+    launches and the adapter's calls (`wrap` names the adapter method a
+    call is): (tokens per prompt, K4a launches, calls, the engine)."""
+    srv = serving.serve(model, max_batch=WATCH_PROMPTS, **kw)
+    ad = srv.engine.model
+    calls = [0]
+    orig = getattr(ad, wrap)
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return orig(*a, **k)
+    setattr(ad, wrap, counted)
+    try:
+        n0 = fr.launch_counts()[0]
+        futs = [srv.submit(list(p), max_new_tokens=WATCH_GEN)
+                for p in prompts]
+        toks = [f.result(600) for f in futs]
+        k4a = fr.launch_counts()[0] - n0
+    finally:
+        srv.close()
+    return toks, k4a, calls[0], srv.engine
+
+
+def watch_bare(art, bare):
+    """A copy of `art` without its AOTInductor package(s)."""
+    import zipfile
+    with zipfile.ZipFile(art) as z:
+        entries = {n: z.read(n) for n in z.namelist()
+                   if not n.startswith("aoti/")}
+    meta = json.loads(entries["meta.json"])
+    meta.pop("aoti", None)
+    entries["meta.json"] = json.dumps(meta).encode()
+    with zipfile.ZipFile(bare, "w", zipfile.ZIP_STORED) as z:
+        for n, data in entries.items():
+            z.writestr(n, data)
+
+
+def watch_warm(torch, np, aot, cpp, tmp, params, prompt, plain, adapter,
+               dev):
+    """(d): WARM_CACHE in a fresh process on the run's cache: zero nvcc
+    builds and a warm load for the BlockLM engine over 31b's weights (its
+    tokens 31b's plain loop's, up to a near-tie), zero AOTInductor
+    compiles for 30b's artifact with its package taken out (the package
+    bytes 30b's), and mxtpu_predict's logits bit-equal to 30b's through
+    the C++ op. Returns (the summary, {path: (K4a, K4b)})."""
+    import hashlib
+    import zipfile
+    bare = os.path.join(tmp, "word_lm_bare.mxtpu")
+    watch_bare(cpp["art"], bare)
+    with zipfile.ZipFile(cpp["art"]) as z:
+        want_sha = hashlib.sha256(z.read("aoti/%s.pt2" % dev.type)).hexdigest()
+    out_dir = os.path.join(tmp, "warm")
+    os.makedirs(out_dir)
+    cfg = {"vocab": LM_VOCAB, "embed": LM_EMBED, "hidden": LM_HIDDEN,
+           "layers": LM_LAYERS, "max_len": WATCH_MAX_LEN,
+           "prompt": prompt, "gen": WATCH_GEN, "device": str(dev)}
+    proc = subprocess.run(
+        [sys.executable, "-c", WARM_CACHE, json.dumps(cfg), params,
+         aot.cache_dir(), bare, cpp["mxtpu_predict"], cpp["x"],
+         out_dir], capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, MXNET_AOT_CACHE_DIR=aot.cache_dir()))
+    check(proc.returncode == 0, "31d: the warm process failed (rc %d): "
+          "%s" % (proc.returncode, proc.stderr[-3000:]))
+    warm = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(warm["mxtpu_predict_rc"] == 0, "31d: mxtpu_predict failed: "
+          "%s" % warm["mxtpu_predict_stderr"])
+    nvcc = {n: s["compiles"] for n, s in warm["sites"].items()
+            if n.startswith("kernels.") and s["compiles"]}
+    aoti = warm["sites"].get("predict.compile_for_cpp", {})
+    check(warm["warm_loads"] >= 1 and not nvcc,
+          "31d: warm loads %d, nvcc builds %r" % (warm["warm_loads"],
+                                                   nvcc))
+    check(aoti.get("compiles") == 0 and aoti.get("cache_hits") == 1
+          and warm["package_sha256"] == want_sha,
+          "31d: compile_for_cpp %r, package %s against 30b's %s"
+          % (aoti, warm["package_sha256"], want_sha))
+    split = watch_tokens_agree(torch, np, "31d", warm["tokens"], plain[0],
+                               plain[1], adapter, prompt)
+    calls, cpp_k4a = cpp_counts(warm["mxtpu_predict_stdout"])
+    got = np.fromfile(os.path.join(out_dir, "out0.bin"), np.float32)
+    want = np.fromfile(cpp["y"], np.float32)
+    check(got.shape == want.shape and np.array_equal(got, want),
+          "31d: mxtpu_predict's logits differ from 30b's (max %.3g)"
+          % (float(np.abs(got - want).max()) if got.shape == want.shape
+             else float("nan")))
+    check((calls, cpp_k4a) == (LM_LAYERS, LM_LAYERS),
+          "31d: the C++ op ran %d times, K4a %d" % (calls, cpp_k4a))
+    # one full forward a token: the prefill's, then WATCH_GEN - 1 steps
+    check(warm["k4a"] == LM_LAYERS * WATCH_GEN,
+          "31d: the warm engine launched K4a %d times" % warm["k4a"])
+    summary = {k: warm[k] for k in ("import_s", "k4a", "warm_loads",
+                                    "first_runs", "compile_for_cpp_s", "s")}
+    summary.update(nvcc_builds=0, aoti_compiles=0, split=split,
+                   cpp_k4a_launches=cpp_k4a, logits_bit_equal_to_30b=True,
+                   sites=warm["sites"])
+    return summary, {"blocklm_warm_process_phase31d": (warm["k4a"], 0),
+                     "rnn_fwd_via_cpp_warm_phase31d": (cpp_k4a, 0)}
+
+
+def phase_watchdog(torch, np, dev, card, cpp):
+    """Phase 31 (module docstring): (a) the watchdog's record of the run,
+    (b) BlockLM through serve() on K4a against the plain greedy loop, (c)
+    ExportedLM on the same weights, (d) a fresh process on the run's AOT
+    cache, (e) the HBM gate on a card TrainStep. `cpp` is phase 30's
+    carry (30b's word-LM artifact, input, C++ logits and mxtpu_predict).
+    Returns ({path: (K4a, K4b)}, the summary)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import aot, serving
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    from mxnet_tpu_torch.parallel import TrainStep
+    from mxnet_tpu_torch.telemetry import introspect
+    t0 = time.perf_counter()
+    out = {"card": card}
+    # (a)
+    rec = watch_record()
+    out["31a"] = rec
+    for site in ["kernels.%s" % os.path.splitext(s)[0] for s in SOURCES] + \
+            ["predict.export", "predict.compile_for_cpp",
+             "rtc.compile_cubin", "cpp_package.build", "train.step",
+             "serving.decode", "serving.prefill"]:
+        r = rec.get(site, {})
+        check(r.get("compiles", 0) + r.get("warm_loads", 0) >= 1,
+              "31a: the watchdog recorded nothing at %s: %r" % (site, r))
+    check(aot.cache() is not None and len(aot.cache().entries()) >= 4,
+          "31a: the run's AOT cache holds %r"
+          % (aot.cache().entries() if aot.cache() else None))
+    print("watchdog 31a (%s): %s" % (card, json.dumps(rec)))
+    rng = np.random.RandomState(WATCH_SEED)
+    prompts = [[int(t) for t in rng.randint(1, LM_VOCAB, WATCH_PROMPT_LEN)]
+               for _ in range(WATCH_PROMPTS)]
+    launches = {}
+    with mx.gpu(dev.index or 0), tempfile.TemporaryDirectory() as tmp:
+        mx.random.seed(WATCH_SEED)
+        net = word_lm_net(torch, mx, dev, 0.0)
+        # (b)
+        plain = [watch_plain_greedy(torch, np, mx, net, p, WATCH_GEN)
+                 for p in prompts]
+        prior = os.environ.get("MXNET_FUSED_RNN")
+        os.environ["MXNET_FUSED_RNN"] = "1"
+        try:
+            mark = introspect.watchdog().mark()
+            toks, k4a, calls, eng = watch_serve(
+                serving, fr, net, prompts, "step_full", vocab=LM_VOCAB,
+                max_len=WATCH_MAX_LEN, time_major=True)
+            ad = eng.model
+            splits = [watch_tokens_agree(torch, np, "31b", t, p[0], p[1],
+                                         ad, q)
+                      for t, p, q in zip(toks, plain, prompts)]
+            check(k4a == LM_LAYERS * calls and calls > 0,
+                  "31b: K4a launched %d times over %d full forwards, "
+                  "expected %d" % (k4a, calls, LM_LAYERS * calls))
+            evs = [e for e in introspect.compile_events("serving.step_full")
+                   if e["seq"] > mark]
+            check(len(evs) >= 2 and evs[0]["reason"].startswith(
+                "first compilation at this site") and any(
+                "tokens: shape" in e["reason"] for e in evs[1:]),
+                "31b: serving.step_full events %r"
+                % [e["reason"] for e in evs])
+            check(eng.prefill_compilations + eng.decode_compilations
+                  == len(evs), "31b: the engine counted %d first runs, "
+                  "the watchdog %d" % (eng.prefill_compilations
+                                       + eng.decode_compilations, len(evs)))
+            launches["blocklm_serve_phase31b"] = (k4a, 0)
+            out["31b"] = {"k4a_launches": k4a, "forwards": calls,
+                          "tokens_equal_plain": all(s is None
+                                                    for s in splits),
+                          "splits": splits, "step_full_events": len(evs),
+                          "first_run_reasons": [e["reason"]
+                                                for e in evs][:4]}
+            # (c)
+            bm = watch_batch_major(mx)
+            bm.initialize(mx.init.Xavier())
+            bm(mx.nd.zeros((WATCH_EXPORT_BATCH, WATCH_MAX_LEN)))
+            for p, q in zip(bm.collect_params().values(),
+                            net.collect_params().values()):
+                p.set_data(q.data())
+            art = os.path.join(tmp, "lm_bm.mxtpu")
+            te = time.perf_counter()
+            mx.predict.export_model(
+                bm, [("data", (WATCH_EXPORT_BATCH, WATCH_MAX_LEN))], art,
+                input_dtypes={"data": "int32"})
+            export_s = time.perf_counter() - te
+            etoks, ek4a, ecalls, _ = watch_serve(serving, fr, art, prompts,
+                                                 "_call")
+            check(etoks == toks, "31c: ExportedLM's tokens %r differ from "
+                  "BlockLM's %r" % (etoks, toks))
+            check(ek4a == LM_LAYERS * ecalls and ecalls > 0,
+                  "31c: K4a launched %d times over %d replays, expected %d"
+                  % (ek4a, ecalls, LM_LAYERS * ecalls))
+            launches["exportedlm_serve_phase31c"] = (ek4a, 0)
+            out["31c"] = {"k4a_launches": ek4a, "replays": ecalls,
+                          "export_s": export_s,
+                          "exported_call_first_runs": len(
+                              introspect.compile_events(
+                                  "serving.exported_call"))}
+            params = os.path.join(tmp, "lm.params")
+            net.save_params(params)
+            out["31d"], dl = watch_warm(torch, np, aot, cpp, tmp, params,
+                                        prompts[0], plain[0], ad, dev)
+            launches.update(dl)
+            # (e)
+            step = TrainStep(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                             "sgd", {"learning_rate": LM_LR})
+            x = mx.nd.array(rng.randint(0, LM_VOCAB, (LM_BPTT, LM_BATCH))
+                            .astype(np.float32))
+            y = mx.nd.array(rng.randint(0, LM_VOCAB, (LM_BPTT * LM_BATCH,))
+                            .astype(np.float32))
+            before = [p.data()._data.clone()
+                      for p in net.collect_params().values()]
+            os.environ["MXNET_HBM_BUDGET_GB"] = "1e-9"
+            try:
+                try:
+                    step(x, y)
+                    refused = None
+                except introspect.HbmBudgetExceeded as e:
+                    refused = str(e)
+            finally:
+                os.environ.pop("MXNET_HBM_BUDGET_GB", None)
+            check(refused is not None, "31e: the 1e-9 GB budget admitted "
+                  "the step")
+            check(step.t == 0 and all(
+                torch.equal(a, p.data()._data) for a, p in
+                zip(before, net.collect_params().values())),
+                "31e: the refused step changed the parameters")
+            ev = introspect.compile_events("train.step")[-1]
+            loss = float(step(x, y))
+            check(step.t == 1 and math.isfinite(loss) and any(
+                not torch.equal(a, p.data()._data) for a, p in
+                zip(before, net.collect_params().values())),
+                "31e: the admitted step did not update")
+            out["31e"] = {"refused": refused[:200],
+                          "hbm_bytes": ev.get("hbm_bytes"),
+                          "admitted_loss": loss}
+        finally:
+            if prior is None:
+                os.environ.pop("MXNET_FUSED_RNN", None)
+            else:
+                os.environ["MXNET_FUSED_RNN"] = prior
+    out["s"] = time.perf_counter() - t0
+    print("watchdog phase 31 (%s): %s" % (card, json.dumps(out)))
+    return launches, out
 
 class PhaseClock:
     """Runs one of main()'s phases and prints its wall seconds and the
@@ -11320,6 +11784,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # every compile of the run flows through one AOT cache (phase 31
+    # reads it from a fresh process)
+    from mxnet_tpu_torch import aot
+    aot_dir = tempfile.mkdtemp(prefix="mxtt_aot_")
+    aot.configure(aot_dir)
     try:
         smi = nvidia_smi()
         run = PhaseClock()
@@ -11384,13 +11853,17 @@ def main():
         try:
             export_launches, rtc_rows, deploy = run(phase_deploy, torch, np,
                                                     dev, smi, keep)
-            cpp_launches, _ = run(phase_cpp, torch, np, dev, smi,
-                                  deploy["29a"]["carry"])
+            cpp_launches, cpp = run(phase_cpp, torch, np, dev, smi,
+                                    deploy["29a"]["carry"], keep)
+            watch_launches, _ = run(phase_watchdog, torch, np, dev, smi,
+                                    cpp["carry"])
         finally:
             shutil.rmtree(keep, ignore_errors=True)
     except SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(aot_dir, ignore_errors=True)
     top = next(r for r in rows if r["shape"] == "decode"
                and r["dtype"] == "float32")
     kernels = [{
@@ -11492,7 +11965,7 @@ def main():
         "word_lm_exported_phase29b": export_launches,
         "rnn_fwd_via_cpp_phase30b": (cpp_launches, 0),
         "check_consistency_sym_rnn_phase21a":
-            item2["check_consistency_rnn"]["launches"]})
+            item2["check_consistency_rnn"]["launches"], **watch_launches})
     kernels += rtc_rows
     print(json.dumps({"kernels": kernels}))
     print(smi)

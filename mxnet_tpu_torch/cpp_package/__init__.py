@@ -178,7 +178,11 @@ def build(device="cuda"):
                 shutil.rmtree(work, ignore_errors=True)
                 os.makedirs(work)
                 try:
-                    _compile_tree(work, cuda, flags, lib_dir, libs)
+                    from ..telemetry import introspect
+                    with introspect.compile_region(
+                            "cpp_package.build", phase="build",
+                            device=device):
+                        _compile_tree(work, cuda, flags, lib_dir, libs)
                     os.rename(work, final)
                 finally:
                     shutil.rmtree(work, ignore_errors=True)

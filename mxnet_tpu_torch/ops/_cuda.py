@@ -7,6 +7,14 @@ the source and the flags, so a changed source rebuilds and an unchanged
 one loads at once. Nothing is built when a module is imported: the first
 `library()` call of a source builds it. Each source has its own lock, so
 two sources build at once when two threads ask for them.
+
+Each nvcc build is a compile at the watchdog's site `kernels.<stem>`
+(telemetry/introspect.py). With an AOT cache configured
+(`mxnet_tpu_torch/aot`: `MXNET_AOT_CACHE_DIR`, `aot.configure`), a
+library is looked up there first, keyed by its source bytes and flags: a
+hit is written to its `_build/` path and loaded (a warm load at that
+site), a miss is built (or taken from `_build/`, where this checkout
+built it before) and published.
 """
 from __future__ import annotations
 
@@ -51,18 +59,54 @@ def target(source):
             os.path.join(BUILD_DIR, stem + ".log"))
 
 
+def site(source):
+    """The watchdog site of one source's build: `kernels.<stem>`."""
+    return "kernels." + os.path.splitext(source)[0]
+
+
 def _build(source, path, log):
+    from ..telemetry import introspect
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = "%s.%d.tmp" % (path, os.getpid())
-    with open(log, "w") as fh:
-        rc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, source)],
-            stdout=fh, stderr=subprocess.STDOUT).returncode
-    if rc != 0:
-        with open(log) as f:
-            raise MXNetError("kernel build of %s failed (nvcc exit %d):\n%s"
-                             % (source, rc, f.read()))
+    with introspect.compile_region(site(source), phase="build",
+                                   source=source):
+        with open(log, "w") as fh:
+            rc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                 os.path.join(_CSRC, source)],
+                stdout=fh, stderr=subprocess.STDOUT).returncode
+        if rc != 0:
+            with open(log) as f:
+                raise MXNetError("kernel build of %s failed (nvcc exit "
+                                 "%d):\n%s" % (source, rc, f.read()))
     os.replace(tmp, path)
+
+
+def _load(source, path, log):
+    """The CDLL of one source: through the AOT cache when one is
+    configured, else from `path`, built first when it is missing."""
+    from .. import aot
+    if aot.cache() is None:
+        if not os.path.exists(path):
+            _build(source, path, log)
+        return ctypes.CDLL(path)
+    with open(os.path.join(_CSRC, source), "rb") as f:
+        content = f.read() + b"\x00" + " ".join(NVCC_FLAGS).encode()
+
+    def build():
+        if not os.path.exists(path):
+            _build(source, path, log)
+        with open(path, "rb") as f:
+            return f.read()
+
+    key = aot.key_for(site(source), None, content, variant="library",
+                      placement=("sm_90a",))
+    lib, _hit = aot.fetch(
+        site(source), key, "library", source, build,
+        load=lambda payload: aot.load_executable(payload, "library",
+                                                 source, path),
+        phase="build")
+    return lib
 
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
@@ -109,9 +153,7 @@ def library(source):
         lib = _libs.get(source)
         if lib is None:
             path, log = target(source)
-            if not os.path.exists(path):
-                _build(source, path, log)
-            lib = ctypes.CDLL(path)
+            lib = _load(source, path, log)
             _declare(lib)
             _libs[source] = lib
     return lib

@@ -19,8 +19,10 @@ one op gloo refuses on a CUDA tensor, its point-to-point send (under
 tensor is copied to the host, sent from there, and the tensor received
 is copied back. Only the transport moves: the arithmetic stays on the
 card.
-`counters()` reports the calls and bytes of each op and the bytes staged
-through the host.
+`counters()` reports the calls and bytes of each op, its logical payload
+(the larger of what the rank sent in and received: an all-gather's whole
+output; the compile watchdog's comms ledger reads it) and the bytes
+staged through the host.
 """
 from __future__ import annotations
 
@@ -34,21 +36,24 @@ from ..base import MXNetError
 from .mesh import P, current_mesh, use_mesh
 
 _COUNTS = {"calls": collections.Counter(), "bytes": collections.Counter(),
-           "staged_bytes": 0}
+           "payload": collections.Counter(), "staged_bytes": 0}
 _DATA_AXIS = contextvars.ContextVar("mxnet_tpu_torch_data_axis",
                                     default=None)
 
 
 def counters():
     """{"calls": {op: n}, "bytes": {op: payload bytes this rank sent
-    in}, "staged_bytes": bytes copied through host memory}."""
+    in}, "payload": {op: max(bytes sent in, bytes received)},
+    "staged_bytes": bytes copied through host memory}."""
     return {"calls": dict(_COUNTS["calls"]), "bytes": dict(_COUNTS["bytes"]),
+            "payload": dict(_COUNTS["payload"]),
             "staged_bytes": _COUNTS["staged_bytes"]}
 
 
 def reset_counters():
     _COUNTS["calls"].clear()
     _COUNTS["bytes"].clear()
+    _COUNTS["payload"].clear()
     _COUNTS["staged_bytes"] = 0
 
 
@@ -76,9 +81,11 @@ def _axis(axis_name, mesh=None):
     return _Axis(mesh, axis_name)
 
 
-def _count(op, t):
+def _count(op, t, received=None):
+    n = t.numel() * t.element_size()
     _COUNTS["calls"][op] += 1
-    _COUNTS["bytes"][op] += t.numel() * t.element_size()
+    _COUNTS["bytes"][op] += n
+    _COUNTS["payload"][op] += max(n, received or 0)
 
 
 def _to_host(t):
@@ -119,7 +126,7 @@ def all_gather_raw(t, ax, dim=0):
     x = t.detach().movedim(dim, 0).contiguous()
     out = torch.empty((ax.size * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    _count("all_gather", x)
+    _count("all_gather", x, received=out.numel() * out.element_size())
     dist.all_gather_into_tensor(out, x, group=ax.group)
     return out.movedim(0, dim)
 

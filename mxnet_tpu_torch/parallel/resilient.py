@@ -448,19 +448,13 @@ class StragglerMonitor:
 
 
 def _comms():
-    """The /statusz comms ledger from the port's collective counters
-    (the reference reads its compiled step's HLO instead): bytes and
-    calls by op, and their total; no step fraction (not measured)."""
-    from . import collectives
-    c = collectives.counters()
-    kinds = {op: {"bytes": int(c["bytes"].get(op, 0)),
-                  "ops": int(c["calls"].get(op, 0))}
-             for op in sorted(set(c["bytes"]) | set(c["calls"]))}
-    if not kinds:
-        return None
-    return {"kinds": kinds,
-            "total_bytes": sum(k["bytes"] for k in kinds.values()),
-            "staged_bytes": int(c["staged_bytes"]), "fraction": None}
+    """The /statusz comms ledger: the compile watchdog's for the site
+    "train.step" (telemetry/introspect.py), as the reference's — bytes and
+    calls by collective kind over one step, read from the port's
+    collective counters around a step's first run (the reference walks
+    its compiled step's HLO); None before a mesh step ran one."""
+    from ..telemetry import introspect
+    return introspect.site_comms("train.step")
 
 
 class ResilientLoop:

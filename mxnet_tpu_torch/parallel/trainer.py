@@ -80,6 +80,16 @@ the values are the unsharded step's.
 
 Without a mesh, `shard_optimizer_states` and `sharded_update` change
 nothing, as in the reference (there is no data axis to shard over).
+
+The step registers at the compile watchdog's site "train.step" (and the
+probe at "train.probe"), keyed by the batch's signature: a new one is a
+first run, timed and, on the card, measured. Its footprint (the device's
+peak allocation over the forward and backward) meets MXNET_HBM_BUDGET_GB
+BEFORE the optimizer update, so a refused step leaves the parameters, the
+optimizer state, the running stats and the step count untouched; a mesh
+step's first run also fills the comms ledger (`introspect.site_comms(
+"train.step")`). `warm_loads` counts the kernel libraries the step's
+calls loaded from the AOT cache (mxnet_tpu_torch/aot).
 """
 from __future__ import annotations
 
@@ -96,6 +106,7 @@ from .. import optimizer as _opt_mod
 from .. import optimizer_rules as _rules
 from .. import random as _random
 from ..base import MXNetError, torch_dtype
+from ..telemetry import introspect as _introspect
 from ..ndarray import NDArray
 from ..ops import remat as _remat
 from ..utils import chaos as _chaos
@@ -420,6 +431,13 @@ class TrainStep:
         self._temp_bytes = None
         self._peak_bytes = None
         self._batch_bytes = 0
+        self._warm_loads = 0
+        self._site = _introspect.instrument(
+            self._step, site="train.step", argnames=("x", "y"),
+            phase="train")
+        self._probe_site = _introspect.instrument(
+            self._probe, site="train.probe", argnames=("x", "y"),
+            phase="train", sig_argnums=(0, 1))
 
     def set_lr_schedule(self, fn):
         self._lr_schedule = fn
@@ -431,10 +449,9 @@ class TrainStep:
 
     @property
     def warm_loads(self):
-        """Step executables loaded from an artifact cache instead of
-        built: always 0 until the port has such a cache (the reference
-        counts its AOT cache's loads)."""
-        return 0
+        """Kernel libraries this step's calls loaded from the AOT cache
+        (mxnet_tpu_torch/aot) instead of building them."""
+        return self._warm_loads
 
     def _build(self):
         params = self._net.collect_params()
@@ -779,13 +796,28 @@ class TrainStep:
 
     def __call__(self, x, y):
         """One step on the batch (x, y); returns the mean loss, a float32
-        0-d tensor on the parameters' device."""
+        0-d tensor on the parameters' device. A new batch signature is a
+        first run at the watchdog's site "train.step"; one the HBM budget
+        refuses raises HbmBudgetExceeded with nothing written."""
         if self._plist is None:
             self._build()
         dev = self._plist[0]._data._data.device if self._plist else None
         on_card = dev is not None and dev.type == "cuda"
         if on_card:
             torch.cuda.reset_peak_memory_stats(dev)
+        wmark = _introspect.dispatch_warm_mark()
+        try:
+            sig = self._site.signature_of((x, y))
+            if self._site.seen(sig):
+                return self._step(x, y, dev)
+            with self._site.first_run(sig, "train", (x, y),
+                                      device=dev) as run:
+                return self._step(x, y, dev, run)
+        finally:
+            self._warm_loads += _introspect.dispatch_warm_loads_since(wmark)
+
+    def _step(self, x, y, dev, run=None):
+        on_card = dev is not None and dev.type == "cuda"
         x, y = self._shard_inputs(x, y)
         with self._mesh_scope():
             loss_val, grads, aux_upd = self._forward_backward(x, y,
@@ -794,6 +826,10 @@ class TrainStep:
         grads = [torch.zeros_like(w) if g is None else g
                  for w, g in zip(self._grad_vals(), grads)]
         loss_val, grads, aux_upd = self._reduce(loss_val, grads, aux_upd)
+        if run is not None:
+            # a new signature's footprint meets the HBM budget before the
+            # update writes anything
+            self._site.gate(run)
         self._t += 1
         poison = _chaos.grad_poison(self._t)
         if poison:      # 0.0 on every real step; NaN and 1e6 are true
@@ -878,6 +914,9 @@ class TrainStep:
         cross-check replicas for silent data corruption."""
         if self._plist is None:
             self._build()
+        return self._probe_site(x, y, seed)
+
+    def _probe(self, x, y, seed):
         snap = _random.snapshot()
         cudnn = torch.backends.cudnn
         prior = (cudnn.deterministic, cudnn.benchmark)

@@ -21,10 +21,11 @@ registered as the torch.library op `mxnet_tpu_torch::rnn_fwd`
 (`ops/fused_rnn.py`): `load_exported` imports that module before it loads
 a program. K1-K3 launch through ctypes and sit on no inference path this
 module takes (eval-mode BatchNorm composes, as the reference's does); a
-graph that reaches one raises, naming it. The reference's
-`introspect.compile_region` around the export has no counterpart here yet
-(ROADMAP item 11). Every entry point runs on the card unless the caller
-asks for the CPU (`ctx=mx.cpu()`, or inside `with mx.cpu():`).
+graph that reaches one raises, naming it. The export is a compile at the
+watchdog's site `predict.export` (`introspect.compile_region`, as the
+reference's), the AOTInductor compile one at `predict.compile_for_cpp`.
+Every entry point runs on the card unless the caller asks for the CPU
+(`ctx=mx.cpu()`, or inside `with mx.cpu():`).
 
 The C++ side (`cpp_package/`) runs AOTInductor packages:
 `compile_for_cpp` adds one for a device to an artifact, and
@@ -377,7 +378,9 @@ def export_model(model, input_shapes, path, params=None,
         module = _BlockProgram(model)
     # the programs' forwards run under no_grad, where the ops switch no
     # grad mode: the graph holds no grad-mode region
-    with torch.no_grad():
+    from .telemetry import introspect
+    with introspect.compile_region("predict.export", phase="export",
+                                   path=path), torch.no_grad():
         ep = torch.export.export(module, examples, strict=False)
     buf = io.BytesIO()
     torch.export.save(ep, buf)
@@ -506,40 +509,63 @@ def _inductor_cxx():
                      "AOTInductor needs one" % (tried,))
 
 
-def _aoti_package(program, device):
-    """The bytes of the AOTInductor package of `program` (an
-    ExportedProgram on `device`), compiled with float32 products in
-    float32 (the port's parity rule). For the card, Inductor's probe of
+def _aoti_package(program, device, blob):
+    """The bytes of the AOTInductor package of `program()` (a callable
+    giving the ExportedProgram on `device`; `blob` is its
+    `torch.export.save` bytes before the move), compiled with float32
+    products in float32 (the port's parity rule). The compile is the watchdog's site
+    `predict.compile_for_cpp`; with an AOT cache configured the package
+    is looked up there first, keyed by the program's content and the
+    device, and a hit compiles nothing and loads no program. For the card, Inductor's probe of
     the host's CPU vector ISAs is skipped (its host wrapper then builds
     without vector flags): each ISA, and each extension of one (bf16,
     VNNI, AMX), is a compile and a fresh Python process that loads it,
     which cost 20-40 s of a process's first compile on the card's host
     (tools/aoti_compile_probe.py; H100 80GB HBM3, 700 W). A CPU package keeps the probe, whose
     pick its kernels are compiled for."""
-    import contextlib
-    from unittest import mock
-    import torch._inductor
-    import torch._inductor.cpu_vec_isa as vec_isa
-    from .ops import fused_rnn  # noqa: F401 — K4a's op and its fake
-    flags = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    no_probe = (mock.patch.object(vec_isa, "valid_vec_isa_list", list)
-                if torch.device(device).type == "cuda"
-                else contextlib.nullcontext())
-    with tempfile.TemporaryDirectory() as d:
-        pkg = os.path.join(d, "model.pt2")
-        try:
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-            with torch._inductor.config.patch(
-                    {"cpp.cxx": (_inductor_cxx(),)}), no_probe:
-                torch._inductor.aoti_compile_and_package(
-                    program, package_path=pkg)
-        finally:
-            (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32) = flags
-        with open(pkg, "rb") as f:
-            return f.read()
+    from . import aot
+    from .telemetry import introspect
+    site = "predict.compile_for_cpp"
+
+    def build():
+        # Inductor is imported only when a package is compiled: its
+        # import alone costs seconds, which a cache hit does not pay
+        import contextlib
+        from unittest import mock
+        import torch._inductor
+        import torch._inductor.cpu_vec_isa as vec_isa
+        from .ops import fused_rnn  # noqa: F401 — K4a's op and its fake
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        no_probe = (mock.patch.object(vec_isa, "valid_vec_isa_list", list)
+                    if torch.device(device).type == "cuda"
+                    else contextlib.nullcontext())
+        with tempfile.TemporaryDirectory() as d:
+            pkg = os.path.join(d, "model.pt2")
+            try:
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+                with introspect.compile_region(
+                        site, phase="aoti", device=str(device)), \
+                        torch._inductor.config.patch(
+                            {"cpp.cxx": (_inductor_cxx(),)}), no_probe:
+                    torch._inductor.aoti_compile_and_package(
+                        program(), package_path=pkg)
+            finally:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = flags
+            with open(pkg, "rb") as f:
+                return f.read()
+
+    if aot.cache() is None:
+        return build()
+    key = aot.key_for(site, None, aot.program_digest(blob), variant="aoti",
+                      placement=aot.placement_key((device,)))
+    pkg, _hit = aot.fetch(
+        site, key, "aoti", "model.pt2", build, phase="aoti",
+        load=lambda payload: aot.load_executable(payload, "aoti",
+                                                 "model.pt2"))
+    return pkg
 
 
 def _publish_zip(path, entries):
@@ -573,9 +599,13 @@ def compile_for_cpp(path, ctx=None):
     kind = _device_kind(device)
     with zipfile.ZipFile(path) as z:
         entries = {n: z.read(n) for n in z.namelist()}
-    program = torch.export.load(io.BytesIO(entries["model.pt2"]))
-    program = torch.export.passes.move_to_device_pass(program, device)
-    entries["aoti/%s.pt2" % kind] = _aoti_package(program, device)
+
+    def program():
+        ep = torch.export.load(io.BytesIO(entries["model.pt2"]))
+        return torch.export.passes.move_to_device_pass(ep, device)
+
+    entries["aoti/%s.pt2" % kind] = _aoti_package(program, device,
+                                                  entries["model.pt2"])
     meta = json.loads(entries["meta.json"])
     meta.setdefault("aoti", {})[kind] = {"torch": torch.__version__}
     entries["meta.json"] = json.dumps(meta).encode()
@@ -684,9 +714,12 @@ def export_train_step(step, example_x, example_y, path):
                         torch.tensor(0, dtype=torch.int32, device=dev),
                         torch.tensor(float(step._lr()), device=dev),
                         torch.tensor(1, dtype=torch.int32, device=dev)]
-    with _cuda.tracing_step():
-        gm = make_fx(pure, tracing_mode="fake")(*example)
-    program = torch.export.export(gm, tuple(example), strict=False)
+    from .telemetry import introspect
+    with introspect.compile_region("predict.export", phase="export",
+                                   path=path, train_step=True):
+        with _cuda.tracing_step():
+            gm = make_fx(pure, tracing_mode="fake")(*example)
+        program = torch.export.export(gm, tuple(example), strict=False)
     buf = io.BytesIO()
     torch.export.save(program, buf)
     sig = [_sig_line("in", v) for v in example]
@@ -704,6 +737,7 @@ def export_train_step(step, example_x, example_y, path):
         entries["state/%d.bin" % i] = v.cpu().contiguous().numpy().tobytes() \
             if v.dtype != torch.bfloat16 else \
             v.cpu().contiguous().view(torch.int16).numpy().tobytes()
-    entries["aoti/%s.pt2" % kind] = _aoti_package(program, dev)
+    entries["aoti/%s.pt2" % kind] = _aoti_package(lambda: program, dev,
+                                                  buf.getvalue())
     _publish_zip(path, entries)
     return path

@@ -294,8 +294,15 @@ def _program_log(lib, prog):
 def compile_cubin(source, options=(), exports=()):
     """(CUBIN bytes, {exported name: lowered name}, compile log) of
     `source`, compiled by NVRTC for ARCH; raises with NVRTC's log when the
-    compile fails."""
+    compile fails. Each compile is an event at the watchdog's site
+    `rtc.compile_cubin`."""
+    from .telemetry import introspect
     lib = nvrtc()
+    with introspect.compile_region("rtc.compile_cubin", phase="nvrtc"):
+        return _compile_cubin(lib, source, options, exports)
+
+
+def _compile_cubin(lib, source, options, exports):
     prog = ctypes.c_void_p()
     _nvrtc_check(lib, lib.nvrtcCreateProgram(
         ctypes.byref(prog), source.encode(), b"mxnet_rtc.cu", 0, None,

@@ -16,7 +16,10 @@ fleet of servers behind one door (router.py: least-loaded routing,
 failover and respawn, prefill/decode migration; autoscale.py), and
 `serve(rollout=<checkpoint dir>)` rolls newly published weights out
 through a gated canary (rollout.py). `tp=k` shards one engine over a
-window of devices (tp.py).
+window of devices (tp.py). Besides the transformer, `serve()` takes a
+Gluon Block (`BlockLM`) or a `.mxtpu` artifact (`ExportedLM`), served by
+full forwards; `aot_cache=` loads the kernel libraries from the AOT
+cache.
 
 Quickstart::
 
@@ -31,7 +34,8 @@ Quickstart::
 """
 from .kv_cache import BlockPool, PagedKVCache, CacheOverflow
 from .prefix_cache import PrefixCache, prefix_cache_enabled
-from .engine import Engine, Sequence, TransformerLM, pow2_bucket
+from .engine import (BlockLM, Engine, ExportedLM, Sequence, TransformerLM,
+                     pow2_bucket)
 from .scheduler import (Scheduler, Request, QueueFull, RequestTimeout,
                         DeadlineExceeded, DeadlineUnmeetable,
                         BrownoutShed, make_resume)
@@ -53,7 +57,8 @@ __all__ = [
     "PrefixCache", "prefix_cache_enabled",
     "DraftLM", "self_draft", "spec_decode_enabled", "spec_k",
     "spec_draft_layers",
-    "Engine", "Sequence", "TransformerLM", "pow2_bucket",
+    "BlockLM", "Engine", "ExportedLM", "Sequence", "TransformerLM",
+    "pow2_bucket",
     "Scheduler", "Request", "QueueFull", "RequestTimeout",
     "DeadlineExceeded", "DeadlineUnmeetable", "BrownoutShed",
     "make_resume", "spawn_resume", "spawn_migrate",

@@ -20,9 +20,11 @@ watches the fleet's merged burn and
 On a disaggregated fleet TTFT burn adds a prefill replica and ITL burn a
 decode replica. `step(now)` is one synchronous decision — tests and
 drills drive it with injected clocks and scripted burns; `start()` runs
-it on a daemon thread every `interval_s`. A new replica builds its engine
-cold: the AOT executable cache that would warm it is ROADMAP item 11, so
-the router's `serving_warm_replicas` gauge reads 0.
+it on a daemon thread every `interval_s`. A new replica's engine loads
+its kernel libraries from the AOT cache when one is configured
+(`serve(aot_cache=...)` / MXNET_AOT_CACHE_DIR); the router's
+`serving_warm_replicas` gauge counts the replicas whose `engine.
+warm_loads` is positive (read at each health sweep).
 """
 from __future__ import annotations
 

@@ -48,10 +48,29 @@ the FFN or the window cannot hold) records its reason on
 `tp_fallback` and serves without it; on CUDA an option whose shapes the
 kernel does not take raises at construction.
 
-PyTorch runs eagerly, so the engine has no compiled-step lattice to bound;
-it keeps the reference's power-of-two batch and width buckets all the
-same, so the kernel sees the shapes the reference's kernel saw, and
-records each (kind, shape) signature it ran in `_sigs`.
+PyTorch runs eagerly, so nothing is compiled per shape; the engine keeps
+the reference's power-of-two batch and width buckets all the same, so the
+kernel sees the shapes the reference's kernel saw. Each step goes through
+the compile watchdog (telemetry/introspect.py) at the reference's sites —
+`serving.prefill`, `serving.decode`, `serving.spec_score`,
+`serving.draft`, and for the full-forward adapters
+`serving.step_full` / `serving.exported_call` — whose signature is the
+step's own shape key (its token and table tensors), never a walk over the
+parameters: a new bucket is a first run there, with its diff reason.
+`prefill_compilations` / `decode_compilations` count the first runs (and
+kernel builds) this engine's calls paid, `warm_loads` the kernel
+libraries they loaded from the AOT cache (`Engine(aot_cache=)`), through
+the watchdog's per-thread seam; each (kind, shape) signature it ran is
+also kept in `_sigs`.
+
+Besides `TransformerLM` on the paged pool, the engine serves two
+full-forward adapters with no cache hooks (`uses_cache = False`), as the
+reference does: `BlockLM` (an initialized Gluon causal LM, e.g. the word
+LM, whose fused LSTM runs K4a) and `ExportedLM` (a `.mxtpu` artifact from
+`predict.export_model`, replayed through torch.export, K4a as the op
+`mxnet_tpu_torch::rnn_fwd`). Every step re-runs the whole bucketed
+history; the pool, the paged kernel, the int8 pool, the prefix cache,
+speculation and tp do not apply and record their fallback reasons.
 
 The engine owns the device: the pools live on it, the params are moved to
 it at construction, and every index tensor is built on it. `device=None`
@@ -60,6 +79,7 @@ means the card (a tp window's first device); a CPU run is asked for by
 """
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import time
@@ -67,8 +87,9 @@ import time
 import numpy as np
 import torch
 
-from ..base import MXNetError, resolve_device
+from ..base import MXNetError, resolve_device, torch_dtype
 from .. import telemetry
+from ..telemetry import introspect as _introspect
 from ..models.transformer import _layer_norm, _moe_ffn
 from ..ops.paged_attention import (paged_attention, paged_enabled,
                                    paged_limit)
@@ -361,9 +382,32 @@ def _to_device(value, device):
 
 class TransformerLM:
     """Paged-cache adapter for the functional transformer
-    (models/transformer.py): a params dict of tensors + TransformerConfig."""
+    (models/transformer.py): a params dict of tensors + TransformerConfig.
+    `bind` (and `bind_tp`) register each step at its watchdog site as the
+    adapter's `prefill`, `decode`, `decode_paged`, `prefill_chunk` and
+    `spec_score` (and their `_tp` forms), afresh for each engine, so a
+    restarted engine's first steps read as duplicates."""
 
     uses_cache = True
+
+    #: step -> (watchdog site, phase, signature argument names, their
+    #: positions): the signature is the step's shape key, never the params;
+    #: a tp step registers as its single-device form does
+    _STEPS = {
+        "prefill": ("serving.prefill", "prefill", ("tokens", "table_row"),
+                    (2, 4)),
+        "decode": ("serving.decode", "decode",
+                   ("tokens", "positions", "tables"), (2, 3, 4)),
+        "decode_paged": ("serving.decode", "decode",
+                         ("tokens", "positions", "tables"), (2, 3, 4)),
+        "prefill_chunk": ("serving.prefill", "prefill",
+                          ("tokens", "table_row"), (2, 6)),
+        "spec_score": ("serving.spec_score", "decode",
+                       ("tokens", "q_starts", "tables"), (2, 3, 5)),
+    }
+    _TP_STEPS = {"decode_tp": "decode_paged",
+                 "prefill_chunk_tp": "prefill_chunk",
+                 "spec_score_tp": "spec_score"}
 
     def __init__(self, params, cfg):
         if cfg.n_experts and cfg.moe_top_k:
@@ -414,6 +458,15 @@ class TransformerLM:
         self.block_size = block_size
         self.params = {k: _to_device(v, device)
                        for k, v in self.params.items()}
+        self._instrument(self._STEPS, device)
+
+    def _instrument(self, names, device):
+        for name in names:
+            site, phase, argnames, sig = self._STEPS[
+                self._TP_STEPS.get(name, name)]
+            setattr(self, name, _introspect.instrument(
+                getattr(self, "_" + name), site=site, phase=phase,
+                argnames=argnames, sig_argnums=sig, device=device))
 
     def bind_tp(self, mesh):
         """Lay the weights out over the tp window `mesh` (tp.py): k
@@ -428,29 +481,30 @@ class TransformerLM:
             shards = quantize_tp_params(shards, self.cfg)
         self.tp_params = shards
         self.tp_mesh = mesh
+        self._instrument(self._TP_STEPS, mesh[0])
 
-    def prefill(self, k, v, tokens, length, table_row):
+    def _prefill(self, k, v, tokens, length, table_row):
         return _tf_prefill(self.params, k, v, tokens, length, table_row,
                            self.cfg, self.block_size)
 
-    def decode(self, k, v, tokens, positions, tables):
+    def _decode(self, k, v, tokens, positions, tables):
         return _tf_decode(self.params, k, v, tokens, positions, tables,
                           self.cfg, self.block_size)
 
-    def decode_paged(self, k, v, tokens, positions, tables, k_scale=None,
-                     v_scale=None):
+    def _decode_paged(self, k, v, tokens, positions, tables, k_scale=None,
+                      v_scale=None):
         return _tf_decode_paged(self.params, k, v, tokens, positions,
                                 tables, self.cfg, self.block_size,
                                 k_scale, v_scale)
 
-    def prefill_chunk(self, k, v, tokens, q_start, length, last_idx,
-                      table_row, k_scale=None, v_scale=None):
+    def _prefill_chunk(self, k, v, tokens, q_start, length, last_idx,
+                       table_row, k_scale=None, v_scale=None):
         return _tf_prefill_chunk(self.params, k, v, tokens, q_start,
                                  length, last_idx, table_row, self.cfg,
                                  self.block_size, k_scale, v_scale)
 
-    def spec_score(self, k, v, tokens, q_starts, counts, tables,
-                   k_scale=None, v_scale=None):
+    def _spec_score(self, k, v, tokens, q_starts, counts, tables,
+                    k_scale=None, v_scale=None):
         return _tf_spec_score(self.params, k, v, tokens, q_starts, counts,
                               tables, self.cfg, self.block_size, k_scale,
                               v_scale)
@@ -458,27 +512,146 @@ class TransformerLM:
     # the tp steps: the same signatures over the window's per-shard pools
     # (tuples of tensors, one per window device)
 
-    def decode_tp(self, k, v, tokens, positions, tables, k_scale=None,
-                  v_scale=None):
+    def _decode_tp(self, k, v, tokens, positions, tables, k_scale=None,
+                   v_scale=None):
         from .tp import _decode_body
         return _decode_body(self.tp_params, self.tp_mesh, k, v, tokens,
                             positions, tables, self.cfg, self.block_size,
                             k_scale, v_scale)
 
-    def prefill_chunk_tp(self, k, v, tokens, q_start, length, last_idx,
-                         table_row, k_scale=None, v_scale=None):
+    def _prefill_chunk_tp(self, k, v, tokens, q_start, length, last_idx,
+                          table_row, k_scale=None, v_scale=None):
         from .tp import _prefill_chunk_body
         return _prefill_chunk_body(self.tp_params, self.tp_mesh, k, v,
                                    tokens, q_start, length, last_idx,
                                    table_row, self.cfg, self.block_size,
                                    k_scale, v_scale)
 
-    def spec_score_tp(self, k, v, tokens, q_starts, counts, tables,
-                      k_scale=None, v_scale=None):
+    def _spec_score_tp(self, k, v, tokens, q_starts, counts, tables,
+                       k_scale=None, v_scale=None):
         from .tp import _spec_score_body
         return _spec_score_body(self.tp_params, self.tp_mesh, k, v, tokens,
                                 q_starts, counts, tables, self.cfg,
                                 self.block_size, k_scale, v_scale)
+
+
+# ---------------------------------------------------------------------------
+# full-forward adapters (no cache hooks): Gluon Blocks and .mxtpu artifacts
+# ---------------------------------------------------------------------------
+
+
+def _rows_at(out, lengths):
+    """Each row's logits at its lengths-1 position of (B, S, V), as
+    float32 (B, V)."""
+    rows = torch.arange(out.shape[0], device=out.device)
+    return out[rows, lengths.to(out.device).long() - 1].float()
+
+
+class BlockLM:
+    """Serve an initialized Gluon causal LM Block: tokens (B, S) ->
+    logits (B, S, V), or time-major (S, B) -> (S*B, V) like
+    `models.word_lm.RNNModel` with `time_major=True`. Each step is one
+    eager inference forward of the block over the bucketed history
+    (MXNET_FUSED_RNN=1 runs a fused LSTM's layers on K4a), registered at
+    the watchdog's site "serving.step_full" with the (tokens, lengths)
+    signature; the adapter's seen signatures persist across the engines
+    that share it."""
+
+    uses_cache = False
+
+    def __init__(self, block, vocab, max_len, time_major=False):
+        self.vocab = vocab
+        self.max_len = max_len
+        self.time_major = bool(time_major)
+        self._block = block
+        params = [p for p in block.collect_params().values()
+                  if p._data is not None]
+        self.device = params[0]._data._data.device if params else None
+        self._step = _introspect.instrument(
+            self._logits, site="serving.step_full",
+            argnames=("tokens", "lengths"))
+
+    def _logits(self, toks, lengths):
+        from .. import autograd
+        from ..ndarray import NDArray
+        B, S = toks.shape
+        with autograd.pause(train_mode=False), torch.no_grad():
+            if self.time_major:
+                out = self._block(NDArray(toks.t().float()))._data
+                out = out.reshape(S, B, -1).transpose(0, 1)
+            else:
+                out = self._block(NDArray(toks))._data
+        return _rows_at(out, lengths)
+
+    def step_full(self, tokens, lengths, phase=None):
+        """tokens (B, S) int -> float32 logits (B, V) at lengths-1 (one
+        step serves prefill and decode; `phase` attributes a first run to
+        the side that paid it)."""
+        toks = torch.as_tensor(np.asarray(tokens), dtype=torch.int64,
+                               device=self.device)
+        lens = torch.as_tensor(np.asarray(lengths), dtype=torch.int64,
+                               device=self.device)
+        return self._step(toks, lens, _phase=phase)
+
+
+class ExportedLM:
+    """Serve a `.mxtpu` artifact (`predict.export_model`) whose one input
+    is int token ids (B_sig, S_sig) and whose first output is logits
+    (B_sig, S_sig, V). The program's shape is fixed at export, so serving
+    pads and chunks each batch to the exported signature. `device` is
+    where the program replays (the card by default). Each replay is
+    registered at the watchdog's site "serving.exported_call"."""
+
+    uses_cache = False
+
+    def __init__(self, artifact, device=None):
+        from ..predict import ExportedPredictor, load_exported
+        if isinstance(artifact, ExportedPredictor):
+            pred = artifact
+        else:
+            ctx = None
+            if device is not None:
+                from ..context import Context
+                dev = resolve_device(device)
+                ctx = Context("gpu" if dev.type == "cuda" else "cpu",
+                              dev.index or 0)
+            pred = load_exported(artifact, ctx=ctx)
+        desc = pred.input_descs
+        if len(desc) != 1 or len(desc[0]["shape"]) != 2:
+            raise MXNetError(
+                "ExportedLM needs an artifact with ONE (batch, seq) token "
+                "input; got %r" % (desc,))
+        self._pred = pred
+        self.device = pred.device
+        self.sig_batch, self.sig_len = desc[0]["shape"]
+        self.max_len = self.sig_len
+        self._dtype = desc[0]["dtype"]
+        self.vocab = None  # unknown until the first forward
+        self._call = _introspect.instrument(
+            lambda buf: pred._call([buf])[0],
+            site="serving.exported_call", argnames=("tokens",))
+
+    def step_full(self, tokens, lengths, phase=None):
+        """tokens (B, S <= sig_len) int -> float32 logits (B, V) at
+        lengths-1, chunked over the exported batch size."""
+        tokens = np.asarray(tokens)
+        lengths = torch.as_tensor(np.asarray(lengths), dtype=torch.int64)
+        B, S = tokens.shape
+        if S > self.sig_len:
+            raise MXNetError("sequence length %d exceeds the exported "
+                             "signature %d" % (S, self.sig_len))
+        rows = []
+        for lo in range(0, B, self.sig_batch):
+            chunk = tokens[lo:lo + self.sig_batch]
+            buf = np.zeros((self.sig_batch, self.sig_len), np.int64)
+            buf[:len(chunk), :S] = chunk
+            t = torch.as_tensor(buf, device=self.device).to(
+                torch_dtype(self._dtype))
+            logits = self._call(t, _phase=phase)         # (Bs, Ss, V)
+            self.vocab = logits.shape[-1]
+            rows.append(_rows_at(logits[:len(chunk)],
+                                 lengths[lo:lo + self.sig_batch]))
+        return torch.cat(rows, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -504,23 +677,36 @@ class Engine:
     `devices` (default: every CUDA device; a device may repeat), and the
     engine's device is the window's first. Placement flags are read at
     construction only and frozen afterwards: assigning one of
-    `_FROZEN_FLAGS` on a live engine raises."""
+    `_FROZEN_FLAGS` on a live engine raises.
+
+    `aot_cache=` names a directory for the process-wide AOT cache
+    (mxnet_tpu_torch/aot; None defers to MXNET_AOT_CACHE_DIR), configured
+    before this engine's first step so the kernel libraries its steps
+    load come from it. A full-forward model (`BlockLM`, `ExportedLM`)
+    runs on its own device unless `device=` names one."""
 
     #: flags the pools, the weights' placement and the step bodies derive
     #: from, fixed at construction
     _FROZEN_FLAGS = frozenset(
         ("paged", "paged_requested", "prefill_chunk", "tp",
-         "tp_requested", "mesh", "prefix_cache", "spec", "spec_requested",
-         "spec_k", "draft", "kv_quant", "kv_quant_requested",
-         "weight_quant"))
+         "tp_requested", "mesh", "prefix_cache", "aot_cache", "spec",
+         "spec_requested", "spec_k", "draft", "kv_quant",
+         "kv_quant_requested", "weight_quant"))
 
     def __init__(self, model, max_batch=8, max_len=None, block_size=16,
                  num_blocks=None, keep_logits=False, paged=None,
                  prefill_chunk=None, tp=None, devices=None, device=None,
-                 prefix_cache=None, draft=None, spec=None, spec_k=None,
-                 kv_quant=None, weight_quant=None):
+                 prefix_cache=None, aot_cache=None, draft=None, spec=None,
+                 spec_k=None, kv_quant=None, weight_quant=None):
         from .tp import (serving_tp, tp_fallback_reason, build_tp_mesh,
                          tp_cache_variant)
+        from .. import aot
+        # the process-wide AOT cache (the watchdog's seam is process-wide
+        # too), resolved before any step of this engine runs
+        if aot_cache is not None:
+            aot.configure(str(aot_cache))
+        self.aot_cache = aot.cache_dir()
+        uses_cache = model.uses_cache
         # tensor parallel: tp > 1 implies the paged path (the gather
         # oracle is single-device); a config the window cannot shard
         # serves at tp=1 with its reason on `tp_fallback`
@@ -535,6 +721,12 @@ class Engine:
             self.tp_fallback = ("paged=False pins the single-device "
                                 "gather oracle")
             tp_req = 1
+        if tp_req > 1 and not uses_cache:
+            self.tp_fallback = ("model family has no cache hooks "
+                                "(BlockLM/ExportedLM run single-device)")
+            tp_req = 1
+        if not uses_cache and device is None and not devices:
+            device = model.device
         if devices:
             # the window's first device is the engine's
             first = resolve_device(devices[0])
@@ -549,9 +741,14 @@ class Engine:
         self.max_len = int(max_len or model.max_len)
         self.keep_logits = keep_logits
         self._sigs = set()
+        # the compiles and AOT-cache loads this engine's calls paid, by
+        # side, through the watchdog's per-thread seam (`_count`): engines
+        # sharing one adapter never absorb each other's
+        self._compile_counts = {"prefill": 0, "decode": 0}
+        self._warm_counts = {"prefill": 0, "decode": 0}
         self.paged_requested = tp_req > 1 or (
             paged_enabled() if paged is None else bool(paged))
-        self.paged = self.paged_requested
+        self.paged = self.paged_requested and uses_cache
         if tp_req > 1:
             reason = tp_fallback_reason(model.cfg, self.paged, tp_req,
                                         devices)
@@ -565,7 +762,8 @@ class Engine:
                 "event", "serving.tp_fallback",
                 requested=self.tp_requested, reason=self.tp_fallback)
         self.prefill_chunk = 0
-        nl, nh, dh, dt = model.cache_spec()
+        if uses_cache:
+            nl, nh, dh, dt = model.cache_spec()
         self._nblk = max(1, math.ceil(self.max_len / block_size))
         if num_blocks is None:
             num_blocks = max_batch * self._nblk + 1
@@ -582,11 +780,20 @@ class Engine:
         self.kv_quant = False
         self.kv_quant_fallback = None
         self.weight_quant = None
+        self.weight_quant_fallback = None
         if wq_req is not None:
-            model.quantize_weights(str(wq_req))
-            self.weight_quant = str(wq_req)
+            if not hasattr(model, "quantize_weights"):
+                self.weight_quant_fallback = (
+                    "model family has no weight hooks (BlockLM/ExportedLM "
+                    "serve their own parameters in float)")
+            else:
+                model.quantize_weights(str(wq_req))
+                self.weight_quant = str(wq_req)
         if kvq_req:
-            if self.paged:
+            if not uses_cache:
+                self.kv_quant_fallback = ("model family has no cache hooks "
+                                          "(int8 KV needs the paged pool)")
+            elif self.paged:
                 self.kv_quant = True
             else:
                 self.kv_quant_fallback = (
@@ -617,6 +824,18 @@ class Engine:
             self.spec_fallback = _spec.spec_fallback_reason(model, d,
                                                             self.paged)
             self.spec = self.spec_fallback is None
+        self.cache = None
+        self.prefix_cache = None
+        self.prefix_cache_fallback = None
+        want_prefix = (prefix_cache_enabled() if prefix_cache is None
+                       else bool(prefix_cache))
+        if not uses_cache:
+            if want_prefix:
+                self.prefix_cache_fallback = (
+                    "model family has no cache hooks (prefix reuse needs "
+                    "the paged KV pool)")
+            self._constructed = True
+            return
 
         if self.paged and self.device.type == "cuda":
             # the Hopper gate; a tp shard's kernel sees the same
@@ -647,10 +866,6 @@ class Engine:
                                   devices=self.mesh)
 
         # prefix cache: which blocks a table points at, never logits
-        self.prefix_cache = None
-        self.prefix_cache_fallback = None
-        want_prefix = (prefix_cache_enabled() if prefix_cache is None
-                       else bool(prefix_cache))
         if want_prefix:
             if self.paged:
                 self.prefix_cache = PrefixCache(self.cache.pool, block_size)
@@ -681,6 +896,8 @@ class Engine:
     # -- admission accounting ------------------------------------------------
 
     def blocks_needed(self, prompt_len, max_new):
+        if self.cache is None:
+            return 0
         total = min(self.max_len, prompt_len + max_new)
         return self.cache.blocks_for(total)
 
@@ -692,31 +909,73 @@ class Engine:
         if prompt_len > self.max_len:
             raise MXNetError("prompt length %d exceeds max_len %d"
                              % (prompt_len, self.max_len))
+        if self.cache is None:
+            return True
         avail = self.cache.pool.available
         if self.prefix_cache is not None:
             avail += self.prefix_cache.reclaimable_blocks()
         return self.blocks_needed(prompt_len, max_new) <= avail
 
     def cache_utilization(self):
-        return self.cache.utilization()
+        return self.cache.utilization() if self.cache is not None else None
 
     @property
     def prefill_compilations(self):
-        """Distinct prefill shape signatures this engine ran: the
-        compiled steps the reference's bucket lattice holds for the same
-        traffic. PyTorch runs them eagerly, so nothing is compiled."""
-        return sum(1 for kind, _ in self._sigs if kind == "prefill")
+        """Prefill-path compiles THIS engine's calls paid, counted by the
+        compile watchdog at the step sites: each first run of a (chunk,
+        width) or length bucket, and any kernel library built inside
+        one."""
+        return self._compile_counts["prefill"]
 
     @property
     def decode_compilations(self):
-        """Distinct decode-side shape signatures (decode, draft, spec
-        scoring) this engine ran; see `prefill_compilations`."""
-        return sum(1 for kind, _ in self._sigs if kind != "prefill")
+        """Decode-side compiles (decode, draft, spec scoring); see
+        `prefill_compilations`."""
+        return self._compile_counts["decode"]
+
+    @property
+    def prefill_warm_loads(self):
+        """Kernel libraries this engine's prefill calls loaded from the
+        AOT cache (mxnet_tpu_torch/aot) instead of building."""
+        return self._warm_counts["prefill"]
+
+    @property
+    def decode_warm_loads(self):
+        """Decode-side warm loads (see `prefill_warm_loads`)."""
+        return self._warm_counts["decode"]
+
+    @property
+    def warm_loads(self):
+        """Everything this engine loaded from the AOT cache: the router's
+        warm-replica gauge counts replicas where it is positive."""
+        return sum(self._warm_counts.values())
+
+    @contextlib.contextmanager
+    def _count(self, kind, sig):
+        """Bracket one model step call: record its (kind, shape)
+        signature in `_sigs` and add the compiles and warm loads the call
+        paid — per-thread attribution, so a sibling engine sharing the
+        adapter never inflates these counters — to this engine's tally
+        ("prefill", else the decode side)."""
+        self._sigs.add((kind, sig))
+        side = "prefill" if kind == "prefill" else "decode"
+        mark = _introspect.dispatch_mark()
+        wmark = _introspect.dispatch_warm_mark()
+        try:
+            yield
+        finally:
+            # a call that compiled and then FAILED still paid the compile
+            self._compile_counts[side] += \
+                _introspect.dispatch_compiles_since(mark)
+            self._warm_counts[side] += \
+                _introspect.dispatch_warm_loads_since(wmark)
 
     def kv_bytes_per_token(self):
         """Bytes of KV-cache one token occupies (K and V, every layer):
         the int8 payload plus the float32 scales amortized over a block's
-        tokens on a quantized pool."""
+        tokens on a quantized pool; 0 for a model without a cache."""
+        if self.cache is None:
+            return 0
         nl, nh, dh, dt = self.model.cache_spec()
         if self.cache.quantized:
             scale_bytes = math.ceil(2 * nl * nh * 4
@@ -736,6 +995,8 @@ class Engine:
         seq = Sequence(prompt, min(self.max_len, L + max_new), eos_id)
         if self.keep_logits:
             seq.token_logits = []
+        if self.cache is None:
+            return seq
         n = self.blocks_needed(L, max_new)
         if self.prefix_cache is None:
             ids = self.cache.pool.try_alloc(n)
@@ -806,6 +1067,13 @@ class Engine:
             return self.prefill_chunk
         return pow2_bucket(prompt_len, lo=1, hi=self.max_len)
 
+    def _full_step(self, kind, toks, lens):
+        """One full-forward step of a cache-free model over a (B, S)
+        token batch: float32 logits (B, V) at each row's lengths-1, as a
+        torch tensor."""
+        with self._count(kind, toks.shape):
+            return self.model.step_full(toks, lens, phase=kind)
+
     def prefill_step(self, seq):
         """Advance one sequence's prefill. Paged path: run ONE
         fixed-shape chunk; gather path: run the whole prompt. Returns True
@@ -817,20 +1085,27 @@ class Engine:
         with telemetry.span("serving.prefill", trace=rid,
                             category="serving", prompt_len=L,
                             chunk_start=seq.prefilled):
-            if self.paged:
+            if self.cache is None:
+                s_pad = pow2_bucket(L, lo=1, hi=self.max_len)
+                toks = np.zeros((1, s_pad), np.int64)
+                toks[0, :L] = prompt
+                logits = self._full_step("prefill", toks,
+                                         np.asarray([L], np.int64))[0]
+                seq.prefilled = L
+            elif self.paged:
                 C = self.prefill_chunk
                 qs = seq.prefilled
                 toks = np.zeros((C,), np.int64)
                 toks[:min(C, L - qs)] = prompt[qs:qs + C]
                 w = pow2_bucket(self.cache.blocks_for(qs + C),
                                 lo=1, hi=self._nblk)
-                self._sigs.add(("prefill", (C, w)))
                 chunk_fn = self.model.prefill_chunk_tp if self.tp > 1 \
                     else self.model.prefill_chunk
-                logits = chunk_fn(
-                    self.cache.k, self.cache.v, self._tensor(toks), qs, L,
-                    min(L - 1 - qs, C - 1),
-                    self._tensor(seq.table_row[:w]), *self._scales())
+                with self._count("prefill", (C, w)):
+                    logits = chunk_fn(
+                        self.cache.k, self.cache.v, self._tensor(toks), qs,
+                        L, min(L - 1 - qs, C - 1),
+                        self._tensor(seq.table_row[:w]), *self._scales())
                 seq.prefilled = min(L, qs + C)
                 if seq.prefilled < L:
                     return False
@@ -845,10 +1120,10 @@ class Engine:
                                     hi=self.max_len)
                 toks = np.zeros((s_pad,), np.int64)
                 toks[:L] = prompt
-                self._sigs.add(("prefill", s_pad))
-                logits = self.model.prefill(
-                    self.cache.k, self.cache.v, self._tensor(toks), L,
-                    self._tensor(seq.table_row))
+                with self._count("prefill", s_pad):
+                    logits = self.model.prefill(
+                        self.cache.k, self.cache.v, self._tensor(toks), L,
+                        self._tensor(seq.table_row))
                 seq.prefilled = L
             logits = logits.cpu().numpy()
         if self.keep_logits:
@@ -861,12 +1136,17 @@ class Engine:
         """Admit one request and run its whole prefill. Returns the live
         Sequence, or None if blocks ran out (transient). The serving loop
         uses begin/prefill_step instead so chunks interleave with decode
-        steps."""
+        steps. A prefill that raises releases the sequence's blocks (not
+        for reuse) before the error propagates, so the pool stays whole."""
         seq = self.begin(prompt, max_new, eos_id=eos_id)
         if seq is None:
             return None
-        while not self.prefill_step(seq):
-            pass
+        try:
+            while not self.prefill_step(seq):
+                pass
+        except BaseException:
+            self.release(seq, reusable=False)
+            raise
         return seq
 
     # -- decode --------------------------------------------------------------
@@ -896,32 +1176,10 @@ class Engine:
         t0_us = time.perf_counter_ns() // 1000
         with telemetry.span("serving.decode", category="serving",
                             batch=len(seqs)):
-            # paged path: the kernel's table width is bucketed to the
-            # longest LIVE sequence, so a step's bytes track true
-            # lengths; the gather path always sees the full table
-            w = self._nblk
-            if self.paged:
-                w = pow2_bucket(max(self.cache.blocks_for(len(s.tokens))
-                                    for s in seqs), lo=1, hi=self._nblk)
-            toks = np.zeros((bb,), np.int64)
-            pos = np.zeros((bb,), np.int32)
-            tabs = np.zeros((bb, w), np.int32)
-            for i, s in enumerate(seqs):
-                toks[i] = s.tokens[-1]
-                pos[i] = len(s.tokens) - 1
-                tabs[i] = s.table_row[:w]
-            self._sigs.add(("decode", (bb, w) if self.paged else bb))
-            args = (self.cache.k, self.cache.v, self._tensor(toks),
-                    self._tensor(pos), self._tensor(tabs))
-            if self.paged:
-                # one device, or sharded over the tp window
-                step_fn = self.model.decode_tp if self.tp > 1 \
-                    else self.model.decode_paged
-                logits = step_fn(*args, *self._scales())
+            if self.cache is None:
+                logits, nxt = self._full_decode(seqs, bb)
             else:
-                logits = self.model.decode(*args)
-            nxt = logits.argmax(-1).cpu().numpy()
-            logits = logits.cpu().numpy() if self.keep_logits else None
+                logits, nxt = self._cached_decode(seqs, bb)
         dur_us = time.perf_counter_ns() // 1000 - t0_us
         for i, s in enumerate(seqs):
             if logits is not None:
@@ -936,6 +1194,51 @@ class Engine:
                                       to_profiler=False, to_flight=False,
                                       position=len(s.tokens) - 1)
         return seqs
+
+    def _full_decode(self, seqs, bb):
+        """A cache-free model's decode step: the whole history of each
+        sequence, padded to a (bb, pow2 length) batch, in one full
+        forward. Returns (logits or None, next tokens) on the host."""
+        s_pad = pow2_bucket(max(len(s.tokens) for s in seqs), lo=1,
+                            hi=self.max_len)
+        toks = np.zeros((bb, s_pad), np.int64)
+        lens = np.ones((bb,), np.int64)
+        for i, s in enumerate(seqs):
+            toks[i, :len(s.tokens)] = s.tokens
+            lens[i] = len(s.tokens)
+        logits = self._full_step("decode", toks, lens)
+        nxt = logits.argmax(-1).cpu().numpy()
+        return (logits.cpu().numpy() if self.keep_logits else None), nxt
+
+    def _cached_decode(self, seqs, bb):
+        """The pool's decode step (paged or gather). Returns (logits or
+        None, next tokens) on the host."""
+        # paged path: the kernel's table width is bucketed to the
+        # longest LIVE sequence, so a step's bytes track true
+        # lengths; the gather path always sees the full table
+        w = self._nblk
+        if self.paged:
+            w = pow2_bucket(max(self.cache.blocks_for(len(s.tokens))
+                                for s in seqs), lo=1, hi=self._nblk)
+        toks = np.zeros((bb,), np.int64)
+        pos = np.zeros((bb,), np.int32)
+        tabs = np.zeros((bb, w), np.int32)
+        for i, s in enumerate(seqs):
+            toks[i] = s.tokens[-1]
+            pos[i] = len(s.tokens) - 1
+            tabs[i] = s.table_row[:w]
+        args = (self.cache.k, self.cache.v, self._tensor(toks),
+                self._tensor(pos), self._tensor(tabs))
+        with self._count("decode", (bb, w) if self.paged else bb):
+            if self.paged:
+                # one device, or sharded over the tp window
+                step_fn = self.model.decode_tp if self.tp > 1 \
+                    else self.model.decode_paged
+                logits = step_fn(*args, *self._scales())
+            else:
+                logits = self.model.decode(*args)
+        nxt = logits.argmax(-1).cpu().numpy()
+        return (logits.cpu().numpy() if self.keep_logits else None), nxt
 
     def _draft_propose(self, seqs, bb, k, poison=False):
         """k greedy steps of the cache-free draft over the (bucketed)
@@ -958,8 +1261,9 @@ class Engine:
             for i, h in enumerate(hist):
                 toks[i, :len(h)] = h
                 lens[i] = len(h)
-            self._sigs.add(("draft", (bb, s_pad)))
-            logits = d.logits_at(self._tensor(toks), self._tensor(lens))[:B]
+            with self._count("draft", (bb, s_pad)):
+                logits = d.logits_at(self._tensor(toks),
+                                     self._tensor(lens))[:B]
             if poison:
                 logits = torch.full_like(logits, float("nan"))
             if not bool(torch.isfinite(logits).all()):
@@ -1005,13 +1309,13 @@ class Engine:
                 qs[i] = len(s.tokens) - 1
                 counts[i] = 1 + nbs[i]
                 tabs[i] = s.table_row[:w]
-            self._sigs.add(("spec", (bb, w)))
             score_fn = self.model.spec_score_tp if self.tp > 1 \
                 else self.model.spec_score
-            logits = score_fn(
-                self.cache.k, self.cache.v, self._tensor(toks),
-                self._tensor(qs), self._tensor(counts), self._tensor(tabs),
-                *self._scales())                                 # (bb,C,V)
+            with self._count("spec", (bb, w)):
+                logits = score_fn(
+                    self.cache.k, self.cache.v, self._tensor(toks),
+                    self._tensor(qs), self._tensor(counts),
+                    self._tensor(tabs), *self._scales())         # (bb,C,V)
             am = logits.argmax(-1).cpu().numpy()
             logits = logits.cpu().numpy() if self.keep_logits else None
             accepted = proposed = emitted_n = 0
@@ -1056,7 +1360,7 @@ class Engine:
         prompt and generated tokens, plus the final partial tail) is
         registered for reuse first; `reusable=False` skips that, and so
         does a release in mid-prefill."""
-        if seq.block_ids:
+        if seq.block_ids and self.cache is not None:
             if reusable and self.prefix_cache is not None and \
                     seq.prefilled >= seq.prompt_len:
                 # the final token was appended but its KV never written:
@@ -1071,6 +1375,8 @@ class Engine:
         """Leak audit: with no sequence in flight every allocated block
         must be a prefix-cache resident pinned by the cache's own ref
         only. Raises MXNetError listing the leaked ids."""
+        if self.cache is None:
+            return
         resident = []
         if self.prefix_cache is not None:
             resident = [e.block_id

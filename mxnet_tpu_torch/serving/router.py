@@ -518,8 +518,9 @@ class ReplicatedLMServer(_HTTPFrontend):
         # device K/V (the dominant allocation), so corpses never pin
         # card memory the replacement pools need
         cache = old.engine.cache
-        cache.k = cache.v = None
-        cache.k_scale = cache.v_scale = None
+        if cache is not None:
+            cache.k = cache.v = None
+            cache.k_scale = cache.v_scale = None
         self._c_respawn.inc(replica=i)
         telemetry.record_span(
             "serving.respawn", time.perf_counter_ns() // 1000, 0,
@@ -920,8 +921,9 @@ class ReplicatedLMServer(_HTTPFrontend):
             return False
         # keep the corpse for the leak audit, drop its device K/V
         cache = old.engine.cache
-        cache.k = cache.v = None
-        cache.k_scale = cache.v_scale = None
+        if cache is not None:
+            cache.k = cache.v = None
+            cache.k_scale = cache.v_scale = None
         self._retired_engines.append(old.engine)
         del self._retired_engines[:-4]
         telemetry.record_span(

@@ -1,8 +1,11 @@
 """The serving front door: in-process `serve()` and a stdlib HTTP shim
 (port of `mxnet_tpu/serving/server.py`, one replica).
 
-`serve(model, ...)` accepts a `(params, TransformerConfig)` pair or a
-`TransformerLM` and returns a started `LMServer`: a background thread
+`serve(model, ...)` accepts a `(params, TransformerConfig)` pair, a
+`TransformerLM`, an initialized Gluon Block (with `vocab=`, `max_len=`
+and, for a time-major net, `time_major=True`; served by `BlockLM`), the
+path of a `.mxtpu` artifact (`ExportedLM`) or either adapter, and returns
+a started `LMServer`: a background thread
 runs the continuous-batching loop (admit → prefill → decode step →
 evict), callers submit token prompts and block on per-request futures.
 The HTTP frontend (`LMServer.serve_http`) is a ThreadingHTTPServer over
@@ -26,8 +29,8 @@ dying loop's queued and in-flight work) and `drain_queue`. `serve()`
 builds a `ReplicatedLMServer` for `replicas > 1`, `autoscale`, `roles` or
 `rollout` (a live weight rollout watching a checkpoint directory,
 rollout.py). `tp=`/`devices=` pass through to the Engine's
-tensor-parallel placement (tp.py). The AOT executable cache waits for
-ROADMAP item 11: asking for it raises `MXNetError` naming the item.
+tensor-parallel placement (tp.py), and `aot_cache=` to the Engine's AOT
+cache (the kernel libraries its steps load, mxnet_tpu_torch/aot).
 """
 from __future__ import annotations
 
@@ -42,16 +45,11 @@ import torch
 from ..base import MXNetError
 from .. import telemetry
 from ..utils import chaos
-from .engine import Engine, TransformerLM
+from .engine import BlockLM, Engine, ExportedLM, TransformerLM
 from .metrics import ServingMetrics
 from .scheduler import (Scheduler, Request, QueueFull, BrownoutShed,
                         DeadlineExceeded, DeadlineUnmeetable, make_resume,
                         RUNNING)
-
-
-def _not_ported(what, item):
-    return MXNetError("%s is not ported yet (ROADMAP item %s)"
-                      % (what, item))
 
 
 def _queue_span(req):
@@ -64,14 +62,23 @@ def _queue_span(req):
                           to_profiler=False, request=req.id)
 
 
-def _resolve_model(model):
-    if isinstance(model, TransformerLM):
+def _resolve_model(model, vocab=None, max_len=None, time_major=False,
+                   device=None):
+    if isinstance(model, (TransformerLM, BlockLM, ExportedLM)):
         return model
+    if isinstance(model, str):
+        return ExportedLM(model, device=device)
     if isinstance(model, tuple) and len(model) == 2:
         params, cfg = model
         return TransformerLM(params, cfg)
-    raise MXNetError("don't know how to serve %r — pass (params, cfg) or "
-                     "a TransformerLM" % type(model))
+    if hasattr(model, "collect_params"):          # Gluon Block
+        if vocab is None or max_len is None:
+            raise MXNetError("serving a Gluon Block needs vocab= and "
+                             "max_len=")
+        return BlockLM(model, vocab, max_len, time_major=time_major)
+    raise MXNetError("don't know how to serve %r — pass (params, cfg), an "
+                     "adapter, a Gluon Block, or a .mxtpu path"
+                     % type(model))
 
 
 class _HTTPFrontend:
@@ -287,7 +294,8 @@ class LMServer(_HTTPFrontend):
 
     def __init__(self, model, max_batch=8, max_len=None, block_size=16,
                  num_blocks=None, max_queue=64, queue_timeout=None,
-                 keep_logits=False, idle_wait=0.005, paged=None,
+                 keep_logits=False, vocab=None, time_major=False,
+                 idle_wait=0.005, paged=None,
                  prefill_chunk=None, token_budget=None, tp=None,
                  devices=None, replica_id=None, prefix_cache=None,
                  tenant_budget=None, tenant_budgets=None,
@@ -295,14 +303,14 @@ class LMServer(_HTTPFrontend):
                  brownout=None, aot_cache=None, role=None, draft=None,
                  spec=None, spec_k=None, kv_quant=None, weight_quant=None,
                  device=None):
-        if aot_cache is not None:
-            raise _not_ported("the AOT executable cache (aot_cache=)", 11)
-        self.engine = Engine(_resolve_model(model), max_batch=max_batch,
+        adapter = _resolve_model(model, vocab=vocab, max_len=max_len,
+                                 time_major=time_major, device=device)
+        self.engine = Engine(adapter, max_batch=max_batch,
                              max_len=max_len, block_size=block_size,
                              num_blocks=num_blocks, keep_logits=keep_logits,
                              paged=paged, prefill_chunk=prefill_chunk,
                              tp=tp, devices=devices, device=device,
-                             prefix_cache=prefix_cache,
+                             prefix_cache=prefix_cache, aot_cache=aot_cache,
                              draft=draft, spec=spec, spec_k=spec_k,
                              kv_quant=kv_quant, weight_quant=weight_quant)
         self.scheduler = Scheduler(max_batch=max_batch, max_queue=max_queue,
@@ -956,7 +964,7 @@ class LMServer(_HTTPFrontend):
                 self._chaos_stolen = None
             return
         hold = chaos.pool_exhaustion(rid, it)
-        if hold:
+        if hold and self.engine.cache is not None:
             pool = self.engine.cache.pool
             ids = pool.try_alloc(pool.available) or []
             self._chaos_stolen = (ids, it + hold)
@@ -1052,10 +1060,12 @@ def spawn_migrate(orig, tokens, target):
 def serve(model, replicas=None, autoscale=None, roles=None, rollout=None,
           **kwargs):
     """Build and start a serving front door over `model` (a (params, cfg)
-    pair or a TransformerLM). Keyword args pass through to each LMServer
-    and its Engine (paged, kv_quant, weight_quant, draft, spec, spec_k,
-    prefix_cache, tenant budgets, deadlines, brownout, ...); `device`
-    defaults to the card. With `replicas=N > 1` (or
+    pair, a TransformerLM, a Gluon Block with `vocab=` / `max_len=` /
+    `time_major=`, a `.mxtpu` path, or a BlockLM / ExportedLM). Keyword
+    args pass through to each LMServer and its Engine (paged, kv_quant,
+    weight_quant, draft, spec, spec_k, prefix_cache, aot_cache, tenant
+    budgets, deadlines, brownout, ...); `device` defaults to the card (a
+    Block's own device for a Block). With `replicas=N > 1` (or
     MXNET_SERVING_REPLICAS) this is a `ReplicatedLMServer`: N replicas,
     each with its own scheduler, block pool, serving thread and metrics
     registry, behind one least-loaded front (router.py). `autoscale=True`

@@ -74,7 +74,9 @@ def self_draft(params, cfg, n_layers):
 class DraftLM:
     """Cache-free draft model: params + TransformerConfig. `logits_at`
     runs the full causal forward over a right-padded (B, S) batch and
-    returns the float32 logits at each row's true last position."""
+    returns the float32 logits at each row's true last position, through
+    the watchdog's site "serving.draft" (a new (batch, length) bucket is a
+    first run there)."""
 
     def __init__(self, params, cfg):
         if cfg.n_experts and cfg.moe_top_k:
@@ -83,10 +85,14 @@ class DraftLM:
                 "token group — padded draft batches would change real "
                 "tokens' routing; draft with dense-FFN or dense-dispatch "
                 "configs (moe_top_k=0)")
+        from ..telemetry import introspect
         self.params = params
         self.cfg = cfg
         self.vocab = cfg.vocab
         self.max_len = cfg.max_len
+        self._logits = introspect.instrument(
+            self._last_logits, site="serving.draft", phase="decode",
+            argnames=("tokens", "lengths"))
 
     def to(self, device):
         """Move the params to `device` (no copy when already there)."""
@@ -96,6 +102,9 @@ class DraftLM:
     def logits_at(self, tokens, lengths):
         """Next-token float32 logits (B, V) at each row's `lengths`-1;
         `tokens` is a right-padded (B, S) integer tensor."""
+        return self._logits(tokens, lengths)
+
+    def _last_logits(self, tokens, lengths):
         from ..models.transformer import transformer_apply
         out = transformer_apply(self.params, tokens, self.cfg)    # (B,S,V)
         rows = torch.arange(tokens.shape[0], device=tokens.device)

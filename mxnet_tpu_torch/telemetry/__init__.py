@@ -13,12 +13,12 @@ flight recorder, SLO engine, anomaly detector (port of
   * `flight` — a bounded ring of recent spans/flagged-metric/fault
     events that dumps to `MXNET_FLIGHT_RECORDER_DIR` on serving-loop
     death or /healthz wedge detection; rendered by `tools/postmortem.py`.
+  * `introspect` — the compile watchdog over the port's compile sites
+    (kernel builds, exports, AOTInductor, NVRTC, the first runs of the
+    framework's steps), with the HBM and compile budgets and the comms
+    ledger.
   * `slo` — objectives, burn rates and the request lifecycle log.
   * `anomaly` — EWMA z-score detectors over loss and grad-norm.
-
-The reference's compile watchdog (`introspect`) has no counterpart yet:
-PyTorch runs eagerly here, and the watchdog's port waits for the capture
-work that will make something to watch.
 
 Master switch: `MXNET_TELEMETRY` (default on; `0` turns every recording
 site into a no-op).
@@ -26,6 +26,7 @@ site into a no-op).
 from . import metrics
 from . import tracing
 from . import flight as _flight_mod
+from . import introspect
 from . import slo
 from . import anomaly
 
@@ -36,6 +37,9 @@ from .tracing import (span, record_span, current_trace, set_trace,
                       spans, export_perfetto, new_trace_id,
                       parse_traceparent, format_traceparent)
 from .flight import FlightRecorder, flight
+from .introspect import (watchdog, instrument, compile_events,
+                         compile_region, site_comms,
+                         CompileBudgetExceeded, HbmBudgetExceeded)
 from .slo import (Objective, SLOTracker, parse_slo_env, parse_windows,
                   merge_slo, request_log, request_event)
 from .anomaly import EwmaDetector, AnomalyDetector

@@ -6,8 +6,10 @@ Mirrors tests/test_autoscale.py's seventeen tests (:118-:416). The policy
 tests feed both packages' `Autoscaler` the same scripted burns, loads and
 clocks and compare every decision; the real-router tests run the same
 traffic through both fleets and compare tokens and counters. The
-reference's AOT warm-gauge test (:416) becomes: the gauge reads 0 (a
-replica builds cold) and `aot_cache=` raises, naming ROADMAP item 11.
+reference's AOT warm-gauge test (:416) becomes: the door accepts
+`aot_cache=`, and the gauge follows the replicas' `engine.warm_loads`
+(on the CPU no kernel library loads, so a replica's count is set by
+hand).
 Every clock is injected (`step(now=...)`); every `result()` and
 `close()` carries a timeout.
 """
@@ -382,19 +384,29 @@ def test_burn_rates_read_the_merged_fleet_slo(lm, monkeypatch):
 
 
 def test_warm_replica_gauge_reads_zero_and_aot_cache_raises(lm, tmp_path):
-    """A replica builds its engine cold: `serving_warm_replicas` reads 0
-    after a sweep on a serving fleet, and asking for the AOT executable
-    cache raises, naming ROADMAP item 11."""
-    srv = fleet("port", lm, replicas=2, max_batch=1)
+    """The door accepts `aot_cache=` (the process-wide cache, put back
+    under env control after), and `serving_warm_replicas` follows the
+    replicas' `engine.warm_loads` at each sweep: 0 while every replica
+    built cold, then the replicas whose count is positive."""
+    from mxnet_tpu_torch import aot
+    cache = str(tmp_path / "aot")
     try:
-        assert len(srv.generate(arith_prompt(1, 1, 6), max_new_tokens=2,
-                                timeout=TIMEOUT)) == 2
-        srv.health()
-        assert srv._g_warm.value == 0
-        assert srv.scale_up() is not None
-        srv.health()
-        assert srv._g_warm.value == 0
+        srv = fleet("port", lm, replicas=2, max_batch=1, aot_cache=cache)
+        try:
+            assert aot.cache_dir() == cache
+            assert all(r.engine.aot_cache == cache for r in srv.replicas)
+            assert len(srv.generate(arith_prompt(1, 1, 6), max_new_tokens=2,
+                                    timeout=TIMEOUT)) == 2
+            srv.health()
+            assert srv._g_warm.value == 0
+            srv.replicas[1].engine._warm_counts["prefill"] = 3
+            srv.health()
+            assert srv._g_warm.value == 1
+            assert srv.scale_up() is not None
+            srv.replicas[-1].engine._warm_counts["decode"] = 1
+            srv.health()
+            assert srv._g_warm.value == 2
+        finally:
+            srv.close(timeout=TIMEOUT)
     finally:
-        srv.close(timeout=TIMEOUT)
-    with pytest.raises(MXNetError, match="ROADMAP item 11"):
-        fleet("port", lm, replicas=2, max_batch=1, aot_cache=str(tmp_path))
+        aot.configure()

@@ -2119,3 +2119,75 @@ def test_check_consistency_cpu_vs_card_launches_k3_and_k4(dev, case):
     assert launched == want
     assert errors["outputs"] <= 1.0 and errors["grads"] <= 1.0
     assert len(outs) == 2 and all(np.isfinite(o).all() for o in outs[1])
+
+
+# ---------------------------------------------------------------------------
+# the compile watchdog and the AOT cache on the card (ROADMAP item 11)
+# ---------------------------------------------------------------------------
+
+_WARM_LOAD = r"""
+import json, sys
+from mxnet_tpu_torch import aot
+from mxnet_tpu_torch.ops import _cuda
+from mxnet_tpu_torch.telemetry import introspect
+lib = _cuda.library("fused_bn.cu")
+site = introspect.watchdog().site("kernels.fused_bn")
+print(json.dumps({"compiles": site.compiles, "hits": site.cache_hits,
+                  "entries": aot.cache().entries(),
+                  "declared": hasattr(lib, "mxtt_bn_stats")}))
+"""
+
+
+def test_kernel_library_warm_loads_from_the_cache_in_a_fresh_process(
+        dev, tmp_path):
+    """A cache filled by one process (the library built, or taken from
+    _build/, and published) serves a fresh process with zero nvcc builds:
+    its watchdog counts one warm load at kernels.fused_bn."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, MXNET_AOT_CACHE_DIR=str(tmp_path),
+               PYTHONPATH=root)
+    outs = []
+    for _ in range(2):
+        p = subprocess.run([sys.executable, "-c", _WARM_LOAD], env=env,
+                           capture_output=True, text=True, timeout=600,
+                           cwd=root)
+        assert p.returncode == 0, p.stderr[-3000:]
+        outs.append(json.loads(p.stdout.strip().splitlines()[-1]))
+    first, second = outs
+    assert first["hits"] == 0 and len(first["entries"]) == 1
+    assert second == {"compiles": 0, "hits": 1,
+                      "entries": first["entries"], "declared": True}
+
+
+def test_hbm_gate_refuses_a_cuda_step_before_its_update(dev, monkeypatch):
+    """The step's measured footprint meets MXNET_HBM_BUDGET_GB before the
+    optimizer update: refused, the parameters and the step count stay;
+    lifted, the same signature runs with no new first run."""
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch.parallel import TrainStep
+    from mxnet_tpu_torch.telemetry import introspect
+    introspect.reset()
+    with tmx.gpu(0):
+        net = tmx.gluon.nn.Dense(64, in_units=128)
+        net.initialize()
+        step = TrainStep(net, tmx.gluon.loss.L2Loss(), "sgd",
+                         {"learning_rate": 0.1})
+        x = tmx.nd.array(np.ones((32, 128), np.float32))
+        y = tmx.nd.array(np.zeros((32, 64), np.float32))
+        w0 = net.weight.data().asnumpy().copy()
+        monkeypatch.setenv("MXNET_HBM_BUDGET_GB", "1e-9")
+        with pytest.raises(introspect.HbmBudgetExceeded, match="train.step"):
+            step(x, y)
+        assert step.t == 0
+        np.testing.assert_array_equal(net.weight.data().asnumpy(), w0)
+        ev, = introspect.compile_events("train.step")
+        assert ev["hbm_bytes"] > ev["memory"]["argument_bytes"] > 0
+        monkeypatch.delenv("MXNET_HBM_BUDGET_GB")
+        float(step(x, y))
+        assert step.t == 1
+        assert len(introspect.compile_events("train.step")) == 1
+        assert np.abs(net.weight.data().asnumpy() - w0).max() > 0

@@ -512,8 +512,8 @@ def test_deadline_expired_in_queue_dropped_before_prefill(lm):
 
 
 # ---------------------------------------------------------------------------
-# the ROADMAP items' arguments: item 11's still raises naming its item;
-# item 12's (tp, devices, rollout) are ported and serve
+# the ROADMAP items' arguments: item 11's (aot_cache) and item 12's (tp,
+# devices, rollout) are ported and serve
 # ---------------------------------------------------------------------------
 
 
@@ -548,14 +548,32 @@ def _item12_serves(srv, kwargs):
     ({"replicas": 2, "aot_cache": "/nonexistent"}, "item 11")])
 def test_unported_arguments_raise_naming_their_item(lm, tmp_path, kwargs,
                                                     item):
-    """Item 11's argument raises naming its item. Of item 12's, a window
-    on a card this machine lacks still raises (nothing falls back to the
-    CPU unasked) and the others serve; a rollout path is taken under
-    tmp_path, so the watcher creates no directory elsewhere."""
+    """Every argument once pinned as unported now serves. Item 11's
+    `aot_cache=` configures the process-wide AOT cache (its directory
+    taken under tmp_path, and put back under env control after). Of item
+    12's, a window on a card this machine lacks still raises (nothing
+    falls back to the CPU unasked) and the others serve; a rollout path is
+    taken under tmp_path, so the watcher creates no directory
+    elsewhere."""
     _, _, params, cfg = lm
     if item == "item 11":
-        with pytest.raises(MXNetError, match="ROADMAP item 11"):
-            serving.serve((params, cfg), device="cpu", **kwargs)
+        from mxnet_tpu_torch import aot
+        kwargs = dict(kwargs, aot_cache=str(tmp_path) + kwargs["aot_cache"])
+        try:
+            srv = serving.serve((params, cfg), device="cpu", max_batch=2,
+                                **kwargs)
+            try:
+                assert aot.cache().path == kwargs["aot_cache"]
+                for rep in getattr(srv, "replicas", [srv]):
+                    assert rep.engine.aot_cache == kwargs["aot_cache"]
+                assert len(srv.generate(PROMPTS[0], max_new_tokens=2,
+                                        timeout=60)) == 2
+            finally:
+                srv.close(timeout=60)
+        finally:
+            aot.configure()
+        assert os.path.isdir(kwargs["aot_cache"])
+        assert aot.cache_dir() is None
         return
     if "devices" in kwargs:
         with pytest.raises(MXNetError, match="cuda"):

@@ -6,9 +6,12 @@ artifact for a later `cpp`, as main() does. `--consistency` first runs
 the two check_consistency cases of phases 12b and 21a (bn_convnet and
 sym.RNN lstm over [cpu, gpu(0)] at chip_smoke.CONSIST_SCALE), bn_convnet
 with cuDNN off and on, printing each one's largest errors and launches,
-a mismatch included.
+a mismatch included. The AOT cache is configured to a temporary
+directory before the build, as main() does; `cpp` keeps 30b's word-LM
+artifact for a later `watchdog` (phase 31).
 
     python3 tools/smoke_phases.py --consistency resilience deploy cpp
+    python3 tools/smoke_phases.py cpp watchdog
 
 Needs an NVIDIA GPU; run from the repository root. Imports nothing of
 JAX. Prints the card's name and power limit first, and each phase's
@@ -64,28 +67,36 @@ def main():
     torch.cuda.set_device(dev)
     card = cs.nvidia_smi()
     print(card, flush=True)
+    from mxnet_tpu_torch import aot
+    aot_dir = tempfile.mkdtemp(prefix="mxtt_aot_")
+    aot.configure(aot_dir)
     run = cs.PhaseClock()
     run(cs.build_kernels, _cuda)
     if args.consistency:
         run(consistency, torch, cs, mx, dev)
     keep = tempfile.mkdtemp(prefix="mxtt_r50_")
-    carry = None
+    carry = cpp = None
     try:
         for name in args.phases:
             extra = ()
             if name == "deploy":
                 extra = (keep,)
-            elif name == "cpp" and carry is not None:
-                extra = (carry,)
+            elif name == "cpp":
+                extra = (carry, keep)
+            elif name == "watchdog":
+                extra = (cpp,)
             out = run(getattr(cs, "phase_" + name), torch, np, dev, card,
                       *extra)
             if name == "deploy":
                 carry = out[2]["29a"]["carry"]
+            elif name == "cpp":
+                cpp = out[1]["carry"]
     except cs.SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
     finally:
         shutil.rmtree(keep, ignore_errors=True)
+        shutil.rmtree(aot_dir, ignore_errors=True)
     return 0
 
 
