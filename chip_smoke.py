@@ -334,7 +334,9 @@ Phases (any failure exits non-zero before the last line):
                 over the replicas; the same traffic through one LMServer
                 after it (FLEET_TURNS: tokens/s, TTFT p50); 60 POSTs at once over queues of 2 get 200s with
                 oracle tokens and 503s with Retry-After; (b)
-                tools/chaos_serve.py's five faults in sequence under a
+                the first five faults of the port's chaos_serve drill
+                (mxnet_tpu_torch/tools/chaos_serve.py's storm and
+                crash_loop) in sequence under a
                 client stream (replica 1 wedged, drained and restored;
                 replica 0 killed mid-decode, its request failed over and
                 the replica respawned; replica 2's decode poisoned and
@@ -569,10 +571,12 @@ Phases (any failure exits non-zero before the last line):
                 fresh process (torch and the op's registration) on the
                 card (the same launches) and on the CPU (the plain
                 version, within LM_EXPORT_CPU_RTOL); (c) K5: three user
-                kernels (RTC_SOURCE: the reference test's doubling, a
-                saxpy on 2^26 float32, a block sum over a 2-D grid with
-                64 KB of dynamic shared memory) compiled by
-                rtc.CudaModule (NVRTC, sm_90a) and launched through
+                kernels written for Hopper (RTC_SOURCE: the reference
+                test's doubling and a saxpy on 2^26 float32 in 16-byte
+                vectors, 4 in flight a thread, over a grid-stride loop on a
+                grid of whole SM multiples; a block sum of 16384-float
+                tiles, one block a tile, 16-byte loads 4 in flight)
+                compiled by rtc.CudaModule (NVRTC, sm_90a) and launched through
                 CudaKernel.launch, each held to its plain version
                 (doubling bit for bit, saxpy within RTC_SAXPY_ULPS, the sum
                 within RTC_SUM_RTOL) and timed beside its bytes bound
@@ -632,20 +636,40 @@ Phases (any failure exits non-zero before the last line):
                 on and served from its .mxtpu (ExportedLM): BlockLM's
                 tokens, K4a LM_LAYERS times a replay; (d) a fresh process
                 with MXNET_AOT_CACHE_DIR on the run's cache (WARM_CACHE):
-                an Engine(aot_cache=) over (b)'s weights serves a prompt
-                with warm loads and zero nvcc builds, compile_for_cpp of
-                30b's artifact with its package taken out runs zero
-                AOTInductor compiles (the package's sha256 30b's), and
-                mxtpu_predict on it gives logits bit-equal to 30b's, K4a
-                through the C++ op; (e) a word-LM TrainStep on the card
-                refused by MXNET_HBM_BUDGET_GB=1e-9 with its parameters
-                unchanged, then admitted once the budget is lifted.
-  32. the kernels line (K2's, K3a-d's, K4a-b's and K5's launches summed
+                compile_for_cpp of 30b's artifact with its package taken
+                out runs zero AOTInductor compiles (the package's sha256
+                30b's), and mxtpu_predict on it gives logits bit-equal to
+                30b's, K4a through the C++ op (the warm loads and zero nvcc
+                builds of a fresh serving process are phase 32a's); (e) a
+                word-LM TrainStep on the card refused by
+                MXNET_HBM_BUDGET_GB=1e-9 with its parameters unchanged,
+                then admitted once the budget is lifted.
+  32. the reference's operator CLIs on the port (mxnet_tpu_torch/tools),
+                seed 32: (a) `python -m mxnet_tpu_torch.tools.serve
+                --model` in a fresh process serves phase 31c's artifact
+                on a free port with --aot-cache on the run's cache: over
+                HTTP its greedy tokens equal 31c's in-process ExportedLM,
+                and its stop line shows K4a launched LM_LAYERS times a
+                replay, the kernel library warm-loaded and zero nvcc
+                builds (31d's serving checks); `serve.main([..., "--demo",
+                "--paged"])` on a thread of this process serves the demo
+                transformer (its weights from tools/serve.py's
+                demo_model) with its tokens over HTTP equal to
+                serve((params, cfg), paged=True) on the same weights and
+                K1 launched; (b) `aot_warm --verify` on the run's cache
+                returns 0 with no corrupt entry; (c) `bandwidth --device
+                cuda` prints host-to-device staging and an NCCL
+                all-reduce's GB/s; (d) `diagnose` with its device probe
+                returns 0 and names the card. Alone after the build:
+                `python3 tools/smoke_phases.py cli` (it exports its own
+                artifact then).
+  33. the kernels line (K2's, K3a-d's, K4a-b's and K5's launches summed
      over every path that runs them, split in `launches_by_path`; K3a-d's
      sums over an Inception-v3 step under `inception_v3_step`; K4a's
-     through phase 29b's exported replay, phase 30b's C++ op and phase
-     31's adapters, warm process and C++ op), nvidia-smi's line, and the
-     last line {"ok": true, "device": {...}}.
+     through phase 29b's exported replay, phase 30b's C++ op, phase 31's
+     adapters and C++ op and phase 32's serving process; K1's through
+     phase 32's demo server too), nvidia-smi's line, and the last line
+     {"ok": true, "device": {...}}.
 
 Parity settings: TF32 is off for matmuls and cuDNN, so float32 products
 run in full float32 (the reference suite forces highest matmul
@@ -6920,25 +6944,19 @@ def fleet_routing(serving, pa, params, cfg, work, idx, ref, margins, kw):
                       "burst": burst}
 
 
-def busy_with_tokens(rep, min_generated=1):
-    """Does the replica hold a running sequence with generated tokens?"""
-    for seq in list(rep.scheduler.running):
-        if seq.request is not None and \
-                len(seq.tokens) - seq.prompt_len >= min_generated:
-            return True
-    return False
-
-
 def fleet_drill(serving, pa, params, cfg, work, idx, pins, ref, margins,
                 kw):
-    """23b: tools/chaos_serve.py's five faults in sequence on a 3-replica
-    fleet under a client stream, through the port's chaos seams: replica
-    1 wedged (drained, restored), replica 0 killed mid-decode (failover,
-    respawn, serving again), replica 2's decode poisoned (local resume),
-    replica 2's pool exhausted, replica 1 crash-looping until its circuit
-    opens. Checks availability 100 %, oracle tokens, audit_quiescent on
-    survivors and corpses, the faults and victims in the flight dumps,
-    postmortem.py and fleet_top.py rc 0, and the ledger identities."""
+    """23b: the port's chaos_serve drill (mxnet_tpu_torch/tools/
+    chaos_serve.py: its storm, crash_loop, console, leak_audit, postmortem
+    and check_timeline) on a 3-replica fleet of phase 4's config under a
+    client stream: replica 1 wedged (drained, restored), replica 0 killed
+    mid-decode (failover, respawn, serving again), replica 2's decode
+    poisoned (local resume), replica 2's pool exhausted, replica 1
+    crash-looping until its circuit opens. Checks availability 100 %,
+    oracle tokens, audit_quiescent on every replica and corpse, the
+    faults and victims in the flight dumps, postmortem.py and fleet_top.py
+    rc 0, and the ledger identities."""
+    from mxnet_tpu_torch.tools import chaos_serve as drill
     from mxnet_tpu_torch import telemetry
     from mxnet_tpu_torch.utils import chaos
     (pk_prompt, pk_gen, pk_row), (pp_prompt, pp_gen, pp_row) = pins
@@ -6946,21 +6964,12 @@ def fleet_drill(serving, pa, params, cfg, work, idx, pins, ref, margins,
     srv = serving.serve((params, cfg), replicas=FLEET_REPLICAS,
                         max_beat_age=DRILL_BEAT_AGE_S, respawn_max=2,
                         respawn_backoff=0.05, **kw)
-    stop_sweep, stop = threading.Event(), threading.Event()
-    faults, t_fault = [], {}
+    stop, stop_sweep = threading.Event(), None
+    t_fault = {}
     try:
         host, port = srv.serve_http(port=0, block=False)
         url = "http://%s:%d" % (host, port)
-
-        def sweeper():             # drives drain / restore / respawn
-            while not stop_sweep.is_set():
-                try:
-                    srv.health()
-                except Exception:
-                    pass
-                time.sleep(0.05)
-
-        threading.Thread(target=sweeper, daemon=True).start()
+        stop_sweep = drill.start_sweeper(srv)
         pa.paged_attention.launches = 0
         stream = {}
         runner = threading.Thread(target=lambda: stream.update(zip(
@@ -6969,98 +6978,28 @@ def fleet_drill(serving, pa, params, cfg, work, idx, pins, ref, margins,
             daemon=True)
         t0 = time.perf_counter()
         runner.start()
-        # 1. wedge replica 1: stale beat -> drain + failover -> restore
-        wait_for(lambda: srv.replicas[1].scheduler.running,
-                 "replica 1 under load")
-        # the flight ring holds the last spans only (every decode step
-        # records one): each fault is dumped as soon as it has happened
-        chaos.configure(serve_wedge=(1, 1, DRILL_WEDGE_S))
-        wait_for(lambda: "serve_wedge" in chaos.fired(), "the wedge")
-        telemetry.flight().dump("fleet_wedge")
-        wait_for(lambda: srv._drained[1], "the wedged replica drained")
-        telemetry.flight().dump("fleet_wedge_drained")
-        wait_for(lambda: not srv._drained[1], "the wedged replica restored")
-        t_fault["wedge_to_restore_s"] = time.perf_counter() - t0
-        faults.append("wedge")
-        # 2. kill replica 0 mid-decode: in-flight failover, respawn
-        victim0 = srv.replicas[0]
-        req_kill = victim0.submit(list(pk_prompt), max_new_tokens=pk_gen)
-        wait_for(lambda: busy_with_tokens(victim0),
-                 "replica 0 decoding the pinned request")
-        t1 = time.perf_counter()
-        chaos.configure(serve_kill=(0, 1))
-        # the dying thread re-homes its work before it exits
-        wait_for(lambda: not victim0._thread.is_alive(), "the kill")
-        telemetry.flight().dump("fleet_kill")
-        got_kill = req_kill.result(timeout=FLEET_WAIT_S)
-        telemetry.flight().dump("fleet_kill_finished")
-        wait_for(lambda: srv.replicas[0] is not victim0,
-                 "replica 0 respawned")
-        t_fault["kill_to_respawn_s"] = time.perf_counter() - t1
-        again = srv.replicas[0].generate(list(pk_prompt),
-                                         max_new_tokens=pk_gen,
-                                         timeout=FLEET_WAIT_S)
-        faults.append("kill")
-        # 3. poison one decode step on replica 2 (local resume)
-        req_poison = srv.replicas[2].submit(list(pp_prompt),
-                                            max_new_tokens=pp_gen)
-        wait_for(lambda: busy_with_tokens(srv.replicas[2]),
-                 "replica 2 decoding the pinned request")
-        resumes = srv.replicas[2].metrics.failovers
-        chaos.configure(serve_poison=(2, 1))
-        wait_for(lambda: srv.replicas[2].metrics.failovers > resumes,
-                 "the poisoned batch resumed")
-        telemetry.flight().dump("fleet_poison")
-        got_poison = req_poison.result(timeout=FLEET_WAIT_S)
-        telemetry.flight().dump("fleet_poison_finished")
-        faults.append("poison")
-        # 4. transient pool exhaustion on replica 2
-        chaos.configure(serve_exhaust=(2, 1, 10))
-        wait_for(lambda: "serve_exhaust" in chaos.fired(), "the exhaustion")
-        telemetry.flight().dump("fleet_exhaust")
-        faults.append("exhaust")
+        st = drill.storm(srv, (pk_prompt, pk_gen), (pp_prompt, pp_gen),
+                         wedge_s=DRILL_WEDGE_S, timeout=FLEET_WAIT_S,
+                         dump_prefix="fleet", log=lambda m: None)
+        t_fault.update(st["seconds"])
+        req_kill, req_poison = st["victims"]
         stop.set()
         runner.join(timeout=10 * FLEET_WAIT_S)
         check(not runner.is_alive() and "results" in stream,
               "23b: the client stream never finished")
         storm_s = time.perf_counter() - t0
         storm_launches = pa.paged_attention.launches
-        wait_for(lambda: srv.health()["replicas_healthy"] == 3,
-                 "the respawned replica back in rotation")
-        # 5. crash loop on replica 1: the circuit opens, the fleet serves
-        t2 = time.perf_counter()
-        chaos.configure(serve_crash_loop=(1, 1))
-        wait_for(lambda: srv.health()["replicas_circuit_open"] == 1,
-                 "the crash-loop circuit opening")
-        telemetry.flight().dump("fleet_crash_loop")
-        chaos.configure(serve_crash_loop=None)
-        t_fault["crash_loop_to_open_s"] = time.perf_counter() - t2
-        h = srv.health()
-        check(h["ok"] and h["degraded"] and h["replicas"][1]["circuit_open"],
-              "23b: after the crash loop /healthz says %r"
-              % {k: h[k] for k in ("ok", "degraded",
-                                   "replicas_circuit_open")})
+        drill.wait_for(lambda: srv.health()["replicas_healthy"] == 3,
+                       FLEET_WAIT_S, "the respawned replica back in rotation")
+        t_fault["crash_loop_to_open_s"] = drill.crash_loop(
+            srv, FLEET_WAIT_S, dump_prefix="fleet")
         after = {i: [srv.generate(list(work[i][0]),
                                   max_new_tokens=work[i][1],
                                   timeout=FLEET_WAIT_S)]
                  for i in range(6)}
-        faults.append("crash_loop")
-        ft = subprocess.run(
-            [sys.executable, os.path.join(TOOLS, "fleet_top.py"), "--url",
-             url, "--once", "--plain"], capture_output=True, text=True,
-            timeout=FLEET_WAIT_S)
-        check(ft.returncode == 0 and "fleet:" in ft.stdout
-              and "CIRCUIT" in ft.stdout,
-              "23b: fleet_top.py rc %d: %s"
-              % (ft.returncode, (ft.stdout + ft.stderr)[-800:]))
-        stop_sweep.set()
+        drill.console(url, FLEET_WAIT_S)
         # leak audit on every replica's pool and every retired corpse
-        engines = [r.engine for r in srv.replicas] + list(
-            srv._retired_engines)
-        wait_for(lambda: not any(e.cache.pool.in_use for e in engines),
-                 "every pool quiescent")
-        for e in engines:
-            e.audit_quiescent()
+        drill.leak_audit(srv, FLEET_WAIT_S, stop_sweep)
         stz = srv.statusz()
         agg = srv.snapshot()["aggregate"]
         token_identity(stz["fleet"]["tokens"], "23b fleet /statusz")
@@ -7070,9 +7009,12 @@ def fleet_drill(serving, pa, params, cfg, work, idx, pins, ref, margins,
         check(rq["submitted"] == rq["completed"] + rq["failed"]
               + rq["expired"] and rq["failed"] == 0,
               "23b: request ledger %r" % rq)
+    except AssertionError as e:
+        check(False, "23b: %s" % e)
     finally:
         stop.set()
-        stop_sweep.set()
+        if stop_sweep is not None:
+            stop_sweep.set()
         chaos.reset()
         srv.close(timeout=FLEET_WAIT_S)
     check(not stream["errors"], "23b: %d stream requests failed: %r"
@@ -7081,8 +7023,9 @@ def fleet_drill(serving, pa, params, cfg, work, idx, pins, ref, margins,
     compared = check_fleet_tokens("23b stream", stream["results"], idx, ref,
                                   margins)
     compared += check_fleet_tokens("23b survivors", after, idx, ref, margins)
-    for what, got, row in (("killed", [got_kill, again], pk_row),
-                           ("poisoned", [got_poison], pp_row)):
+    for what, got, row in (("killed", [st["tokens"]["kill"],
+                                       st["tokens"]["kill_again"]], pk_row),
+                           ("poisoned", [st["tokens"]["poison"]], pp_row)):
         for g in got:
             compared += compare_tokens("23b " + what, [g], [ref[row]],
                                        [margins[row]], quiet=True)
@@ -7092,22 +7035,13 @@ def fleet_drill(serving, pa, params, cfg, work, idx, pins, ref, margins,
                                                agg["respawns"]))
     # the faults and the victims' lifecycles on the postmortem timeline
     telemetry.flight().dump("fleet_drill_end")
-    pm = subprocess.run([sys.executable, os.path.join(TOOLS,
-                                                      "postmortem.py"),
-                         flight_dir], capture_output=True, text=True,
-                        timeout=FLEET_WAIT_S)
-    check(pm.returncode == 0, "23b: postmortem.py rc %d: %s"
-          % (pm.returncode, pm.stderr[-800:]))
-    missing = [f for f in DRILL_FAULTS if f not in pm.stdout]
-    check(not missing, "23b: the postmortem timeline lacks %r" % missing)
-    for ev in ("request.failover", "request.finish"):
-        check(ev in pm.stdout, "23b: no %s on the postmortem timeline" % ev)
-    for victim in (req_kill, req_poison):
-        check(("request=%d" % victim.id) in pm.stdout
-              and victim.trace in pm.stdout,
-              "23b: victim %d's failover is not on the timeline" % victim.id)
+    try:
+        drill.check_timeline(drill.postmortem(flight_dir, FLEET_WAIT_S),
+                             DRILL_FAULTS, (req_kill, req_poison))
+    except AssertionError as e:
+        check(False, "23b: %s" % e)
     return storm_launches, {
-        "faults": faults, "availability": 1.0,
+        "faults": st["faults"] + ["crash_loop"], "availability": 1.0,
         "stream_requests": n_done, "tokens_compared": compared,
         "storm_s": storm_s, "failovers": agg["failovers"],
         "respawns": agg["respawns"], "orphaned": agg["orphaned"],
@@ -10076,50 +10010,161 @@ LM_EXPORT_RTOL = 1e-5
 LM_EXPORT_CPU_RTOL = 1e-4
 #: 29c: user kernels through rtc.CudaModule, on RTC_N float32 elements
 #: (the saxpy's 2^26); the block sum over a [RTC_ROWS, RTC_N / RTC_ROWS]
-#: matrix in tiles of RTC_TILE floats (64 KB of dynamic shared memory a
-#: block, so the launch opts in past 48 KB) on a 2-D grid
+#: matrix in tiles of RTC_TILE floats, one float a tile
 RTC_N, RTC_ROWS, RTC_TILE = 1 << 26, 64, 16384
 #: the block sum against the float64 sum of its tile: within this share of
-#: the tile's sum of |x| (each thread adds 16 values in order, then a
-#: 10-level tree: about 26 roundings of float32 on the way)
+#: the tile's sum of |x| (each thread adds 16 floats into each of 4 lanes
+#: in order, then the lanes, a 5-level shuffle tree and a 3-level one over
+#: the warps: about 26 roundings of float32)
 RTC_SUM_RTOL = 1e-5
+#: the kernels' blocks; the elementwise kernels' vectors a thread loads
+#: before it stores any, and the most blocks an SM their grid takes (past
+#: that it strides); the block sum's vectors in flight a thread
+RTC_THREADS, RTC_UNROLL, RTC_MAX_BLOCKS_PER_SM = 256, 4, 128
+RTC_SUM_UNROLL = 4
 RTC_SOURCE = r"""
-extern "C" __global__ void double_it(const float *x, float *y, int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) y[i] = x[i] * 2.0f;
+// K5's three user kernels (phase 29c), written for Hopper (sm_90a) and
+// compiled at run time by NVRTC, which needs no header for them. Each is
+// bound by the bytes it moves on this card: double_it reads 4 and writes 4
+// bytes an element, saxpy reads 8 and writes 4, block_sum reads 4 an
+// element and writes one float a tile. So each moves 16-byte vectors, a
+// warp's 32 of them contiguous, and keeps several in flight a thread.
+
+struct alignas(16) V4 { float x, y, z, w; };
+
+__device__ __forceinline__ bool aligned16(const void *p) {
+  return ((unsigned long long)p & 15ull) == 0;
 }
 
-extern "C" __global__ void saxpy(const float *x, float *y, float a,
-                                 int n) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) y[i] = a * x[i] + y[i];
+// double_it and saxpy: a grid-stride loop in which a block takes UNROLL x
+// blockDim consecutive vectors a round, each thread loading its UNROLL
+// (blockDim apart) before it stores any; the launch sizes the grid as a
+// multiple of the SM count that covers the array in about one round
+// (chip_smoke.rtc_grid). The n % 4 tail, and arrays that are not 16-byte
+// aligned (a view at an odd offset), take scalar steps.
+#define UNROLL 4
+
+extern "C" __global__ void __launch_bounds__(256)
+double_it(const float *__restrict__ x, float *__restrict__ y, int n) {
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int nb = blockDim.x;
+  int done = 0;
+  if (aligned16(x) && aligned16(y)) {
+    const V4 *xv = reinterpret_cast<const V4 *>(x);
+    V4 *yv = reinterpret_cast<V4 *>(y);
+    const int nv = n >> 2;
+    for (int i = blockIdx.x * nb * UNROLL + threadIdx.x; i < nv;
+         i += stride * UNROLL) {
+      V4 v[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (i + u * nb < nv) v[u] = xv[i + u * nb];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (i + u * nb < nv) {
+          V4 r = {v[u].x * 2.0f, v[u].y * 2.0f, v[u].z * 2.0f,
+                  v[u].w * 2.0f};
+          yv[i + u * nb] = r;
+        }
+    }
+    done = nv << 2;
+  }
+  for (int i = done + tid; i < n; i += stride) y[i] = x[i] * 2.0f;
 }
 
-// out[row, tile]: the sum of one tile of `tile` floats of row blockIdx.y,
-// staged through dynamic shared memory, then a tree over the threads
-extern "C" __global__ void block_sum(const float *x, float *out, int cols,
-                                     int tile) {
-  extern __shared__ float buf[];
-  const float *src = x + (long long)blockIdx.y * cols
-                       + (long long)blockIdx.x * tile;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) buf[i] = src[i];
-  __syncthreads();
-  float s = 0.f;
-  for (int i = threadIdx.x; i < tile; i += blockDim.x) s += buf[i];
-  __syncthreads();
-  buf[threadIdx.x] = s;
-  __syncthreads();
-  for (int w = blockDim.x / 2; w > 0; w >>= 1) {
-    if (threadIdx.x < w) buf[threadIdx.x] += buf[threadIdx.x + w];
+// y = a x + y with one rounding: a fused multiply-add an element
+extern "C" __global__ void __launch_bounds__(256)
+saxpy(const float *__restrict__ x, float *__restrict__ y, float a, int n) {
+  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int stride = gridDim.x * blockDim.x;
+  const int nb = blockDim.x;
+  int done = 0;
+  if (aligned16(x) && aligned16(y)) {
+    const V4 *xv = reinterpret_cast<const V4 *>(x);
+    V4 *yv = reinterpret_cast<V4 *>(y);
+    const int nv = n >> 2;
+    for (int i = blockIdx.x * nb * UNROLL + threadIdx.x; i < nv;
+         i += stride * UNROLL) {
+      V4 v[UNROLL], w[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (i + u * nb < nv) {
+          v[u] = xv[i + u * nb];
+          w[u] = yv[i + u * nb];
+        }
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (i + u * nb < nv) {
+          V4 r = {fmaf(a, v[u].x, w[u].x), fmaf(a, v[u].y, w[u].y),
+                  fmaf(a, v[u].z, w[u].z), fmaf(a, v[u].w, w[u].w)};
+          yv[i + u * nb] = r;
+        }
+    }
+    done = nv << 2;
+  }
+  for (int i = done + tid; i < n; i += stride) y[i] = fmaf(a, x[i], y[i]);
+}
+
+// block_sum: out[t] = the sum of tile t (`tile` floats at x + t * tile;
+// a [rows, cols] array cut into tiles along its rows is `tiles` of them in
+// flat order). One block a tile, the grid striding over tiles when it is
+// smaller: each thread loads SUM_UNROLL vectors of the tile (blockDim
+// apart) before it adds any, into 4 lanes, and the tile's sum ends in warp
+// shuffles and one float written. A tile of a size that is not a multiple
+// of 4 floats, or x not 16-byte aligned, takes scalar loads. (A persistent
+// design, one block an SM filling a ring of shared memory by TMA bulk
+// copies on mbarriers, read 2.5-3 % slower on the H100 at phase 29c's
+// size: tools/rtc_probe.py times it beside this one.)
+#define SUM_UNROLL 4
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+extern "C" __global__ void __launch_bounds__(256)
+block_sum(const float *__restrict__ x, float *__restrict__ out, int tiles,
+          int tile) {
+  __shared__ float warp_sums[32];
+  const int nb = blockDim.x;
+  const bool vec = aligned16(x) && (tile & 3) == 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const float *src = x + (long long)t * tile;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+    if (vec) {
+      const V4 *sv = reinterpret_cast<const V4 *>(src);
+      const int nv = tile >> 2;
+      for (int i = threadIdx.x; i < nv; i += nb * SUM_UNROLL) {
+        V4 v[SUM_UNROLL];
+#pragma unroll
+        for (int u = 0; u < SUM_UNROLL; ++u)
+          v[u] = i + u * nb < nv ? sv[i + u * nb] : V4{0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int u = 0; u < SUM_UNROLL; ++u) {
+          a0 += v[u].x; a1 += v[u].y; a2 += v[u].z; a3 += v[u].w;
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < tile; i += nb) a0 += src[i];
+    }
+    const float acc = warp_sum((a0 + a1) + (a2 + a3));
+    if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = acc;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      float v = threadIdx.x < (nb + 31) / 32 ? warp_sums[threadIdx.x] : 0.f;
+      v = warp_sum(v);
+      if (threadIdx.x == 0) out[t] = v;
+    }
     __syncthreads();
   }
-  if (threadIdx.x == 0) out[blockIdx.y * gridDim.x + blockIdx.x] = buf[0];
 }
 """
 #: (kernel, C signature) of RTC_SOURCE, in the kernels line's order
 RTC_KERNELS = (("double_it", "const float *x, float *y, int n"),
                ("saxpy", "const float *x, float *y, float a, int n"),
-               ("block_sum", "const float *x, float *out, int cols, "
+               ("block_sum", "const float *x, float *out, int tiles, "
                              "int tile"))
 RTC_SAXPY_A = 0.75
 #: the saxpy against its plain version y + a * x: within this many eps of
@@ -10403,6 +10448,15 @@ def rtc_inputs(torch, dev, n, seed):
             torch.randn(n, device=dev, generator=g))
 
 
+def rtc_grid(n, sms):
+    """double_it's and saxpy's grid on `n` floats: the fewest multiples of
+    the SM count that cover the array's 16-byte vectors in one round of
+    RTC_UNROLL x RTC_THREADS a block, at most RTC_MAX_BLOCKS_PER_SM an
+    SM (past that the kernels stride)."""
+    blocks = -(-(n // 4) // (RTC_UNROLL * RTC_THREADS))
+    return sms * max(1, min(RTC_MAX_BLOCKS_PER_SM, -(-blocks // sms)))
+
+
 def rtc_run(torch, mx, dev, n=RTC_N, rows=RTC_ROWS, tile=RTC_TILE,
             kernels=None):
     """The three RTC_KERNELS compiled by rtc.CudaModule (or given as
@@ -10426,9 +10480,11 @@ def rtc_run(torch, mx, dev, n=RTC_N, rows=RTC_ROWS, tile=RTC_TILE,
     X, Y = mx.nd.NDArray(x), mx.nd.NDArray(y.clone())
     out2 = mx.nd.NDArray(torch.empty_like(x))
     cols = n // rows
+    tiles = rows * (cols // tile)
     sums = mx.nd.NDArray(torch.empty((rows, cols // tile), device=dev))
-    lin = (-(-n // 256),), (256,)
-    grid2 = (cols // tile, rows)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 1)
+    lin = (rtc_grid(n, sms),), (RTC_THREADS,)
     a = RTC_SAXPY_A
     calls = {
         "double_it": (lambda: kernels["double_it"].launch(
@@ -10438,10 +10494,10 @@ def rtc_run(torch, mx, dev, n=RTC_N, rows=RTC_ROWS, tile=RTC_TILE,
                   lambda: y + a * x, lambda: torch.add(y, x, alpha=a),
                   12 * n),
         "block_sum": (lambda: kernels["block_sum"].launch(
-            [X, sums, cols, tile], ctx, grid2, (1024,), shared_mem=4 * tile),
+            [X, sums, tiles, tile], ctx, (tiles,), (RTC_THREADS,)),
             lambda: x.view(rows, -1, tile).double().sum(-1),
             lambda: torch.sum(x.view(rows, -1, tile), dim=-1),
-            4 * n + 4 * rows * (cols // tile)),
+            4 * n + 4 * tiles),
     }
     for fn, _, _, _ in calls.values():
         fn()
@@ -10453,10 +10509,10 @@ def rtc_run(torch, mx, dev, n=RTC_N, rows=RTC_ROWS, tile=RTC_TILE,
     ulp = torch.finfo(torch.float32).eps * ((a * x).abs() + y.abs())
     errs["saxpy"] = (float(diff.max()), float((diff / ulp).max()),
                      RTC_SAXPY_ULPS)
-    tiles = x.view(rows, -1, tile).double()
-    diff = (sums._data.double() - tiles.sum(-1)).abs()
+    parts = x.view(rows, -1, tile).double()
+    diff = (sums._data.double() - parts.sum(-1)).abs()
     errs["block_sum"] = (float(diff.max()), float(
-        (diff / tiles.abs().sum(-1)).max()), RTC_SUM_RTOL)
+        (diff / parts.abs().sum(-1)).max()), RTC_SUM_RTOL)
     for name, (_, e, limit) in errs.items():
         check(e <= limit, "rtc %s against its plain version: %.3g (limit "
               "%g)" % (name, e, limit))
@@ -11374,45 +11430,26 @@ WATCH_MAX_LEN = 32
 #: 31c's exported batch: the decode batch of WATCH_PROMPTS runs in chunks
 WATCH_EXPORT_BATCH = 2
 
-#: 31d, a fresh process on the run's cache: the BlockLM engine over 31b's
-#: weights with `aot_cache=`, then compile_for_cpp of 30b's artifact with
-#: its package taken out, then mxtpu_predict on it (K4a as the C++ op).
-#: Prints one JSON line.
+#: 31d, a fresh process on the run's cache: compile_for_cpp of 30b's
+#: artifact with its package taken out, then mxtpu_predict on it (K4a as
+#: the C++ op). Prints one JSON line. (Phase 32a's `serve` process warm-
+#: loads the kernel library on the same cache.)
 WARM_CACHE = r"""
 import json, os, subprocess, sys, time, zipfile
 t0 = time.perf_counter()
 import torch
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import aot, predict, serving
-from mxnet_tpu_torch.ops import fused_rnn
+from mxnet_tpu_torch import predict
 from mxnet_tpu_torch.telemetry import introspect
-cfg, params, cache, bare, tool, x_path, out_dir = sys.argv[1:8]
+cfg, bare, tool, x_path, out_dir = sys.argv[1:6]
 cfg = json.loads(cfg)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-os.environ["MXNET_FUSED_RNN"] = "1"
 out = {"import_s": time.perf_counter() - t0}
 ctx = mx.gpu(0) if cfg["device"].startswith("cuda") else mx.cpu()
-with ctx:
-    with mx.name.NameManager():
-        net = mx.models.RNNModel(
-            mode="lstm", vocab_size=cfg["vocab"], num_embed=cfg["embed"],
-            num_hidden=cfg["hidden"], num_layers=cfg["layers"], dropout=0.0)
-    net.load_params(params, ctx=ctx)
-    eng = serving.Engine(serving.BlockLM(net, cfg["vocab"], cfg["max_len"],
-                                         time_major=True),
-                         max_batch=1, aot_cache=cache)
-    n0 = fused_rnn.launch_counts()[0]
-    seq = eng.start(cfg["prompt"], max_new=cfg["gen"])
-    while not seq.done:
-        eng.decode_step([seq])
-    out["tokens"] = list(seq.generated)
-    out["k4a"] = fused_rnn.launch_counts()[0] - n0
-    out["warm_loads"] = eng.warm_loads
-    out["first_runs"] = eng.prefill_compilations + eng.decode_compilations
-    t1 = time.perf_counter()
-    predict.compile_for_cpp(bare, ctx=ctx)
-    out["compile_for_cpp_s"] = time.perf_counter() - t1
+t1 = time.perf_counter()
+predict.compile_for_cpp(bare, ctx=ctx)
+out["compile_for_cpp_s"] = time.perf_counter() - t1
 with zipfile.ZipFile(bare) as z:
     pkg = z.read("aoti/%s.pt2" % cfg["device"].split(":")[0])
 out["package_sha256"] = __import__("hashlib").sha256(pkg).hexdigest()
@@ -11529,6 +11566,34 @@ def watch_serve(serving, fr, model, prompts, wrap, **kw):
     return toks, k4a, calls[0], srv.engine
 
 
+def watch_export(mx, serving, fr, net, tmp, prompts):
+    """(c): a batch-major twin of the time-major `net`, on its weights,
+    exported at batch WATCH_EXPORT_BATCH (under the caller's
+    MXNET_FUSED_RNN) and served from its .mxtpu (ExportedLM): (artifact,
+    tokens per prompt, K4a launches, replays, export s)."""
+    bm = watch_batch_major(mx)
+    bm.initialize(mx.init.Xavier())
+    bm(mx.nd.zeros((WATCH_EXPORT_BATCH, WATCH_MAX_LEN)))
+    for p, q in zip(bm.collect_params().values(),
+                    net.collect_params().values()):
+        p.set_data(q.data())
+    art = os.path.join(tmp, "lm_bm.mxtpu")
+    te = time.perf_counter()
+    mx.predict.export_model(
+        bm, [("data", (WATCH_EXPORT_BATCH, WATCH_MAX_LEN))], art,
+        input_dtypes={"data": "int32"})
+    export_s = time.perf_counter() - te
+    toks, k4a, calls, _ = watch_serve(serving, fr, art, prompts, "_call")
+    return art, toks, k4a, calls, export_s
+
+
+def watch_prompts(rng):
+    """31b-c's prompts: WATCH_PROMPTS of the word LM's vocabulary, drawn
+    from `rng` (a RandomState seeded WATCH_SEED)."""
+    return [[int(t) for t in rng.randint(1, LM_VOCAB, WATCH_PROMPT_LEN)]
+            for _ in range(WATCH_PROMPTS)]
+
+
 def watch_bare(art, bare):
     """A copy of `art` without its AOTInductor package(s)."""
     import zipfile
@@ -11543,14 +11608,11 @@ def watch_bare(art, bare):
             z.writestr(n, data)
 
 
-def watch_warm(torch, np, aot, cpp, tmp, params, prompt, plain, adapter,
-               dev):
-    """(d): WARM_CACHE in a fresh process on the run's cache: zero nvcc
-    builds and a warm load for the BlockLM engine over 31b's weights (its
-    tokens 31b's plain loop's, up to a near-tie), zero AOTInductor
-    compiles for 30b's artifact with its package taken out (the package
-    bytes 30b's), and mxtpu_predict's logits bit-equal to 30b's through
-    the C++ op. Returns (the summary, {path: (K4a, K4b)})."""
+def watch_warm(np, aot, cpp, tmp, dev):
+    """(d): WARM_CACHE in a fresh process on the run's cache: zero
+    AOTInductor compiles for 30b's artifact with its package taken out
+    (the package bytes 30b's), and mxtpu_predict's logits bit-equal to
+    30b's through the C++ op. Returns (the summary, {path: (K4a, K4b)})."""
     import hashlib
     import zipfile
     bare = os.path.join(tmp, "word_lm_bare.mxtpu")
@@ -11559,13 +11621,10 @@ def watch_warm(torch, np, aot, cpp, tmp, params, prompt, plain, adapter,
         want_sha = hashlib.sha256(z.read("aoti/%s.pt2" % dev.type)).hexdigest()
     out_dir = os.path.join(tmp, "warm")
     os.makedirs(out_dir)
-    cfg = {"vocab": LM_VOCAB, "embed": LM_EMBED, "hidden": LM_HIDDEN,
-           "layers": LM_LAYERS, "max_len": WATCH_MAX_LEN,
-           "prompt": prompt, "gen": WATCH_GEN, "device": str(dev)}
     proc = subprocess.run(
-        [sys.executable, "-c", WARM_CACHE, json.dumps(cfg), params,
-         aot.cache_dir(), bare, cpp["mxtpu_predict"], cpp["x"],
-         out_dir], capture_output=True, text=True, timeout=600,
+        [sys.executable, "-c", WARM_CACHE, json.dumps({"device": str(dev)}),
+         bare, cpp["mxtpu_predict"], cpp["x"], out_dir],
+        capture_output=True, text=True, timeout=600,
         cwd=os.path.dirname(os.path.abspath(__file__)),
         env=dict(os.environ, MXNET_AOT_CACHE_DIR=aot.cache_dir()))
     check(proc.returncode == 0, "31d: the warm process failed (rc %d): "
@@ -11573,18 +11632,11 @@ def watch_warm(torch, np, aot, cpp, tmp, params, prompt, plain, adapter,
     warm = json.loads(proc.stdout.strip().splitlines()[-1])
     check(warm["mxtpu_predict_rc"] == 0, "31d: mxtpu_predict failed: "
           "%s" % warm["mxtpu_predict_stderr"])
-    nvcc = {n: s["compiles"] for n, s in warm["sites"].items()
-            if n.startswith("kernels.") and s["compiles"]}
     aoti = warm["sites"].get("predict.compile_for_cpp", {})
-    check(warm["warm_loads"] >= 1 and not nvcc,
-          "31d: warm loads %d, nvcc builds %r" % (warm["warm_loads"],
-                                                   nvcc))
     check(aoti.get("compiles") == 0 and aoti.get("cache_hits") == 1
           and warm["package_sha256"] == want_sha,
           "31d: compile_for_cpp %r, package %s against 30b's %s"
           % (aoti, warm["package_sha256"], want_sha))
-    split = watch_tokens_agree(torch, np, "31d", warm["tokens"], plain[0],
-                               plain[1], adapter, prompt)
     calls, cpp_k4a = cpp_counts(warm["mxtpu_predict_stdout"])
     got = np.fromfile(os.path.join(out_dir, "out0.bin"), np.float32)
     want = np.fromfile(cpp["y"], np.float32)
@@ -11594,24 +11646,20 @@ def watch_warm(torch, np, aot, cpp, tmp, params, prompt, plain, adapter,
              else float("nan")))
     check((calls, cpp_k4a) == (LM_LAYERS, LM_LAYERS),
           "31d: the C++ op ran %d times, K4a %d" % (calls, cpp_k4a))
-    # one full forward a token: the prefill's, then WATCH_GEN - 1 steps
-    check(warm["k4a"] == LM_LAYERS * WATCH_GEN,
-          "31d: the warm engine launched K4a %d times" % warm["k4a"])
-    summary = {k: warm[k] for k in ("import_s", "k4a", "warm_loads",
-                                    "first_runs", "compile_for_cpp_s", "s")}
-    summary.update(nvcc_builds=0, aoti_compiles=0, split=split,
-                   cpp_k4a_launches=cpp_k4a, logits_bit_equal_to_30b=True,
-                   sites=warm["sites"])
-    return summary, {"blocklm_warm_process_phase31d": (warm["k4a"], 0),
-                     "rnn_fwd_via_cpp_warm_phase31d": (cpp_k4a, 0)}
+    summary = {k: warm[k] for k in ("import_s", "compile_for_cpp_s", "s")}
+    summary.update(aoti_compiles=0, cpp_k4a_launches=cpp_k4a,
+                   logits_bit_equal_to_30b=True, sites=warm["sites"])
+    return summary, {"rnn_fwd_via_cpp_warm_phase31d": (cpp_k4a, 0)}
 
 
-def phase_watchdog(torch, np, dev, card, cpp):
+def phase_watchdog(torch, np, dev, card, cpp, keep=None):
     """Phase 31 (module docstring): (a) the watchdog's record of the run,
     (b) BlockLM through serve() on K4a against the plain greedy loop, (c)
     ExportedLM on the same weights, (d) a fresh process on the run's AOT
     cache, (e) the HBM gate on a card TrainStep. `cpp` is phase 30's
     carry (30b's word-LM artifact, input, C++ logits and mxtpu_predict).
+    With `keep` (a directory), 31c's artifact is copied there and the
+    summary's "carry" holds it, its prompts and its tokens for phase 32.
     Returns ({path: (K4a, K4b)}, the summary)."""
     import mxnet_tpu_torch as mx
     from mxnet_tpu_torch import aot, serving
@@ -11635,8 +11683,7 @@ def phase_watchdog(torch, np, dev, card, cpp):
           % (aot.cache().entries() if aot.cache() else None))
     print("watchdog 31a (%s): %s" % (card, json.dumps(rec)))
     rng = np.random.RandomState(WATCH_SEED)
-    prompts = [[int(t) for t in rng.randint(1, LM_VOCAB, WATCH_PROMPT_LEN)]
-               for _ in range(WATCH_PROMPTS)]
+    prompts = watch_prompts(rng)
     launches = {}
     with mx.gpu(dev.index or 0), tempfile.TemporaryDirectory() as tmp:
         mx.random.seed(WATCH_SEED)
@@ -11677,20 +11724,8 @@ def phase_watchdog(torch, np, dev, card, cpp):
                           "first_run_reasons": [e["reason"]
                                                 for e in evs][:4]}
             # (c)
-            bm = watch_batch_major(mx)
-            bm.initialize(mx.init.Xavier())
-            bm(mx.nd.zeros((WATCH_EXPORT_BATCH, WATCH_MAX_LEN)))
-            for p, q in zip(bm.collect_params().values(),
-                            net.collect_params().values()):
-                p.set_data(q.data())
-            art = os.path.join(tmp, "lm_bm.mxtpu")
-            te = time.perf_counter()
-            mx.predict.export_model(
-                bm, [("data", (WATCH_EXPORT_BATCH, WATCH_MAX_LEN))], art,
-                input_dtypes={"data": "int32"})
-            export_s = time.perf_counter() - te
-            etoks, ek4a, ecalls, _ = watch_serve(serving, fr, art, prompts,
-                                                 "_call")
+            art, etoks, ek4a, ecalls, export_s = watch_export(
+                mx, serving, fr, net, tmp, prompts)
             check(etoks == toks, "31c: ExportedLM's tokens %r differ from "
                   "BlockLM's %r" % (etoks, toks))
             check(ek4a == LM_LAYERS * ecalls and ecalls > 0,
@@ -11702,10 +11737,10 @@ def phase_watchdog(torch, np, dev, card, cpp):
                           "exported_call_first_runs": len(
                               introspect.compile_events(
                                   "serving.exported_call"))}
-            params = os.path.join(tmp, "lm.params")
-            net.save_params(params)
-            out["31d"], dl = watch_warm(torch, np, aot, cpp, tmp, params,
-                                        prompts[0], plain[0], ad, dev)
+            if keep is not None:
+                out["carry"] = {"art": shutil.copy(art, keep),
+                                "prompts": prompts, "tokens": etoks}
+            out["31d"], dl = watch_warm(np, aot, cpp, tmp, dev)
             launches.update(dl)
             # (e)
             step = TrainStep(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
@@ -11746,8 +11781,231 @@ def phase_watchdog(torch, np, dev, card, cpp):
             else:
                 os.environ["MXNET_FUSED_RNN"] = prior
     out["s"] = time.perf_counter() - t0
-    print("watchdog phase 31 (%s): %s" % (card, json.dumps(out)))
+    print("watchdog phase 31 (%s): %s" % (card, json.dumps(
+        {k: v for k, v in out.items() if k != "carry"})))
     return launches, out
+
+# ---------------------------------------------------------------------------
+# phase 32: the reference's operator CLIs on the port (mxnet_tpu_torch/tools)
+# ---------------------------------------------------------------------------
+
+CLI_SEED = 32
+#: 32a's demo traffic: prompts of the demo's vocabulary, their length and
+#: new tokens
+CLI_DEMO_PROMPTS, CLI_DEMO_LEN, CLI_DEMO_GEN = 4, 12, 16
+#: bound on each wait of phase 32 (s)
+CLI_WAIT_S = 120
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def cli_free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def cli_wait_healthy(port, what, proc=None):
+    """Poll /healthz on `port` until it answers ok (`proc`, a serving
+    process, must not exit meanwhile)."""
+    def up():
+        check(proc is None or proc.poll() is None,
+              "%s exited (rc %s) before it served" % (
+                  what, None if proc is None else proc.returncode))
+        try:
+            code, body, _ = http_json("http://127.0.0.1:%d/healthz" % port,
+                                      timeout=5)
+        except OSError:
+            return False
+        return code == 200 and body.get("ok")
+    wait_for(up, what + " answering /healthz", timeout=CLI_WAIT_S)
+
+
+def cli_generate(port, prompts, gen):
+    """Greedy tokens of `prompts` over POST /v1/generate, all in flight at
+    once (one client thread each)."""
+    out = [None] * len(prompts)
+
+    def one(i):
+        code, body, _ = http_json("http://127.0.0.1:%d/v1/generate" % port,
+                                  {"tokens": prompts[i],
+                                   "max_new_tokens": gen},
+                                  timeout=CLI_WAIT_S)
+        out[i] = body["tokens"] if code == 200 else "HTTP %d: %r" % (code,
+                                                                    body)
+    threads = [threading.Thread(target=one, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=CLI_WAIT_S)
+    return out
+
+
+def cli_captured(fn, *args, **kw):
+    """(fn's return value, what it printed)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = fn(*args, **kw)
+    return rc, buf.getvalue()
+
+
+def cli_serve_process(art, cache, tmp, dev):
+    """(a): `python -m mxnet_tpu_torch.tools.serve --model art` in a fresh
+    process on a free port, its AOT cache the run's: (process, port, its
+    stdout file)."""
+    port = cli_free_port()
+    log = os.path.join(tmp, "serve_cli.out")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "mxnet_tpu_torch.tools.serve", "--model",
+             art, "--port", str(port), "--max-batch", str(WATCH_PROMPTS),
+             "--aot-cache", cache, "--device", dev.type],
+            cwd=ROOT, stdout=f, stderr=subprocess.STDOUT,
+            env=dict(os.environ, MXNET_FUSED_RNN="1"))
+    return proc, port, log
+
+
+def cli_serve_demo(torch, np, serving, pa, serve_cli, dev):
+    """(a): `serve.main([--demo, --paged])` on a thread of this process,
+    against serve((params, cfg), paged=True) in process on the demo's
+    weights (serve_cli.demo_model): tokens, K1's launches by the CLI's
+    server."""
+    params, cfg = serve_cli.demo_model(dev)
+    rng = np.random.RandomState(CLI_SEED)
+    prompts = [[int(t) for t in rng.randint(1, cfg.vocab, CLI_DEMO_LEN)]
+               for _ in range(CLI_DEMO_PROMPTS)]
+    ref = serving.serve((params, cfg), paged=True, device=dev)
+    try:
+        want = [ref.generate(list(p), max_new_tokens=CLI_DEMO_GEN,
+                             timeout=CLI_WAIT_S) for p in prompts]
+    finally:
+        ref.close()
+    port, started, printed = cli_free_port(), [], []
+    pa.paged_attention.launches = 0
+    t = threading.Thread(target=lambda: printed.append(cli_captured(
+        serve_cli.main, ["--demo", "--paged", "--port", str(port),
+                         "--device", dev.type], on_serving=started.append)),
+        daemon=True)
+    t.start()
+    try:
+        cli_wait_healthy(port, "serve --demo --paged")
+        got = cli_generate(port, prompts, CLI_DEMO_GEN)
+    finally:
+        if started:
+            started[0].stop_http()
+        t.join(timeout=CLI_WAIT_S)
+    k1 = pa.paged_attention.launches
+    check(not t.is_alive() and printed and printed[0][0] == 0,
+          "32a: serve --demo did not stop cleanly: %r" % printed)
+    check(got == want, "32a: serve --demo's tokens over HTTP %r differ from "
+          "serve((params, cfg), paged=True)'s %r" % (got, want))
+    srv = started[0]
+    want_k1 = k1_want(cfg, [srv.snapshot()])
+    check(k1 == want_k1 and k1 > 0, "32a: serve --demo launched K1 %d "
+          "times, expected %d" % (k1, want_k1))
+    stop = json.loads(printed[0][1].split("stopped: ")[1].splitlines()[0])
+    check(stop["kernel_launches"]["paged_attention"] == k1,
+          "32a: the demo's stop line %r, K1 %d" % (stop, k1))
+    return k1, {"tokens_equal": True, "k1_launches": k1,
+                "requests": stop["requests"]["completed"]}
+
+
+def phase_cli(torch, np, dev, card, carry=None):
+    """Phase 32 (module docstring): the port's serve, aot_warm,
+    bandwidth and diagnose CLIs. `carry` is phase 31's (31c's kept
+    artifact, its prompts and its in-process tokens); without it the
+    artifact is exported here. Returns (K1 launches of the demo server,
+    K4a launches of the serving process, the summary)."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import aot, serving
+    from mxnet_tpu_torch.ops import fused_rnn as fr
+    from mxnet_tpu_torch.ops import paged_attention as pa
+    from mxnet_tpu_torch.tools import aot_warm, bandwidth, diagnose
+    from mxnet_tpu_torch.tools import serve as serve_cli
+    t0 = time.perf_counter()
+    out = {"card": card}
+    cache = aot.cache_dir()
+    check(cache is not None, "32: no AOT cache is configured")
+    with mx.gpu(dev.index or 0), tempfile.TemporaryDirectory() as tmp:
+        if carry is None:
+            prior = os.environ.get("MXNET_FUSED_RNN")
+            os.environ["MXNET_FUSED_RNN"] = "1"
+            try:
+                mx.random.seed(WATCH_SEED)
+                net = word_lm_net(torch, mx, dev, 0.0)
+                prompts = watch_prompts(np.random.RandomState(WATCH_SEED))
+                art, toks, _, _, _ = watch_export(mx, serving, fr, net, tmp,
+                                                  prompts)
+            finally:
+                if prior is None:
+                    os.environ.pop("MXNET_FUSED_RNN", None)
+                else:
+                    os.environ["MXNET_FUSED_RNN"] = prior
+            carry = {"art": art, "prompts": prompts, "tokens": toks}
+        proc, port, log = cli_serve_process(carry["art"], cache, tmp, dev)
+        try:
+            # (b), (d) and the demo while the serving process starts
+            rc, text = cli_captured(aot_warm.main, ["--cache", cache,
+                                                    "--verify"])
+            check(rc == 0 and " 0 corrupt" in text,
+                  "32b: aot_warm --verify rc %s: %s" % (rc, text[-800:]))
+            out["32b"] = text.strip().splitlines()[0]
+            rc, text = cli_captured(diagnose.main, ["--device", dev.type])
+            name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                    else "device      : cpu")
+            check(rc == 0 and name in text,
+                  "32d: diagnose rc %s, %r not named: %s"
+                  % (rc, name, text[-1500:]))
+            out["32d"] = text[text.index("----- Device"):].strip()
+            k1, out["32a_demo"] = cli_serve_demo(torch, np, serving, pa,
+                                                 serve_cli, dev)
+            # (a) the fresh serving process
+            cli_wait_healthy(port, "serve --model", proc)
+            got = cli_generate(port, carry["prompts"], WATCH_GEN)
+        finally:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+            try:
+                proc.wait(timeout=CLI_WAIT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+        with open(log) as f:
+            text = f.read()
+        check(proc.returncode == 0 and "stopped: " in text,
+              "32a: serve --model rc %s: %s" % (proc.returncode,
+                                                 text[-3000:]))
+        stop = json.loads(text.split("stopped: ")[1].splitlines()[0])
+        check(got == carry["tokens"], "32a: serve --model's tokens over "
+              "HTTP %r differ from 31c's in-process ExportedLM's %r"
+              % (got, carry["tokens"]))
+        k4a = stop["kernel_launches"]["rnn_fwd"]
+        least = LM_LAYERS * -(-WATCH_PROMPTS * WATCH_GEN
+                              // WATCH_EXPORT_BATCH)
+        check(k4a % LM_LAYERS == 0 and k4a >= least,
+              "32a: the serving process launched K4a %d times (at least "
+              "%d, LM_LAYERS a replay)" % (k4a, least))
+        check(stop["warm_loads"] >= 1 and stop["nvcc_builds"] == 0,
+              "32a: the serving process on the run's cache: %d warm loads, "
+              "%d nvcc builds" % (stop["warm_loads"], stop["nvcc_builds"]))
+        out["32a"] = {"tokens_equal_31c": True, "k4a_launches": k4a,
+                      "warm_loads": stop["warm_loads"],
+                      "nvcc_builds": stop["nvcc_builds"],
+                      "requests": stop["requests"]["completed"]}
+        # (c) after the serving process, so nothing else uses the card
+        rc, text = cli_captured(bandwidth.main, ["--device", dev.type])
+        check(rc == 0 and "host->device staging" in text
+              and "allreduce over" in text,
+              "32c: bandwidth rc %s: %s" % (rc, text[-1500:]))
+        out["32c"] = [ln for ln in text.splitlines()
+                      if "staging" in ln or "allreduce" in ln]
+    out["s"] = time.perf_counter() - t0
+    print("cli phase 32 (%s): %s" % (card, json.dumps(out)))
+    return k1, k4a, out
+
 
 class PhaseClock:
     """Runs one of main()'s phases and prints its wall seconds and the
@@ -11855,8 +12113,10 @@ def main():
                                                     dev, smi, keep)
             cpp_launches, cpp = run(phase_cpp, torch, np, dev, smi,
                                     deploy["29a"]["carry"], keep)
-            watch_launches, _ = run(phase_watchdog, torch, np, dev, smi,
-                                    cpp["carry"])
+            watch_launches, watch = run(phase_watchdog, torch, np, dev,
+                                        smi, cpp["carry"], keep)
+            cli_k1, cli_k4a, _ = run(phase_cli, torch, np, dev, smi,
+                                     watch["carry"])
         finally:
             shutil.rmtree(keep, ignore_errors=True)
     except SmokeFailure as e:
@@ -11876,12 +12136,13 @@ def main():
         # multi-replica door's (23a-d) and the rollout and tp paths'
         # (26a-c)
         "launches": launches + op_launches + fd_launches + fleet_launches
-        + tp_launches,
+        + tp_launches + cli_k1,
         "launches_by_path": {"serving_main_path": launches,
                              "contrib_paged_attention_op": op_launches,
                              "front_door_phase22": fd_launches,
                              "fleet_phase23": fleet_launches,
-                             "rollout_tp_phase26": tp_launches},
+                             "rollout_tp_phase26": tp_launches,
+                             "serve_cli_demo_phase32a": cli_k1},
         "max_abs_err": errs["float32"],
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -11965,7 +12226,8 @@ def main():
         "word_lm_exported_phase29b": export_launches,
         "rnn_fwd_via_cpp_phase30b": (cpp_launches, 0),
         "check_consistency_sym_rnn_phase21a":
-            item2["check_consistency_rnn"]["launches"], **watch_launches})
+            item2["check_consistency_rnn"]["launches"], **watch_launches,
+        "serve_cli_process_phase32a": (cli_k4a, 0)})
     kernels += rtc_rows
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -18,8 +18,13 @@ raises naming it. `exports` names kernels that are not `extern "C"`
 (their lowered names are looked up, as upstream does). The CUBIN is
 loaded through libcuda (`cuModuleLoadData`, in torch's primary
 context of each device it launches on), and `CudaKernel.launch` calls
-`cuLaunchKernel` on torch's current stream of that device, after
-`cuFuncSetAttribute` where the dynamic shared memory passes 48 KB. It
+`cuLaunchKernel` on torch's current stream of that device. What repeats
+on every launch is kept to the checks and the call: the primary context
+is made current only when the thread's current one is another, and
+`cuFuncSetAttribute` (the opt-in to dynamic shared memory, which past 48
+KB less the kernel's static shared memory a launch needs) is called only
+when a launch's dynamic shared memory passes the most this function was
+opted in to on that device. It
 checks every argument against the C signature first: a dense NDArray
 for each pointer, of the pointer's dtype; a number for each scalar; a GPU
 context and GPU arrays (a CPU context or a CPU array raises: a CUDA
@@ -45,8 +50,6 @@ from .ndarray import NDArray
 
 #: the target every user kernel is compiled for (the H100's full ISA)
 ARCH = "sm_90a"
-#: dynamic shared memory a kernel may use without opting in
-_SMEM_DEFAULT = 48 * 1024
 _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES = 8
 
 #: C type -> (torch dtype of an array argument, ctypes type of a scalar)
@@ -224,6 +227,7 @@ _LIBCUDA = {
     "cuDeviceGet": [ctypes.POINTER(_I), _I],
     "cuDevicePrimaryCtxRetain": [_PP, _I],
     "cuCtxSetCurrent": [_P],
+    "cuCtxGetCurrent": [_PP],
     "cuModuleLoadData": [_PP, ctypes.c_char_p],
     "cuModuleGetFunction": [_PP, _P, ctypes.c_char_p],
     "cuFuncSetAttribute": [_P, _I, _I],
@@ -397,9 +401,9 @@ class CudaModule:
 _contexts = {}
 
 
-def _set_context(lib, index):
-    """Make torch's primary context of device `index` current on this
-    thread (the one torch's runtime calls use)."""
+def _primary_context(lib, index):
+    """torch's primary context of device `index` (the one torch's runtime
+    calls use), retained once."""
     ctx = _contexts.get(index)
     if ctx is None:
         dev = ctypes.c_int()
@@ -410,7 +414,23 @@ def _set_context(lib, index):
                                                     dev.value),
                   "cuDevicePrimaryCtxRetain")
         _contexts[index] = ctx
-    _cu_check(lib, lib.cuCtxSetCurrent(ctx), "cuCtxSetCurrent")
+    return ctx
+
+
+def _set_context(lib, index):
+    """Make torch's primary context of device `index` current on this
+    thread."""
+    _cu_check(lib, lib.cuCtxSetCurrent(_primary_context(lib, index)),
+              "cuCtxSetCurrent")
+
+
+def _context_is_current(lib, index):
+    """Whether this thread's current context is device `index`'s primary
+    one (a thread that has run torch's CUDA calls on that device holds
+    it already)."""
+    cur = ctypes.c_void_p()
+    _cu_check(lib, lib.cuCtxGetCurrent(ctypes.byref(cur)), "cuCtxGetCurrent")
+    return cur.value == _primary_context(lib, index).value
 
 
 def _dims(dims, what):
@@ -432,6 +452,9 @@ class CudaKernel:
         self.signature = signature
         self.params = parse_signature(signature)
         self._functions = {}
+        # device index -> the most dynamic shared memory the function
+        # was opted in to there
+        self._smem_opt_in = {}
 
     def launch(self, args, ctx, grid_dims, block_dims, shared_mem=0):
         """Launch on `ctx`'s device, on torch's current stream there, with
@@ -443,24 +466,34 @@ class CudaKernel:
         values = pack_args(self.params, list(args), ctx)
         grid, block = _dims(grid_dims, "grid_dims"), \
             _dims(block_dims, "block_dims")
-        device = ctx.torch_device()
+        index = ctx.device_id
+        shared_mem = int(shared_mem)
         lib = _libcuda()
-        fn = self._functions.get(device.index)
+        fn = self._functions.get(index)
         if fn is None:
-            fn = self.module._function(self.name, device)
-            self._functions[device.index] = fn
-        if shared_mem > _SMEM_DEFAULT:
+            fn = self.module._function(self.name,
+                                       torch.device("cuda", index))
+            self._functions[index] = fn
+        if shared_mem > self._smem_opt_in.get(index, 0):
             _cu_check(lib, lib.cuFuncSetAttribute(
                 fn, _CU_FUNC_ATTRIBUTE_MAX_DYNAMIC_SHARED_SIZE_BYTES,
-                int(shared_mem)), "cuFuncSetAttribute(%s)" % self.name)
+                shared_mem), "cuFuncSetAttribute(%s)" % self.name)
+            self._smem_opt_in[index] = shared_mem
         # kernelParams: an array of pointers to each argument's value
         params = (ctypes.c_void_p * len(values))(
             *[ctypes.addressof(v) for v in values])
-        stream = torch.cuda.current_stream(device).cuda_stream
-        with torch.cuda.device(device):
-            _set_context(lib, device.index)
-            err = lib.cuLaunchKernel(fn, *grid, *block, int(shared_mem),
-                                     stream, params, None)
+        # torch's current stream there, as the raw handle: building a
+        # torch.cuda.Stream for it took 3.6-4.5 us a launch on an H100
+        # host, the raw handle 0.3 (tools/rtc_probe.py)
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        if _context_is_current(lib, index):
+            err = lib.cuLaunchKernel(fn, *grid, *block, shared_mem, stream,
+                                     params, None)
+        else:
+            with torch.cuda.device(index):
+                _set_context(lib, index)
+                err = lib.cuLaunchKernel(fn, *grid, *block, shared_mem,
+                                         stream, params, None)
         _cu_check(lib, err, "cuLaunchKernel(%s)" % self.name)
         self.launches += 1
 

@@ -124,6 +124,13 @@ class _HTTPFrontend:
                              daemon=True).start()
         return addr
 
+    def stop_http(self):
+        """End a blocking `serve_http` from another thread: its loop
+        returns, and it closes the server on its own thread."""
+        httpd = self._httpd
+        if httpd is not None:
+            httpd.shutdown()
+
 
 class _Server(ThreadingHTTPServer):
     """The stdlib threading server with a listen backlog sized for a

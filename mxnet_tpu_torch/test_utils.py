@@ -923,12 +923,13 @@ def get_cifar10(data_dir="data"):
 
 
 def get_im2rec_path(home_env="MXNET_HOME"):
-    """The repository's tools/im2rec.py."""
+    """The port's im2rec tool, mxnet_tpu_torch/tools/im2rec.py (run it as
+    `python -m mxnet_tpu_torch.tools.im2rec`)."""
     here = os.path.dirname(os.path.abspath(__file__))
-    path = os.path.join(os.path.dirname(here), "tools", "im2rec.py")
+    path = os.path.join(here, "tools", "im2rec.py")
     if os.path.isfile(path):
         return path
-    raise IOError("tools/im2rec.py not found from %s" % here)
+    raise IOError("tools/im2rec.py not found under %s" % here)
 
 
 def get_bz2_data(data_dir, data_name, url, data_origin_name):

@@ -2191,3 +2191,104 @@ def test_hbm_gate_refuses_a_cuda_step_before_its_update(dev, monkeypatch):
         assert step.t == 1
         assert len(introspect.compile_events("train.step")) == 1
         assert np.abs(net.weight.data().asnumpy() - w0).max() > 0
+
+
+@pytest.fixture
+def rtc_kernels(dev):
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch import rtc
+    mod = rtc.CudaModule(cs.RTC_SOURCE)
+    return tmx, {name: mod.get_kernel(name, sig)
+                 for name, sig in cs.RTC_KERNELS}
+
+
+@pytest.mark.parametrize("n,offset", [(4096, 0), (1000003, 0), (1000003, 1),
+                                      (1 << 26, 0)])
+def test_rtc_elementwise_kernels_match_plain(rtc_kernels, dev, n, offset):
+    """K5's double_it (bit for bit) and saxpy (within
+    chip_smoke.RTC_SAXPY_ULPS eps of |a x| + |y|) at a small size, at an
+    odd one (n % 4 == 3: the scalar tail after the 16-byte vectors, a
+    partial last round), on views one float past a 16-byte boundary (the
+    scalar path) and at phase 29c's size, on phase 29c's grid
+    (chip_smoke.rtc_grid), and on a grid of one block an SM, which strides."""
+    tmx, k = rtc_kernels
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = torch.randn(n + offset, device=dev, generator=g)[offset:]
+    y = torch.randn(n + offset, device=dev, generator=g)[offset:]
+    a = cs.RTC_SAXPY_A
+    ctx = tmx.gpu(0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for blocks in (cs.rtc_grid(n, sms), sms):
+        out = torch.empty(n + offset, device=dev)[offset:]
+        yk = torch.empty(n + offset, device=dev)[offset:]
+        yk.copy_(y)
+        grid = ((blocks,), (cs.RTC_THREADS,))
+        k["double_it"].launch([tmx.nd.NDArray(x), tmx.nd.NDArray(out), n],
+                              ctx, *grid)
+        k["saxpy"].launch([tmx.nd.NDArray(x), tmx.nd.NDArray(yk), a, n],
+                          ctx, *grid)
+        torch.cuda.synchronize()
+        assert torch.equal(out, x + x)
+        ulp = torch.finfo(torch.float32).eps * ((a * x).abs() + y.abs())
+        assert float(((yk - (y + a * x)).abs() / ulp).max()) \
+            <= cs.RTC_SAXPY_ULPS
+    assert (k["double_it"].launches, k["saxpy"].launches) == (2, 2)
+
+
+@pytest.mark.parametrize("rows,cols,tile,offset", [
+    (4, 16384, 4096, 0), (3, 81920, 16384, 0), (7, 73728, 24576, 0),
+    (64, 1 << 20, 16384, 0), (3, 3003, 1001, 0), (5, 4096, 1024, 1)])
+def test_rtc_block_sum_matches_plain(rtc_kernels, dev, rows, cols, tile,
+                                     offset):
+    """K5's block_sum within chip_smoke.RTC_SUM_RTOL of each tile's sum of
+    |x| against the float64 sum: tiles of 1024 to 24576 floats, phase
+    29c's [64, 2^20] in tiles of 16384, a tile that is not a multiple of
+    4 floats and an array one float past a 16-byte boundary (both the
+    scalar loads), one block a tile; then on a grid of 7 blocks, which
+    strides over the tiles."""
+    tmx, k = rtc_kernels
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn(rows * cols + offset, device=dev,
+                    generator=g)[offset:].view(rows, cols)
+    tiles = rows * (cols // tile)
+    parts = x.view(rows, -1, tile).double()
+    for blocks in (tiles, 7):
+        out = torch.full((rows, cols // tile), float("nan"), device=dev)
+        k["block_sum"].launch([tmx.nd.NDArray(x), tmx.nd.NDArray(out),
+                               tiles, tile], tmx.gpu(0), (blocks,),
+                              (cs.RTC_THREADS,))
+        torch.cuda.synchronize()
+        err = (out.double() - parts.sum(-1)).abs() / parts.abs().sum(-1)
+        assert float(err.max()) <= cs.RTC_SUM_RTOL
+    assert k["block_sum"].launches == 2
+
+
+@pytest.mark.parametrize("kb", [32, 48, 64, 200])
+def test_rtc_dynamic_shared_memory_opt_in(dev, kb):
+    """A kernel with static shared memory takes `kb` KB of dynamic shared
+    memory: from 48 KB on (48 less its static part is all a launch gets
+    without the opt-in) only through CudaKernel.launch's
+    cuFuncSetAttribute, made once a function and size high-water."""
+    import mxnet_tpu_torch as tmx
+    from mxnet_tpu_torch import rtc
+    src = ('extern "C" __global__ void stage(const float *x, float *y, '
+           "int n) {\n"
+           "  extern __shared__ float buf[];\n"
+           "  __shared__ float bias[16];\n"
+           "  if (threadIdx.x < 16) bias[threadIdx.x] = 1.0f;\n"
+           "  for (int i = threadIdx.x; i < n; i += blockDim.x)"
+           " buf[i] = x[i];\n"
+           "  __syncthreads();\n"
+           "  for (int i = threadIdx.x; i < n; i += blockDim.x)"
+           " y[i] = buf[n - 1 - i] + bias[i % 16];\n}\n")
+    k = rtc.CudaModule(src).get_kernel("stage",
+                                       "const float *x, float *y, int n")
+    n = kb * 1024 // 4
+    x = torch.arange(n, device=dev, dtype=torch.float32)
+    y = torch.empty_like(x)
+    for _ in range(2):
+        k.launch([tmx.nd.NDArray(x), tmx.nd.NDArray(y), n], tmx.gpu(0),
+                 (1,), (256,), shared_mem=4 * n)
+    torch.cuda.synchronize()
+    assert torch.equal(y, x.flip(0) + 1.0)
+    assert k._smem_opt_in[0] == 4 * n and k.launches == 2

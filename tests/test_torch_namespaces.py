@@ -139,6 +139,29 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert out.stdout.strip() == "[]"
 
 
+#: the reference's operator tools as they stood before the port began
+#: (tools/*.py then); those that import jax or mxnet_tpu need a port
+#: counterpart under mxnet_tpu_torch/tools/, the others drive the port as
+#: they are
+PRE_PORT_TOOLS = ("aot_warm.py", "bandwidth.py", "bench_sentinel.py",
+                  "chaos_serve.py", "chaos_train.py", "diagnose.py",
+                  "fleet_top.py", "im2rec.py", "kill_jobs.py", "launch.py",
+                  "parse_log.py", "postmortem.py", "rec2idx.py",
+                  "rollout.py", "serve.py", "train_supervise.py",
+                  "train_top.py")
+
+
+def test_reference_tools_have_port_counterparts():
+    needs, shared = [], []
+    for name in PRE_PORT_TOOLS:
+        with open(os.path.join(ROOT, "tools", name)) as fh:
+            (needs if _IMPORT.search(fh.read()) else shared).append(name)
+    assert len(needs) == 8 and len(shared) == 9, (needs, shared)
+    missing = [n for n in needs if not os.path.isfile(
+        os.path.join(ROOT, "mxnet_tpu_torch", "tools", n))]
+    assert not missing, missing
+
+
 #: the reference's .py files with no port file at the same path: item
 #: 11's three, still to port, and five covered under other names (the
 #: Pallas kernels' Hopper counterparts under ops/csrc/ with their

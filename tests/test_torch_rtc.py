@@ -9,8 +9,7 @@ test_cuda_module_raises_helpfully). On the card (marker `cuda`, skipped
 without one): chip_smoke.py's three kernels (phase 29c) compiled by NVRTC
 and launched, each held to its plain PyTorch version (doubling bit for
 bit, saxpy within chip_smoke.RTC_SAXPY_ULPS, the block sum within
-chip_smoke.RTC_SUM_RTOL), the 48 KB dynamic shared memory opt-in,
-`exports` of a C++ kernel, a failed compile raising with NVRTC's log,
+chip_smoke.RTC_SUM_RTOL), `exports` of a C++ kernel, a failed compile raising with NVRTC's log,
 and the launch count. This file
 imports neither jax nor mxnet_tpu; run the card tests with
 
@@ -199,8 +198,9 @@ def dev():
 @pytest.mark.parametrize("n,rows,tile", [(1 << 16, 4, 4096),
                                          (1 << 20, 8, 16384)])
 def test_kernels_match_plain(dev, n, rows, tile):
-    """Phase 29c's kernels at small sizes; tile 16384 takes 64 KB of
-    dynamic shared memory (the opt-in past 48 KB)."""
+    """Phase 29c's kernels at small sizes (the dynamic shared memory
+    opt-in: tests/test_torch_cuda.py::
+    test_rtc_dynamic_shared_memory_opt_in)."""
     with mx.gpu(0):
         calls, kernels, errs, _ = cs.rtc_run(torch, mx, dev, n, rows, tile)
     assert {k: v.launches for k, v in kernels.items()} == {

@@ -24,6 +24,7 @@ import json
 import os
 import pickle
 import random
+import re
 import zipfile
 
 import numpy as np
@@ -1029,5 +1030,11 @@ def test_local_fetchers_read_local_files(tmp_path):
             f.writestr("inner/x.txt", "zipped")
         assert t.get_zip_data(str(z), url, "a.zip") == str(z)
         assert (z / "inner" / "x.txt").read_text() == "zipped"
-    assert tu.get_im2rec_path() == rtu.get_im2rec_path()
-    assert os.path.basename(tu.get_im2rec_path()) == "im2rec.py"
+    # the port's own tool, which imports neither jax nor the reference
+    path = tu.get_im2rec_path()
+    assert path == os.path.join(os.path.dirname(tmx.__file__), "tools",
+                                "im2rec.py")
+    assert os.path.basename(path) == os.path.basename(rtu.get_im2rec_path())
+    with open(path) as f:
+        assert not re.search(r"^\s*(?:import|from)\s+(jax|mxnet_tpu)"
+                             r"(?:\.|\s|$)", f.read(), re.M)

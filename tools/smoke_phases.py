@@ -8,10 +8,12 @@ sym.RNN lstm over [cpu, gpu(0)] at chip_smoke.CONSIST_SCALE), bn_convnet
 with cuDNN off and on, printing each one's largest errors and launches,
 a mismatch included. The AOT cache is configured to a temporary
 directory before the build, as main() does; `cpp` keeps 30b's word-LM
-artifact for a later `watchdog` (phase 31).
+artifact for a later `watchdog` (phase 31), and `watchdog` 31c's for a
+later `cli` (phase 32, which exports its own when run without it).
 
     python3 tools/smoke_phases.py --consistency resilience deploy cpp
-    python3 tools/smoke_phases.py cpp watchdog
+    python3 tools/smoke_phases.py cpp watchdog cli
+    python3 tools/smoke_phases.py cli
 
 Needs an NVIDIA GPU; run from the repository root. Imports nothing of
 JAX. Prints the card's name and power limit first, and each phase's
@@ -75,7 +77,7 @@ def main():
     if args.consistency:
         run(consistency, torch, cs, mx, dev)
     keep = tempfile.mkdtemp(prefix="mxtt_r50_")
-    carry = cpp = None
+    carry = cpp = watch = None
     try:
         for name in args.phases:
             extra = ()
@@ -84,13 +86,17 @@ def main():
             elif name == "cpp":
                 extra = (carry, keep)
             elif name == "watchdog":
-                extra = (cpp,)
+                extra = (cpp, keep)
+            elif name == "cli":
+                extra = (watch,)
             out = run(getattr(cs, "phase_" + name), torch, np, dev, card,
                       *extra)
             if name == "deploy":
                 carry = out[2]["29a"]["carry"]
             elif name == "cpp":
                 cpp = out[1]["carry"]
+            elif name == "watchdog":
+                watch = out[1]["carry"]
     except cs.SmokeFailure as e:
         print("FAIL: %s" % e, file=sys.stderr)
         return 1
