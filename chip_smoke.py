@@ -321,7 +321,7 @@ Phases (any failure exits non-zero before the last line):
                 MXNET_FLIGHT_RECORDER_DIR, tools/postmortem.py and
                 tools/fleet_top.py --once --plain exiting 0; (e) phase 4's
                 traffic on fresh servers with MXNET_TELEMETRY=0 and =1,
-                a warm-up and then 4 ABBA blocks: the step period, the
+                a warm-up and then 2 ABBA blocks: the step period, the
                 decode call and the gap between calls (p50s), tokens/s
                 and TTFT p50 per run, and the paired on - off medians
                 (no limit).
@@ -570,16 +570,18 @@ Phases (any failure exits non-zero before the last line):
                 eager net with the flag off; the artifact reloaded in a
                 fresh process (torch and the op's registration) on the
                 card (the same launches) and on the CPU (the plain
-                version, within LM_EXPORT_CPU_RTOL); (c) K5: three user
+                version, within LM_EXPORT_CPU_RTOL); (c) K5: four user
                 kernels written for Hopper (RTC_SOURCE: the reference
                 test's doubling and a saxpy on 2^26 float32 in 16-byte
                 vectors, 4 in flight a thread, over a grid-stride loop on a
                 grid of whole SM multiples; a block sum of 16384-float
-                tiles, one block a tile, 16-byte loads 4 in flight)
+                tiles, one block a tile, 16-byte loads 4 in flight; each
+                tile reversed through 64 KB of dynamic shared memory, which
+                CudaKernel.launch opts in to past 48 KB)
                 compiled by rtc.CudaModule (NVRTC, sm_90a) and launched through
                 CudaKernel.launch, each held to its plain version
-                (doubling bit for bit, saxpy within RTC_SAXPY_ULPS, the sum
-                within RTC_SUM_RTOL) and timed beside its bytes bound
+                (doubling and the reversal bit for bit, saxpy within
+                RTC_SAXPY_ULPS, the sum within RTC_SUM_RTOL) and timed beside its bytes bound
                 and the one PyTorch call computing it, with the NVRTC
                 compile ms; (d) a torch.nn conv + BatchNorm + linear
                 module inside a Gluon net (TorchBlock) trained 5 SGD
@@ -636,11 +638,13 @@ Phases (any failure exits non-zero before the last line):
                 on and served from its .mxtpu (ExportedLM): BlockLM's
                 tokens, K4a LM_LAYERS times a replay; (d) a fresh process
                 with MXNET_AOT_CACHE_DIR on the run's cache (WARM_CACHE):
+                an Engine(aot_cache=) over (b)'s weights (BlockLM) serves a
+                prompt with warm loads and zero nvcc builds, its tokens
+                (b)'s plain loop's, K4a LM_LAYERS times a full forward;
                 compile_for_cpp of 30b's artifact with its package taken
                 out runs zero AOTInductor compiles (the package's sha256
                 30b's), and mxtpu_predict on it gives logits bit-equal to
-                30b's, K4a through the C++ op (the warm loads and zero nvcc
-                builds of a fresh serving process are phase 32a's); (e) a
+                30b's, K4a through the C++ op; (e) a
                 word-LM TrainStep on the card refused by
                 MXNET_HBM_BUDGET_GB=1e-9 with its parameters unchanged,
                 then admitted once the budget is lifted.
@@ -649,9 +653,9 @@ Phases (any failure exits non-zero before the last line):
                 --model` in a fresh process serves phase 31c's artifact
                 on a free port with --aot-cache on the run's cache: over
                 HTTP its greedy tokens equal 31c's in-process ExportedLM,
-                and its stop line shows K4a launched LM_LAYERS times a
-                replay, the kernel library warm-loaded and zero nvcc
-                builds (31d's serving checks); `serve.main([..., "--demo",
+                and its stop line shows K4a launched exactly LM_LAYERS
+                times each replay it counts, the kernel library
+                warm-loaded and zero nvcc builds; `serve.main([..., "--demo",
                 "--paged"])` on a thread of this process serves the demo
                 transformer (its weights from tools/serve.py's
                 demo_model) with its tokens over HTTP equal to
@@ -6247,7 +6251,9 @@ FD_TENANT_BUDGET = 128
 FD_BROWNOUT_AFTER_S = 0.2
 FD_MAX_QUEUE = 16
 FD_DEADLINE_504_MS = 200.0
-FD_COST_BLOCKS = 4
+#: 22e's ABBA blocks: 2 (8 runs of ~1.7 s), cut from 4 to keep the run
+#: inside its limit; tools/frontdoor_ab.py takes a count for more
+FD_COST_BLOCKS = 2
 #: the Prometheus sample-line grammar of tests/test_telemetry.py:92-93
 PROM_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)\{[^}]*\} "
                          r"(NaN|[+-]?(Inf|[0-9.e+-]+))$")
@@ -10023,12 +10029,13 @@ RTC_SUM_RTOL = 1e-5
 RTC_THREADS, RTC_UNROLL, RTC_MAX_BLOCKS_PER_SM = 256, 4, 128
 RTC_SUM_UNROLL = 4
 RTC_SOURCE = r"""
-// K5's three user kernels (phase 29c), written for Hopper (sm_90a) and
+// K5's four user kernels (phase 29c), written for Hopper (sm_90a) and
 // compiled at run time by NVRTC, which needs no header for them. Each is
-// bound by the bytes it moves on this card: double_it reads 4 and writes 4
-// bytes an element, saxpy reads 8 and writes 4, block_sum reads 4 an
-// element and writes one float a tile. So each moves 16-byte vectors, a
-// warp's 32 of them contiguous, and keeps several in flight a thread.
+// bound by the bytes it moves on this card: double_it and tile_reverse
+// read 4 and write 4 bytes an element, saxpy reads 8 and writes 4,
+// block_sum reads 4 an element and writes one float a tile. So each moves
+// 16-byte vectors, a warp's 32 of them contiguous, and the elementwise
+// kernels and the sum keep several in flight a thread.
 
 struct alignas(16) V4 { float x, y, z, w; };
 
@@ -10114,7 +10121,7 @@ saxpy(const float *__restrict__ x, float *__restrict__ y, float a, int n) {
 // shuffles and one float written. A tile of a size that is not a multiple
 // of 4 floats, or x not 16-byte aligned, takes scalar loads. (A persistent
 // design, one block an SM filling a ring of shared memory by TMA bulk
-// copies on mbarriers, read 2.5-3 % slower on the H100 at phase 29c's
+// copies on mbarriers, read 2.0-2.4 % slower on an H100 at phase 29c's
 // size: tools/rtc_probe.py times it beside this one.)
 #define SUM_UNROLL 4
 
@@ -10160,12 +10167,54 @@ block_sum(const float *__restrict__ x, float *__restrict__ out, int tiles,
     __syncthreads();
   }
 }
+
+// tile_reverse: y's tile t is x's tile t reversed (`tile` floats at
+// x + t * tile), staged whole in `tile` floats of dynamic shared memory,
+// so a tile of 16384 floats takes 64 KB: past the 48 KB a launch gets
+// without cuFuncSetAttribute's opt-in, which CudaKernel.launch makes.
+// One block a tile, the grid striding over tiles when it is smaller; the
+// tile is read and written in 16-byte vectors, each written vector the
+// reverse of the one read at the mirrored place. A tile of a size that is
+// not a multiple of 4 floats, or x or y not 16-byte aligned, takes scalar
+// steps.
+extern "C" __global__ void __launch_bounds__(256)
+tile_reverse(const float *__restrict__ x, float *__restrict__ y, int tiles,
+             int tile) {
+  extern __shared__ V4 stage_v[];  // V4's alignment: 16 bytes
+  float *stage = reinterpret_cast<float *>(stage_v);
+  const int nb = blockDim.x;
+  const bool vec = aligned16(x) && aligned16(y) && (tile & 3) == 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const float *src = x + (long long)t * tile;
+    float *dst = y + (long long)t * tile;
+    if (vec) {
+      const int nv = tile >> 2;
+      const V4 *sv = reinterpret_cast<const V4 *>(src);
+      V4 *bv = stage_v;
+      for (int i = threadIdx.x; i < nv; i += nb) bv[i] = sv[i];
+      __syncthreads();
+      V4 *dv = reinterpret_cast<V4 *>(dst);
+      for (int i = threadIdx.x; i < nv; i += nb) {
+        const V4 v = bv[nv - 1 - i];
+        dv[i] = V4{v.w, v.z, v.y, v.x};
+      }
+    } else {
+      for (int i = threadIdx.x; i < tile; i += nb) stage[i] = src[i];
+      __syncthreads();
+      for (int i = threadIdx.x; i < tile; i += nb)
+        dst[i] = stage[tile - 1 - i];
+    }
+    __syncthreads();
+  }
+}
 """
 #: (kernel, C signature) of RTC_SOURCE, in the kernels line's order
 RTC_KERNELS = (("double_it", "const float *x, float *y, int n"),
                ("saxpy", "const float *x, float *y, float a, int n"),
                ("block_sum", "const float *x, float *out, int tiles, "
-                             "int tile"))
+                             "int tile"),
+               ("tile_reverse", "const float *x, float *y, int tiles, "
+                                "int tile"))
 RTC_SAXPY_A = 0.75
 #: the saxpy against its plain version y + a * x: within this many eps of
 #: |a x| + |y|. The kernel's fused multiply-add rounds once and the plain
@@ -10448,25 +10497,26 @@ def rtc_inputs(torch, dev, n, seed):
             torch.randn(n, device=dev, generator=g))
 
 
-def rtc_grid(n, sms):
+def rtc_grid(n, sms, unroll=RTC_UNROLL, threads=RTC_THREADS):
     """double_it's and saxpy's grid on `n` floats: the fewest multiples of
     the SM count that cover the array's 16-byte vectors in one round of
-    RTC_UNROLL x RTC_THREADS a block, at most RTC_MAX_BLOCKS_PER_SM an
-    SM (past that the kernels stride)."""
-    blocks = -(-(n // 4) // (RTC_UNROLL * RTC_THREADS))
+    `unroll` x `threads` a block, at most RTC_MAX_BLOCKS_PER_SM an SM
+    (past that the kernels stride)."""
+    blocks = -(-(n // 4) // (unroll * threads))
     return sms * max(1, min(RTC_MAX_BLOCKS_PER_SM, -(-blocks // sms)))
 
 
 def rtc_run(torch, mx, dev, n=RTC_N, rows=RTC_ROWS, tile=RTC_TILE,
             kernels=None):
-    """The three RTC_KERNELS compiled by rtc.CudaModule (or given as
+    """The four RTC_KERNELS compiled by rtc.CudaModule (or given as
     `kernels`) and launched once each on n float32 elements through
     CudaKernel.launch: ({name: (launch closure, plain closure, library
     closure, bytes moved)}, {name: error against the plain version beside
     its limit}, compile ms). Raises on a disagreement: double_it bit for
     bit, saxpy within RTC_SAXPY_ULPS eps of |a x| + |y| (the kernel fuses
     the multiply-add), block_sum within RTC_SUM_RTOL of each tile's sum of
-    |x| against the float64 sum."""
+    |x| against the float64 sum, tile_reverse (4 * tile bytes of dynamic
+    shared memory, 64 KB at phase 29c's tile) bit for bit."""
     from mxnet_tpu_torch import rtc
     ctx = mx.gpu(dev.index or 0)
     compile_ms = None
@@ -10482,6 +10532,8 @@ def rtc_run(torch, mx, dev, n=RTC_N, rows=RTC_ROWS, tile=RTC_TILE,
     cols = n // rows
     tiles = rows * (cols // tile)
     sums = mx.nd.NDArray(torch.empty((rows, cols // tile), device=dev))
+    rev = mx.nd.NDArray(torch.empty_like(x))
+    flipped = torch.arange(tile - 1, -1, -1, device=dev)
     sms = (torch.cuda.get_device_properties(dev).multi_processor_count
            if dev.type == "cuda" else 1)
     lin = (rtc_grid(n, sms),), (RTC_THREADS,)
@@ -10498,6 +10550,11 @@ def rtc_run(torch, mx, dev, n=RTC_N, rows=RTC_ROWS, tile=RTC_TILE,
             lambda: x.view(rows, -1, tile).double().sum(-1),
             lambda: torch.sum(x.view(rows, -1, tile), dim=-1),
             4 * n + 4 * tiles),
+        "tile_reverse": (lambda: kernels["tile_reverse"].launch(
+            [X, rev, tiles, tile], ctx, (tiles,), (RTC_THREADS,),
+            shared_mem=4 * tile),
+            lambda: x.view(-1, tile)[:, flipped],
+            lambda: torch.flip(x.view(-1, tile), (-1,)), 8 * n),
     }
     for fn, _, _, _ in calls.values():
         fn()
@@ -10513,6 +10570,8 @@ def rtc_run(torch, mx, dev, n=RTC_N, rows=RTC_ROWS, tile=RTC_TILE,
     diff = (sums._data.double() - parts.sum(-1)).abs()
     errs["block_sum"] = (float(diff.max()), float(
         (diff / parts.abs().sum(-1)).max()), RTC_SUM_RTOL)
+    diff = (rev._data.view(-1, tile) - x.view(-1, tile)[:, flipped]).abs()
+    errs["tile_reverse"] = (float(diff.max()), float(diff.max()), 0.0)
     for name, (_, e, limit) in errs.items():
         check(e <= limit, "rtc %s against its plain version: %.3g (limit "
               "%g)" % (name, e, limit))
@@ -10521,12 +10580,12 @@ def rtc_run(torch, mx, dev, n=RTC_N, rows=RTC_ROWS, tile=RTC_TILE,
 
 def phase_rtc(torch, np, mx, dev, card):
     """29c: K5, user CUDA kernels through rtc.CudaModule (NVRTC for
-    sm_90a, launched through libcuda on torch's stream): the three RTC_KERNELS
-    launched once each and held to their plain versions (rtc_run), each
-    kernel's launches counted over that run; then each timed beside its
-    bytes bound, its plain version and the one PyTorch call computing the
-    same function (torch.mul, torch.add with alpha, torch.sum). Returns
-    the kernels line's rows."""
+    sm_90a, launched through libcuda on torch's stream): the four
+    RTC_KERNELS launched once each and held to their plain versions
+    (rtc_run), each kernel's launches counted over that run; then each
+    timed beside its bytes bound, its plain version and the one PyTorch
+    call computing the same function (torch.mul, torch.add with alpha,
+    torch.sum, torch.flip). Returns the kernels line's rows."""
     calls, kernels, errs, compile_ms = rtc_run(torch, mx, dev)
     launches = {name: k.launches for name, k in kernels.items()}
     check(all(c == 1 for c in launches.values()),
@@ -11430,26 +11489,45 @@ WATCH_MAX_LEN = 32
 #: 31c's exported batch: the decode batch of WATCH_PROMPTS runs in chunks
 WATCH_EXPORT_BATCH = 2
 
-#: 31d, a fresh process on the run's cache: compile_for_cpp of 30b's
-#: artifact with its package taken out, then mxtpu_predict on it (K4a as
-#: the C++ op). Prints one JSON line. (Phase 32a's `serve` process warm-
-#: loads the kernel library on the same cache.)
+#: 31d, a fresh process on the run's cache: the BlockLM engine over 31b's
+#: weights with `aot_cache=`, then compile_for_cpp of 30b's artifact with
+#: its package taken out, then mxtpu_predict on it (K4a as the C++ op).
+#: Prints one JSON line.
 WARM_CACHE = r"""
 import json, os, subprocess, sys, time, zipfile
 t0 = time.perf_counter()
 import torch
 import mxnet_tpu_torch as mx
-from mxnet_tpu_torch import predict
+from mxnet_tpu_torch import aot, predict, serving
+from mxnet_tpu_torch.ops import fused_rnn
 from mxnet_tpu_torch.telemetry import introspect
-cfg, bare, tool, x_path, out_dir = sys.argv[1:6]
+cfg, params, cache, bare, tool, x_path, out_dir = sys.argv[1:8]
 cfg = json.loads(cfg)
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+os.environ["MXNET_FUSED_RNN"] = "1"
 out = {"import_s": time.perf_counter() - t0}
 ctx = mx.gpu(0) if cfg["device"].startswith("cuda") else mx.cpu()
-t1 = time.perf_counter()
-predict.compile_for_cpp(bare, ctx=ctx)
-out["compile_for_cpp_s"] = time.perf_counter() - t1
+with ctx:
+    with mx.name.NameManager():
+        net = mx.models.RNNModel(
+            mode="lstm", vocab_size=cfg["vocab"], num_embed=cfg["embed"],
+            num_hidden=cfg["hidden"], num_layers=cfg["layers"], dropout=0.0)
+    net.load_params(params, ctx=ctx)
+    eng = serving.Engine(serving.BlockLM(net, cfg["vocab"], cfg["max_len"],
+                                         time_major=True),
+                         max_batch=1, aot_cache=cache)
+    n0 = fused_rnn.launch_counts()[0]
+    seq = eng.start(cfg["prompt"], max_new=cfg["gen"])
+    while not seq.done:
+        eng.decode_step([seq])
+    out["tokens"] = list(seq.generated)
+    out["k4a"] = fused_rnn.launch_counts()[0] - n0
+    out["warm_loads"] = eng.warm_loads
+    out["first_runs"] = eng.prefill_compilations + eng.decode_compilations
+    t1 = time.perf_counter()
+    predict.compile_for_cpp(bare, ctx=ctx)
+    out["compile_for_cpp_s"] = time.perf_counter() - t1
 with zipfile.ZipFile(bare) as z:
     pkg = z.read("aoti/%s.pt2" % cfg["device"].split(":")[0])
 out["package_sha256"] = __import__("hashlib").sha256(pkg).hexdigest()
@@ -11608,11 +11686,14 @@ def watch_bare(art, bare):
             z.writestr(n, data)
 
 
-def watch_warm(np, aot, cpp, tmp, dev):
-    """(d): WARM_CACHE in a fresh process on the run's cache: zero
-    AOTInductor compiles for 30b's artifact with its package taken out
-    (the package bytes 30b's), and mxtpu_predict's logits bit-equal to
-    30b's through the C++ op. Returns (the summary, {path: (K4a, K4b)})."""
+def watch_warm(torch, np, aot, cpp, tmp, params, prompt, plain, adapter,
+               dev):
+    """(d): WARM_CACHE in a fresh process on the run's cache: zero nvcc
+    builds and a warm load for the BlockLM engine over 31b's weights (its
+    tokens 31b's plain loop's, up to a near-tie), zero AOTInductor
+    compiles for 30b's artifact with its package taken out (the package
+    bytes 30b's), and mxtpu_predict's logits bit-equal to 30b's through
+    the C++ op. Returns (the summary, {path: (K4a, K4b)})."""
     import hashlib
     import zipfile
     bare = os.path.join(tmp, "word_lm_bare.mxtpu")
@@ -11621,10 +11702,13 @@ def watch_warm(np, aot, cpp, tmp, dev):
         want_sha = hashlib.sha256(z.read("aoti/%s.pt2" % dev.type)).hexdigest()
     out_dir = os.path.join(tmp, "warm")
     os.makedirs(out_dir)
+    cfg = {"vocab": LM_VOCAB, "embed": LM_EMBED, "hidden": LM_HIDDEN,
+           "layers": LM_LAYERS, "max_len": WATCH_MAX_LEN,
+           "prompt": prompt, "gen": WATCH_GEN, "device": str(dev)}
     proc = subprocess.run(
-        [sys.executable, "-c", WARM_CACHE, json.dumps({"device": str(dev)}),
-         bare, cpp["mxtpu_predict"], cpp["x"], out_dir],
-        capture_output=True, text=True, timeout=600,
+        [sys.executable, "-c", WARM_CACHE, json.dumps(cfg), params,
+         aot.cache_dir(), bare, cpp["mxtpu_predict"], cpp["x"],
+         out_dir], capture_output=True, text=True, timeout=600,
         cwd=os.path.dirname(os.path.abspath(__file__)),
         env=dict(os.environ, MXNET_AOT_CACHE_DIR=aot.cache_dir()))
     check(proc.returncode == 0, "31d: the warm process failed (rc %d): "
@@ -11632,11 +11716,18 @@ def watch_warm(np, aot, cpp, tmp, dev):
     warm = json.loads(proc.stdout.strip().splitlines()[-1])
     check(warm["mxtpu_predict_rc"] == 0, "31d: mxtpu_predict failed: "
           "%s" % warm["mxtpu_predict_stderr"])
+    nvcc = {n: s["compiles"] for n, s in warm["sites"].items()
+            if n.startswith("kernels.") and s["compiles"]}
     aoti = warm["sites"].get("predict.compile_for_cpp", {})
+    check(warm["warm_loads"] >= 1 and not nvcc,
+          "31d: warm loads %d, nvcc builds %r" % (warm["warm_loads"],
+                                                   nvcc))
     check(aoti.get("compiles") == 0 and aoti.get("cache_hits") == 1
           and warm["package_sha256"] == want_sha,
           "31d: compile_for_cpp %r, package %s against 30b's %s"
           % (aoti, warm["package_sha256"], want_sha))
+    split = watch_tokens_agree(torch, np, "31d", warm["tokens"], plain[0],
+                               plain[1], adapter, prompt)
     calls, cpp_k4a = cpp_counts(warm["mxtpu_predict_stdout"])
     got = np.fromfile(os.path.join(out_dir, "out0.bin"), np.float32)
     want = np.fromfile(cpp["y"], np.float32)
@@ -11646,10 +11737,16 @@ def watch_warm(np, aot, cpp, tmp, dev):
              else float("nan")))
     check((calls, cpp_k4a) == (LM_LAYERS, LM_LAYERS),
           "31d: the C++ op ran %d times, K4a %d" % (calls, cpp_k4a))
-    summary = {k: warm[k] for k in ("import_s", "compile_for_cpp_s", "s")}
-    summary.update(aoti_compiles=0, cpp_k4a_launches=cpp_k4a,
-                   logits_bit_equal_to_30b=True, sites=warm["sites"])
-    return summary, {"rnn_fwd_via_cpp_warm_phase31d": (cpp_k4a, 0)}
+    # one full forward a token: the prefill's, then WATCH_GEN - 1 steps
+    check(warm["k4a"] == LM_LAYERS * WATCH_GEN,
+          "31d: the warm engine launched K4a %d times" % warm["k4a"])
+    summary = {k: warm[k] for k in ("import_s", "k4a", "warm_loads",
+                                    "first_runs", "compile_for_cpp_s", "s")}
+    summary.update(nvcc_builds=0, aoti_compiles=0, split=split,
+                   cpp_k4a_launches=cpp_k4a, logits_bit_equal_to_30b=True,
+                   sites=warm["sites"])
+    return summary, {"blocklm_warm_process_phase31d": (warm["k4a"], 0),
+                     "rnn_fwd_via_cpp_warm_phase31d": (cpp_k4a, 0)}
 
 
 def phase_watchdog(torch, np, dev, card, cpp, keep=None):
@@ -11740,7 +11837,10 @@ def phase_watchdog(torch, np, dev, card, cpp, keep=None):
             if keep is not None:
                 out["carry"] = {"art": shutil.copy(art, keep),
                                 "prompts": prompts, "tokens": etoks}
-            out["31d"], dl = watch_warm(np, aot, cpp, tmp, dev)
+            params = os.path.join(tmp, "lm.params")
+            net.save_params(params)
+            out["31d"], dl = watch_warm(torch, np, aot, cpp, tmp, params,
+                                        prompts[0], plain[0], ad, dev)
             launches.update(dl)
             # (e)
             step = TrainStep(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
@@ -11982,16 +12082,19 @@ def phase_cli(torch, np, dev, card, carry=None):
         check(got == carry["tokens"], "32a: serve --model's tokens over "
               "HTTP %r differ from 31c's in-process ExportedLM's %r"
               % (got, carry["tokens"]))
-        k4a = stop["kernel_launches"]["rnn_fwd"]
-        least = LM_LAYERS * -(-WATCH_PROMPTS * WATCH_GEN
-                              // WATCH_EXPORT_BATCH)
-        check(k4a % LM_LAYERS == 0 and k4a >= least,
-              "32a: the serving process launched K4a %d times (at least "
-              "%d, LM_LAYERS a replay)" % (k4a, least))
+        k4a, replays = stop["kernel_launches"]["rnn_fwd"], stop["replays"]
+        # every prompt decodes WATCH_GEN tokens, so at least that many
+        # forwards of its batch chunk
+        least = -(-WATCH_PROMPTS // WATCH_EXPORT_BATCH) * WATCH_GEN
+        check(k4a == LM_LAYERS * replays and replays >= least,
+              "32a: the serving process launched K4a %d times over %d "
+              "replays (expected LM_LAYERS a replay, at least %d replays)"
+              % (k4a, replays, least))
         check(stop["warm_loads"] >= 1 and stop["nvcc_builds"] == 0,
               "32a: the serving process on the run's cache: %d warm loads, "
               "%d nvcc builds" % (stop["warm_loads"], stop["nvcc_builds"]))
         out["32a"] = {"tokens_equal_31c": True, "k4a_launches": k4a,
+                      "replays": replays,
                       "warm_loads": stop["warm_loads"],
                       "nvcc_builds": stop["nvcc_builds"],
                       "requests": stop["requests"]["completed"]}

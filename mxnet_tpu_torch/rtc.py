@@ -37,6 +37,7 @@ to it but the launch itself.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -424,6 +425,15 @@ def _set_context(lib, index):
               "cuCtxSetCurrent")
 
 
+@contextlib.contextmanager
+def _switch(lib, index):
+    """Device `index` current for torch and its primary context current
+    on this thread, for the body."""
+    with torch.cuda.device(index):
+        _set_context(lib, index)
+        yield
+
+
 def _context_is_current(lib, index):
     """Whether this thread's current context is device `index`'s primary
     one (a thread that has run torch's CUDA calls on that device holds
@@ -486,14 +496,10 @@ class CudaKernel:
         # torch.cuda.Stream for it took 3.6-4.5 us a launch on an H100
         # host, the raw handle 0.3 (tools/rtc_probe.py)
         stream = torch._C._cuda_getCurrentRawStream(index)
-        if _context_is_current(lib, index):
+        with (contextlib.nullcontext() if _context_is_current(lib, index)
+              else _switch(lib, index)):
             err = lib.cuLaunchKernel(fn, *grid, *block, shared_mem, stream,
                                      params, None)
-        else:
-            with torch.cuda.device(index):
-                _set_context(lib, index)
-                err = lib.cuLaunchKernel(fn, *grid, *block, shared_mem,
-                                         stream, params, None)
         _cu_check(lib, err, "cuLaunchKernel(%s)" % self.name)
         self.launches += 1
 

@@ -600,7 +600,8 @@ class ExportedLM:
     (B_sig, S_sig, V). The program's shape is fixed at export, so serving
     pads and chunks each batch to the exported signature. `device` is
     where the program replays (the card by default). Each replay is
-    registered at the watchdog's site "serving.exported_call"."""
+    registered at the watchdog's site "serving.exported_call", and
+    `replays` counts them."""
 
     uses_cache = False
 
@@ -627,6 +628,7 @@ class ExportedLM:
         self.max_len = self.sig_len
         self._dtype = desc[0]["dtype"]
         self.vocab = None  # unknown until the first forward
+        self.replays = 0
         self._call = _introspect.instrument(
             lambda buf: pred._call([buf])[0],
             site="serving.exported_call", argnames=("tokens",))
@@ -648,6 +650,7 @@ class ExportedLM:
             t = torch.as_tensor(buf, device=self.device).to(
                 torch_dtype(self._dtype))
             logits = self._call(t, _phase=phase)         # (Bs, Ss, V)
+            self.replays += 1
             self.vocab = logits.shape[-1]
             rows.append(_rows_at(logits[:len(chunk)],
                                  lengths[lo:lo + self.sig_batch]))

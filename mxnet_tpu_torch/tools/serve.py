@@ -63,7 +63,9 @@ def demo_model(device):
 
 def stop_summary(srv):
     """What the stopped server did in this process: requests, kernel
-    launches, the AOT cache's warm loads and nvcc builds."""
+    launches, the exported program's replays (an artifact's engines;
+    0 for a Block or the demo), the AOT cache's warm loads and nvcc
+    builds."""
     from mxnet_tpu_torch.ops import fused_rnn
     from mxnet_tpu_torch.ops import paged_attention as pa
     from mxnet_tpu_torch.telemetry import introspect
@@ -83,6 +85,7 @@ def stop_summary(srv):
             "paged_attention": pa.paged_attention.launches,
             "paged_attention_int8": pa.paged_attention.launches_int8,
             "rnn_fwd": k4[0], "rnn_bwd": k4[1]},
+        "replays": sum(getattr(e.model, "replays", 0) for e in engines),
         "warm_loads": sum(e.warm_loads for e in engines),
         "nvcc_builds": sum(s.compiles for n, s in sites.items()
                            if n.startswith("kernels."))}

@@ -2263,6 +2263,33 @@ def test_rtc_block_sum_matches_plain(rtc_kernels, dev, rows, cols, tile,
     assert k["block_sum"].launches == 2
 
 
+@pytest.mark.parametrize("rows,cols,tile,offset", [
+    (4, 16384, 4096, 0), (64, 1 << 20, 16384, 0), (2, 32768, 32768, 0),
+    (3, 3003, 1001, 0), (5, 4096, 1024, 1)])
+def test_rtc_tile_reverse_matches_plain(rtc_kernels, dev, rows, cols, tile,
+                                        offset):
+    """K5's tile_reverse bit for bit against each tile flipped: tiles of
+    16 KB, of phase 29c's 64 KB and of 128 KB of dynamic shared memory
+    (the last two only through CudaKernel.launch's opt-in), a tile that
+    is not a multiple of 4 floats and an array one float past a 16-byte
+    boundary (both the scalar steps); one block a tile, then 7 blocks,
+    which stride over the tiles."""
+    tmx, k = rtc_kernels
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = torch.randn(rows * cols + offset, device=dev, generator=g)[offset:]
+    tiles = rows * (cols // tile)
+    for blocks in (tiles, 7):
+        y = torch.full((rows * cols + offset,), float("nan"),
+                       device=dev)[offset:]
+        k["tile_reverse"].launch([tmx.nd.NDArray(x), tmx.nd.NDArray(y),
+                                  tiles, tile], tmx.gpu(0), (blocks,),
+                                 (cs.RTC_THREADS,), shared_mem=4 * tile)
+        torch.cuda.synchronize()
+        assert torch.equal(y.view(-1, tile), x.view(-1, tile).flip(-1))
+    assert k["tile_reverse"].launches == 2
+    assert k["tile_reverse"]._smem_opt_in[0] == 4 * tile
+
+
 @pytest.mark.parametrize("kb", [32, 48, 64, 200])
 def test_rtc_dynamic_shared_memory_opt_in(dev, kb):
     """A kernel with static shared memory takes `kb` KB of dynamic shared

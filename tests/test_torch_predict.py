@@ -416,6 +416,8 @@ def test_chip_smoke_phase_29_rehearses_on_the_cpu(monkeypatch):
                 args[1]._data = x * 2
             elif self.name == "saxpy":
                 args[1]._data = args[2] * x + args[1]._data
+            elif self.name == "tile_reverse":
+                args[1]._data = x.view(-1, args[3]).flip(-1).reshape(-1)
             else:
                 args[1]._data = x.view(args[1].shape[0], -1,
                                        args[3]).sum(-1)
@@ -432,7 +434,8 @@ def test_chip_smoke_phase_29_rehearses_on_the_cpu(monkeypatch):
     launches, rows, out = cs.phase_deploy(torch, np, torch.device("cpu"),
                                           "cpu")
     assert [r["name"] for r in rows] == ["rtc_double_it", "rtc_saxpy",
-                                         "rtc_block_sum"]
+                                         "rtc_block_sum",
+                                         "rtc_tile_reverse"]
     assert all(r["launches"] == 1 for r in rows)
     assert launches == (0, 0)
     assert failed and all("launched K4a/K4b" in m for m in failed), failed

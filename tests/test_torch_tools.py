@@ -225,6 +225,31 @@ def test_serve_cli_demo_matches_reference_serve(demo_weights, monkeypatch,
     stop = json.loads(out.split("stopped: ")[1].splitlines()[0])
     assert stop["requests"]["completed"] == len(SERVE_PROMPTS)
     assert stop["kernel_launches"]["paged_attention"] == 0   # the CPU
+    assert stop["replays"] == 0                  # no exported program
+
+
+def test_serve_cli_model_counts_replays(tiny_artifact):
+    """`serve --model --device cpu` on an exported LM: its stop line
+    counts the program's replays, one a forward of each exported-batch
+    chunk of the running sequences, which the adapter counts too."""
+    prompts = [[1, 2, 3], [4, 5, 6, 7], [8, 9, 10]]
+    port = _free_port()
+    srv, t, buf = run_cli_on_thread(
+        ["--model", tiny_artifact, "--device", "cpu", "--max-batch", "4"],
+        port)
+    try:
+        got = [_post(port, "/v1/generate", {"tokens": p,
+                                            "max_new_tokens": 3})
+               ["tokens"] for p in prompts]
+    finally:
+        srv.stop_http()
+        t.join(timeout=60)
+    assert not t.is_alive()
+    assert all(len(g) == 3 for g in got)
+    stop = json.loads(buf.getvalue().split("stopped: ")[1].splitlines()[0])
+    # one request at a time: 3 forwards each, a batch of one a chunk
+    assert stop["replays"] == srv.engine.model.replays == 3 * len(prompts)
+    assert stop["kernel_launches"]["rnn_fwd"] == 0     # the CPU
 
 
 def test_demo_model_is_seeded():
@@ -467,6 +492,8 @@ def test_chip_smoke_phase_32_rehearses_on_the_cpu(monkeypatch, tmp_path):
         aot.configure()
     assert out["32a"]["tokens_equal_31c"] and out["32a_demo"]["tokens_equal"]
     assert out["32a"]["nvcc_builds"] == 0
+    # WATCH_GEN forwards of each of the 2 chunks of 2 prompts, at least
+    assert out["32a"]["replays"] >= 2 * 4
     assert "0 corrupt" in out["32b"]
     assert any("allreduce over 1 dev" in ln for ln in out["32c"])
     assert "device      : cpu" in out["32d"]

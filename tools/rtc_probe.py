@@ -44,7 +44,10 @@ import chip_smoke as cs  # noqa: E402
 #: this port wrote for Hopper): a persistent kernel, one block an SM, whose
 #: dynamic shared memory (TMA_STAGES x TMA_CHUNK floats, 128 KB, so the
 #: launch opts in past 48 KB) is a ring filled by TMA bulk copies on
-#: mbarriers
+#: mbarriers. It lost to RTC_SOURCE's by 2.0-2.4 % on an H100 and stays
+#: runnable here: PERF.md's times of it come from this script, and the
+#: verdict is the card's and the toolkit's, to be read again on another
+#: card or toolkit
 TMA_CHUNK, TMA_STAGES, TMA_THREADS = 8192, 4, 256
 TMA_SOURCE = r"""
 struct alignas(16) V4 { float x, y, z, w; };
@@ -288,11 +291,6 @@ def sass_counts(cubin):
     return out
 
 
-def _grid(n, sms, unroll, threads):
-    blocks = -(-(n // 4) // (unroll * threads))
-    return sms * max(1, min(cs.RTC_MAX_BLOCKS_PER_SM, -(-blocks // sms)))
-
-
 def sweep(torch, mx, rtc, dev, X, Y, O, S, x, y):
     """Time RTC_SOURCE's kernels at ELEMENTWISE_SWEEP / SUM_SWEEP's
     settings and the TMA design at TMA_SWEEP's rings on phase 29c's
@@ -311,7 +309,7 @@ def sweep(torch, mx, rtc, dev, X, Y, O, S, x, y):
         mod = rtc.CudaModule(variant({"UNROLL": unroll}, threads))
         kd = mod.get_kernel(*cs.RTC_KERNELS[0])
         ks = mod.get_kernel(*cs.RTC_KERNELS[1])
-        grid = ((_grid(n, sms, unroll, threads),), (threads,))
+        grid = ((cs.rtc_grid(n, sms, unroll, threads),), (threads,))
         out.zero_()
         yk.copy_(y)
         kd.launch([X, O, n], mx.gpu(0), *grid)
